@@ -5,10 +5,13 @@
 
 Builds every CUDA kernel of the port from `nv_wavenet_tpu_torch/csrc/` with
 nvcc, holds each kernel against its plain PyTorch version on the card, then
-drives the port's main path at full width: the flagship geometry (20 layers,
+drives the port's paths at full width, the flagship geometry (20 layers,
 R=64, S=256, A=256, max_dilation 512, fp32, batch 16, random weights from
-seed 1) serving 3 requests of 8192 samples through `WaveNetInfer.set_inputs`
-+ `run_chunks`.  Phases, in order; any failure exits non-zero:
+seed 1): the main path serving 3 requests of 8192 samples through
+`WaveNetInfer.set_inputs` + `run_chunks`, and the streaming serving path,
+16 slots fed tick by tick through `begin_stream` / `feed(lengths=...)` /
+`reset_utterances` / `export_state` + `import_state`.  Phases, in order;
+any failure exits non-zero:
 
   1. device: card name and power limit (nvidia-smi), torch.version.cuda, nvcc
   2. build: every csrc/*.cu, timed
@@ -22,13 +25,35 @@ seed 1) serving 3 requests of 8192 samples through `WaveNetInfer.set_inputs`
      layers, R=32, B=16, T=4096), K1 on the card in chunks of 256 against
      the plain version on the CPU in one call: 0 integer mismatches (the CPU
      test holds that plain version to the golden model with 0 too)
-  6. main path: kernel launch counts set to 0 just before and read just
+  6. K5 (ragged generation, per-row clocks and lengths) vs plain,
+     TEST_CONFIG_MED, B=4: 6 seeded ticks of lengths in [0, 16] (one tick
+     with every length 0, one with one row at 0) through an engine on the
+     card and through the plain ragged generator on the card: 0 integer
+     mismatches, equal y_state and clocks, the ring within the xt ladder
+  7. main path: kernel launch counts set to 0 just before and read just
      after; K1 must have launched; the first 256 samples of request 1 must
-     equal the plain version's on the card (0 integer mismatches)
-  7. the `kernels` JSON line: per kernel its launches on the main path, its
-     time, the plain version's, the least time the card could take for the
-     same work (bound_ms) and, where one PyTorch call computes the same
-     function, that call's time
+     equal the plain version's on the card (0 integer mismatches); the
+     lockstep K1's time per step
+  8. serving: counts set to 0 just before and read just after; 192 ticks of
+     at most 160 samples over 16 slots, per-row lengths from {0} and
+     [40, 160], utterances of [2048, 8192] samples (conditioning and
+     injected selectors drawn on the card from a seeded generator), a slot
+     reset when its utterance ends; once every slot reset in one tick, 4
+     lockstep ticks, then a partial reset (the R3 sequence); once, mid-run
+     and desynced, the stream moves to a second engine by export_state ->
+     import_state (the R7 sequence).  K1 and K5 must both have launched.
+     Prints per-feed wall time p50/p99, samples served per second over the
+     live rows, the dead row-step share and the launches
+  9. correctness at full width: the first 16 utterances completed, replayed
+     as one lockstep batch (set_inputs + run) on a fresh engine, equal what
+     they were served (0 mismatches), among them one that crossed the
+     migration and one that began at the full reset and ran through the
+     partial reset; then K5 on one 160-step ragged tick of the scenario,
+     timed, and on a 32-step tick against the plain version (0 mismatches)
+ 10. the `kernels` JSON line: per kernel its launches on its path (K5: the
+     serving phase), its time, the plain version's, the least time the card
+     could take for the same work (bound_ms) and, where one PyTorch call
+     computes the same function, that call's time
 
 The last three lines of standard output are the kernels line, the card's
 name and power limit, and {"ok": true, "device": {...}}.  Imports nothing of
@@ -62,6 +87,18 @@ SIGMOID_OPS = 50        # -|x| 2, exp, recip, branch and e r 2
 
 MAIN_B, MAIN_T, MAIN_CHUNK, MAIN_REQUESTS, CHECK_T = 16, 8192, 256, 3, 256
 HORIZON_B, HORIZON_T, HORIZON_CHUNK = 16, 4096, 256
+# K5 against its plain version: TEST_CONFIG_MED, 4 rows, 6 ticks of <= 16
+K5_SMALL_B, K5_SMALL_TICKS, K5_SMALL_T = 4, 6, 16
+# the serving phase: 16 slots, 192 ticks of at most 160 samples (10 ms of
+# 16 kHz audio); a row's tick takes 0 samples (a stalled frontend) with
+# probability 1/8, else [40, 160]; utterances of [2048, 8192] samples
+SERVE = dict(B=16, ticks=192, tick_t=160, len_min=40, p_stall=1 / 8,
+             utt_min=2048, utt_max=8192,
+             full_reset_tick=8, lockstep_ticks=4,      # the R3 sequence:
+             partial_tick=16, partial_rows=(0, 1, 2, 3),  # full, then partial
+             migrate_tick=40)                          # the R7 sequence
+SERVE_REPLAY = 16   # the first utterances completed, replayed lockstep
+K5_PLAIN_T = 32   # the plain step costs ~32 ms at the flagship
 
 
 def fail(msg: str):
@@ -116,12 +153,144 @@ def k1_ops_per_row_step(cfg) -> int:
     return 2 * macs + elementwise
 
 
-def k1_bytes(cfg, B: int, T: int) -> int:
-    """Each input read once, each output written once: weights, cond_pre,
-    selectors, the FIFO ring and y_state in and out, y."""
+def k1_bytes(cfg, B: int, T: int, live: int | None = None) -> int:
+    """Each input read once, each output written once: weights, cond_pre
+    and selectors of the row-steps that run (`live`, default all T * B),
+    the FIFO ring and y_state in and out, y."""
     L, R = cfg.num_layers, cfg.R
-    return 4 * (cfg.param_count() + T * L * B * 2 * R + T * B
+    live = T * B if live is None else live
+    return 4 * (cfg.param_count() + live * L * 2 * R + live
                 + 2 * cfg.ring_size * B * R + 2 * 2 * B + T * B)
+
+
+def k5_bytes(cfg, B: int, T: int, live: int) -> int:
+    """K1's count over the live row-steps, plus the per-row clocks (int64)
+    and lengths (int32)."""
+    return k1_bytes(cfg, B, T, live) + 12 * B
+
+
+def serve_scenario(torch, np, make_engine, cfg, dev, rng, gen, B, ticks,
+                   tick_t, len_min, p_stall, utt_min, utt_max,
+                   full_reset_tick, lockstep_ticks, partial_tick,
+                   partial_rows, migrate_tick):
+    """Serve utterances in B slots of one streaming engine, tick by tick.
+
+    Each utterance has a length from [utt_min, utt_max] and its own
+    conditioning and injected selectors, drawn on `dev` from `gen`.  A
+    ragged tick gives each row 0 samples (probability p_stall) or
+    [len_min, tick_t], at most what its utterance has left, through
+    `feed(lengths=...)`.  A row whose utterance ended is handed to the next
+    one by `reset_utterances`.  Before tick `full_reset_tick` every slot is
+    reset (its utterance abandoned) and the next `lockstep_ticks` ticks feed
+    tick_t samples to every row without lengths (the lockstep path, K1);
+    before `partial_tick` the rows `partial_rows` are reset (the R3
+    sequence).  Before `migrate_tick` the stream moves to a second engine
+    through `export_state` -> `import_state` (the R7 sequence).  The
+    schedule depends on `rng` alone, never on the samples.
+
+    Returns (utterances in order of completion, stats)."""
+    L, C = cfg.num_layers, 2 * cfg.R
+    utts, live = [], [None] * B
+
+    def start(row, tick):
+        n = int(rng.randint(utt_min, utt_max + 1))
+        u = {"n": n, "row": row, "start": tick, "pos": 0, "out": [],
+             "end": None, "migrated": False,
+             "cond": torch.rand((n, L, C), generator=gen, device=dev) - 0.5,
+             "sel": torch.rand((n,), generator=gen, device=dev)}
+        utts.append(u)
+        live[row] = u
+
+    eng = make_engine()
+    eng.begin_stream(B)
+    for b in range(B):
+        start(b, 0)
+    feed_ms, served, steps, dead, lock_ticks = [], 0, 0, 0, 0
+    tick_of_160 = None
+    for tick in range(ticks):
+        done = [b for b, u in enumerate(live) if u["pos"] == u["n"]]
+        forced = (range(B) if tick == full_reset_tick
+                  else partial_rows if tick == partial_tick else ())
+        rows = sorted(set(done) | set(forced))
+        if rows:
+            eng.reset_utterances(rows)
+            for b in rows:
+                if live[b]["pos"] == live[b]["n"]:
+                    live[b]["end"] = tick
+                start(b, tick)
+        if tick == migrate_tick:
+            snap = eng.export_state()
+            if len(set(snap["stream_t_row"].tolist())) < 2:
+                raise RuntimeError("migration: the rows are not desynced")
+            eng = make_engine()
+            eng.import_state(snap)
+            for u in live:
+                u["migrated"] = True
+        lockstep = full_reset_tick <= tick < full_reset_tick + lockstep_ticks
+        if lockstep:
+            lens = np.full(B, tick_t)
+            if any(u["n"] - u["pos"] < tick_t for u in live):
+                raise RuntimeError("lockstep tick past an utterance's end")
+        else:
+            draw = np.where(rng.rand(B) < p_stall, 0,
+                            rng.randint(len_min, tick_t + 1, size=B))
+            lens = np.minimum(draw, [u["n"] - u["pos"] for u in live])
+        tm = int(lens.max())
+        cond = torch.zeros((tm, L, B, C), device=dev)
+        sel = torch.zeros((tm, B), device=dev)
+        for b, u in enumerate(live):
+            n, p = int(lens[b]), u["pos"]
+            cond[:n, :, b] = u["cond"][p:p + n]
+            sel[:n, b] = u["sel"][p:p + n]
+        if tm == tick_t and not lockstep and tick_of_160 is None:
+            tick_of_160 = (lens.copy(),
+                           eng.export_state()["stream_t_row"].copy())
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        y = (eng.feed(cond, sel) if lockstep
+             else eng.feed(cond, sel, lengths=lens))
+        dt = time.perf_counter() - t
+        if y.shape != (B, tm) or (tm and (y.min() < 0 or y.max() >= cfg.A)):
+            raise RuntimeError(f"tick {tick}: malformed y {y.shape}")
+        if tm:
+            feed_ms.append(dt * 1e3)
+        lock_ticks += lockstep
+        served += int(lens.sum())
+        steps += tm * B
+        dead += int(tm * B - lens.sum())
+        for b, u in enumerate(live):
+            u["out"].append(y[b, :lens[b]])
+            u["pos"] += int(lens[b])
+    for u in live:
+        if u["pos"] == u["n"]:
+            u["end"] = ticks
+    completed = sorted((u for u in utts if u["end"] is not None),
+                       key=lambda u: (u["end"], u["row"]))
+    stats = {"ticks": ticks, "lockstep_ticks": lock_ticks,
+             "feed_ms": feed_ms, "samples_served": served,
+             "row_steps": steps, "dead_row_steps": dead,
+             "utterances_started": len(utts),
+             "utterances_completed": len(completed),
+             "tick_of_160": tick_of_160}
+    return completed, stats
+
+
+def replay_lockstep(torch, np, make_engine, cfg, dev, utts):
+    """Replay utterances as one lockstep batch (`set_inputs` + `run`, each
+    conditioning padded to the longest) on a fresh engine; returns the
+    integer mismatches of each against the samples it was served."""
+    B, T = len(utts), max(u["n"] for u in utts)
+    cond = torch.zeros((T, cfg.num_layers, B, 2 * cfg.R), device=dev)
+    sel = torch.zeros((T, B), device=dev)
+    for b, u in enumerate(utts):
+        cond[:u["n"], :, b] = u["cond"]
+        sel[:u["n"], b] = u["sel"]
+    eng = make_engine()
+    eng.set_inputs(cond, sel)
+    y = eng.run(T, B)
+    return [int((y[b, :u["n"]] != np.concatenate(u["out"])).sum())
+            for b, u in enumerate(utts)]
 
 
 def time_ms(torch, fn, reps: int) -> float:
@@ -310,6 +479,55 @@ def main() -> int:
     if h_mism:
         fail(f"K1 disagrees with the plain version over the horizon: {h_mism}")
 
+    # -- phase 6: K5 vs plain, small config -----------------------------------
+    # one seeded schedule of ragged ticks (one with every length 0, one with
+    # one row at 0) through an engine on the card (K5) and through the plain
+    # ragged generator on the card, carrying their own state
+    B, T = K5_SMALL_B, K5_SMALL_T
+    rng = np.random.RandomState(1013)
+    sched = rng.randint(1, T + 1, size=(K5_SMALL_TICKS, B))
+    sched[2] = 0
+    sched[4, 1] = 0
+    eng = WaveNetInfer(num_layers=cfg.num_layers,
+                       max_dilation=cfg.max_dilation, R=cfg.R, S=cfg.S,
+                       A=cfg.A, max_batch=B, device="cuda")
+    eng.set_reference_weights(ref_w)
+    eng.begin_stream(B)
+    ring = persistent.init_ring(cfg, B, dev)
+    y_state = torch.full((2, B), cfg.silence_bin, dtype=torch.int32,
+                         device=dev)
+    clocks = np.zeros(B, np.int64)
+    k5_small_mism = 0
+    k5_launches = persistent.RAGGED_KERNEL.launches
+    for lens in sched:
+        cond = torch.from_numpy(rng.uniform(
+            -0.5, 0.5, (T, cfg.num_layers, B, 2 * cfg.R)).astype(np.float32)
+            ).to(dev)
+        sel = torch.from_numpy(rng.uniform(0, 1, (T, B)).astype(np.float32)
+                               ).to(dev)
+        y_eng = eng.feed(cond, sel, lengths=lens)
+        y_pl = persistent.generate_plain(
+            cfg, params, torch.from_numpy(clocks),
+            (cond + params["dil_b"][None, :, None, :]).contiguous(), sel,
+            ring, y_state, torch.from_numpy(lens.astype(np.int32)))[0]
+        y_pl = y_pl.T.cpu().numpy()
+        if lens.max():
+            k5_small_mism += int((y_eng != y_pl).sum())
+        elif y_eng.shape != (B, 0) or y_pl.any():
+            fail("K5: a tick with every length 0 produced samples")
+        clocks += lens
+    snap = eng.export_state()
+    k5_small_err = float(np.abs(snap["ring"] - ring.cpu().numpy()).max())
+    k5_small_ok = (np.array_equal(snap["y_state"], y_state.cpu().numpy())
+                   and rel_close(ring.cpu(), snap["ring"], 1e-2, 3e-4)
+                   and np.array_equal(snap["stream_t_row"], clocks))
+    log(f"[K5 small] {K5_SMALL_TICKS} ticks, lengths {sched.tolist()}: y "
+        f"{k5_small_mism} mismatches, y_state and clocks equal and ring in "
+        f"ladder {k5_small_ok} (max abs err {k5_small_err:.3g}); "
+        f"{persistent.RAGGED_KERNEL.launches - k5_launches} K5 launches")
+    if k5_small_mism or not k5_small_ok:
+        fail("K5 disagrees with its plain version")
+
     # timing of the standalone kernels at their check shapes (their launches
     # here are comparisons, not the main path: the counts are reset below)
     n_small = int((np.abs(x_np) < 0.5).sum())
@@ -335,7 +553,7 @@ def main() -> int:
         rows * (4 * A + 4 + 4),
         rows * A * (2 + EXP_OPS + (A.bit_length() - 1) + 2))
 
-    # -- phase 6: the main path at full width ---------------------------------
+    # -- phase 7: the main path at full width ---------------------------------
     cfg = cfg_lib.FLAGSHIP_CONFIG
     L, R = cfg.num_layers, cfg.R
     ref_w = params_lib.random_reference_weights(cfg, seed=1)
@@ -346,7 +564,7 @@ def main() -> int:
     gen_dev = torch.Generator(device=dev)
     gen_dev.manual_seed(0)
     all_kernels = (em.EXACT_FN_KERNEL, em.SAMPLE_KERNEL,
-                   persistent.PERSISTENT_KERNEL)
+                   persistent.PERSISTENT_KERNEL, persistent.RAGGED_KERNEL)
     for k in all_kernels:
         k.launches = 0
     requests = []
@@ -424,17 +642,122 @@ def main() -> int:
         k1_bytes(cfg, MAIN_B, CHECK_T),
         k1_ops_per_row_step(cfg) * MAIN_B * CHECK_T)
     khz = float(np.mean([r["khz_per_utt"] for r in requests]))
+    k1_us = k1_ms / CHECK_T * 1e3
     log(json.dumps({"main_path": {
         "config": "flagship 20L R64 S256 A256 maxD512 fp32", "batch": MAIN_B,
         "samples_per_request": MAIN_T, "requests": requests,
         "khz_per_utt": khz, "k1_ms_per_256_steps": k1_ms,
-        "k1_us_per_step": k1_ms / CHECK_T * 1e3, "card": card}}))
+        "k1_us_per_step": k1_us, "card": card}}))
+    log(f"[main] lockstep K1: {k1_us:.2f} us per step (earlier runs: "
+        f"PERF.md)")
 
-    # -- phase 7: the kernels line --------------------------------------------
-    def entry(name, source, replaces, symbol, mism, err, ms, plain, bnd, by,
-              lib, shape, **extra):
+    # -- phase 8: serving at full width ---------------------------------------
+    def flagship_engine():
+        e = WaveNetInfer(num_layers=L, max_dilation=cfg.max_dilation, R=R,
+                         S=cfg.S, A=cfg.A, max_batch=SERVE["B"],
+                         chunk_size=MAIN_CHUNK, device="cuda")
+        e.set_reference_weights(ref_w)
+        return e
+    gen_serve = torch.Generator(device=dev)
+    gen_serve.manual_seed(2)
+    for k in all_kernels:
+        k.launches = 0
+    t = time.perf_counter()
+    completed, st = serve_scenario(torch, np, flagship_engine, cfg, dev,
+                                   np.random.RandomState(2024), gen_serve,
+                                   **SERVE)
+    serve_s = time.perf_counter() - t
+    serve_launches = {k.symbol: k.launches for k in all_kernels}
+    feed_ms = np.array(st["feed_ms"])
+    p50, p99 = (float(v) for v in np.percentile(feed_ms, [50, 99]))
+    serving = {
+        "config": "flagship 20L R64 S256 A256 maxD512 fp32",
+        "slots": SERVE["B"], "ticks": st["ticks"],
+        "lockstep_ticks": st["lockstep_ticks"], "seconds": serve_s,
+        "feeds_timed": len(feed_ms), "feed_ms_p50": p50, "feed_ms_p99": p99,
+        "feed_ms_max": float(feed_ms.max()),
+        "samples_served": st["samples_served"],
+        "samples_per_s_live_rows": st["samples_served"] / (feed_ms.sum() / 1e3),
+        "dead_row_step_share": st["dead_row_steps"] / st["row_steps"],
+        "utterances_started": st["utterances_started"],
+        "utterances_completed": st["utterances_completed"],
+        "launches": serve_launches, "card": card}
+    log(json.dumps({"serving": serving}))
+    if not (serve_launches[persistent.RAGGED_KERNEL.symbol]
+            and serve_launches[persistent.PERSISTENT_KERNEL.symbol]):
+        fail(f"the serving path did not launch both K1 and K5: "
+             f"{serve_launches}")
+
+    # -- phase 9: correctness at full width -----------------------------------
+    # the first utterances completed, replayed as one lockstep batch on a
+    # fresh engine: each must equal what it was served, sample for sample
+    chosen = completed[:SERVE_REPLAY]
+    if len(chosen) < SERVE_REPLAY:
+        fail(f"only {len(chosen)} utterances completed")
+    replay_mism = replay_lockstep(torch, np, flagship_engine, cfg, dev, chosen)
+    r3 = [u for u in chosen if u["start"] == SERVE["full_reset_tick"]
+          and u["row"] not in SERVE["partial_rows"]
+          and u["end"] > SERVE["partial_tick"]]
+    migrated = [u for u in chosen if u["migrated"]]
+    for u, m in zip(chosen, replay_mism):
+        log(f"[replay] row {u['row']:2d}: {u['n']} samples, ticks "
+            f"{u['start']}-{u['end']}, across the migration {u['migrated']}:"
+            f" {m} mismatches")
+    log(f"[replay] {len(chosen)} utterances, {sum(u['n'] for u in chosen)} "
+        f"samples: {sum(replay_mism)} mismatches; {len(r3)} began at the "
+        f"full reset and ran through the partial reset (R3), "
+        f"{len(migrated)} crossed the migration (R7)")
+    if sum(replay_mism) or not r3 or not migrated:
+        fail("the served utterances do not replay exactly, or the replay "
+             "misses the R3 or R7 sequence")
+
+    # K5 at the flagship: one 160-step ragged tick of the scenario (its
+    # lengths and row clocks), timed; the plain version over a 32-step tick
+    # (the same rows scaled to 32 steps), and K5 on it against the plain
+    if st["tick_of_160"] is None:
+        fail("no ragged tick of 160 steps to time")
+    lens, clocks = st["tick_of_160"]
+    t0_row = torch.from_numpy(clocks)
+    cond_pre = (cond[:SERVE["tick_t"]] + params["dil_b"][None, :, None, :]
+                ).contiguous()
+    sel_c = sel[:SERVE["tick_t"]].contiguous()
+    gen5 = persistent.make_persistent_generator(cfg, MAIN_B, ragged=True)
+    nvr = torch.from_numpy(lens.astype(np.int32))
+    ring, ys = fresh()
+    k5_ms = time_ms(torch, lambda: gen5(params, t0_row, cond_pre, sel_c,
+                                        ring, ys, nvr), 5)
+    live = int(lens.sum())
+    k5_bound, k5_by = bound_ms(k5_bytes(cfg, MAIN_B, SERVE["tick_t"], live),
+                               k1_ops_per_row_step(cfg) * live)
+    lens32 = torch.from_numpy((lens * K5_PLAIN_T // SERVE["tick_t"]
+                               ).astype(np.int32))
+    cp32 = cond_pre[:K5_PLAIN_T].contiguous()
+    sel32 = sel_c[:K5_PLAIN_T].contiguous()
+    (ring_p, ys_p), (ring_k, ys_k) = fresh(), fresh()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    y_p = persistent.generate_plain(cfg, params, t0_row, cp32, sel32, ring_p,
+                                    ys_p, lens32)[0]
+    torch.cuda.synchronize()
+    k5_plain = (time.perf_counter() - t) * 1e3
+    y_k = gen5(params, t0_row, cp32, sel32, ring_k, ys_k, lens32)[0]
+    torch.cuda.synchronize()
+    k5_flag_mism = int((y_k != y_p).sum()) + int(not torch.equal(ys_k, ys_p))
+    k5_err = max(k5_small_err, float((ring_k - ring_p).abs().max()))
+    log(f"[K5 flagship] 160-step tick, lengths {lens.tolist()}: "
+        f"{k5_ms:.3f} ms = {k5_ms / SERVE['tick_t'] * 1e3:.2f} us per step "
+        f"of the longest row (lockstep K1 {k1_us:.2f}); bound {k5_bound:.4f}"
+        f" ms ({k5_by}, {live} live row-steps); plain over a {K5_PLAIN_T}"
+        f"-step tick {k5_plain:.1f} ms; K5 vs plain on it: {k5_flag_mism} "
+        f"mismatches, ring max abs err {k5_err:.3g}")
+    if k5_flag_mism:
+        fail("K5 disagrees with its plain version at the flagship")
+
+    # -- phase 10: the kernels line -------------------------------------------
+    def entry(name, source, replaces, n_launches, mism, err, ms, plain, bnd,
+              by, lib, shape, **extra):
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[symbol],
+                "replaces": replaces, "launches": n_launches,
                 "mismatches": mism, "max_abs_err": err, "ms": ms,
                 "kernel_ms": ms, "plain_ms": plain, "bound_ms": bnd,
                 "bound_by": by, "library_ms": lib, "shape": shape, **extra}
@@ -443,22 +766,36 @@ def main() -> int:
     kernels = [
         entry("K0a exact_fn_kernel", csrc + "exact_math_kernels.cu",
               "tools/probe_exact_math_tpu.py:90",
-              em.EXACT_FN_KERNEL.symbol, k0a["mismatches"],
+              launches[em.EXACT_FN_KERNEL.symbol], k0a["mismatches"],
               k0a["max_abs_err"], k0a_ms, k0a_plain, k0a_bound,
               "+".join(sorted(k0a_by)), k0a_lib,
               f"exp+tanh+sigmoid over [{n}] f32",
               also_replaces="tools/probe_exact_math_tpu.py:135",
-              inlined_in="K1"),
+              inlined_in="K1, K5"),
         entry("K0b sample_kernel", csrc + "exact_math_kernels.cu",
-              "tools/probe_exact_math_tpu.py:107", em.SAMPLE_KERNEL.symbol,
-              k0b_mism, 0.0, k0b_ms, k0b_plain, k0b_bound, k0b_by, None,
-              f"za [{rows},{A}] f32, sel [{rows},1]", inlined_in="K1"),
-        entry("K1 persistent_generate_kernel", csrc + "persistent.cu",
+              "tools/probe_exact_math_tpu.py:107",
+              launches[em.SAMPLE_KERNEL.symbol], k0b_mism, 0.0, k0b_ms,
+              k0b_plain, k0b_bound, k0b_by, None,
+              f"za [{rows},{A}] f32, sel [{rows},1]", inlined_in="K1, K5"),
+        entry("K1 persistent_generate_kernel<false>", csrc + "persistent.cu",
               "nv_wavenet_tpu/ops/persistent.py:762",
-              persistent.PERSISTENT_KERNEL.symbol,
+              launches[persistent.PERSISTENT_KERNEL.symbol],
               plain_mism + k1_mism + h_mism,
               k1_err, k1_ms, k1_plain, k1_bound, k1_by, None,
-              f"flagship, B={MAIN_B}, T={CHECK_T} steps per launch"),
+              f"flagship, B={MAIN_B}, T={CHECK_T} steps per launch",
+              serving_launches=serve_launches[
+                  persistent.PERSISTENT_KERNEL.symbol]),
+        entry("K5 persistent_generate_kernel<true>", csrc + "persistent.cu",
+              "nv_wavenet_tpu/ops/persistent.py:762",
+              serve_launches[persistent.RAGGED_KERNEL.symbol],
+              k5_small_mism + k5_flag_mism + sum(replay_mism), k5_err, k5_ms,
+              k5_plain, k5_bound, k5_by, None,
+              f"flagship, B={MAIN_B}, one {SERVE['tick_t']}-step ragged tick "
+              f"({live} live row-steps); plain_ms over a {K5_PLAIN_T}-step "
+              f"ragged tick",
+              variant="ragged=True (:109-118, 252-256, 302-311, 410-416) "
+                      "and rotate_ring_phase (:785)",
+              launches_on="the serving phase"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -40,6 +40,24 @@
 // layers over a cluster of CTAs, wgmma on batched rows and TMA weight staging
 // are later work.
 //
+// K5: the same kernel with per-row clocks and lengths (the ragged feeds of
+// the serving path), the kRagged instance below.  Replaces the TPU kernel's
+// ragged=True variant (nv_wavenet_tpu/ops/persistent.py:762, per-row
+// validity :109-118, 252-256, 302-311, 410-416), mode "sample" without the
+// dump.  Each CTA reads its own row's absolute clock t0_row[b] and length
+// n_valid_row[b] once, before the step loop, and runs exactly that many
+// steps: a dead row is simply a CTA that has stopped, so its FIFO and
+// y_state stay as they were and its y stays at the zeros the wrapper
+// allocated.  Because each CTA addresses only its own row of the ring by
+// its own absolute clock, the stored ring keeps the absolute convention
+// and the TPU's two per-row phase rotations around the call
+// (rotate_ring_phase, persistent.py:785-820, needed there because one ring
+// phase is shared by the batch) have no counterpart.  It is bounded as K1
+// is, over the live row-steps only.  It is a separate instance with its own
+// entry point so that the lockstep instance (K1) compiles exactly as it did
+// without it: K1's time has moved 1.77x from a change to one loop-carried
+// pair, and the per-row loads stay out of it.
+//
 // Compiled with -fmad=false (utils/build.py) so the inlined exact math and
 // every a*b+c here round twice, as in the plain torch version.
 
@@ -79,6 +97,8 @@ struct GenArgs {
   int tanh_embed;
   int silence_bin;
   int mode;
+  const long long* t0_row;   // [B] K5 only: each row's absolute clock
+  const int* n_valid_row;    // [B] K5 only: each row's steps (<= T)
 };
 
 // v[0, K) . w[0], w[stride], ... in the fixed order k = 0, 1, ..., K-1
@@ -90,6 +110,7 @@ __device__ __forceinline__ float dot_column(const float* v, const float* __restr
   return acc;
 }
 
+template <bool kRagged>
 __global__ void __launch_bounds__(kThreads) persistent_generate_kernel(const GenArgs a) {
   extern __shared__ float smem[];
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
@@ -107,10 +128,12 @@ __global__ void __launch_bounds__(kThreads) persistent_generate_kernel(const Gen
 
   int y_prev = a.y_state[b];
   int y_cur = a.y_state[B + b];
+  const long long t0 = kRagged ? a.t0_row[b] : a.t0;
+  const int n_valid = kRagged ? a.n_valid_row[b] : a.n_valid;
 
-  for (int j = 0; j < a.n_valid; ++j) {
-    const long long t = a.t0 + j;
-    const bool dump = a.d_xt != nullptr && j == a.n_valid - 1;
+  for (int j = 0; j < n_valid; ++j) {
+    const long long t = t0 + j;
+    const bool dump = a.d_xt != nullptr && j == n_valid - 1;
 
     // embedding: fl(embed_prev[y_prev] + embed_cur[y_cur]), then exact tanh
     for (int i = tid; i < R; i += nt) {
@@ -223,6 +246,19 @@ __global__ void __launch_bounds__(kThreads) persistent_generate_kernel(const Gen
   }
 }
 
+template <bool kRagged>
+int launch(const GenArgs& args, void* stream) {
+  const size_t smem = (size_t)(7 * args.R + args.S + 4 * args.A) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(persistent_generate_kernel<kRagged>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  persistent_generate_kernel<kRagged><<<args.B, kThreads, smem, (cudaStream_t)stream>>>(args);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -238,15 +274,24 @@ int nvw_persistent_generate(const float* embed, const float* dil_w, const float*
                             int A, int tanh_embed, int silence_bin, int mode, void* stream) {
   const GenArgs args{embed, dil_w, rs_w, rs_b, out_w, out_b, end_w, end_b, cond,
                      sel, sched, ring, y_state, y, d_xt, d_skip, d_zs, d_za, d_p, t0,
-                     n_valid, B, L, R, S, A, tanh_embed, silence_bin, mode};
-  const size_t smem = (size_t)(7 * R + S + 4 * A) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        persistent_generate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  persistent_generate_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(args);
-  return (int)cudaGetLastError();
+                     n_valid, B, L, R, S, A, tanh_embed, silence_bin, mode,
+                     nullptr, nullptr};
+  return launch<false>(args, stream);
+}
+
+// K5: mode "sample", no dump; t0_row [B] and n_valid_row [B] on the device
+int nvw_persistent_generate_ragged(const float* embed, const float* dil_w, const float* rs_w,
+                                   const float* rs_b, const float* out_w, const float* out_b,
+                                   const float* end_w, const float* end_b, const float* cond,
+                                   const float* sel, const int* sched, float* ring,
+                                   int* y_state, int* y, const long long* t0_row,
+                                   const int* n_valid_row, int B, int L, int R, int S, int A,
+                                   int tanh_embed, int silence_bin, void* stream) {
+  const GenArgs args{embed, dil_w, rs_w, rs_b, out_w, out_b, end_w, end_b, cond,
+                     sel, sched, ring, y_state, y, nullptr, nullptr, nullptr, nullptr,
+                     nullptr, 0, 0, B, L, R, S, A, tanh_embed, silence_bin, kModeSample,
+                     t0_row, n_valid_row};
+  return launch<true>(args, stream);
 }
 
 }  // extern "C"

@@ -1,27 +1,37 @@
 """WaveNetInfer: the inference engine with API parity to the reference's
 `nvWavenetInfer` class, on PyTorch and CUDA.
 
-The port's counterpart of `nv_wavenet_tpu/engine/wavenet_infer.py`, for the
-main path: the weight setters, `set_inputs`, `run` / `run_partial` /
-`run_device` / `run_chunks`, and the activation getters of dump mode.
+The port's counterpart of `nv_wavenet_tpu/engine/wavenet_infer.py`: the
+weight setters, `set_inputs`, `run` / `run_partial` / `run_device` /
+`run_chunks`, the activation getters of dump mode, and the streaming
+serving surface: `begin_stream`, `feed` / `feed_device` (with per-row
+`lengths`), `reset_utterances`, `export_state` / `import_state` and the
+sampling `temperature`.
 
   * The engine runs on the card: `device=None` means "cuda", and on a host
     without CUDA that raises (it never falls back to the CPU).  Tests pass
     `device="cpu"`, which runs the plain PyTorch loop.
   * Implementations: AUTO, SINGLE_BLOCK, DUAL_BLOCK and PERSISTENT all map
     to kernel K1 (`ops/persistent.py`).  MANYBLOCK (weights streamed per
-    layer, kernel K4) is still to port and raises NotImplementedError.
+    layer, kernel K4) is still to port and raises NotImplementedError, as
+    do modes "forced" (K2) and "prng" (K3) and `score`.
   * Conditioning is uploaded to the device once, in `set_inputs`; the
     dil_b-prefolded copy `cond_pre = cond + dil_b` is built there lazily,
     once per (inputs, weights).
-  * `chunk_size` is the most samples one kernel launch generates; longer
+  * `chunk_size` is the most samples one `run` launch generates; longer
     runs are split into launches that carry the FIFO state, exactly as one
-    launch would.
+    launch would.  A feed is one launch whatever its length.
+  * Streams keep one absolute clock per batch row (`_stream_t_row`), the
+    one source of truth for FIFO phase and default selectors.  A feed whose
+    rows share a clock and a length runs lockstep on K1; per-row `lengths`
+    or desynced clocks (after a ragged feed or `reset_utterances`) run on
+    K5, and feeds return to K1 once the clocks realign.
 """
 
 from __future__ import annotations
 
 import enum
+import operator
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -77,6 +87,14 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def _check_temperature(temperature) -> float:
+    t = float(temperature)
+    if not (t > 0 and np.isfinite(t)):
+        raise ValueError(f"temperature must be finite and > 0, got "
+                         f"{temperature}")
+    return t
+
+
 class _Readback:
     """An asynchronous device-to-host copy of y [T, B], queued on the
     current stream behind the kernel that produced it."""
@@ -108,6 +126,7 @@ class WaveNetInfer:
                  implementation: Impl = Impl.AUTO,
                  tanh_embed: bool = True,
                  chunk_size: int = 64,
+                 temperature: float = 1.0,
                  device=None):
         if implementation == Impl.MANYBLOCK:
             raise NotImplementedError(
@@ -115,6 +134,10 @@ class WaveNetInfer:
                 "ROADMAP.md, still to port")
         if chunk_size < 1:
             raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+        # sampling temperature: softmax(za / T) as a weight transform, end_w
+        # and end_b scaled by float32(1/T) at upload, so every path samples
+        # from the tempered logits with no per-step cost; T=1 is a no-op
+        self.temperature = _check_temperature(temperature)
         self.device = resolve_device(device)
         self.cfg = WaveNetConfig(num_layers=num_layers, R=R, S=S, A=A,
                                  max_dilation=max_dilation,
@@ -135,6 +158,12 @@ class WaveNetInfer:
         self._ring: Optional[torch.Tensor] = None
         self._y_state: Optional[torch.Tensor] = None
         self._dumps: Optional[Dict[str, torch.Tensor]] = None
+        # generators by (batch, mode, dump, ragged): each holds its FIFO
+        # layout on the card, so a feed uploads nothing but its inputs
+        self._gens: Dict[tuple, Callable] = {}
+        # per-row absolute clocks of the open stream [batch] (None: no
+        # stream)
+        self._stream_t_row: Optional[np.ndarray] = None
 
     # ------------------------------------------------------------------
     # weight upload (reference setter parity)
@@ -191,10 +220,33 @@ class WaveNetInfer:
                            for k, v in params.items()}
         self._invalidate()
 
+    def _tempered_params(self) -> Dict[str, np.ndarray]:
+        """The host params with end_w and end_b scaled by float32(1/T):
+        softmax(zs end_w/T + end_b/T) = softmax(za / T)."""
+        if self.temperature == 1.0:
+            return self._np_params
+        inv_t = np.float32(1.0 / self.temperature)
+        return {**self._np_params,
+                "end_w": self._np_params["end_w"] * inv_t,
+                "end_b": self._np_params["end_b"] * inv_t}
+
+    def set_temperature(self, temperature: float):
+        """Change the sampling temperature from the next generation on.
+        Only end_w and end_b change, so only they re-upload."""
+        temperature = _check_temperature(temperature)
+        if temperature == self.temperature:
+            return
+        self.temperature = temperature
+        if self._params is not None:
+            tempered = self._tempered_params()
+            for k in ("end_w", "end_b"):
+                self._params[k] = torch.as_tensor(
+                    tempered[k], device=self.device).contiguous()
+
     def _device_params(self) -> Dict[str, torch.Tensor]:
         if self._params is None:
-            self._params = params_lib.canonical_to_torch(self._np_params,
-                                                         self.device)
+            self._params = params_lib.canonical_to_torch(
+                self._tempered_params(), self.device)
         return self._params
 
     # ------------------------------------------------------------------
@@ -228,9 +280,12 @@ class WaveNetInfer:
         self._reset_state(B)
 
     def _reset_state(self, batch: int):
+        """Silence for `batch` rows; an open stream ends (its clocks
+        described the state this replaces)."""
         self._ring = persistent.init_ring(self.cfg, batch, self.device)
         self._y_state = torch.full((2, batch), self.cfg.silence_bin,
                                    dtype=torch.int32, device=self.device)
+        self._stream_t_row = None
 
     def _prefolded_cond(self) -> torch.Tensor:
         """cond + dil_b, built once per (inputs, weights) on the device: an
@@ -272,8 +327,7 @@ class WaveNetInfer:
                              f"state's batch {self._y_state.shape[1]}")
         params = self._device_params()
         cond_pre = self._prefolded_cond()
-        gen = persistent.make_persistent_generator(self.cfg, B, mode=mode,
-                                                   dump=dump_activations)
+        gen = self._generator(B, mode, dump_activations)
         ys = []
         for t0 in range(init_sample, init_sample + num_samples,
                         self.chunk_size):
@@ -335,6 +389,201 @@ class WaveNetInfer:
         y_host = readback.wait().T
         consume(y_host, off, n)
         return y_host
+
+    def _generator(self, batch: int, mode: str, dump: bool = False,
+                   ragged: bool = False) -> Callable:
+        key = (batch, mode, dump, ragged)
+        if key not in self._gens:
+            self._gens[key] = persistent.make_persistent_generator(
+                self.cfg, batch, mode=mode, dump=dump, ragged=ragged)
+        return self._gens[key]
+
+    # ------------------------------------------------------------------
+    # streaming serving surface
+    # ------------------------------------------------------------------
+
+    def begin_stream(self, batch_size: int):
+        """Start incremental generation: conditioning arrives chunk by chunk
+        through `feed`, as a TTS frontend produces it, instead of all at
+        once through `set_inputs`.  The state resets to silence and every
+        row's clock to 0."""
+        if not 1 <= batch_size <= self.max_batch:
+            raise ValueError(f"batch_size {batch_size} outside [1, "
+                             f"max_batch={self.max_batch}]")
+        self._reset_state(batch_size)
+        self._stream_t_row = np.zeros(batch_size, np.int64)
+
+    @property
+    def _stream_t(self) -> Optional[int]:
+        """The largest row clock, for the surfaces that know one stream
+        position (the snapshot's `stream_t`); None when no stream is open."""
+        if self._stream_t_row is None:
+            return None
+        return int(self._stream_t_row.max())
+
+    def feed(self, cond_chunk, selectors_chunk=None, mode: str = "sample",
+             lengths=None) -> np.ndarray:
+        """Generate the next len(cond_chunk) samples of the stream; returns
+        y [batch, n] int32.  Chunk lengths may vary from call to call: the
+        carried state makes any chunking equal one run over the concatenated
+        conditioning.  Default selectors come from the stream of
+        `_selector_stream` keyed on each row's ABSOLUTE clock, so they do
+        not depend on the chunking and equal those of `set_inputs(cond)` +
+        `run()` over the same window.
+
+        `lengths` [batch] gives each row its own number of valid steps this
+        call (0 allowed): row b consumes cond_chunk[:lengths[b], :, b],
+        advances its own clock, and its samples y[b, :lengths[b]] equal
+        those of the row generated alone; the rest of its row is 0.  Such
+        ragged feeds run mode "sample" only."""
+        return self.feed_device(cond_chunk, selectors_chunk, mode,
+                                lengths).T.cpu().numpy()
+
+    def feed_device(self, cond_chunk, selectors_chunk=None,
+                    mode: str = "sample", lengths=None) -> torch.Tensor:
+        """`feed` without the read-back: returns the device y [n, batch].
+        `cond_chunk` [n, L, batch, 2R] may already be on the card; a host
+        array is staged through pinned memory.  Per feed, on the card: one
+        dil_b prefold and one kernel launch (K1 lockstep, K5 ragged), with
+        no host synchronisation before the launch."""
+        if self._stream_t_row is None:
+            raise RuntimeError("call begin_stream(batch_size) first")
+        B = len(self._stream_t_row)
+        T = cond_chunk.shape[0]
+        if tuple(cond_chunk.shape[1:]) != (self.cfg.num_layers, B,
+                                           2 * self.cfg.R):
+            raise ValueError(f"cond_chunk shape {tuple(cond_chunk.shape)} "
+                             f"does not match (n, L={self.cfg.num_layers}, "
+                             f"batch={B}, 2R={2 * self.cfg.R})")
+        if T == 0:
+            return torch.zeros((0, B), dtype=torch.int32, device=self.device)
+        clocks = self._stream_t_row
+        aligned = bool(np.all(clocks == clocks[0]))
+        if lengths is not None or not aligned:
+            la = (np.full(B, T, np.int64) if lengths is None
+                  else np.asarray(lengths))
+            if not (aligned and la.shape == (B,) and np.all(la == T)):
+                return self._feed_ragged(cond_chunk, selectors_chunk, mode, la)
+        t0 = int(clocks[0])
+        gen = self._generator(B, mode)
+        if selectors_chunk is None:
+            selectors_chunk = (_selector_stream(self.sampling_seed, t0, T, B)
+                               if mode == "sample"
+                               else np.zeros((T, B), np.float32))
+        y = gen(self._device_params(), t0, self._stage_cond_pre(cond_chunk),
+                self._stage(selectors_chunk), self._ring, self._y_state)[0]
+        self._stream_t_row = clocks + T
+        return y
+
+    def _feed_ragged(self, cond, sel, mode: str,
+                     lengths: np.ndarray) -> torch.Tensor:
+        """Per-row ragged feed on K5: row b runs lengths[b] steps from its
+        own clock (the TPU kernel's ragged variant, which the JAX engine
+        wraps in per-row ring rotations; K5 takes the clocks directly)."""
+        if mode != "sample":
+            raise ValueError("ragged feeds (per-row lengths or desynced row "
+                             "clocks) run mode='sample' only")
+        B, T = len(self._stream_t_row), cond.shape[0]
+        if not (lengths.shape == (B,)
+                and np.issubdtype(lengths.dtype, np.integer)
+                and lengths.min() >= 0 and lengths.max() <= T):
+            raise ValueError(f"ragged feed lengths {lengths.tolist()} must "
+                             f"be [batch={B}] integers with 0 <= n <= cond "
+                             f"length {T}")
+        if lengths.max() == 0:
+            return torch.zeros((0, B), dtype=torch.int32, device=self.device)
+        clocks = self._stream_t_row
+        if sel is None:
+            sel = _selector_stream(self.sampling_seed, clocks, T, B)
+        gen = self._generator(B, "sample", ragged=True)
+        y = gen(self._device_params(), torch.from_numpy(clocks.copy()),
+                self._stage_cond_pre(cond), self._stage(sel), self._ring,
+                self._y_state,
+                torch.from_numpy(lengths.astype(np.int32)))[0]
+        self._stream_t_row = clocks + lengths
+        return y
+
+    def _stage(self, x) -> torch.Tensor:
+        """A float32 chunk on the engine's device.  A host array goes
+        through pinned memory with a non-blocking copy, so staging a feed
+        never waits for the card."""
+        if isinstance(x, torch.Tensor) and x.device.type != "cpu":
+            return x.to(self.device, torch.float32).contiguous()
+        host = torch.as_tensor(x, dtype=torch.float32).contiguous()
+        if self.device.type == "cpu":
+            return host
+        return host.pin_memory().to(self.device, non_blocking=True)
+
+    def _stage_cond_pre(self, cond) -> torch.Tensor:
+        """cond + dil_b on the device, the values `_prefolded_cond` gives."""
+        dil_b = self._device_params()["dil_b"]
+        return self._stage(cond) + dil_b[None, :, None, :]
+
+    def reset_utterances(self, rows):
+        """Hand the slots `rows` to new utterances while the other rows go
+        on generating (continuous batching).  Each row's FIFOs are zeroed,
+        its y_state set to silence and its clock to 0: a fresh engine's
+        start, so with injected selectors its next samples equal those of
+        the utterance generated alone.  Default selectors are keyed on the
+        row's clock, so a reset row draws the clock-0 stream of its row."""
+        if self._ring is None:
+            raise RuntimeError("no generation state yet")
+        n = self._y_state.shape[1]
+        rows = [operator.index(r) for r in rows]
+        if not rows or not all(0 <= r < n for r in rows):
+            raise ValueError(f"rows {rows} out of range for batch {n}")
+        for r in rows:
+            self._ring[:, r].zero_()
+            self._y_state[:, r].fill_(self.cfg.silence_bin)
+        if self._stream_t_row is not None:
+            self._stream_t_row[rows] = 0
+
+    def export_state(self) -> Dict[str, np.ndarray]:
+        """Snapshot the generation state as host numpy, for session
+        migration and recovery: `ring` [ring_size, B, R] in the port's plain
+        layout (each row's FIFO slots at its absolute phase), `y_state`
+        [2, B], `stream_t_row` [B] int64 (each row's clock), `stream_t` (the
+        largest clock, -1 when no stream is open) and `stream_batch`.  The
+        JAX package's snapshot holds a lane-packed ring and its scan path's
+        state, and no per-row clocks."""
+        if self._ring is None:
+            raise RuntimeError("no generation state yet")
+        B = self._y_state.shape[1]
+        streaming = self._stream_t_row is not None
+        return {
+            "ring": np.array(self._ring.cpu()),
+            "y_state": np.array(self._y_state.cpu()),
+            "stream_t_row": (self._stream_t_row.copy() if streaming
+                             else np.zeros(B, np.int64)),
+            "stream_t": np.asarray(self._stream_t if streaming else -1,
+                                   np.int64),
+            "stream_batch": np.asarray(B if streaming else 0, np.int64),
+        }
+
+    def import_state(self, state: Dict[str, np.ndarray]):
+        """Restore a snapshot of `export_state`, possibly taken by another
+        engine or process with the same config and weights: the next `feed`
+        or `run_partial` continues exactly where the exporter left off,
+        every row at its own clock."""
+        ring = np.asarray(state["ring"], np.float32)
+        y_state = np.asarray(state["y_state"], np.int32)
+        B = y_state.shape[-1]
+        if (y_state.shape != (2, B) or B > self.max_batch
+                or ring.shape != (self.cfg.ring_size, B, self.cfg.R)):
+            raise ValueError(f"snapshot ring {ring.shape} / y_state "
+                             f"{y_state.shape} do not match the config "
+                             f"(ring_size={self.cfg.ring_size}, "
+                             f"R={self.cfg.R}, max_batch={self.max_batch})")
+        streaming = int(state["stream_t"]) >= 0
+        if streaming:
+            clocks = np.asarray(state["stream_t_row"], np.int64)
+            if (clocks.shape != (B,) or clocks.min() < 0
+                    or int(state["stream_batch"]) != B):
+                raise ValueError(f"snapshot stream_t_row {clocks.tolist()} "
+                                 f"does not fit its batch {B}")
+        self._ring = torch.from_numpy(ring.copy()).to(self.device)
+        self._y_state = torch.from_numpy(y_state.copy()).to(self.device)
+        self._stream_t_row = clocks.copy() if streaming else None
 
     # ------------------------------------------------------------------
     # activation getters (dump mode)

@@ -1,11 +1,14 @@
 """The persistent generator: the whole generation of a call in one kernel
-launch (K1, `csrc/persistent.cu`), with its plain PyTorch version.
+launch (K1 and K5, `csrc/persistent.cu`), with its plain PyTorch version.
 
 The port's counterpart of `nv_wavenet_tpu/ops/persistent.py`
-(`make_persistent_generator`), modes "sample" and "argmax", with the
-optional last-step activation dump.  A CUDA tensor launches K1; a CPU tensor
-runs the plain loop of `ops/scan_generate.py`.  Nothing falls back from one
-to the other.
+(`make_persistent_generator`): modes "sample" and "argmax" with the
+optional last-step activation dump (K1), and `ragged=True`, per-row clocks
+and lengths in mode "sample" (K5, the ragged feeds of the serving path).  A
+CUDA tensor launches the kernel; a CPU tensor runs the plain loop of
+`ops/scan_generate.py`.  Nothing falls back from one to the other.  Modes
+"forced" (K2) and "prng" (K3) and `stream_weights`/`stream_quant` (K4) are
+still to port and raise NotImplementedError.
 
 Differences from the TPU kernel, all value-preserving:
   * no chunk padding and no grid: the kernel loops over `n_valid` steps
@@ -13,6 +16,12 @@ Differences from the TPU kernel, all value-preserving:
   * the FIFO ring is the plain [ring_size, B, R] layout of
     `WaveNetConfig.ring_offsets` (the TPU's lane-packed ring is a 128-lane
     tiling artifact);
+  * `rotate_ring_phase` is not ported.  The TPU kernel shares one ring phase
+    across the batch, so its ragged calls rotate each row's FIFOs to a
+    call-local phase and back around the kernel.  Here each row's absolute
+    clock enters the kernel (one CTA per row addresses only its own row),
+    so the stored ring keeps the absolute convention, slot
+    offs[l] + (t & (d_l - 1)), in every call;
   * `prev_prefetch`, `rs_split` and `embed_split` are TPU schedules that give
     the same values; they are not ported;
   * `ring` and `y_state` are updated IN PLACE and returned (torch may do so
@@ -41,6 +50,10 @@ _I = ctypes.c_int
 PERSISTENT_KERNEL = build.CudaKernel(
     "persistent.cu", "nvw_persistent_generate",
     [_P] * 19 + [ctypes.c_longlong] + [_I] * 9 + [_P])
+# K5: K1's instance with per-row clocks and lengths (ragged feeds)
+RAGGED_KERNEL = build.CudaKernel(
+    "persistent.cu", "nvw_persistent_generate_ragged",
+    [_P] * 16 + [_I] * 7 + [_P])
 
 
 def init_ring(cfg: WaveNetConfig, batch: int, device,
@@ -52,12 +65,15 @@ def init_ring(cfg: WaveNetConfig, batch: int, device,
 
 
 def generate_plain(cfg: WaveNetConfig, params: Dict[str, torch.Tensor],
-                   t0: int, cond_pre: torch.Tensor, sel: torch.Tensor,
-                   ring: torch.Tensor, y_state: torch.Tensor, n_valid: int,
+                   t0, cond_pre: torch.Tensor, sel: torch.Tensor,
+                   ring: torch.Tensor, y_state: torch.Tensor, n_valid,
                    mode: str = "sample", dump: bool = False):
-    """The plain version of K1, on any device: the loop of
+    """The plain version of K1 and K5, on any device: the loop of
     `scan_generate.run_steps`, with the kernel's outputs (see
-    `make_persistent_generator`)."""
+    `make_persistent_generator`).  t0 and n_valid are ints (K1) or the
+    per-row host tensors t0_row and n_valid_row (K5)."""
+    if isinstance(n_valid, torch.Tensor):
+        t0, n_valid = t0.to(cond_pre.device), n_valid.to(cond_pre.device)
     y, aux = scan_generate.run_steps(params, cfg, t0, cond_pre, sel, ring,
                                      y_state, n_valid, mode, dump)
     out = (y, ring, y_state)
@@ -83,6 +99,10 @@ def fifo_schedule(cfg: WaveNetConfig, device) -> torch.Tensor:
                         device=device)
 
 
+_WEIGHTS = ("embed", "dil_w", "rs_w", "rs_b", "out_w", "out_b", "end_w",
+            "end_b")
+
+
 def _launch_kernel(cfg: WaveNetConfig, params: Dict[str, torch.Tensor],
                    sched: torch.Tensor, t0: int, cond_pre: torch.Tensor,
                    sel: torch.Tensor, ring: torch.Tensor,
@@ -95,9 +115,7 @@ def _launch_kernel(cfg: WaveNetConfig, params: Dict[str, torch.Tensor],
               else [None] * len(_DUMP_KEYS))
     if n_valid:
         PERSISTENT_KERNEL(
-            *(params[k].data_ptr() for k in ("embed", "dil_w", "rs_w", "rs_b",
-                                              "out_w", "out_b", "end_w",
-                                              "end_b")),
+            *(params[k].data_ptr() for k in _WEIGHTS),
             cond_pre.data_ptr(), sel.data_ptr(), sched.data_ptr(),
             ring.data_ptr(), y_state.data_ptr(), y.data_ptr(), *d_ptrs,
             t0, n_valid, B, cfg.num_layers, cfg.R, cfg.S, cfg.A,
@@ -109,12 +127,38 @@ def _launch_kernel(cfg: WaveNetConfig, params: Dict[str, torch.Tensor],
     return out
 
 
+def _launch_ragged(cfg: WaveNetConfig, params: Dict[str, torch.Tensor],
+                   sched: torch.Tensor, t0_row: torch.Tensor,
+                   cond_pre: torch.Tensor, sel: torch.Tensor,
+                   ring: torch.Tensor, y_state: torch.Tensor,
+                   n_valid_row: torch.Tensor):
+    T, _, B, _ = cond_pre.shape
+    dev = cond_pre.device
+    # zeros, never empty: K5 writes no step past a row's length
+    y = torch.zeros((T, B), dtype=torch.int32, device=dev)
+    if int(n_valid_row.max()):
+        # pinned staging and non-blocking copies: the launch waits for
+        # nothing queued before it
+        t0_dev, nv_dev = (x.pin_memory().to(dev, non_blocking=True)
+                          for x in (t0_row, n_valid_row))
+        RAGGED_KERNEL(
+            *(params[k].data_ptr() for k in _WEIGHTS),
+            cond_pre.data_ptr(), sel.data_ptr(), sched.data_ptr(),
+            ring.data_ptr(), y_state.data_ptr(), y.data_ptr(),
+            t0_dev.data_ptr(), nv_dev.data_ptr(), B, cfg.num_layers, cfg.R,
+            cfg.S, cfg.A, int(cfg.tanh_embed), cfg.silence_bin,
+            build.current_stream(dev))
+    return y, ring, y_state
+
+
 def make_persistent_generator(cfg: WaveNetConfig, batch: int,
                               mode: str = "sample", dump: bool = False,
                               stream_weights: bool = False,
                               stream_quant: bool = False,
                               ragged: bool = False):
-    """Build `generate(params, t0, cond_pre, sel, ring, y_state, n_valid=None)`.
+    """Build `generate(params, t0, cond_pre, sel, ring, y_state, n_valid=None)`
+    (K1), or with ragged=True `generate(params, t0_row, cond_pre, sel, ring,
+    y_state, n_valid_row)` (K5).
 
     params: canonical float32 tensors (`models/params.canonical_to_torch`);
     t0: absolute index of the call's first sample (FIFO addressing, so
@@ -124,10 +168,17 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
     of leading steps to run (default T) - later steps leave the state
     untouched and emit 0.
 
+    ragged=True (mode "sample", no dump): t0_row [B] int64 and n_valid_row
+    [B] int32 are CPU tensors, per-row control as K1's t0 and n_valid are
+    host ints.  Row b runs its first n_valid_row[b] steps (0 <= n <= T) from
+    its own absolute clock t0_row[b] >= 0; past its length a row keeps its
+    FIFO content and y_state and emits 0.  The wrapper checks them on the
+    host and stages them to the card without a synchronisation.
+
     Returns y [T, B] int32, ring, y_state (the same tensors, updated in
     place), plus xt [L,B,R], skip [L,B,S], zs, za, p [B,A] of the last run
     step when dump=True.  All tensors on one device: CPU runs the plain
-    loop, CUDA launches K1.
+    loop, CUDA launches K1 (K5).
     """
     if mode == "forced":
         raise NotImplementedError("mode='forced' is kernel K2 of ROADMAP.md, "
@@ -140,41 +191,64 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
     if stream_weights or stream_quant:
         raise NotImplementedError("stream_weights / stream_quant are kernel "
                                   "K4 of ROADMAP.md, still to port")
-    if ragged:
-        raise NotImplementedError("ragged=True is kernel K5 of ROADMAP.md, "
-                                  "still to port")
+    if ragged and (mode != "sample" or dump):
+        raise ValueError("ragged=True (K5) runs mode='sample' without dump "
+                         "only, as the TPU kernel's ragged variant")
     L, R, A = cfg.num_layers, cfg.R, cfg.A
     B = batch
     shapes = params_lib.canonical_shapes(L, R, cfg.S, A)
-    scheds: Dict[torch.device, torch.Tensor] = {}  # K1's FIFO layout per card
+    scheds: Dict[torch.device, torch.Tensor] = {}  # the FIFO layout per card
+
+    def check(params, cond_pre, sel, ring, y_state):
+        dev = cond_pre.device
+        if dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"unsupported device {dev}")
+        T = cond_pre.shape[0]
+        check_t = build.check_tensor
+        check_t(cond_pre, "cond_pre", torch.float32, (T, L, B, 2 * R), dev)
+        check_t(sel, "sel", torch.float32, (T, B), dev)
+        check_t(ring, "ring", torch.float32, (cfg.ring_size, B, R), dev)
+        check_t(y_state, "y_state", torch.int32, (2, B), dev)
+        for k, shape in shapes.items():
+            check_t(params[k], k, torch.float32, shape, dev)
+        if dev.type == "cuda" and dev not in scheds:
+            scheds[dev] = fifo_schedule(cfg, dev)
+        return dev, T
 
     def generate(params: Dict[str, torch.Tensor], t0: int,
                  cond_pre: torch.Tensor, sel: torch.Tensor,
                  ring: torch.Tensor, y_state: torch.Tensor,
                  n_valid: int | None = None):
-        dev = cond_pre.device
-        if dev.type not in ("cpu", "cuda"):
-            raise ValueError(f"unsupported device {dev}")
-        T = cond_pre.shape[0]
+        dev, T = check(params, cond_pre, sel, ring, y_state)
         n_valid = T if n_valid is None else int(n_valid)
         if not 0 <= n_valid <= T:
             raise ValueError(f"n_valid={n_valid} outside [0, T={T}]")
         t0 = int(t0)
         if t0 < 0:
             raise ValueError(f"t0={t0} must be >= 0")
-        check = build.check_tensor
-        check(cond_pre, "cond_pre", torch.float32, (T, L, B, 2 * R), dev)
-        check(sel, "sel", torch.float32, (T, B), dev)
-        check(ring, "ring", torch.float32, (cfg.ring_size, B, R), dev)
-        check(y_state, "y_state", torch.int32, (2, B), dev)
-        for k, shape in shapes.items():
-            check(params[k], k, torch.float32, shape, dev)
         if dev.type == "cpu":
             return generate_plain(cfg, params, t0, cond_pre, sel, ring,
                                   y_state, n_valid, mode, dump)
-        if dev not in scheds:
-            scheds[dev] = fifo_schedule(cfg, dev)
         return _launch_kernel(cfg, params, scheds[dev], t0, cond_pre, sel,
                               ring, y_state, n_valid, mode, dump)
 
-    return generate
+    def generate_ragged(params: Dict[str, torch.Tensor],
+                        t0_row: torch.Tensor, cond_pre: torch.Tensor,
+                        sel: torch.Tensor, ring: torch.Tensor,
+                        y_state: torch.Tensor, n_valid_row: torch.Tensor):
+        dev, T = check(params, cond_pre, sel, ring, y_state)
+        cpu = torch.device("cpu")
+        build.check_tensor(t0_row, "t0_row", torch.int64, (B,), cpu)
+        build.check_tensor(n_valid_row, "n_valid_row", torch.int32, (B,), cpu)
+        if int(t0_row.min()) < 0:
+            raise ValueError(f"t0_row {t0_row.tolist()} must be >= 0")
+        if int(n_valid_row.min()) < 0 or int(n_valid_row.max()) > T:
+            raise ValueError(f"n_valid_row {n_valid_row.tolist()} outside "
+                             f"[0, T={T}]")
+        if dev.type == "cpu":
+            return generate_plain(cfg, params, t0_row, cond_pre, sel, ring,
+                                  y_state, n_valid_row)
+        return _launch_ragged(cfg, params, scheds[dev], t0_row, cond_pre,
+                              sel, ring, y_state, n_valid_row)
+
+    return generate_ragged if ragged else generate

@@ -2,8 +2,11 @@
 loop over samples, one eager torch op at a time.
 
 The port's counterpart of `nv_wavenet_tpu/ops/scan_generate.py`, and the
-plain version of kernel K1 (`csrc/persistent.cu`): the CPU path runs it, and
-the chip smoke test holds the kernel against it on the card.  It runs on any
+plain version of kernels K1 and K5 (`csrc/persistent.cu`): the CPU path runs
+it, and the chip smoke test holds the kernels against it on the card.  With
+per-row clocks and lengths (K5, the ragged feeds of the serving path) each
+row advances its own FIFO phase and freezes once its length is reached.  It
+runs on any
 device; on CUDA its matrix products go to cuBLAS, which must run in full
 fp32 (`torch.backends.cuda.matmul.allow_tf32` False, checked here).
 
@@ -85,20 +88,31 @@ def _check_fp32_matmul(t: torch.Tensor) -> None:
 
 def step(params: Dict[str, torch.Tensor], cfg: WaveNetConfig,
          ring: torch.Tensor, y_prev: torch.Tensor, y_cur: torch.Tensor,
-         t: int, zbias: torch.Tensor, sel_t: torch.Tensor, mode: str,
-         dump: bool = False):
+         t, zbias: torch.Tensor, sel_t: torch.Tensor, mode: str,
+         dump: bool = False, live: Optional[torch.Tensor] = None):
     """One sample for every row.  zbias [L, B, 2R] is the term added to the
-    dilated GEMM (dil_b + cond, or the pre-folded cond_pre).  Writes the
-    FIFOs in `ring` in place.  Returns (y [B] int32, aux or None)."""
+    dilated GEMM (dil_b + cond, or the pre-folded cond_pre).  `t` is the
+    absolute index of the sample: an int shared by every row, or a [B] int64
+    tensor of per-row clocks, each row then addressing its FIFOs by its own
+    clock.  `live` [B] bool (per-row clocks only): rows outside it keep their
+    FIFO content.  Writes the FIFOs in `ring` in place.  Returns (y [B]
+    int32, aux or None)."""
     L, R, S, A = cfg.num_layers, cfg.R, cfg.S, cfg.A
     dils, offs = cfg.dilations, cfg.ring_offsets
     x = embed_lookup(params["embed"], y_prev, y_cur, A, cfg.tanh_embed)
     skip = torch.zeros((x.shape[0], S), dtype=x.dtype, device=x.device)
+    rows = (torch.arange(x.shape[0], device=x.device)
+            if isinstance(t, torch.Tensor) else None)
     xt_dump, skip_dump = [], []
     for l in range(L):
         slot = offs[l] + (t & (dils[l] - 1))
-        x_prev = ring[slot].clone()
-        ring[slot] = x
+        if rows is None:
+            x_prev = ring[slot].clone()
+            ring[slot] = x
+        else:
+            x_prev = ring[slot, rows]
+            ring[slot, rows] = (x if live is None
+                                else torch.where(live[:, None], x, x_prev))
         dw = params["dil_w"][l]
         z = (x_prev @ dw[:R]) + (x @ dw[R:])
         z = z + zbias[l]
@@ -140,29 +154,45 @@ def wavenet_step(params: Dict[str, torch.Tensor], state: GenState,
     return GenState(state.ring, state.y_cur, y, state.t + 1), y, aux
 
 
-def run_steps(params: Dict[str, torch.Tensor], cfg: WaveNetConfig, t0: int,
+def run_steps(params: Dict[str, torch.Tensor], cfg: WaveNetConfig, t0,
               cond_pre: torch.Tensor, sel: torch.Tensor, ring: torch.Tensor,
-              y_state: torch.Tensor, n_valid: int, mode: str = "sample",
+              y_state: torch.Tensor, n_valid, mode: str = "sample",
               dump: bool = False):
-    """The sequential loop, with the contract of kernel K1: cond_pre
+    """The sequential loop, with the contract of kernels K1 and K5: cond_pre
     [T, L, B, 2R] has dil_b folded in; sel [T, B]; the first n_valid steps
     run from absolute index t0, the rest emit 0 and touch no state.  Updates
     `ring` and `y_state` [2, B] (y_prev, y_cur) in place.  Returns
     (y [T, B] int32, aux) where aux is the last run step's activations when
-    dump=True and a step ran, else None."""
+    dump=True and a step ran, else None.
+
+    K1: t0 and n_valid are ints shared by the batch.  K5: they are per-row
+    tensors on cond_pre's device, t0 [B] int64 and n_valid [B] int32; row b
+    runs its first n_valid[b] steps from its own clock t0[b], and at a step
+    past its length (a dead row) keeps its FIFO content and y_state and
+    emits 0.  Dead rows still flow through the batched products, and their
+    results are discarded."""
     _check_mode(mode)
     _check_fp32_matmul(cond_pre)
     T, _, B, _ = cond_pre.shape
+    per_row = isinstance(n_valid, torch.Tensor)
+    if per_row and dump:
+        raise ValueError("per-row lengths (K5) take no activation dump")
     y = torch.zeros((T, B), dtype=torch.int32, device=cond_pre.device)
     y_prev, y_cur = y_state[0].clone(), y_state[1].clone()
     aux: Optional[dict] = None
-    for j in range(n_valid):
+    for j in range(int(n_valid.max()) if per_row else n_valid):
+        live = j < n_valid if per_row else None
         y_t, step_aux = step(params, cfg, ring, y_prev, y_cur, t0 + j,
                              cond_pre[j], sel[j], mode,
-                             dump=dump and j == n_valid - 1)
+                             dump=dump and j == n_valid - 1, live=live)
         aux = step_aux if step_aux is not None else aux
+        if per_row:
+            y_t = torch.where(live, y_t, 0)
+            y_prev, y_cur = (torch.where(live, y_cur, y_prev),
+                             torch.where(live, y_t, y_cur))
+        else:
+            y_prev, y_cur = y_cur, y_t
         y[j] = y_t
-        y_prev, y_cur = y_cur, y_t
     y_state[0] = y_prev
     y_state[1] = y_cur
     return y, aux

@@ -142,9 +142,14 @@ def test_unported_options_raise_and_bad_inputs_are_rejected():
     for kw, kernel in ((dict(mode="forced"), "K2"), (dict(mode="prng"), "K3"),
                        (dict(stream_weights=True), "K4"),
                        (dict(stream_quant=True), "K4"),
-                       (dict(ragged=True), "K5")):
+                       (dict(ragged=True, mode="prng"), "K3")):
         with pytest.raises(NotImplementedError, match=kernel):
             tper.make_persistent_generator(cfg, 1, **kw)
+    # K5 (ragged=True) is ported for mode "sample" without dump, as the TPU
+    # kernel's ragged variant allows
+    for kw in (dict(mode="argmax"), dict(dump=True)):
+        with pytest.raises(ValueError, match="K5"):
+            tper.make_persistent_generator(cfg, 1, ragged=True, **kw)
 
     ref_w = tparams.random_reference_weights(cfg, seed=0)
     params = tparams.canonical_to_torch(tparams.to_canonical(ref_w, cfg),
@@ -164,3 +169,18 @@ def test_unported_options_raise_and_bad_inputs_are_rejected():
         gen(params, 0, cond, sel, ring, ys.long())
     with pytest.raises(ValueError, match="n_valid"):
         gen(params, 0, cond, sel, ring, ys, n_valid=5)
+
+    ragged = tper.make_persistent_generator(cfg, 1, ragged=True)
+    t0_row = torch.zeros(1, dtype=torch.int64)
+    n_row = torch.full((1,), 4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="n_valid_row"):
+        ragged(params, t0_row, cond, sel, ring, ys, n_row + 1)
+    with pytest.raises(ValueError, match="n_valid_row"):
+        ragged(params, t0_row, cond, sel, ring, ys, n_row.long())
+    with pytest.raises(ValueError, match="t0_row"):
+        ragged(params, t0_row - 1, cond, sel, ring, ys, n_row)
+    with pytest.raises(ValueError, match="t0_row"):
+        ragged(params, torch.zeros(2, dtype=torch.int64), cond, sel, ring,
+               ys, n_row)
+    with pytest.raises(ValueError, match="cond_pre"):
+        ragged(params, t0_row, cond.double(), sel, ring, ys, n_row)
