@@ -8,23 +8,33 @@ nvcc, holds each kernel against its plain PyTorch version on the card, then
 drives the port's paths at full width, the flagship geometry (20 layers,
 R=64, S=256, A=256, max_dilation 512, fp32, batch 16, random weights from
 seed 1): the main path serving 3 requests of 8192 samples through
-`WaveNetInfer.set_inputs` + `run_chunks`, and the streaming serving path,
-16 slots fed tick by tick through `begin_stream` / `feed(lengths=...)` /
-`reset_utterances` / `export_state` + `import_state`.  Phases, in order;
-any failure exits non-zero:
+`WaveNetInfer.set_inputs` + `run_chunks`; the streaming serving path, 16
+slots fed tick by tick through `begin_stream` / `feed(lengths=...)` /
+`reset_utterances` / `export_state` + `import_state`; the scoring path,
+`WaveNetInfer.score` and `scoring.*` over the first request's audio; and a
+request in mode "prng".  Phases, in order; any failure exits non-zero:
 
   1. device: card name and power limit (nvidia-smi), torch.version.cuda, nvcc
   2. build: every csrc/*.cu, timed
   3. K0a (elementwise exact exp/tanh/sigmoid) vs plain: 0 bit mismatches on
      the dense sweep of tests/test_exact_math.py
-  4. K0b (canonical sampler) vs plain: 0 mismatches on za [4096, 256]
+  4. K0b (canonical sampler) vs plain: 0 mismatches on za [4096, 256]; K0c
+     (canonical softmax) vs plain on the same za: 0 bit mismatches; K7 (the
+     scorer's fixed-order product) vs plain at the scorer's flagship shapes
+     with 4096 rows: 0 bit mismatches, timed beside torch.matmul
   5. K1 (persistent generation) vs plain, TEST_CONFIG_MED, B=4, T=64, sample
      and argmax modes with the dump: exact y, activations within the
      reference ladder; 7+7+...+1 chunked run_partial calls equal one call;
      then the 65,536-draw horizon case of tests/test_torch_generate.py (4
      layers, R=32, B=16, T=4096), K1 on the card in chunks of 256 against
      the plain version on the CPU in one call: 0 integer mismatches (the CPU
-     test holds that plain version to the golden model with 0 too)
+     test holds that plain version to the golden model with 0 too).  K2
+     (forced) vs plain on the same config, forcing K1's samples, with and
+     without the dump: y echoes the symbols, p_seq within 1e-6, the ring
+     within the xt ladder (the plain version uses cuBLAS: not bitwise);
+     K3 (prng) through run(mode="prng") vs the plain version fed
+     prng_uniform_sel's selectors: 0 mismatches; 7+7+...+1 run_partial
+     calls equal one call; another seed gives another stream
   6. K5 (ragged generation, per-row clocks and lengths) vs plain,
      TEST_CONFIG_MED, B=4: 6 seeded ticks of lengths in [0, 16] (one tick
      with every length 0, one with one row at 0) through an engine on the
@@ -50,10 +60,26 @@ any failure exits non-zero:
      migration and one that began at the full reset and ran through the
      partial reset; then K5 on one 160-step ragged tick of the scenario,
      timed, and on a 32-step tick against the plain version (0 mismatches)
- 10. the `kernels` JSON line: per kernel its launches on its path (K5: the
-     serving phase), its time, the plain version's, the least time the card
-     could take for the same work (bound_ms) and, where one PyTorch call
-     computes the same function, that call's time
+ 10. K2 and K3 at the flagship: vs plain over 32 steps of request 1 (K2
+     forcing its samples), each timed over a 256-step launch
+ 11. scoring at full width: counts set to 0 just before and read just
+     after; request 1's window (16 x 8192 samples) scored from silence by
+     `WaveNetInfer.score` (the time-parallel scorer: K7, K0a, K0c) and by
+     K2 on the same state and symbols: p_seq, the final ring and y_state
+     bit-equal; both timed; `scoring.score_teacher_forced_kernel` (K2) and
+     `score_teacher_forced_parallel` on the same audio, bits per sample
+     within 1e-5
+ 12. handoff: request 1 fed in two halves equals its run; then the first
+     half scored and the second fed: 0 mismatches, and the half-window
+     p_seq equals the full window's first half bit for bit
+ 13. prng at full width: counts set to 0 just before and read just after;
+     one request of 16 x 8192 samples through run_chunks(256, mode="prng"),
+     its time per step beside K1's
+ 14. the `kernels` JSON line: per kernel its launches on its path (K5: the
+     serving phase; K0a, K0c, K7, K2: the scoring phase; K3: the prng
+     request), its time, the plain version's, the least time the card could
+     take for the same work (bound_ms) and, where one PyTorch call computes
+     the same function, that call's time
 
 The last three lines of standard output are the kernels line, the card's
 name and power limit, and {"ok": true, "device": {...}}.  Imports nothing of
@@ -84,6 +110,7 @@ RECIP_OPS = 21          # e2 e4 e8 3, q0..q4 10, h0 h1 4, y 4
 TANH_SMALL_OPS = 17     # |x| and branch 2, u u2 2, a b c 6, q 4, x + (x u) q 3
 TANH_LARGE_OPS = 53     # |x| and branch 2, -2|x| 1, exp, e2+e2 1, recip, 1 - . 2, sign 1
 SIGMOID_OPS = 50        # -|x| 2, exp, recip, branch and e r 2
+PHILOX_OPS = 103        # 10 rounds of 2 mul-hi, 2 mul-lo, 4 xor, 2 key adds; 3 to map
 
 MAIN_B, MAIN_T, MAIN_CHUNK, MAIN_REQUESTS, CHECK_T = 16, 8192, 256, 3, 256
 HORIZON_B, HORIZON_T, HORIZON_CHUNK = 16, 4096, 256
@@ -99,6 +126,10 @@ SERVE = dict(B=16, ticks=192, tick_t=160, len_min=40, p_stall=1 / 8,
              migrate_tick=40)                          # the R7 sequence
 SERVE_REPLAY = 16   # the first utterances completed, replayed lockstep
 K5_PLAIN_T = 32   # the plain step costs ~32 ms at the flagship
+# K7 at the scorer's flagship products, (M, K, N): the dilated halves
+# [x_{t-d} | x_t] W, the fused res/skip product, and the output stack
+K7_SHAPES = ((4096, 64, 128), (4096, 64, 320), (4096, 256, 256))
+PRNG_SEED = 3   # the sampling_seed of the prng request
 
 
 def fail(msg: str):
@@ -293,6 +324,88 @@ def replay_lockstep(torch, np, make_engine, cfg, dev, utts):
             for b, u in enumerate(utts)]
 
 
+def bit_mismatches(torch, a, b) -> int:
+    """Elements of two float32 tensors (or arrays) whose bits differ."""
+    a, b = (torch.as_tensor(x).contiguous() for x in (a, b))
+    return int((a.view(torch.int32) != b.view(torch.int32).to(a.device))
+               .sum())
+
+
+def fresh_state(torch, persistent, cfg, B, dev):
+    """Silence: a zero FIFO ring and y_state at the silence bin."""
+    return (persistent.init_ring(cfg, B, dev),
+            torch.full((2, B), cfg.silence_bin, dtype=torch.int32,
+                       device=dev))
+
+
+def time_launch_ms(torch, np, launch, make_state, reps: int = 4) -> float:
+    """Mean device time of launch(ring, y_state) by CUDA events, each from a
+    fresh state, after one warm-up launch."""
+    times = []
+    for _ in range(reps + 1):
+        ring, ys = make_state()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch(ring, ys)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.mean(times[1:]))
+
+
+def check_k0c(torch, em, za) -> dict:
+    """K0c against its plain version on the card and on the CPU (bit
+    mismatches), and its time beside the plain version's and torch.softmax's
+    at the same shape."""
+    pk = em.softmax_canonical(za)
+    pp = em.softmax_canonical_plain(za)
+    torch.cuda.synchronize()
+    rows, A = za.shape
+    out = {"mismatches": bit_mismatches(torch, pk, pp),
+           "cpu_plain_mismatches": bit_mismatches(
+               torch, pk.cpu(), em.softmax_canonical_plain(za.cpu())),
+           "max_abs_err": float((pk - pp).abs().max()),
+           "ms": time_ms(torch, lambda: em.softmax_canonical(za), 50),
+           "plain_ms": time_ms(torch, lambda: em.softmax_canonical_plain(za),
+                               5),
+           "library_ms": time_ms(torch, lambda: torch.softmax(za, -1), 50)}
+    # max, subtract, exp, the fixed-tree prefix sum, divide
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        8 * rows * A, rows * A * (3 + EXP_OPS + (A.bit_length() - 1)))
+    return out
+
+
+def check_k7(torch, om, dev, gen) -> dict:
+    """K7 against its plain version at K7_SHAPES (bit mismatches), timed
+    beside the plain version and torch.matmul; sums over the shapes."""
+    out = {"mismatches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+           "library_ms": 0.0, "bound_ms": 0.0, "per_shape": []}
+    by = set()
+    for M, K, N in K7_SHAPES:
+        x = torch.rand((M, K), generator=gen, device=dev) - 0.5
+        w = torch.rand((K, N), generator=gen, device=dev) - 0.5
+        yk = om.ordered_matmul(x, w)
+        yp = om.ordered_matmul_plain(x, w)
+        torch.cuda.synchronize()
+        row = {"shape": [M, K, N], "mismatches": bit_mismatches(torch, yk, yp),
+               "max_abs_err": float((yk - yp).abs().max()),
+               "cublas_max_abs_diff": float((yk - x @ w).abs().max()),
+               "ms": time_ms(torch, lambda: om.ordered_matmul(x, w), 20),
+               "plain_ms": time_ms(torch, lambda: om.ordered_matmul_plain(
+                   x, w), 3),
+               "library_ms": time_ms(torch, lambda: torch.matmul(x, w), 20)}
+        row["bound_ms"], b_by = bound_ms(4 * (M * K + K * N + M * N),
+                                         2 * M * N * K)
+        by.add(b_by)
+        for k in ("mismatches", "ms", "plain_ms", "library_ms", "bound_ms"):
+            out[k] += row[k]
+        out["max_abs_err"] = max(out["max_abs_err"], row["max_abs_err"])
+        out["per_shape"].append(row)
+    out["bound_by"] = "+".join(sorted(by))
+    return out
+
+
 def time_ms(torch, fn, reps: int) -> float:
     """Mean device time of one call of fn over reps back-to-back calls,
     after one warm-up call, by CUDA events."""
@@ -322,7 +435,9 @@ def main() -> int:
     from nv_wavenet_tpu_torch.engine.wavenet_infer import WaveNetInfer
     from nv_wavenet_tpu_torch.models import params as params_lib
     from nv_wavenet_tpu_torch.ops import exact_math as em
-    from nv_wavenet_tpu_torch.ops import persistent
+    from nv_wavenet_tpu_torch.ops import ordered_matmul as om
+    from nv_wavenet_tpu_torch.ops import persistent, scoring
+    from nv_wavenet_tpu_torch.ops import scan_generate as tsg
     from nv_wavenet_tpu_torch.utils import build
 
     # the plain versions' matrix products go to cuBLAS: full fp32, no TF32
@@ -391,6 +506,23 @@ def main() -> int:
     if k0b_mism:
         fail(f"K0b disagrees with its plain version: {k0b_mism}")
 
+    # K0c on the same logits, K7 at the scorer's products
+    k0c = check_k0c(torch, em, za)
+    log(f"[K0c] {k0c['mismatches']}/{za.numel()} bit mismatches vs plain on "
+        f"the card, {k0c['cpu_plain_mismatches']} vs plain on the CPU")
+    if k0c["mismatches"]:
+        fail(f"K0c disagrees with its plain version: {k0c['mismatches']}")
+    gen_k7 = torch.Generator(device=dev)
+    gen_k7.manual_seed(7)
+    k7 = check_k7(torch, om, dev, gen_k7)
+    for row in k7["per_shape"]:
+        log(f"[K7] {row['shape']}: {row['mismatches']} bit mismatches vs "
+            f"plain; vs cuBLAS max abs diff {row['cublas_max_abs_diff']:.3g};"
+            f" {row['ms']:.4f} ms (torch.matmul {row['library_ms']:.4f}, "
+            f"bound {row['bound_ms']:.4f})")
+    if k7["mismatches"]:
+        fail(f"K7 disagrees with its plain version: {k7['mismatches']}")
+
     # -- phase 5: K1 vs plain, small config -----------------------------------
     cfg = cfg_lib.TEST_CONFIG_MED
     B, T = 4, 64
@@ -445,6 +577,63 @@ def main() -> int:
         f"{np.array_equal(y_one, y_parts)}")
     if not (np.array_equal(y_one, y_small) and np.array_equal(y_one, y_parts)):
         fail("chunked run_partial calls differ from one call")
+
+    # K2 against the plain version, forcing K1's samples
+    def fresh_med():
+        return fresh_state(torch, persistent, cfg, B, dev)
+    sym = torch.from_numpy(np.ascontiguousarray(y_small.T, np.float32)).to(dev)
+    out_p = persistent.generate_plain(cfg, params, 0, cond_pre, sym,
+                                      *fresh_med(), T, mode="forced",
+                                      dump=True)
+    k2_small = {"echo_mismatches": 0, "p_err": 0.0}
+    for dump in (False, True):
+        gen = persistent.make_persistent_generator(cfg, B, mode="forced",
+                                                   dump=dump)
+        out_k = gen(params, 0, cond_pre, sym, *fresh_med())
+        torch.cuda.synchronize()
+        echo = int((out_k[0] != sym.to(torch.int32)).sum())
+        p_err = float((out_k[-1] - out_p[-1]).abs().max())
+        state_ok = torch.equal(out_k[2], out_p[2])
+        ring_ok = rel_close(out_p[1].cpu(), out_k[1].cpu(), 1e-2, 3e-4)
+        dumps_ok = not dump or all(
+            rel_close(p.cpu(), k.cpu(), tol, atol) for (_, tol, atol), k, p
+            in zip(ladder, out_k[3:8], out_p[3:8]))
+        k2_small["echo_mismatches"] += echo
+        k2_small["p_err"] = max(k2_small["p_err"], p_err)
+        log(f"[K2 small] dump={dump}: y echoes the symbols with {echo} "
+            f"mismatches; p_seq max abs err {p_err:.3g} (limit 1e-6); "
+            f"y_state equal {state_ok}, ring in ladder {ring_ok}, dumps in "
+            f"ladder {dumps_ok}")
+        if echo or p_err > 1e-6 or not (state_ok and ring_ok and dumps_ok):
+            fail(f"K2 disagrees with its plain version (dump={dump})")
+
+    # K3 through the engine against the plain version fed Philox selectors
+    eng = WaveNetInfer(num_layers=cfg.num_layers,
+                       max_dilation=cfg.max_dilation, R=cfg.R, S=cfg.S,
+                       A=cfg.A, max_batch=B, chunk_size=T, device="cuda")
+    eng.set_reference_weights(ref_w)
+    eng.sampling_seed = PRNG_SEED
+    eng.set_inputs(cond, sel)
+    y3 = eng.run(T, B, mode="prng")
+    sel3 = torch.from_numpy(tsg.prng_uniform_sel(PRNG_SEED, np.arange(T), B)
+                            ).to(dev)
+    y3p = persistent.generate_plain(cfg, params, 0, cond_pre, sel3,
+                                    *fresh_med(), T)[0].T.cpu().numpy()
+    parts = [eng.run_partial(t0, min(7, T - t0), B, mode="prng")
+             for t0 in range(0, T, 7)]
+    eng.sampling_seed = PRNG_SEED + 1
+    y3_other = eng.run(T, B, mode="prng")
+    k3_small = {"mismatches": int((y3 != y3p).sum()),
+                "chunk_mismatches": int((np.concatenate(parts, 1) != y3).sum()),
+                "seeds_differ": not np.array_equal(y3, y3_other)}
+    log(f"[K3 small] run(mode='prng') vs plain fed prng_uniform_sel: "
+        f"{k3_small['mismatches']}/{y3.size} mismatches; {len(parts)} chunked"
+        f" run_partial calls vs one: {k3_small['chunk_mismatches']}; "
+        f"another seed differs: {k3_small['seeds_differ']}")
+    if (k3_small["mismatches"] or k3_small["chunk_mismatches"]
+            or not k3_small["seeds_differ"]):
+        fail("K3 disagrees with its plain version, or is not chunk "
+             "invariant, or ignores its seed")
 
     # the horizon case, with the inputs of the CPU test from its seeds
     hcfg = cfg_lib.WaveNetConfig(num_layers=4, R=32, S=128, A=256,
@@ -563,8 +752,10 @@ def main() -> int:
     eng.set_reference_weights(ref_w)
     gen_dev = torch.Generator(device=dev)
     gen_dev.manual_seed(0)
-    all_kernels = (em.EXACT_FN_KERNEL, em.SAMPLE_KERNEL,
-                   persistent.PERSISTENT_KERNEL, persistent.RAGGED_KERNEL)
+    all_kernels = (em.EXACT_FN_KERNEL, em.SAMPLE_KERNEL, em.SOFTMAX_KERNEL,
+                   om.ORDERED_MATMUL_KERNEL, persistent.PERSISTENT_KERNEL,
+                   persistent.RAGGED_KERNEL, persistent.FORCED_KERNEL,
+                   persistent.PRNG_KERNEL)
     for k in all_kernels:
         k.launches = 0
     requests = []
@@ -627,17 +818,8 @@ def main() -> int:
         fail("the main path disagrees with the plain version")
 
     gen = persistent.make_persistent_generator(cfg, MAIN_B)
-    times = []
-    for _ in range(5):
-        ring, ys = fresh()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        gen(params, 0, cond_pre, sel_c, ring, ys)
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    k1_ms = float(np.mean(times[1:]))
+    k1_ms = time_launch_ms(torch, np, lambda r, ys: gen(
+        params, 0, cond_pre, sel_c, r, ys), fresh)
     k1_bound, k1_by = bound_ms(
         k1_bytes(cfg, MAIN_B, CHECK_T),
         k1_ops_per_row_step(cfg) * MAIN_B * CHECK_T)
@@ -753,7 +935,206 @@ def main() -> int:
     if k5_flag_mism:
         fail("K5 disagrees with its plain version at the flagship")
 
-    # -- phase 10: the kernels line -------------------------------------------
+    # -- phase 10: K2 and K3 at the flagship ----------------------------------
+    # request 1's samples are the symbols K2 forces; the plain versions run
+    # K5_PLAIN_T steps, the kernels are timed over CHECK_T-step launches
+    y_tb = torch.from_numpy(np.ascontiguousarray(y_main.T)).to(dev)  # [T, B]
+    sym_main = y_tb.to(torch.float32)
+    cp_chk = (cond[:CHECK_T] + params["dil_b"][None, :, None, :]).contiguous()
+    sel_chk = sel[:CHECK_T].contiguous()
+    n = K5_PLAIN_T
+    gen2 = persistent.make_persistent_generator(cfg, MAIN_B, mode="forced")
+    gen3 = persistent.make_persistent_generator(cfg, MAIN_B, mode="prng")
+    sel3 = torch.from_numpy(tsg.prng_uniform_sel(PRNG_SEED, np.arange(n),
+                                                 MAIN_B)).to(dev)
+    plain = {}
+    for name, mode, s_in in (("K2", "forced", sym_main[:n].contiguous()),
+                             ("K3", "sample", sel3)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        plain[name] = persistent.generate_plain(
+            cfg, params, 0, cp_chk[:n].contiguous(), s_in, *fresh(), n,
+            mode=mode)
+        torch.cuda.synchronize()
+        plain[name] += ((time.perf_counter() - t) * 1e3,)
+    out2 = gen2(params, 0, cp_chk[:n].contiguous(), sym_main[:n].contiguous(),
+                *fresh())
+    out3 = gen3(params, 0, cp_chk[:n].contiguous(), sel_chk[:n].contiguous(),
+                *fresh(), seed=PRNG_SEED)
+    torch.cuda.synchronize()
+    k2_flag = {"echo_mismatches": int((out2[0] != y_tb[:n]).sum()),
+               "p_err": float((out2[3] - plain["K2"][3]).abs().max()),
+               "ring_err": float((out2[1] - plain["K2"][1]).abs().max()),
+               "state_equal": torch.equal(out2[2], plain["K2"][2]),
+               "plain_ms": plain["K2"][-1]}
+    k3_flag = {"mismatches": int((out3[0] != plain["K3"][0]).sum())
+               + int(not torch.equal(out3[2], plain["K3"][2])),
+               "ring_err": float((out3[1] - plain["K3"][1]).abs().max()),
+               "plain_ms": plain["K3"][-1]}
+    k2_ms = time_launch_ms(torch, np, lambda r, ys: gen2(
+        params, 0, cp_chk, sym_main[:CHECK_T].contiguous(), r, ys), fresh)
+    k3_ms = time_launch_ms(torch, np, lambda r, ys: gen3(
+        params, 0, cp_chk, sel_chk, r, ys, seed=PRNG_SEED), fresh)
+    k2_bound, k2_by = bound_ms(
+        k1_bytes(cfg, MAIN_B, CHECK_T) + 4 * CHECK_T * MAIN_B * cfg.A,
+        (k1_ops_per_row_step(cfg) - cfg.A) * MAIN_B * CHECK_T)
+    k3_bound, k3_by = bound_ms(
+        k1_bytes(cfg, MAIN_B, CHECK_T) - 4 * CHECK_T * MAIN_B,
+        (k1_ops_per_row_step(cfg) + PHILOX_OPS) * MAIN_B * CHECK_T)
+    log(f"[K2 flagship] {n} steps vs plain: y echoes the symbols with "
+        f"{k2_flag['echo_mismatches']} mismatches, p_seq max abs err "
+        f"{k2_flag['p_err']:.3g}, ring {k2_flag['ring_err']:.3g}, y_state "
+        f"equal {k2_flag['state_equal']}; {k2_ms:.3f} ms per {CHECK_T}-step "
+        f"launch = {k2_ms / CHECK_T * 1e3:.2f} us per step (K1 {k1_us:.2f})")
+    log(f"[K3 flagship] {n} steps vs plain fed prng_uniform_sel: "
+        f"{k3_flag['mismatches']} mismatches, ring {k3_flag['ring_err']:.3g};"
+        f" {k3_ms:.3f} ms per {CHECK_T}-step launch = "
+        f"{k3_ms / CHECK_T * 1e3:.2f} us per step (K1 {k1_us:.2f})")
+    if (k2_flag["echo_mismatches"] or k2_flag["p_err"] > 1e-6
+            or not k2_flag["state_equal"] or k3_flag["mismatches"]):
+        fail("K2 or K3 disagrees with its plain version at the flagship")
+
+    # -- phase 11: scoring at full width --------------------------------------
+    # request 1's window scored from silence by the engine's time-parallel
+    # scorer (K7, K0a, K0c) and by K2 on the same state and symbols
+    for k in all_kernels:
+        k.launches = 0
+    seng = flagship_engine()
+    seng.begin_stream(MAIN_B)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    p_eng = seng.score(cond, y_main)                          # [B, T, A]
+    score_wall_ms = (time.perf_counter() - t) * 1e3
+    snap = seng.export_state()
+    cp_full = (cond + params["dil_b"][None, :, None, :]).contiguous()
+    ring2, ys2 = fresh()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out_w = gen2(params, 0, cp_full, sym_main, ring2, ys2)
+    end.record()
+    torch.cuda.synchronize()
+    k2_window_ms = start.elapsed_time(end)
+    del cp_full
+    score_cmp = {
+        "p_bit_mismatches": bit_mismatches(
+            torch, torch.from_numpy(p_eng), out_w[3].permute(1, 0, 2).cpu()),
+        "ring_bit_mismatches": bit_mismatches(torch, snap["ring"],
+                                              ring2.cpu()),
+        "y_state_equal": bool(np.array_equal(snap["y_state"],
+                                             ys2.cpu().numpy())),
+        "echo_mismatches": int((out_w[0] != y_tb).sum())}
+    scorer_times = []
+    for _ in range(3):
+        seng.begin_stream(MAIN_B)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        seng.score_device(cond, y_tb)
+        end.record()
+        torch.cuda.synchronize()
+        scorer_times.append(start.elapsed_time(end))
+    scorer_ms = float(np.mean(scorer_times))
+    t = time.perf_counter()
+    logp_k, bits_k = scoring.score_teacher_forced_kernel(params, cfg, cond,
+                                                         y_main)
+    kernel_score_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logp_p, bits_p = scoring.score_teacher_forced_parallel(params, cfg, cond,
+                                                           y_main)
+    bits_p = bits_p.cpu().numpy()
+    parallel_score_ms = (time.perf_counter() - t) * 1e3
+    score_launches = {k.symbol: k.launches for k in all_kernels}
+    bits_diff = float(np.abs(bits_k - bits_p).max())
+    window_bound, window_by = bound_ms(
+        k1_bytes(cfg, MAIN_B, MAIN_T) + 4 * MAIN_T * MAIN_B * cfg.A,
+        (k1_ops_per_row_step(cfg) - cfg.A) * MAIN_B * MAIN_T)
+    scoring_line = {
+        "config": "flagship 20L R64 S256 A256 maxD512 fp32", "batch": MAIN_B,
+        "window": MAIN_T, **score_cmp,
+        "engine_score_wall_ms": score_wall_ms,
+        "scorer_device_ms": scorer_ms, "k2_window_ms": k2_window_ms,
+        "k2_over_scorer": k2_window_ms / scorer_ms,
+        "window_bound_ms": window_bound, "window_bound_by": window_by,
+        "score_teacher_forced_kernel_ms": kernel_score_ms,
+        "score_teacher_forced_parallel_ms": parallel_score_ms,
+        "bits_per_sample_kernel": float(bits_k.mean()),
+        "bits_per_sample_parallel": float(bits_p.mean()),
+        "bits_max_abs_diff": bits_diff, "launches": score_launches,
+        "card": card}
+    log(json.dumps({"scoring": scoring_line}))
+    log(f"[scoring] scorer vs K2 over {MAIN_B} x {MAIN_T}: p_seq "
+        f"{score_cmp['p_bit_mismatches']} bit mismatches, ring "
+        f"{score_cmp['ring_bit_mismatches']}, y_state equal "
+        f"{score_cmp['y_state_equal']}; scorer {scorer_ms:.2f} ms, K2 "
+        f"{k2_window_ms:.1f} ms; bits per sample {bits_k.mean():.6f} (K2) "
+        f"{bits_p.mean():.6f} (parallel), max diff {bits_diff:.3g}")
+    if (score_cmp["p_bit_mismatches"] or score_cmp["ring_bit_mismatches"]
+            or not score_cmp["y_state_equal"]
+            or score_cmp["echo_mismatches"] or bits_diff > 1e-5):
+        fail("the time-parallel scorer and K2 disagree, or the two scoring "
+             "functions' bits per sample differ by more than 1e-5")
+    scoring_kernels = (om.ORDERED_MATMUL_KERNEL, em.EXACT_FN_KERNEL,
+                       em.SOFTMAX_KERNEL, persistent.FORCED_KERNEL)
+    if not all(score_launches[k.symbol] for k in scoring_kernels):
+        fail(f"the scoring path did not launch K7, K0a, K0c and K2: "
+             f"{score_launches}")
+
+    # -- phase 12: score -> feed handoff --------------------------------------
+    half = MAIN_T // 2
+    heng = flagship_engine()
+    heng.begin_stream(MAIN_B)
+    yf1 = heng.feed(cond[:half], sel[:half])
+    yf2 = heng.feed(cond[half:], sel[half:])
+    feed_mism = int((np.concatenate([yf1, yf2], 1) != y_main).sum())
+    heng.begin_stream(MAIN_B)
+    p_half = heng.score(cond[:half], yf1)
+    yf2b = heng.feed(cond[half:], sel[half:])
+    handoff = {"feed_vs_run_mismatches": feed_mism,
+               "handoff_mismatches": int((yf2b != yf2).sum()),
+               "half_window_p_bit_mismatches": bit_mismatches(
+                   torch, p_half, np.ascontiguousarray(p_eng[:, :half]))}
+    log(f"[handoff] two feeds of {half} vs the run: {feed_mism} mismatches;"
+        f" score the first half, feed the second: "
+        f"{handoff['handoff_mismatches']} mismatches; half-window p_seq vs "
+        f"the full window's: {handoff['half_window_p_bit_mismatches']} bit "
+        f"mismatches")
+    if any(handoff.values()):
+        fail(f"the score -> feed handoff is not exact: {handoff}")
+    del p_eng, p_half
+
+    # -- phase 13: prng at full width -----------------------------------------
+    for k in all_kernels:
+        k.launches = 0
+    peng = flagship_engine()
+    peng.sampling_seed = PRNG_SEED
+    peng.set_inputs(cond, sel)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    y_prng = peng.run_chunks(MAIN_CHUNK, lambda yc, off, n: None, MAIN_T,
+                             MAIN_B, mode="prng")
+    prng_s = time.perf_counter() - t
+    prng_launches = {k.symbol: k.launches for k in all_kernels}
+    prng_ok = (y_prng.shape == (MAIN_B, MAIN_T) and int(y_prng.min()) >= 0
+               and int(y_prng.max()) < cfg.A)
+    log(json.dumps({"prng": {
+        "config": "flagship 20L R64 S256 A256 maxD512 fp32", "batch": MAIN_B,
+        "samples": MAIN_T, "seconds": prng_s,
+        "khz_per_utt": MAIN_T / prng_s / 1e3,
+        "us_per_step_wall": prng_s / MAIN_T * 1e6,
+        "k3_us_per_step": k3_ms / CHECK_T * 1e3, "k1_us_per_step": k1_us,
+        "launches": prng_launches, "card": card}}))
+    log(f"[prng] {MAIN_B} x {MAIN_T} samples in {prng_s:.3f} s = "
+        f"{prng_s / MAIN_T * 1e6:.2f} us per step (main path "
+        f"{requests[0]['seconds'] / MAIN_T * 1e6:.2f}); K3 "
+        f"{k3_ms / CHECK_T * 1e3:.2f} us per step on the card, K1 "
+        f"{k1_us:.2f}; output well-formed {prng_ok}")
+    if not prng_ok or not prng_launches[persistent.PRNG_KERNEL.symbol]:
+        fail(f"the prng request did not launch K3 or is malformed: "
+             f"{prng_launches}")
+
+    # -- phase 14: the kernels line -------------------------------------------
     def entry(name, source, replaces, n_launches, mism, err, ms, plain, bnd,
               by, lib, shape, **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -766,17 +1147,19 @@ def main() -> int:
     kernels = [
         entry("K0a exact_fn_kernel", csrc + "exact_math_kernels.cu",
               "tools/probe_exact_math_tpu.py:90",
-              launches[em.EXACT_FN_KERNEL.symbol], k0a["mismatches"],
+              score_launches[em.EXACT_FN_KERNEL.symbol], k0a["mismatches"],
               k0a["max_abs_err"], k0a_ms, k0a_plain, k0a_bound,
               "+".join(sorted(k0a_by)), k0a_lib,
-              f"exp+tanh+sigmoid over [{n}] f32",
+              f"exp+tanh+sigmoid over [{x.numel()}] f32",
               also_replaces="tools/probe_exact_math_tpu.py:135",
-              inlined_in="K1, K5"),
+              inlined_in="K1, K2, K3, K5", launches_on="the scoring phase",
+              main_path_launches=launches[em.EXACT_FN_KERNEL.symbol]),
         entry("K0b sample_kernel", csrc + "exact_math_kernels.cu",
               "tools/probe_exact_math_tpu.py:107",
               launches[em.SAMPLE_KERNEL.symbol], k0b_mism, 0.0, k0b_ms,
               k0b_plain, k0b_bound, k0b_by, None,
-              f"za [{rows},{A}] f32, sel [{rows},1]", inlined_in="K1, K5"),
+              f"za [{rows},{A}] f32, sel [{rows},1]",
+              inlined_in="K1, K3, K5"),
         entry("K1 persistent_generate_kernel<false>", csrc + "persistent.cu",
               "nv_wavenet_tpu/ops/persistent.py:762",
               launches[persistent.PERSISTENT_KERNEL.symbol],
@@ -796,6 +1179,46 @@ def main() -> int:
               variant="ragged=True (:109-118, 252-256, 302-311, 410-416) "
                       "and rotate_ring_phase (:785)",
               launches_on="the serving phase"),
+        entry("K2 persistent_generate_kernel<false, kSelForced>",
+              csrc + "persistent.cu", "nv_wavenet_tpu/ops/persistent.py:762",
+              score_launches[persistent.FORCED_KERNEL.symbol],
+              k2_small["echo_mismatches"] + k2_flag["echo_mismatches"]
+              + score_cmp["p_bit_mismatches"]
+              + score_cmp["ring_bit_mismatches"],
+              max(k2_small["p_err"], k2_flag["p_err"]), k2_ms,
+              k2_flag["plain_ms"], k2_bound, k2_by, None,
+              f"flagship, B={MAIN_B}, T={CHECK_T} steps per launch; "
+              f"plain_ms over {K5_PLAIN_T} steps",
+              variant='mode="forced" (:139-146, 387-400, 692-694)',
+              launches_on="the scoring phase",
+              window_ms=k2_window_ms),
+        entry("K3 persistent_generate_kernel<false, kSelPrng>",
+              csrc + "persistent.cu", "nv_wavenet_tpu/ops/persistent.py:762",
+              prng_launches[persistent.PRNG_KERNEL.symbol],
+              k3_small["mismatches"] + k3_small["chunk_mismatches"]
+              + k3_flag["mismatches"], 0.0, k3_ms, k3_flag["plain_ms"],
+              k3_bound, k3_by, None,
+              f"flagship, B={MAIN_B}, T={CHECK_T} steps per launch; "
+              f"plain_ms over {K5_PLAIN_T} steps",
+              variant='mode="prng", prng_uniform_sel (:74-83, 404-405)',
+              launches_on="the prng request"),
+        entry("K0c softmax_p_kernel", csrc + "exact_math_kernels.cu",
+              "none (XLA in nv_wavenet_tpu/ops/score_parallel.py:169; "
+              "softmax_canonical, nv_wavenet_tpu/ops/persistent.py:64)",
+              score_launches[em.SOFTMAX_KERNEL.symbol], k0c["mismatches"],
+              k0c["max_abs_err"], k0c["ms"], k0c["plain_ms"],
+              k0c["bound_ms"], k0c["bound_by"], k0c["library_ms"],
+              f"za [{rows},{A}] f32", launches_on="the scoring phase"),
+        entry("K7 ordered_matmul_kernel", csrc + "ordered_matmul.cu",
+              "none (XLA in nv_wavenet_tpu/ops/score_parallel.py:135-139, "
+              "150-151, 163-168)",
+              score_launches[om.ORDERED_MATMUL_KERNEL.symbol],
+              k7["mismatches"], k7["max_abs_err"], k7["ms"], k7["plain_ms"],
+              k7["bound_ms"], k7["bound_by"], k7["library_ms"],
+              "sum over " + ", ".join(f"[{m},{k}]x[{k},{n}]"
+                                      for m, k, n in K7_SHAPES) + " f32",
+              launches_on="the scoring phase",
+              per_shape=k7["per_shape"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

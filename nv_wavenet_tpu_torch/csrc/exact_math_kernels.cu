@@ -7,11 +7,18 @@
 // K0b sample_kernel: the canonical sampler, one block per row of za [N, A]:
 //   max, exp(za - max), fixed-tree prefix sum, count of bins <= sel * sum,
 //   silence fallback.  Replaces tools/probe_exact_math_tpu.py:107.
+// K0c softmax_p_kernel: the canonical softmax, one block per row of
+//   za [N, A]: max, e = exp(za - max), fixed-tree prefix sum, p = e / cum[A-1]
+//   (IEEE division; -prec-div stays on).  No Pallas counterpart: the JAX
+//   time-parallel scorer computes it in XLA (persistent.py:64-71,
+//   softmax_canonical); K2 writes the same p per step, so the scorer's p_seq
+//   equals K2's bit for bit.
 //
-// Both are memory-bound streams (a few tens of fp32 ops per element read);
-// the grid-stride loop and one block per row keep every load coalesced.  They
-// exist to hold the device library bit for bit against the plain torch
-// versions; the generation kernel (persistent.cu) inlines the same functions.
+// All three are memory-bound streams (a few tens of fp32 ops per element
+// read); the grid-stride loop and one block per row keep every load
+// coalesced.  K0a and K0b exist to hold the device library bit for bit
+// against the plain torch versions; the generation kernel (persistent.cu)
+// inlines the same functions.  K0a and K0c are on the scorer's path.
 
 #include <cuda_runtime.h>
 
@@ -48,6 +55,24 @@ sample_kernel(const float* __restrict__ za, const float* __restrict__ sel, int* 
   if (threadIdx.x == 0) y[blockIdx.x] = v;
 }
 
+// dynamic shared memory: 3 * A floats (e, and the prefix-sum ping-pong pair)
+__global__ void __launch_bounds__(kThreads)
+softmax_p_kernel(const float* __restrict__ za, float* __restrict__ p, int A) {
+  extern __shared__ float smem[];
+  float* e = smem;
+  float* c0 = smem + A;
+  float* c1 = c0 + A;
+  const float* row = za + (size_t)blockIdx.x * A;
+  float m = -INFINITY;
+  for (int i = threadIdx.x; i < A; i += blockDim.x) m = fmaxf(m, row[i]);
+  m = nvw::block_max(m);
+  for (int i = threadIdx.x; i < A; i += blockDim.x) c0[i] = e[i] = nvw::em_exp(row[i] - m);
+  __syncthreads();
+  const float total = nvw::block_fixed_tree_cumsum(c0, c1, A)[A - 1];
+  float* out = p + (size_t)blockIdx.x * A;
+  for (int i = threadIdx.x; i < A; i += blockDim.x) out[i] = e[i] / total;
+}
+
 }  // namespace
 
 extern "C" {
@@ -71,6 +96,17 @@ int nvw_sample(const float* za, const float* sel, int* y, int rows, int A, int s
     if (err != cudaSuccess) return (int)err;
   }
   sample_kernel<<<rows, kThreads, smem, (cudaStream_t)stream>>>(za, sel, y, A, silence_bin);
+  return (int)cudaGetLastError();
+}
+
+int nvw_softmax_p(const float* za, float* p, int rows, int A, void* stream) {
+  const size_t smem = 3 * (size_t)A * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        softmax_p_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  softmax_p_kernel<<<rows, kThreads, smem, (cudaStream_t)stream>>>(za, p, A);
   return (int)cudaGetLastError();
 }
 

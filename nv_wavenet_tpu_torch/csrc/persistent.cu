@@ -58,6 +58,30 @@
 // without it: K1's time has moved 1.77x from a change to one loop-carried
 // pair, and the per-row loads stay out of it.
 //
+// K2: the forced-mode instance (kSel = kSelForced).  Replaces the TPU
+// kernel's mode="forced" (nv_wavenet_tpu/ops/persistent.py:762; :139-146,
+// 387-400, 692-694, 721-722): the sel stream carries the symbols to emit as
+// exact small-integer floats, the chain consumes them, and every step writes
+// the normalised distribution p_seq[j, b, :] = em_exp(za - max) / cum[A-1],
+// exactly as the dump's p.  The extra output is 1 KB per row-step at A=256,
+// written once, so K2 is bounded as K1 is (the per-row latency chain).
+//
+// K3: the PRNG-mode instance (kSel = kSelPrng).  Replaces the TPU kernel's
+// mode="prng" (prng_uniform_sel, :74-83, 404-405): each step's uniform is
+// drawn on the card from Philox4x32-10 with counter (t_lo, t_hi, row, 0) and
+// key (seed_lo, seed_hi), word 0's top 24 bits times 2^-24, the mapping of
+// the TPU kernel.  It cannot give the TPU's hardware bits; keyed on the
+// absolute clock and the row, its draws do not depend on chunking, and seed
+// s at t+1 is not seed s+1 at t (the TPU kernel seeds with seed + t).  Every
+// thread computes the ten rounds itself (integer work beside K1's chain), so
+// the draw needs no broadcast.  The plain version computes the same words
+// (ops/scan_generate.py::prng_uniform_sel).
+//
+// The selector source is a compile-time parameter, as kRagged is: K1 and K5
+// are the kSelInjected instances and compile exactly as they did before K2
+// and K3 existed (K1's time has moved 1.77x from a change to one
+// loop-carried pair, so no mode becomes a runtime branch inside it).
+//
 // Compiled with -fmad=false (utils/build.py) so the inlined exact math and
 // every a*b+c here round twice, as in the plain torch version.
 
@@ -70,6 +94,10 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kModeSample = 0;
 constexpr int kModeArgmax = 1;
+// where a step's selector comes from
+constexpr int kSelInjected = 0;   // sel[j, b], a uniform (K1, K5)
+constexpr int kSelForced = 1;     // sel[j, b], the symbol to emit (K2)
+constexpr int kSelPrng = 2;       // Philox4x32-10 on the card (K3)
 
 struct GenArgs {
   const float* embed;   // [2A, R]
@@ -99,6 +127,8 @@ struct GenArgs {
   int mode;
   const long long* t0_row;   // [B] K5 only: each row's absolute clock
   const int* n_valid_row;    // [B] K5 only: each row's steps (<= T)
+  float* p_seq;              // [T, B, A] K2 only: per-step distributions
+  unsigned long long seed;   // K3 only: the Philox key
 };
 
 // v[0, K) . w[0], w[stride], ... in the fixed order k = 0, 1, ..., K-1
@@ -110,7 +140,57 @@ __device__ __forceinline__ float dot_column(const float* v, const float* __restr
   return acc;
 }
 
-template <bool kRagged>
+// dot_column's sums in the same order, with the weights of eight k-steps
+// loaded before their products, so eight L2 loads are in flight at once.
+// In the K2 instance ptxas interleaved dot_column's loads with the
+// dependent adds, exposing each load's latency alone (295 us per flagship
+// step on an H100 against K1's 183; PERF.md).  K2 and K3 use this form,
+// K1 and K5 keep dot_column, so their code stays as it was.
+__device__ __forceinline__ float dot_column_batched(const float* v, const float* __restrict__ w,
+                                                    int K, int stride) {
+  float acc = 0.0f;
+  int k = 0;
+  for (; k + 8 <= K; k += 8) {
+    float wk[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) wk[u] = __ldg(w + (size_t)(k + u) * stride);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) acc = acc + v[k + u] * wk[u];
+  }
+  for (; k < K; ++k) acc = acc + v[k] * __ldg(w + (size_t)k * stride);
+  return acc;
+}
+
+template <int kSel>
+__device__ __forceinline__ float dot(const float* v, const float* __restrict__ w, int K,
+                                     int stride) {
+  return kSel == kSelInjected ? dot_column(v, w, K, stride) : dot_column_batched(v, w, K, stride);
+}
+
+// Philox4x32-10 word 0 for counter (t_lo, t_hi, row, 0), key (seed_lo,
+// seed_hi), mapped to [0, 1) by its top 24 bits: the kernel's uniform for
+// absolute step t of row `row`
+__device__ __forceinline__ float philox_uniform(unsigned long long seed, long long t, int row) {
+  unsigned c0 = (unsigned)t, c1 = (unsigned)((unsigned long long)t >> 32);
+  unsigned c2 = (unsigned)row, c3 = 0u;
+  unsigned k0 = (unsigned)seed, k1 = (unsigned)(seed >> 32);
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const unsigned hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
+    const unsigned hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
+    c0 = hi1 ^ c1 ^ k0;
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;
+    c3 = lo0;
+  }
+  return (float)(c0 >> 8) * 0x1.0p-24f;
+}
+
+template <bool kRagged, int kSel>
 __global__ void __launch_bounds__(kThreads) persistent_generate_kernel(const GenArgs a) {
   extern __shared__ float smem[];
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
@@ -160,7 +240,7 @@ __global__ void __launch_bounds__(kThreads) persistent_generate_kernel(const Gen
       const float* W = a.dil_w + (size_t)l * R2 * R2;
       for (int q = tid; q < 2 * R2; q += nt) {
         const int cur = q >= R2;
-        zh[q] = dot_column(cur ? x : xp, W + (size_t)cur * R * R2 + (q - cur * R2), R, R2);
+        zh[q] = dot<kSel>(cur ? x : xp, W + (size_t)cur * R * R2 + (q - cur * R2), R, R2);
       }
       __syncthreads();
 
@@ -177,7 +257,7 @@ __global__ void __launch_bounds__(kThreads) persistent_generate_kernel(const Gen
       const float* Wrs = a.rs_w + (size_t)l * R * RS;
       const float* brs = a.rs_b + (size_t)l * RS;
       for (int o = tid; o < RS; o += nt) {
-        const float acc = dot_column(h, Wrs + o, R, RS);
+        const float acc = dot<kSel>(h, Wrs + o, R, RS);
         if (o < R) {
           x[o] = (acc + __ldg(brs + o)) + x[o];
         } else {
@@ -200,11 +280,11 @@ __global__ void __launch_bounds__(kThreads) persistent_generate_kernel(const Gen
 
     // output stack: zs = relu(skip Wzs + bzs); za = zs Wza + bza
     for (int o = tid; o < A; o += nt) {
-      zs[o] = fmaxf(dot_column(skip, a.out_w + o, S, A) + __ldg(a.out_b + o), 0.0f);
+      zs[o] = fmaxf(dot<kSel>(skip, a.out_w + o, S, A) + __ldg(a.out_b + o), 0.0f);
     }
     __syncthreads();
     for (int o = tid; o < A; o += nt) {
-      za[o] = dot_column(zs, a.end_w + o, A, A) + __ldg(a.end_b + o);
+      za[o] = dot<kSel>(zs, a.end_w + o, A, A) + __ldg(a.end_b + o);
     }
     __syncthreads();
 
@@ -228,11 +308,18 @@ __global__ void __launch_bounds__(kThreads) persistent_generate_kernel(const Gen
           a.d_p[(size_t)b * A + i] = nvw::em_exp(za[i] - zmax) / total;
         }
       }
-      if (a.mode == kModeArgmax) {
+      if (kSel == kSelForced) {
+        // the dump's p, for every step: p_seq[j, b, :]
+        const float total = cum[A - 1];
+        float* p = a.p_seq + ((size_t)j * B + b) * A;
+        for (int i = tid; i < A; i += nt) p[i] = nvw::em_exp(za[i] - zmax) / total;
+        y = (int)__ldg(a.sel + (size_t)j * B + b);
+      } else if (a.mode == kModeArgmax) {
         y = nvw::block_argmax(za, A);
       } else {
-        y = nvw::block_select_from_cumsum(cum, __ldg(a.sel + (size_t)j * B + b), A,
-                                          a.silence_bin);
+        const float u = kSel == kSelPrng ? philox_uniform(a.seed, t, b)
+                                         : __ldg(a.sel + (size_t)j * B + b);
+        y = nvw::block_select_from_cumsum(cum, u, A, a.silence_bin);
       }
     }
     y_prev = y_cur;
@@ -246,16 +333,16 @@ __global__ void __launch_bounds__(kThreads) persistent_generate_kernel(const Gen
   }
 }
 
-template <bool kRagged>
+template <bool kRagged, int kSel>
 int launch(const GenArgs& args, void* stream) {
   const size_t smem = (size_t)(7 * args.R + args.S + 4 * args.A) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err =
-        cudaFuncSetAttribute(persistent_generate_kernel<kRagged>,
+        cudaFuncSetAttribute(persistent_generate_kernel<kRagged, kSel>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  persistent_generate_kernel<kRagged><<<args.B, kThreads, smem, (cudaStream_t)stream>>>(args);
+  persistent_generate_kernel<kRagged, kSel><<<args.B, kThreads, smem, (cudaStream_t)stream>>>(args);
   return (int)cudaGetLastError();
 }
 
@@ -275,8 +362,8 @@ int nvw_persistent_generate(const float* embed, const float* dil_w, const float*
   const GenArgs args{embed, dil_w, rs_w, rs_b, out_w, out_b, end_w, end_b, cond,
                      sel, sched, ring, y_state, y, d_xt, d_skip, d_zs, d_za, d_p, t0,
                      n_valid, B, L, R, S, A, tanh_embed, silence_bin, mode,
-                     nullptr, nullptr};
-  return launch<false>(args, stream);
+                     nullptr, nullptr, nullptr, 0};
+  return launch<false, kSelInjected>(args, stream);
 }
 
 // K5: mode "sample", no dump; t0_row [B] and n_valid_row [B] on the device
@@ -290,8 +377,41 @@ int nvw_persistent_generate_ragged(const float* embed, const float* dil_w, const
   const GenArgs args{embed, dil_w, rs_w, rs_b, out_w, out_b, end_w, end_b, cond,
                      sel, sched, ring, y_state, y, nullptr, nullptr, nullptr, nullptr,
                      nullptr, 0, 0, B, L, R, S, A, tanh_embed, silence_bin, kModeSample,
-                     t0_row, n_valid_row};
-  return launch<true>(args, stream);
+                     t0_row, n_valid_row, nullptr, 0};
+  return launch<true, kSelInjected>(args, stream);
+}
+
+// K2: sel carries the symbols; p_seq [T, B, A] gets every run step's
+// distribution (the wrapper zeroes it, so steps past n_valid stay 0)
+int nvw_persistent_generate_forced(const float* embed, const float* dil_w, const float* rs_w,
+                                   const float* rs_b, const float* out_w, const float* out_b,
+                                   const float* end_w, const float* end_b, const float* cond,
+                                   const float* sel, const int* sched, float* ring,
+                                   int* y_state, int* y, float* d_xt, float* d_skip,
+                                   float* d_zs, float* d_za, float* d_p, float* p_seq,
+                                   long long t0, int n_valid, int B, int L, int R, int S,
+                                   int A, int tanh_embed, int silence_bin, void* stream) {
+  const GenArgs args{embed, dil_w, rs_w, rs_b, out_w, out_b, end_w, end_b, cond,
+                     sel, sched, ring, y_state, y, d_xt, d_skip, d_zs, d_za, d_p, t0,
+                     n_valid, B, L, R, S, A, tanh_embed, silence_bin, kModeSample,
+                     nullptr, nullptr, p_seq, 0};
+  return launch<false, kSelForced>(args, stream);
+}
+
+// K3: the selectors come from Philox keyed on `seed`; no sel input
+int nvw_persistent_generate_prng(const float* embed, const float* dil_w, const float* rs_w,
+                                 const float* rs_b, const float* out_w, const float* out_b,
+                                 const float* end_w, const float* end_b, const float* cond,
+                                 const int* sched, float* ring, int* y_state, int* y,
+                                 float* d_xt, float* d_skip, float* d_zs, float* d_za,
+                                 float* d_p, long long t0, int n_valid, int B, int L, int R,
+                                 int S, int A, int tanh_embed, int silence_bin,
+                                 unsigned long long seed, void* stream) {
+  const GenArgs args{embed, dil_w, rs_w, rs_b, out_w, out_b, end_w, end_b, cond,
+                     nullptr, sched, ring, y_state, y, d_xt, d_skip, d_zs, d_za, d_p, t0,
+                     n_valid, B, L, R, S, A, tanh_embed, silence_bin, kModeSample,
+                     nullptr, nullptr, nullptr, seed};
+  return launch<false, kSelPrng>(args, stream);
 }
 
 }  // extern "C"

@@ -3,18 +3,24 @@
 
 The port's counterpart of `nv_wavenet_tpu/engine/wavenet_infer.py`: the
 weight setters, `set_inputs`, `run` / `run_partial` / `run_device` /
-`run_chunks`, the activation getters of dump mode, and the streaming
-serving surface: `begin_stream`, `feed` / `feed_device` (with per-row
-`lengths`), `reset_utterances`, `export_state` / `import_state` and the
-sampling `temperature`.
+`run_chunks`, the activation getters of dump mode, the streaming serving
+surface: `begin_stream`, `feed` / `feed_device` (with per-row `lengths`),
+`reset_utterances`, `export_state` / `import_state` and the sampling
+`temperature`, and teacher-forced scoring: `score` / `score_device`.
 
   * The engine runs on the card: `device=None` means "cuda", and on a host
     without CUDA that raises (it never falls back to the CPU).  Tests pass
     `device="cpu"`, which runs the plain PyTorch loop.
   * Implementations: AUTO, SINGLE_BLOCK, DUAL_BLOCK and PERSISTENT all map
-    to kernel K1 (`ops/persistent.py`).  MANYBLOCK (weights streamed per
-    layer, kernel K4) is still to port and raises NotImplementedError, as
-    do modes "forced" (K2) and "prng" (K3) and `score`.
+    to the persistent kernel (`ops/persistent.py`): K1 in modes "sample"
+    and "argmax", K2 in mode "forced" (the selectors carry the symbols to
+    emit), K3 in mode "prng" (selectors drawn on the card from Philox keyed
+    on `sampling_seed` and the absolute clock).  MANYBLOCK (weights
+    streamed per layer, kernel K4) is still to port and raises
+    NotImplementedError.
+  * `score` / `score_device` run the time-parallel scorer
+    (`ops/score_parallel.py`: kernels K7, K0a, K0c) over a window of given
+    symbols and leave the state generation would leave.
   * Conditioning is uploaded to the device once, in `set_inputs`; the
     dil_b-prefolded copy `cond_pre = cond + dil_b` is built there lazily,
     once per (inputs, weights).
@@ -39,7 +45,7 @@ import torch
 
 from nv_wavenet_tpu_torch.config import WaveNetConfig
 from nv_wavenet_tpu_torch.models import params as params_lib
-from nv_wavenet_tpu_torch.ops import persistent
+from nv_wavenet_tpu_torch.ops import persistent, score_parallel
 
 
 class Impl(enum.Enum):
@@ -159,8 +165,10 @@ class WaveNetInfer:
         self._y_state: Optional[torch.Tensor] = None
         self._dumps: Optional[Dict[str, torch.Tensor]] = None
         # generators by (batch, mode, dump, ragged): each holds its FIFO
-        # layout on the card, so a feed uploads nothing but its inputs
+        # layout on the card, so a feed uploads nothing but its inputs;
+        # scorers by batch
         self._gens: Dict[tuple, Callable] = {}
+        self._scorers: Dict[int, Callable] = {}
         # per-row absolute clocks of the open stream [batch] (None: no
         # stream)
         self._stream_t_row: Optional[np.ndarray] = None
@@ -303,7 +311,11 @@ class WaveNetInfer:
     def run(self, num_samples: int, batch_size: int, mode: str = "sample",
             dump_activations: bool = False) -> np.ndarray:
         """Generate `num_samples` for `batch_size` utterances.
-        Returns y: [batch, num_samples] int32 mu-law bins."""
+        Returns y: [batch, num_samples] int32 mu-law bins.  Modes: "sample"
+        (the selectors of `set_inputs`), "argmax", "forced" (the selectors
+        hold the symbols to emit) and "prng" (selectors drawn on the card,
+        keyed on `sampling_seed` and the absolute sample index, so chunking
+        does not change them)."""
         return self.run_partial(0, num_samples, batch_size, mode,
                                 dump_activations)
 
@@ -336,11 +348,12 @@ class WaveNetInfer:
             cp = cond_pre[sl] if B == cond_pre.shape[2] \
                 else cond_pre[sl, :, :B].contiguous()
             sel = self._selectors[sl, :B].contiguous()
-            out = gen(params, t0, cp, sel, self._ring, self._y_state)
+            out = gen(params, t0, cp, sel, self._ring, self._y_state,
+                      seed=self.sampling_seed)
             ys.append(out[0])
             if dump_activations:
                 self._dumps = dict(zip(("xt", "skip", "zs", "za", "p"),
-                                       out[3:]))
+                                       out[3:8]))
         if not ys:
             return torch.zeros((0, B), dtype=torch.int32, device=self.device)
         return ys[0] if len(ys) == 1 else torch.cat(ys)
@@ -435,7 +448,9 @@ class WaveNetInfer:
         call (0 allowed): row b consumes cond_chunk[:lengths[b], :, b],
         advances its own clock, and its samples y[b, :lengths[b]] equal
         those of the row generated alone; the rest of its row is 0.  Such
-        ragged feeds run mode "sample" only."""
+        ragged feeds run mode "sample" only.  Lockstep feeds take every
+        mode of `run`; mode "prng" draws from the row clock, so its samples
+        do not depend on the chunking either."""
         return self.feed_device(cond_chunk, selectors_chunk, mode,
                                 lengths).T.cpu().numpy()
 
@@ -471,7 +486,8 @@ class WaveNetInfer:
                                if mode == "sample"
                                else np.zeros((T, B), np.float32))
         y = gen(self._device_params(), t0, self._stage_cond_pre(cond_chunk),
-                self._stage(selectors_chunk), self._ring, self._y_state)[0]
+                self._stage(selectors_chunk), self._ring, self._y_state,
+                seed=self.sampling_seed)[0]
         self._stream_t_row = clocks + T
         return y
 
@@ -502,6 +518,51 @@ class WaveNetInfer:
                 torch.from_numpy(lengths.astype(np.int32)))[0]
         self._stream_t_row = clocks + lengths
         return y
+
+    def score_device(self, cond_chunk, y_chunk) -> torch.Tensor:
+        """Teacher-forced scoring of a KNOWN window, continuing the stream:
+        returns the device per-step distributions p_seq [T, B, A] and
+        advances the state (ring, y_state, every row clock by T) exactly as
+        if the engine had generated y_chunk [T, B], so scoring and
+        generation interleave freely (a score -> feed handoff is exact).
+        Computed by the time-parallel scorer (`ops/score_parallel.py`),
+        whose p, ring and y_state equal the forced kernel K2's bit for bit
+        on the card.  Under a temperature p is the tempered distribution,
+        as `feed` samples it.  Needs `begin_stream` and rows at one clock
+        (the scorer shares one clock across the batch)."""
+        if self._stream_t_row is None:
+            raise RuntimeError("call begin_stream(batch_size) first")
+        clocks = self._stream_t_row
+        if not np.all(clocks == clocks[0]):
+            raise ValueError(f"score_device: the row clocks {clocks.tolist()}"
+                             f" differ (ragged feeds or slot handover); the "
+                             f"scorer shares one clock across the batch")
+        B = len(clocks)
+        T = cond_chunk.shape[0]
+        if tuple(cond_chunk.shape[1:]) != (self.cfg.num_layers, B,
+                                           2 * self.cfg.R):
+            raise ValueError(f"score_device: cond_chunk shape "
+                             f"{tuple(cond_chunk.shape)} does not match (n, "
+                             f"L={self.cfg.num_layers}, batch={B}, "
+                             f"2R={2 * self.cfg.R})")
+        if tuple(y_chunk.shape) != (T, B):
+            raise ValueError(f"score_device: y_chunk shape "
+                             f"{tuple(y_chunk.shape)} != {(T, B)}")
+        if B not in self._scorers:
+            self._scorers[B] = score_parallel.make_parallel_scorer(
+                self.cfg, B, prefold_cond=True)
+        y = torch.as_tensor(y_chunk, device=self.device).to(torch.int32)
+        p_seq = self._scorers[B](self._device_params(), int(clocks[0]),
+                                 self._stage_cond_pre(cond_chunk), y,
+                                 self._ring, self._y_state)[0]
+        self._stream_t_row = clocks + T
+        return p_seq
+
+    def score(self, cond_chunk, y_chunk) -> np.ndarray:
+        """`score_device` with the read-back and batch-major symbols:
+        y_chunk [B, T] int -> p_seq [B, T, A] numpy."""
+        y = torch.as_tensor(y_chunk).T
+        return self.score_device(cond_chunk, y).permute(1, 0, 2).cpu().numpy()
 
     def _stage(self, x) -> torch.Tensor:
         """A float32 chunk on the engine's device.  A host array goes

@@ -25,8 +25,9 @@ Algorithms (constants from tools/gen_exact_math_coeffs.py):
   sampler: e = exp(za - max), fixed-tree (Hillis-Steele) prefix sum, count
         of bins with cum <= sel * sum, silence_bin when that count is A.
 
-`exact_fn` and `sample_from_logits` take a tensor on the CPU to the plain
-version and a CUDA tensor to the kernel (K0a / K0b), never one to the other.
+`exact_fn`, `sample_from_logits` and `softmax_canonical` take a tensor on
+the CPU to the plain version and a CUDA tensor to the kernel (K0a / K0b /
+K0c), never one to the other.
 """
 
 from __future__ import annotations
@@ -195,6 +196,12 @@ def sample_from_logits_plain(za: torch.Tensor, sel: torch.Tensor,
     return select_from_cumsum(cum, sel, za.shape[-1], silence_bin)
 
 
+def softmax_canonical_plain(za: torch.Tensor) -> torch.Tensor:
+    """The normalized probabilities in the canonical order (the JAX
+    package's `ops/persistent.py::softmax_canonical`)."""
+    return softmax_p(*softmax_cumsum(za))
+
+
 PLAIN_FNS = {"exp": exp, "tanh": tanh, "sigmoid": sigmoid}
 
 # ---------------------------------------------------------------------------
@@ -212,6 +219,10 @@ EXACT_FN_KERNEL = build.CudaKernel(
 SAMPLE_KERNEL = build.CudaKernel(
     "exact_math_kernels.cu", "nvw_sample",
     [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P])
+# K0c: one block per row: max, exp, fixed-tree cumsum, p = e / sum
+SOFTMAX_KERNEL = build.CudaKernel(
+    "exact_math_kernels.cu", "nvw_softmax_p",
+    [_P, _P, ctypes.c_int, ctypes.c_int, _P])
 
 
 def _device_kind(t: torch.Tensor) -> str:
@@ -254,3 +265,19 @@ def sample_from_logits(za: torch.Tensor, sel: torch.Tensor,
         SAMPLE_KERNEL(za.data_ptr(), sel.data_ptr(), y.data_ptr(), n, A,
                       silence_bin, build.current_stream(za.device))
     return y
+
+
+def softmax_canonical(za: torch.Tensor) -> torch.Tensor:
+    """Normalized probabilities of za [..., A] float32 logits in the
+    canonical order: e = exp(za - max), fixed-tree prefix sum, p = e / sum.
+    CPU tensor: the plain version; CUDA tensor: kernel K0c (one block per
+    row)."""
+    if _device_kind(za) == "cpu":
+        return softmax_canonical_plain(za)
+    build.check_tensor(za, "za", torch.float32, za.shape, za.device)
+    p = torch.empty_like(za)
+    rows = za.numel() // za.shape[-1] if za.shape[-1] else 0
+    if rows:
+        SOFTMAX_KERNEL(za.data_ptr(), p.data_ptr(), rows, za.shape[-1],
+                       build.current_stream(za.device))
+    return p

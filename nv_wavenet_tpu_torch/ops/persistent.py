@@ -1,14 +1,17 @@
 """The persistent generator: the whole generation of a call in one kernel
-launch (K1 and K5, `csrc/persistent.cu`), with its plain PyTorch version.
+launch (K1, K2, K3 and K5, `csrc/persistent.cu`), with its plain PyTorch
+version.
 
 The port's counterpart of `nv_wavenet_tpu/ops/persistent.py`
 (`make_persistent_generator`): modes "sample" and "argmax" with the
-optional last-step activation dump (K1), and `ragged=True`, per-row clocks
-and lengths in mode "sample" (K5, the ragged feeds of the serving path).  A
-CUDA tensor launches the kernel; a CPU tensor runs the plain loop of
-`ops/scan_generate.py`.  Nothing falls back from one to the other.  Modes
-"forced" (K2) and "prng" (K3) and `stream_weights`/`stream_quant` (K4) are
-still to port and raise NotImplementedError.
+optional last-step activation dump (K1), mode "forced" (K2: teacher forcing,
+the per-step distributions p_seq appended to the outputs), mode "prng" (K3:
+selectors drawn on the card from Philox, `scan_generate.prng_uniform_sel`),
+and `ragged=True`, per-row clocks and lengths in mode "sample" (K5, the
+ragged feeds of the serving path).  A CUDA tensor launches the kernel; a CPU
+tensor runs the plain loop of `ops/scan_generate.py`.  Nothing falls back
+from one to the other.  `stream_weights`/`stream_quant` (K4) are still to
+port and raise NotImplementedError.
 
 Differences from the TPU kernel, all value-preserving:
   * no chunk padding and no grid: the kernel loops over `n_valid` steps
@@ -54,6 +57,14 @@ PERSISTENT_KERNEL = build.CudaKernel(
 RAGGED_KERNEL = build.CudaKernel(
     "persistent.cu", "nvw_persistent_generate_ragged",
     [_P] * 16 + [_I] * 7 + [_P])
+# K2: K1's instance that consumes the symbols in sel and writes p_seq
+FORCED_KERNEL = build.CudaKernel(
+    "persistent.cu", "nvw_persistent_generate_forced",
+    [_P] * 20 + [ctypes.c_longlong] + [_I] * 8 + [_P])
+# K3: K1's instance that draws its selectors from Philox on the card
+PRNG_KERNEL = build.CudaKernel(
+    "persistent.cu", "nvw_persistent_generate_prng",
+    [_P] * 18 + [ctypes.c_longlong] + [_I] * 8 + [ctypes.c_ulonglong, _P])
 
 
 def init_ring(cfg: WaveNetConfig, batch: int, device,
@@ -67,20 +78,23 @@ def init_ring(cfg: WaveNetConfig, batch: int, device,
 def generate_plain(cfg: WaveNetConfig, params: Dict[str, torch.Tensor],
                    t0, cond_pre: torch.Tensor, sel: torch.Tensor,
                    ring: torch.Tensor, y_state: torch.Tensor, n_valid,
-                   mode: str = "sample", dump: bool = False):
-    """The plain version of K1 and K5, on any device: the loop of
+                   mode: str = "sample", dump: bool = False, seed: int = 0):
+    """The plain version of K1, K2, K3 and K5, on any device: the loop of
     `scan_generate.run_steps`, with the kernel's outputs (see
-    `make_persistent_generator`).  t0 and n_valid are ints (K1) or the
-    per-row host tensors t0_row and n_valid_row (K5)."""
+    `make_persistent_generator`).  t0 and n_valid are ints (K1, K2, K3) or
+    the per-row host tensors t0_row and n_valid_row (K5)."""
     if isinstance(n_valid, torch.Tensor):
         t0, n_valid = t0.to(cond_pre.device), n_valid.to(cond_pre.device)
-    y, aux = scan_generate.run_steps(params, cfg, t0, cond_pre, sel, ring,
-                                     y_state, n_valid, mode, dump)
+    y, aux, p_seq = scan_generate.run_steps(
+        params, cfg, t0, cond_pre, sel, ring, y_state, n_valid, mode, dump,
+        seed, "p" if mode == "forced" else None)
     out = (y, ring, y_state)
     if dump:
         if aux is None:
             aux = _empty_dumps(cfg, cond_pre.shape[2], cond_pre.device)
         out += tuple(aux[k] for k in _DUMP_KEYS)
+    if mode == "forced":
+        out += (p_seq,)
     return out
 
 
@@ -106,24 +120,38 @@ _WEIGHTS = ("embed", "dil_w", "rs_w", "rs_b", "out_w", "out_b", "end_w",
 def _launch_kernel(cfg: WaveNetConfig, params: Dict[str, torch.Tensor],
                    sched: torch.Tensor, t0: int, cond_pre: torch.Tensor,
                    sel: torch.Tensor, ring: torch.Tensor,
-                   y_state: torch.Tensor, n_valid: int, mode: str, dump: bool):
+                   y_state: torch.Tensor, n_valid: int, mode: str, dump: bool,
+                   seed: int):
     T, _, B, _ = cond_pre.shape
     dev = cond_pre.device
     y = torch.zeros((T, B), dtype=torch.int32, device=dev)
     dumps = _empty_dumps(cfg, B, dev) if dump else None
     d_ptrs = ([dumps[k].data_ptr() for k in _DUMP_KEYS] if dump
               else [None] * len(_DUMP_KEYS))
+    # zeros: K2 writes no step past n_valid
+    p_seq = (torch.zeros((T, B, cfg.A), dtype=torch.float32, device=dev)
+             if mode == "forced" else None)
+    head = [*(params[k].data_ptr() for k in _WEIGHTS), cond_pre.data_ptr()]
+    state = [sched.data_ptr(), ring.data_ptr(), y_state.data_ptr(),
+             y.data_ptr(), *d_ptrs]
+    shape = [t0, n_valid, B, cfg.num_layers, cfg.R, cfg.S, cfg.A,
+             int(cfg.tanh_embed), cfg.silence_bin]
+    stream = build.current_stream(dev)
     if n_valid:
-        PERSISTENT_KERNEL(
-            *(params[k].data_ptr() for k in _WEIGHTS),
-            cond_pre.data_ptr(), sel.data_ptr(), sched.data_ptr(),
-            ring.data_ptr(), y_state.data_ptr(), y.data_ptr(), *d_ptrs,
-            t0, n_valid, B, cfg.num_layers, cfg.R, cfg.S, cfg.A,
-            int(cfg.tanh_embed), cfg.silence_bin, _MODE_IDS[mode],
-            build.current_stream(dev))
+        if mode == "forced":
+            FORCED_KERNEL(*head, sel.data_ptr(), *state, p_seq.data_ptr(),
+                          *shape, stream)
+        elif mode == "prng":
+            PRNG_KERNEL(*head, *state, *shape, seed & 0xFFFFFFFFFFFFFFFF,
+                        stream)
+        else:
+            PERSISTENT_KERNEL(*head, sel.data_ptr(), *state, *shape,
+                              _MODE_IDS[mode], stream)
     out = (y, ring, y_state)
     if dump:
         out += tuple(dumps[k] for k in _DUMP_KEYS)
+    if mode == "forced":
+        out += (p_seq,)
     return out
 
 
@@ -156,9 +184,9 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
                               stream_weights: bool = False,
                               stream_quant: bool = False,
                               ragged: bool = False):
-    """Build `generate(params, t0, cond_pre, sel, ring, y_state, n_valid=None)`
-    (K1), or with ragged=True `generate(params, t0_row, cond_pre, sel, ring,
-    y_state, n_valid_row)` (K5).
+    """Build `generate(params, t0, cond_pre, sel, ring, y_state, n_valid=None,
+    seed=0)` (K1, K2, K3), or with ragged=True `generate(params, t0_row,
+    cond_pre, sel, ring, y_state, n_valid_row)` (K5).
 
     params: canonical float32 tensors (`models/params.canonical_to_torch`);
     t0: absolute index of the call's first sample (FIFO addressing, so
@@ -167,6 +195,12 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
     `init_ring`; y_state: [2, B] int32 (y_prev, y_cur); n_valid: the number
     of leading steps to run (default T) - later steps leave the state
     untouched and emit 0.
+
+    Modes: "sample" (inverse CDF over the uniforms in sel) and "argmax"
+    (K1); "forced" (K2): sel carries the symbols to emit, integers in
+    [0, A) as floats, checked on the host; "prng" (K3): sel is not read,
+    step t of row b draws `scan_generate.prng_uniform_sel(seed, t, B)[b]`
+    (seed: an int, taken modulo 2^64).
 
     ragged=True (mode "sample", no dump): t0_row [B] int64 and n_valid_row
     [B] int32 are CPU tensors, per-row control as K1's t0 and n_valid are
@@ -177,16 +211,11 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
 
     Returns y [T, B] int32, ring, y_state (the same tensors, updated in
     place), plus xt [L,B,R], skip [L,B,S], zs, za, p [B,A] of the last run
-    step when dump=True.  All tensors on one device: CPU runs the plain
-    loop, CUDA launches K1 (K5).
+    step when dump=True, plus p_seq [T, B, A] float32 (zero past n_valid)
+    in mode "forced": the JAX order.  All tensors on one device: CPU runs
+    the plain loop, CUDA launches K1 (K2, K3, K5).
     """
-    if mode == "forced":
-        raise NotImplementedError("mode='forced' is kernel K2 of ROADMAP.md, "
-                                  "still to port")
-    if mode == "prng":
-        raise NotImplementedError("mode='prng' is kernel K3 of ROADMAP.md, "
-                                  "still to port")
-    if mode not in _MODE_IDS:
+    if mode not in scan_generate.MODES:
         raise ValueError(f"unknown mode {mode!r}")
     if stream_weights or stream_quant:
         raise NotImplementedError("stream_weights / stream_quant are kernel "
@@ -218,7 +247,7 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
     def generate(params: Dict[str, torch.Tensor], t0: int,
                  cond_pre: torch.Tensor, sel: torch.Tensor,
                  ring: torch.Tensor, y_state: torch.Tensor,
-                 n_valid: int | None = None):
+                 n_valid: int | None = None, seed: int = 0):
         dev, T = check(params, cond_pre, sel, ring, y_state)
         n_valid = T if n_valid is None else int(n_valid)
         if not 0 <= n_valid <= T:
@@ -226,11 +255,17 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
         t0 = int(t0)
         if t0 < 0:
             raise ValueError(f"t0={t0} must be >= 0")
+        if mode == "forced":
+            sym = sel[:n_valid]
+            if not bool(((sym >= 0) & (sym < A) & (sym == sym.floor()))
+                        .all()):
+                raise ValueError(f"mode 'forced': sel must hold symbols, "
+                                 f"integers in [0, A={A})")
         if dev.type == "cpu":
             return generate_plain(cfg, params, t0, cond_pre, sel, ring,
-                                  y_state, n_valid, mode, dump)
+                                  y_state, n_valid, mode, dump, int(seed))
         return _launch_kernel(cfg, params, scheds[dev], t0, cond_pre, sel,
-                              ring, y_state, n_valid, mode, dump)
+                              ring, y_state, n_valid, mode, dump, int(seed))
 
     def generate_ragged(params: Dict[str, torch.Tensor],
                         t0_row: torch.Tensor, cond_pre: torch.Tensor,

@@ -2,13 +2,15 @@
 loop over samples, one eager torch op at a time.
 
 The port's counterpart of `nv_wavenet_tpu/ops/scan_generate.py`, and the
-plain version of kernels K1 and K5 (`csrc/persistent.cu`): the CPU path runs
-it, and the chip smoke test holds the kernels against it on the card.  With
-per-row clocks and lengths (K5, the ragged feeds of the serving path) each
-row advances its own FIFO phase and freezes once its length is reached.  It
-runs on any
-device; on CUDA its matrix products go to cuBLAS, which must run in full
-fp32 (`torch.backends.cuda.matmul.allow_tf32` False, checked here).
+plain version of kernels K1, K2, K3 and K5 (`csrc/persistent.cu`): the CPU
+path runs it, and the chip smoke test holds the kernels against it on the
+card.  With per-row clocks and lengths (K5, the ragged feeds of the serving
+path) each row advances its own FIFO phase and freezes once its length is
+reached.  Mode "forced" (K2) consumes given symbols and emits the per-step
+probabilities; mode "prng" (K3) is mode "sample" fed the Philox selectors of
+`prng_uniform_sel`.  It runs on any device; on CUDA its matrix products go
+to cuBLAS, which must run in full fp32
+(`torch.backends.cuda.matmul.allow_tf32` False, checked here).
 
 The step math is the framework's canonical order (JAX package,
 models/golden.py), so integer outputs match the golden model exactly:
@@ -17,7 +19,7 @@ models/golden.py), so integer outputs match the golden model exactly:
              h = tanh(z[:R]) * sigmoid(z[R:])
              x = (res + b_res) + x;  skip = (skip + sk) + b_skip
   relu(skip); zs = relu(skip Wzs + bzs); za = zs Wza + bza
-  y = canonical sampler (or the first argmax).
+  y = canonical sampler (or the first argmax, or the forced symbol).
 The embedding is a gather plus one add: the JAX one-hot matmul selects one
 row per table, so it yields exactly fl(row_prev + row_cur) too.
 
@@ -30,12 +32,50 @@ from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from nv_wavenet_tpu_torch.config import WaveNetConfig
 from nv_wavenet_tpu_torch.ops import exact_math as em
 
-MODES = ("sample", "argmax")
+MODES = ("sample", "argmax", "forced", "prng")
+
+# Philox4x32-10 (Salmon et al., SC '11), the constants of Random123
+PHILOX_M = (np.uint64(0xD2511F53), np.uint64(0xCD9E8D57))
+PHILOX_W = (np.uint64(0x9E3779B9), np.uint64(0xBB67AE85))
+_U32 = np.uint64(0xFFFFFFFF)
+
+
+def philox4x32(ctr, key):
+    """Philox4x32-10 on numpy arrays of 32-bit words held in uint64 (a
+    32 x 32-bit product fits; torch's int64 would overflow): ctr is 4
+    words, key 2, broadcast together.  Returns the 4 output words."""
+    c0, c1, c2, c3 = (np.asarray(c, np.uint64) for c in ctr)
+    k0, k1 = (np.asarray(k, np.uint64) for k in key)
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + PHILOX_W[0]) & _U32, (k1 + PHILOX_W[1]) & _U32
+        p0, p1 = PHILOX_M[0] * c0, PHILOX_M[1] * c2
+        c0, c1, c2, c3 = ((p1 >> np.uint64(32)) ^ c1 ^ k0, p1 & _U32,
+                          (p0 >> np.uint64(32)) ^ c3 ^ k1, p0 & _U32)
+    return c0, c1, c2, c3
+
+
+def prng_uniform_sel(seed: int, t, B: int) -> np.ndarray:
+    """Kernel K3's selectors: the uniform of absolute sample index t and
+    batch row b is Philox4x32-10 with counter (t_lo, t_hi, b, 0) and key
+    (seed_lo, seed_hi), word 0's top 24 bits times 2^-24 (the mapping of
+    the TPU kernel's `prng_uniform_sel`, JAX `ops/persistent.py:74-83`,
+    whose hardware bits it cannot reproduce).  Keyed on the absolute index,
+    so draws do not depend on chunking.  t: an int >= 0 -> [B] float32, or
+    a 1-D array -> [len(t), B]."""
+    t = np.asarray(t, np.uint64)[..., None]
+    seed = np.uint64(seed & 0xFFFFFFFFFFFFFFFF)
+    word0 = philox4x32(
+        (t & _U32, t >> np.uint64(32), np.arange(B, dtype=np.uint64), 0),
+        (seed & _U32, seed >> np.uint64(32)))[0]
+    return ((word0 >> np.uint64(8)).astype(np.float32)
+            * np.float32(2.0 ** -24))
 
 
 class GenState(NamedTuple):
@@ -74,9 +114,7 @@ def embed_lookup(embed: torch.Tensor, y_prev: torch.Tensor,
 
 def _check_mode(mode: str) -> None:
     if mode not in MODES:
-        raise NotImplementedError(
-            f"mode {mode!r}: the port has {MODES}; forced (K2) and prng (K3) "
-            f"are still to port")
+        raise ValueError(f"unknown mode {mode!r}; the port has {MODES}")
 
 
 def _check_fp32_matmul(t: torch.Tensor) -> None:
@@ -95,8 +133,10 @@ def step(params: Dict[str, torch.Tensor], cfg: WaveNetConfig,
     absolute index of the sample: an int shared by every row, or a [B] int64
     tensor of per-row clocks, each row then addressing its FIFOs by its own
     clock.  `live` [B] bool (per-row clocks only): rows outside it keep their
-    FIFO content.  Writes the FIFOs in `ring` in place.  Returns (y [B]
-    int32, aux or None)."""
+    FIFO content.  sel_t [B]: the uniforms (modes "sample" and "prng"), or
+    the symbols to emit as exact small-integer floats (mode "forced").
+    Writes the FIFOs in `ring` in place.  Returns (y [B] int32, aux or None,
+    za [B, A], p [B, A] in mode "forced" or with dump, else None)."""
     L, R, S, A = cfg.num_layers, cfg.R, cfg.S, cfg.A
     dils, offs = cfg.dilations, cfg.ring_offsets
     x = embed_lookup(params["embed"], y_prev, y_cur, A, cfg.tanh_embed)
@@ -130,62 +170,91 @@ def step(params: Dict[str, torch.Tensor], cfg: WaveNetConfig,
         e, cum = em.softmax_cumsum(za)
     if mode == "argmax":
         y = torch.argmax(za, dim=-1).to(torch.int32)
+    elif mode == "forced":
+        y = sel_t.to(torch.int32)
     else:
         y = em.select_from_cumsum(cum, sel_t[:, None], A, cfg.silence_bin)
+    p = em.softmax_p(e, cum) if dump or mode == "forced" else None
     aux = None
     if dump:
         skip_dump[-1] = skip
         aux = {"xt": torch.stack(xt_dump), "skip": torch.stack(skip_dump),
-               "zs": zs, "za": za, "p": em.softmax_p(e, cum)}
-    return y, aux
+               "zs": zs, "za": za, "p": p}
+    return y, aux, za, p
 
 
 def wavenet_step(params: Dict[str, torch.Tensor], state: GenState,
                  cond_t: torch.Tensor, sel_t: torch.Tensor,
-                 cfg: WaveNetConfig, mode: str = "sample"):
+                 cfg: WaveNetConfig, mode: str = "sample",
+                 forced_y_t: Optional[torch.Tensor] = None, seed: int = 0):
     """One autoregressive sample for all utterances.  cond_t [L, B, 2R]
-    (bias NOT folded: dil_b is added here); sel_t [B].  Returns
-    (new_state, y [B] int32, aux dict of this step's activations)."""
+    (bias NOT folded: dil_b is added here); sel_t [B]; forced_y_t [B]: the
+    symbols the chain consumes instead of its own samples; mode "prng"
+    draws `prng_uniform_sel(seed, state.t, B)`.  Returns (new_state, y [B]
+    int32, aux dict of this step's activations)."""
     _check_mode(mode)
     _check_fp32_matmul(cond_t)
+    if forced_y_t is not None:
+        mode, sel_t = "forced", forced_y_t.to(torch.float32)
+    elif mode == "prng":
+        sel_t = torch.from_numpy(prng_uniform_sel(
+            seed, state.t, cond_t.shape[1])).to(cond_t.device)
     zbias = params["dil_b"][:, None, :] + cond_t
-    y, aux = step(params, cfg, state.ring, state.y_prev, state.y_cur, state.t,
-                  zbias, sel_t, mode, dump=True)
+    y, aux, _, _ = step(params, cfg, state.ring, state.y_prev, state.y_cur,
+                        state.t, zbias, sel_t, mode, dump=True)
     return GenState(state.ring, state.y_cur, y, state.t + 1), y, aux
 
 
 def run_steps(params: Dict[str, torch.Tensor], cfg: WaveNetConfig, t0,
               cond_pre: torch.Tensor, sel: torch.Tensor, ring: torch.Tensor,
               y_state: torch.Tensor, n_valid, mode: str = "sample",
-              dump: bool = False):
-    """The sequential loop, with the contract of kernels K1 and K5: cond_pre
-    [T, L, B, 2R] has dil_b folded in; sel [T, B]; the first n_valid steps
-    run from absolute index t0, the rest emit 0 and touch no state.  Updates
-    `ring` and `y_state` [2, B] (y_prev, y_cur) in place.  Returns
-    (y [T, B] int32, aux) where aux is the last run step's activations when
-    dump=True and a step ran, else None.
+              dump: bool = False, seed: int = 0,
+              record: Optional[str] = None):
+    """The sequential loop, with the contract of kernels K1, K2, K3 and K5:
+    cond_pre [T, L, B, 2R] has dil_b folded in; sel [T, B]; the first
+    n_valid steps run from absolute index t0, the rest emit 0 and touch no
+    state.  Updates `ring` and `y_state` [2, B] (y_prev, y_cur) in place.
+    Mode "forced": sel carries the symbols to emit; mode "prng": sel is not
+    read, step j draws `prng_uniform_sel(seed, t0 + j, B)`.  record "p"
+    (mode "forced") or "za": also keep that per-step [T, B, A] sequence,
+    zero past n_valid.  Returns (y [T, B] int32, aux, seq) where aux is the
+    last run step's activations when dump=True and a step ran, else None,
+    and seq the recorded sequence or None.
 
-    K1: t0 and n_valid are ints shared by the batch.  K5: they are per-row
-    tensors on cond_pre's device, t0 [B] int64 and n_valid [B] int32; row b
-    runs its first n_valid[b] steps from its own clock t0[b], and at a step
-    past its length (a dead row) keeps its FIFO content and y_state and
-    emits 0.  Dead rows still flow through the batched products, and their
-    results are discarded."""
+    K1, K2, K3: t0 and n_valid are ints shared by the batch.  K5: they are
+    per-row tensors on cond_pre's device, t0 [B] int64 and n_valid [B]
+    int32 (mode "sample" only); row b runs its first n_valid[b] steps from
+    its own clock t0[b], and at a step past its length (a dead row) keeps
+    its FIFO content and y_state and emits 0.  Dead rows still flow through
+    the batched products, and their results are discarded."""
     _check_mode(mode)
     _check_fp32_matmul(cond_pre)
     T, _, B, _ = cond_pre.shape
     per_row = isinstance(n_valid, torch.Tensor)
-    if per_row and dump:
-        raise ValueError("per-row lengths (K5) take no activation dump")
-    y = torch.zeros((T, B), dtype=torch.int32, device=cond_pre.device)
+    if per_row and (dump or mode != "sample" or record is not None):
+        raise ValueError("per-row lengths (K5) run mode 'sample' without "
+                         "dump")
+    if record not in (None, "p", "za") or (record == "p"
+                                           and mode != "forced"):
+        raise ValueError(f"record={record!r}: 'p' (mode 'forced') or 'za'")
+    if mode == "prng":
+        sel = torch.from_numpy(prng_uniform_sel(
+            seed, np.arange(t0, t0 + n_valid), B)).to(cond_pre.device)
+    dev = cond_pre.device
+    y = torch.zeros((T, B), dtype=torch.int32, device=dev)
+    seq = (torch.zeros((T, B, cfg.A), dtype=torch.float32, device=dev)
+           if record else None)
     y_prev, y_cur = y_state[0].clone(), y_state[1].clone()
     aux: Optional[dict] = None
     for j in range(int(n_valid.max()) if per_row else n_valid):
         live = j < n_valid if per_row else None
-        y_t, step_aux = step(params, cfg, ring, y_prev, y_cur, t0 + j,
-                             cond_pre[j], sel[j], mode,
-                             dump=dump and j == n_valid - 1, live=live)
+        y_t, step_aux, za, p = step(params, cfg, ring, y_prev, y_cur, t0 + j,
+                                    cond_pre[j], sel[j], mode,
+                                    dump=dump and j == n_valid - 1,
+                                    live=live)
         aux = step_aux if step_aux is not None else aux
+        if record:
+            seq[j] = p if record == "p" else za
         if per_row:
             y_t = torch.where(live, y_t, 0)
             y_prev, y_cur = (torch.where(live, y_cur, y_prev),
@@ -195,19 +264,28 @@ def run_steps(params: Dict[str, torch.Tensor], cfg: WaveNetConfig, t0,
         y[j] = y_t
     y_state[0] = y_prev
     y_state[1] = y_cur
-    return y, aux
+    return y, aux, seq
 
 
 def generate(params: Dict[str, torch.Tensor], state: GenState,
              cond: torch.Tensor, selectors: torch.Tensor, cfg: WaveNetConfig,
-             mode: str = "sample", dump: bool = False):
+             mode: str = "sample", dump: bool = False,
+             forced_y: Optional[torch.Tensor] = None,
+             return_za: bool = False, seed: int = 0):
     """The full sequential loop.  cond [T, L, B, 2R] (raw: dil_b is added
-    here, which rounds as the per-step dil_b + cond does); selectors [T, B].
-    Returns (final_state, y [B, T] int32, aux) where aux is the last step's
-    activations when dump=True, else None."""
+    here, which rounds as the per-step dil_b + cond does); selectors [T, B];
+    forced_y: optional [T, B] int teacher-forcing symbols, which the chain
+    consumes instead of its own samples; seed: mode "prng".  Returns
+    (final_state, y [B, T] int32, aux) where aux is the last step's
+    activations when dump=True, the per-step logits za [T, B, A] when
+    return_za=True, else None."""
     T = cond.shape[0]
     cond_pre = cond + params["dil_b"][None, :, None, :]
     y_state = torch.stack([state.y_prev, state.y_cur])
-    y, aux = run_steps(params, cfg, state.t, cond_pre, selectors, state.ring,
-                       y_state, T, mode, dump)
-    return GenState(state.ring, y_state[0], y_state[1], state.t + T), y.T, aux
+    if forced_y is not None:
+        mode, selectors = "forced", forced_y.to(torch.float32)
+    record = "za" if return_za and not dump else None
+    y, aux, za = run_steps(params, cfg, state.t, cond_pre, selectors,
+                           state.ring, y_state, T, mode, dump, seed, record)
+    return (GenState(state.ring, y_state[0], y_state[1], state.t + T), y.T,
+            za if record else aux)

@@ -126,6 +126,9 @@ def test_device_defaults_to_the_card():
 
 
 def test_unported_paths_raise():
+    """MANYBLOCK (K4) is still to port; modes "prng" (K3) and "forced" (K2)
+    run: forced echoes the symbols its selectors hold, prng draws the same
+    samples for the same seed; an unknown mode raises."""
     with pytest.raises(NotImplementedError, match="K4"):
         WaveNetInfer(num_layers=2, max_dilation=2, R=32, S=128, A=256,
                      implementation=Impl.MANYBLOCK, device="cpu")
@@ -134,10 +137,13 @@ def test_unported_paths_raise():
     eng = make_engine(cfg, 1)
     eng.set_reference_weights(ref_w)
     eng.set_inputs(cond, sel)
-    with pytest.raises(NotImplementedError, match="K3"):
-        eng.run(4, 1, mode="prng")
-    with pytest.raises(NotImplementedError, match="K2"):
-        eng.run(4, 1, mode="forced")
+    y = eng.run(4, 1, mode="prng")
+    assert y.shape == (1, 4) and np.array_equal(eng.run(4, 1, mode="prng"), y)
+    sym = np.floor(sel * 256).astype(np.float32)
+    eng.set_inputs(cond, sym)
+    assert np.array_equal(eng.run(4, 1, mode="forced"), sym.T.astype(np.int32))
+    with pytest.raises(ValueError, match="mode"):
+        eng.run(4, 1, mode="beam")
 
 
 def test_engine_rejects_bad_calls():

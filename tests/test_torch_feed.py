@@ -689,10 +689,10 @@ def test_serving_errors():
         eng.feed(cond, mode="argmax", lengths=np.array([4, 2]))
     with pytest.raises(ValueError, match="sample"):
         eng.feed(cond, mode="prng", lengths=np.array([4, 2]))
-    with pytest.raises(NotImplementedError, match="K3"):
-        eng.feed(cond, mode="prng")
-    with pytest.raises(NotImplementedError, match="K2"):
-        eng.feed(cond, mode="forced")
+    with pytest.raises(ValueError, match="sample"):
+        eng.feed(cond, mode="forced", lengths=np.array([4, 2]))
+    with pytest.raises(ValueError, match="symbols"):
+        eng.feed(cond, np.full((4, 2), 0.5, np.float32), mode="forced")
     with pytest.raises(ValueError, match="cond_chunk"):
         eng.feed(cond[:, :, :1])
     with pytest.raises(ValueError, match="out of range"):

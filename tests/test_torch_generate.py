@@ -128,11 +128,18 @@ def test_wavenet_step_and_embed_lookup_match_jax():
 
 
 def test_unported_modes_raise():
+    """Every mode of the JAX scan is ported (forced and prng with K2 and
+    K3): forced emits the symbols its selectors hold, prng runs; an unknown
+    mode raises."""
     cfg = WaveNetConfig(num_layers=2, R=32, S=128, A=256, max_dilation=2)
     ref_w, cond, sel = make_case(cfg, 1, 2, seed=1)
-    for mode in ("prng", "forced"):
-        with pytest.raises(NotImplementedError):
-            port_generate(cfg, ref_w, cond, sel, mode=mode)
+    with pytest.raises(ValueError, match="mode"):
+        port_generate(cfg, ref_w, cond, sel, mode="beam")
+    sym = np.floor(sel * 256).astype(np.float32)
+    _, y, _ = port_generate(cfg, ref_w, cond, sym, mode="forced")
+    assert np.array_equal(y, sym.T.astype(np.int32))
+    _, y, _ = port_generate(cfg, ref_w, cond, sel, mode="prng")
+    assert y.shape == (1, 2) and 0 <= y.min() and y.max() < cfg.A
 
 
 def test_horizon_65536_draws_exact():

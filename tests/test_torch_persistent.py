@@ -139,15 +139,15 @@ def test_fifo_schedule_is_the_ring_layout(num_layers, max_dilation):
 def test_unported_options_raise_and_bad_inputs_are_rejected():
     cfg = port_cfg(WaveNetConfig(num_layers=2, R=32, S=128, A=256,
                                  max_dilation=2))
-    for kw, kernel in ((dict(mode="forced"), "K2"), (dict(mode="prng"), "K3"),
-                       (dict(stream_weights=True), "K4"),
-                       (dict(stream_quant=True), "K4"),
-                       (dict(ragged=True, mode="prng"), "K3")):
-        with pytest.raises(NotImplementedError, match=kernel):
+    for kw in (dict(stream_weights=True), dict(stream_quant=True)):
+        with pytest.raises(NotImplementedError, match="K4"):
             tper.make_persistent_generator(cfg, 1, **kw)
+    with pytest.raises(ValueError, match="mode"):
+        tper.make_persistent_generator(cfg, 1, mode="beam")
     # K5 (ragged=True) is ported for mode "sample" without dump, as the TPU
-    # kernel's ragged variant allows
-    for kw in (dict(mode="argmax"), dict(dump=True)):
+    # kernel's ragged variant allows: prng and forced stay lockstep
+    for kw in (dict(mode="argmax"), dict(dump=True), dict(mode="prng"),
+               dict(mode="forced")):
         with pytest.raises(ValueError, match="K5"):
             tper.make_persistent_generator(cfg, 1, ragged=True, **kw)
 
@@ -169,6 +169,13 @@ def test_unported_options_raise_and_bad_inputs_are_rejected():
         gen(params, 0, cond, sel, ring, ys.long())
     with pytest.raises(ValueError, match="n_valid"):
         gen(params, 0, cond, sel, ring, ys, n_valid=5)
+    # K2 takes symbols, integers in [0, A), in sel
+    forced = tper.make_persistent_generator(cfg, 1, mode="forced")
+    for bad in (sel + 0.5, sel + 256, sel - 1):
+        with pytest.raises(ValueError, match="symbols"):
+            forced(params, 0, cond, bad, ring, ys)
+    assert torch.equal(forced(params, 0, cond, sel + 7, ring, ys)[0],
+                       torch.full((4, 1), 7, dtype=torch.int32))
 
     ragged = tper.make_persistent_generator(cfg, 1, ragged=True)
     t0_row = torch.zeros(1, dtype=torch.int64)
