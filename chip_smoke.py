@@ -11,11 +11,15 @@ seed 1): the main path serving 3 requests of 8192 samples through
 `WaveNetInfer.set_inputs` + `run_chunks`; the streaming serving path, 16
 slots fed tick by tick through `begin_stream` / `feed(lengths=...)` /
 `reset_utterances` / `export_state` + `import_state`; the scoring path,
-`WaveNetInfer.score` and `scoring.*` over the first request's audio; and a
-request in mode "prng".  Phases, in order; any failure exits non-zero:
+`WaveNetInfer.score` and `scoring.*` over the first request's audio; a
+request in mode "prng"; and the weight-streaming path, the same requests
+through `WaveNetInfer(implementation=Impl.MANYBLOCK)` with fp32, bf16 and
+int8 weight stacks (kernel K4), then K4 at the JAX repo's largest
+configuration (config 4).  Phases, in order; any failure exits non-zero:
 
   1. device: card name and power limit (nvidia-smi), torch.version.cuda, nvcc
-  2. build: every csrc/*.cu, timed
+  2. build: every csrc/*.cu, timed; beside it (nvcc runs in its own
+     processes) the plain CPU run of phase 5's horizon case
   3. K0a (elementwise exact exp/tanh/sigmoid) vs plain: 0 bit mismatches on
      the dense sweep of tests/test_exact_math.py
   4. K0b (canonical sampler) vs plain: 0 mismatches on za [4096, 256]; K0c
@@ -27,8 +31,9 @@ request in mode "prng".  Phases, in order; any failure exits non-zero:
      reference ladder; 7+7+...+1 chunked run_partial calls equal one call;
      then the 65,536-draw horizon case of tests/test_torch_generate.py (4
      layers, R=32, B=16, T=4096), K1 on the card in chunks of 256 against
-     the plain version on the CPU in one call: 0 integer mismatches (the CPU
-     test holds that plain version to the golden model with 0 too).  K2
+     the plain version on the CPU in one call (run in phase 2): 0 integer
+     mismatches (the CPU test holds that plain version to the golden model
+     with 0 too).  K2
      (forced) vs plain on the same config, forcing K1's samples, with and
      without the dump: y echoes the symbols, p_seq within 1e-6, the ring
      within the xt ladder (the plain version uses cuBLAS: not bitwise);
@@ -75,13 +80,40 @@ request in mode "prng".  Phases, in order; any failure exits non-zero:
  13. prng at full width: counts set to 0 just before and read just after;
      one request of 16 x 8192 samples through run_chunks(256, mode="prng"),
      its time per step beside K1's
- 14. the `kernels` JSON line: per kernel its launches on its path (K5: the
+ 14. K4 (weight streaming) vs plain, TEST_CONFIG_MED, B=4, T=24, in each
+     storage (fp32, bf16, int8) and mode (sample, argmax with the dump,
+     forced, prng): 0 integer mismatches, ring, p_seq and dumps within the
+     ladder; a 7-of-8 n_valid call and an 11 + 8 split, with and without
+     prefetch: 0 mismatches in y, ring bits and y_state
+ 15. K4 at the flagship: the six schedules (stream_group_size 1, 3, 8 x
+     stream_prefetch) identical in each storage; K4 against K1 fed the
+     storage's values over 2048 steps, bit for bit in y, ring and y_state;
+     K4-forced against K2 (p_seq bits) and K4-prng against K3 in fp32;
+     each storage timed over a 256-step launch; then in each storage K4
+     against the plain version on the storage's values over 32 steps
+     (timed): y and y_state exact, the ring within the ladder, and
+     K4-forced fed the plain samples gives p_seq within the ladder
+ 16. the MANYBLOCK main path: counts set to 0 just before and read just
+     after; the main path's 3 requests through
+     WaveNetInfer(implementation=Impl.MANYBLOCK).run_chunks(256) in each
+     storage (fp32: every sample equal to the main path's; bf16/int8:
+     request 1's first 256 equal to K1 on the storage's values); kHz per
+     utterance, K4's and K1's us per step; K4 must have launched, K1 not
+ 17. config 4 (40 layers, R=128, S=256, A=256, max_dilation 128, B=64):
+     K4 fp32 against K1 over 1024 steps bit for bit; K4 in each storage and
+     K1 timed over a 256-step launch
+ 18. score -> feed under MANYBLOCK int8 (fault R9 of the JAX engine): score
+     the first half of a 2048-step flagship window, feed the second: equal
+     to one int8 generation, and the scored ring equal to the generated one
+     bit for bit
+ 19. the `kernels` JSON line: per kernel its launches on its path (K5: the
      serving phase; K0a, K0c, K7, K2: the scoring phase; K3: the prng
-     request), its time, the plain version's, the least time the card could
-     take for the same work (bound_ms) and, where one PyTorch call computes
-     the same function, that call's time
+     request; K4: the MANYBLOCK main path), its time, the plain version's,
+     the least time the card could take for the same work (bound_ms) and,
+     where one PyTorch call computes the same function, that call's time
 
-The last three lines of standard output are the kernels line, the card's
+A line "[time] <seconds>: <phase>" marks the start of each phase.  The last
+three lines of standard output are the kernels line, the card's
 name and power limit, and {"ok": true, "device": {...}}.  Imports nothing of
 jax or of the JAX package.  Exits non-zero, printing no result, when
 torch.cuda.is_available() is false or the port is not beside this file.
@@ -89,6 +121,7 @@ torch.cuda.is_available() is false or the port is not beside this file.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import subprocess
@@ -130,6 +163,19 @@ K5_PLAIN_T = 32   # the plain step costs ~32 ms at the flagship
 # [x_{t-d} | x_t] W, the fused res/skip product, and the output stack
 K7_SHAPES = ((4096, 64, 128), (4096, 64, 320), (4096, 256, 256))
 PRNG_SEED = 3   # the sampling_seed of the prng request
+# K4 (weight streaming): its storages, the schedules held to one another,
+# the flagship window held to K1/K2/K3, config 4 of the JAX repo's
+# baseline sweep (its MANYBLOCK row, tools/baseline_sweep.py:180-181) and
+# the int8 score -> feed window
+STORAGES = ("fp32", "bf16", "int8")
+SCHEDULES = tuple((g, pf) for g in (1, 3, 8) for pf in (False, True))
+SCHED_T, SCHED_SPLIT = 512, 300
+K4_FLAG_T = 2048
+CONFIG4 = dict(num_layers=40, R=128, S=256, A=256, max_dilation=128)
+C4_B, C4_T, C4_TIME_T = 64, 1024, 256
+R9_T = 2048
+K4_SMALL_T = 24   # K4 vs plain at TEST_CONFIG_MED: holds the 11 + 8 split
+START = time.perf_counter()
 
 
 def fail(msg: str):
@@ -139,6 +185,11 @@ def fail(msg: str):
 
 def log(msg: str):
     print(msg, flush=True)
+
+
+def mark(phase: str):
+    """Log the seconds since the script started, at a phase's start."""
+    log(f"[time] {time.perf_counter() - START:.1f} s: {phase}")
 
 
 def rel_close(a, b, tol, atol=None) -> bool:
@@ -406,6 +457,344 @@ def check_k7(torch, om, dev, gen) -> dict:
     return out
 
 
+def horizon_plain(torch, np, cfg_lib, params_lib, persistent):
+    """The horizon case of tests/test_torch_generate.py, from its seeds: the
+    plain version's HORIZON_B x HORIZON_T draws on the CPU.  Returns (cfg,
+    canonical weights, cond, sel, y)."""
+    hcfg = cfg_lib.WaveNetConfig(num_layers=4, R=32, S=128, A=256,
+                                 max_dilation=4)
+    rng = np.random.RandomState(123)
+    h_ref = params_lib.to_canonical(
+        params_lib.random_reference_weights(hcfg, seed=321), hcfg)
+    h_cond = rng.uniform(-0.5, 0.5, (HORIZON_T, hcfg.num_layers, HORIZON_B,
+                                     2 * hcfg.R)).astype(np.float32)
+    h_sel = rng.uniform(0, 1, (HORIZON_T, HORIZON_B)).astype(np.float32)
+    h_params = params_lib.canonical_to_torch(h_ref, torch.device("cpu"))
+    cond_pre = (torch.from_numpy(h_cond)
+                + h_params["dil_b"][None, :, None, :]).contiguous()
+    ring = persistent.init_ring(hcfg, HORIZON_B, "cpu")
+    y_state = torch.full((2, HORIZON_B), hcfg.silence_bin, dtype=torch.int32)
+    y = persistent.generate_plain(hcfg, h_params, 0, cond_pre,
+                                  torch.from_numpy(h_sel), ring, y_state,
+                                  HORIZON_T)[0]
+    return hcfg, h_ref, h_cond, h_sel, y
+
+
+def storage_kw(torch, name: str, engine: bool = False) -> dict:
+    """The keywords of a K4 storage for make_persistent_generator, or with
+    engine=True for WaveNetInfer."""
+    if name == "int8":
+        return {"stream_quant": "int8" if engine else True}
+    return {"weight_dtype": torch.bfloat16 if name == "bf16"
+            else torch.float32}
+
+
+def storage_view(persistent, params, kw: dict):
+    """The fp32 values K4 computes with under the storage `kw`."""
+    import torch
+    return persistent.value_view(params, kw.get("weight_dtype", torch.float32),
+                                 bool(kw.get("stream_quant", False)))
+
+
+def plan_dict(torch, persistent, cfg, B: int, name: str) -> dict:
+    """K4's shared-memory plan for a storage (default schedule), as JSON."""
+    storage = {"fp32": torch.float32, "bf16": torch.bfloat16,
+               "int8": torch.int8}[name]
+    plan = persistent.stream_plan(cfg, B, storage)._asdict()
+    return {**plan, "storage": name}
+
+
+def k4_bytes(cfg, B: int, T: int, name: str) -> int:
+    """K1's count with the two stacks in their storage (and the int8
+    scales): each input read once, each output written once."""
+    L, R, S = cfg.num_layers, cfg.R, cfg.S
+    stack = L * (2 * R * 2 * R + R * (R + S))
+    eb = {"fp32": 4, "bf16": 2, "int8": 1}[name]
+    return (k1_bytes(cfg, B, T) - 4 * stack + eb * stack
+            + (4 * L * (2 * R + R + S) if name == "int8" else 0))
+
+
+def k4_ops(cfg, B: int, T: int, name: str) -> int:
+    """K1's operations over B x T row-steps, plus under int8 one rounded
+    multiply per weight (the dequantisation, whose value is the same at
+    every row-step: the function needs it once per call)."""
+    L, R, S = cfg.num_layers, cfg.R, cfg.S
+    return k1_ops_per_row_step(cfg) * B * T + (
+        L * (2 * R * 2 * R + R * (R + S)) if name == "int8" else 0)
+
+
+def check_k4_small(torch, np, persistent, cfg, params, cond, sel, dev) -> dict:
+    """K4 against its plain version at a small config, in every storage:
+    modes sample, argmax with the dump, forced (K4's sample output as the
+    symbols) and prng; then a 7-of-8 n_valid call against a 7-step call and
+    an 11 + 8 split against one 19-step call, with and without prefetch."""
+    T, B = sel.shape
+    ladder = (("xt", 1e-2, 3e-4), ("skip", 1e-2, 3e-4), ("zs", 1e-4, 2e-5),
+              ("za", 1e-4, 2e-5), ("p", 1e-3, None))
+    res = {"mismatches": 0, "p_err": 0.0, "ring_err": 0.0, "ok": True,
+           "runs": 0}
+
+    def fresh():
+        return fresh_state(torch, persistent, cfg, B, dev)
+    for name in STORAGES:
+        kw = storage_kw(torch, name)
+        view = storage_view(persistent, params, kw)
+        cp = (cond + view["dil_b"][None, :, None, :]).contiguous()
+        sym = None
+        for mode, dump in (("sample", False), ("argmax", True),
+                           ("forced", False), ("prng", False)):
+            s_in = sym if mode == "forced" else sel
+            gen = persistent.make_persistent_generator(
+                cfg, B, mode=mode, dump=dump, stream_weights=True, **kw)
+            out_k = gen(params, 0, cp, s_in, *fresh(), seed=PRNG_SEED)
+            out_p = persistent.generate_plain(cfg, view, 0, cp, s_in, *fresh(),
+                                              T, mode=mode, dump=dump,
+                                              seed=PRNG_SEED)
+            torch.cuda.synchronize()
+            mism = (int((out_k[0] != out_p[0]).sum())
+                    + int(not torch.equal(out_k[2], out_p[2])))
+            ring_err = float((out_k[1] - out_p[1]).abs().max())
+            ok = rel_close(out_p[1].cpu(), out_k[1].cpu(), 1e-2, 3e-4)
+            if dump:
+                ok &= all(rel_close(p.cpu(), k.cpu(), tol, atol)
+                          for (_, tol, atol), k, p
+                          in zip(ladder, out_k[3:8], out_p[3:8]))
+            p_err = (float((out_k[-1] - out_p[-1]).abs().max())
+                     if mode == "forced" else 0.0)
+            ok &= p_err <= 1e-6
+            if mode == "sample":
+                sym = out_k[0].to(torch.float32)
+            log(f"[K4 small] {name} {mode}{' + dump' if dump else ''}: y and "
+                f"y_state {mism} mismatches vs plain; ring max abs err "
+                f"{ring_err:.3g}, in ladder {ok}; p_seq err {p_err:.3g}")
+            res["mismatches"] += mism
+            res["ring_err"] = max(res["ring_err"], ring_err)
+            res["p_err"] = max(res["p_err"], p_err)
+            res["ok"] &= ok
+            res["runs"] += 1
+        for prefetch in (False, True):
+            gen = persistent.make_persistent_generator(
+                cfg, B, stream_weights=True, stream_prefetch=prefetch, **kw)
+            r7, r8 = fresh(), fresh()
+            y7 = gen(params, 0, cp[:7].contiguous(), sel[:7].contiguous(),
+                     *r7)[0]
+            y8 = gen(params, 0, cp[:8].contiguous(), sel[:8].contiguous(),
+                     *r8, n_valid=7)[0]
+            ra, rb = fresh(), fresh()
+            y19 = gen(params, 0, cp[:19].contiguous(), sel[:19].contiguous(),
+                      *ra)[0]
+            ys = [gen(params, 0, cp[:11].contiguous(),
+                      sel[:11].contiguous(), *rb)[0],
+                  gen(params, 11, cp[11:19].contiguous(),
+                      sel[11:19].contiguous(), *rb)[0]]
+            torch.cuda.synchronize()
+            m7 = (int((y8[:7] != y7).sum()) + int(y8[7].abs().sum())
+                  + bit_mismatches(torch, r7[0], r8[0])
+                  + int(not torch.equal(r7[1], r8[1])))
+            m19 = (int((torch.cat(ys) != y19).sum())
+                   + bit_mismatches(torch, ra[0], rb[0])
+                   + int(not torch.equal(ra[1], rb[1])))
+            log(f"[K4 small] {name} prefetch={prefetch}: 7-of-8 call vs 7 "
+                f"steps {m7} mismatches (y, ring bits, y_state); 11 + 8 vs "
+                f"19 steps {m19}")
+            res["mismatches"] += m7 + m19
+    return res
+
+
+def check_k4_flagship(torch, np, persistent, cfg, params, cond, sel,
+                      dev) -> dict:
+    """At the flagship, B=16: the six schedules (stream_group_size x
+    stream_prefetch, each as a 300 + 212 split) identical in every storage;
+    K4 against K1 fed the storage's values over K4_FLAG_T steps, bit for
+    bit in y, the ring and y_state; K4-forced p_seq against K2's and
+    K4-prng against K3 in fp32; each timed over a 256-step launch."""
+    T, B = K4_FLAG_T, MAIN_B
+    cp_raw, sel = cond[:T], sel[:T].contiguous()
+    res = {"schedule_mismatches": 0, "k1_mismatches": 0, "k4_ms": {},
+           "bound": {}, "schedule_ms": {}}
+
+    def fresh():
+        return fresh_state(torch, persistent, cfg, B, dev)
+    k1 = persistent.make_persistent_generator(cfg, B)
+    for name in STORAGES:
+        kw = storage_kw(torch, name)
+        view = storage_view(persistent, params, kw)
+        cp = (cp_raw + view["dil_b"][None, :, None, :]).contiguous()
+        base = None
+        for g, pf in SCHEDULES:
+            gen = persistent.make_persistent_generator(
+                cfg, B, stream_weights=True, stream_group_size=g,
+                stream_prefetch=pf, **kw)
+            ring, ys = fresh()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            y = torch.cat([
+                gen(params, 0, cp[:SCHED_SPLIT], sel[:SCHED_SPLIT], ring,
+                    ys)[0],
+                gen(params, SCHED_SPLIT, cp[SCHED_SPLIT:SCHED_T],
+                    sel[SCHED_SPLIT:SCHED_T], ring, ys)[0]])
+            end.record()
+            torch.cuda.synchronize()
+            res["schedule_ms"][f"{name} G={g} prefetch={pf}"] = (
+                start.elapsed_time(end))
+            if base is None:
+                base = (y, ring, ys)
+                continue
+            res["schedule_mismatches"] += (
+                int((y != base[0]).sum()) + bit_mismatches(torch, ring, base[1])
+                + int(not torch.equal(ys, base[2])))
+        gen = persistent.make_persistent_generator(cfg, B, stream_weights=True,
+                                                   **kw)
+        out4 = gen(params, 0, cp, sel, *fresh())
+        out1 = k1(view, 0, cp, sel, *fresh())
+        torch.cuda.synchronize()
+        mism = (int((out4[0] != out1[0]).sum())
+                + bit_mismatches(torch, out4[1], out1[1])
+                + int(not torch.equal(out4[2], out1[2])))
+        res["k1_mismatches"] += mism
+        res["k4_ms"][name] = time_launch_ms(torch, np, lambda r, ys: gen(
+            params, 0, cp[:CHECK_T], sel[:CHECK_T], r, ys), fresh)
+        res["bound"][name] = bound_ms(k4_bytes(cfg, B, CHECK_T, name),
+                                      k4_ops(cfg, B, CHECK_T, name))
+        log(f"[K4 flagship] {name}: K4 vs K1 on the storage's values over "
+            f"{T} steps: {mism} mismatches (y, ring bits, y_state); "
+            f"{res['k4_ms'][name]:.3f} ms per {CHECK_T}-step launch = "
+            f"{res['k4_ms'][name] / CHECK_T * 1e3:.2f} us per step; "
+            f"schedules (ms per {SCHED_T} steps): " + ", ".join(
+                f"G={g} pf={int(pf)} {res['schedule_ms'][f'{name} G={g} prefetch={pf}']:.2f}"
+                for g, pf in SCHEDULES))
+        if name == "fp32":
+            sym = out1[0].to(torch.float32)
+            cp32 = cp
+    k2 = persistent.make_persistent_generator(cfg, B, mode="forced")
+    k3 = persistent.make_persistent_generator(cfg, B, mode="prng")
+    f4 = persistent.make_persistent_generator(cfg, B, mode="forced",
+                                              stream_weights=True)
+    p4 = persistent.make_persistent_generator(cfg, B, mode="prng",
+                                              stream_weights=True)
+    o2, o4 = k2(params, 0, cp32, sym, *fresh()), f4(params, 0, cp32, sym,
+                                                     *fresh())
+    o3, o5 = (k3(params, 0, cp32, sel, *fresh(), seed=PRNG_SEED),
+              p4(params, 0, cp32, sel, *fresh(), seed=PRNG_SEED))
+    torch.cuda.synchronize()
+    res["forced_mismatches"] = (bit_mismatches(torch, o4[-1], o2[-1])
+                                + bit_mismatches(torch, o4[1], o2[1])
+                                + int((o4[0] != o2[0]).sum())
+                                + int(not torch.equal(o4[2], o2[2])))
+    res["prng_mismatches"] = (int((o5[0] != o3[0]).sum())
+                              + bit_mismatches(torch, o5[1], o3[1])
+                              + int(not torch.equal(o5[2], o3[2])))
+    del o2, o4
+    log(f"[K4 flagship] schedules G x prefetch in {SCHEDULES}: "
+        f"{res['schedule_mismatches']} mismatches against the first; "
+        f"K4-forced vs K2 over {T} steps: {res['forced_mismatches']} "
+        f"mismatches (p_seq, ring bits, y, y_state); K4-prng vs K3: "
+        f"{res['prng_mismatches']}")
+    return res
+
+
+def check_k4_plain_flagship(torch, persistent, tsg, em, cfg, params, cond,
+                            sel, dev) -> dict:
+    """At the flagship, B=16, in every storage: K4 against the plain version
+    on the storage's values over K5_PLAIN_T steps (the plain version's
+    time is taken on the way).  y and y_state exact, the ring within the
+    ladder; K4-forced fed the plain version's samples gives p_seq within
+    the ladder of the plain distributions."""
+    T, B = K5_PLAIN_T, MAIN_B
+    s_in = sel[:T].contiguous()
+    res = {"mismatches": 0, "ring_err": 0.0, "p_err": 0.0, "ok": True,
+           "plain_ms": {}}
+
+    def fresh():
+        return fresh_state(torch, persistent, cfg, B, dev)
+    for name in STORAGES:
+        kw = storage_kw(torch, name)
+        view = storage_view(persistent, params, kw)
+        cp = (cond[:T] + view["dil_b"][None, :, None, :]).contiguous()
+        ring_p, ys_p = fresh()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        y_p, _, za_p = tsg.run_steps(view, cfg, 0, cp, s_in, ring_p, ys_p, T,
+                                     record="za")
+        torch.cuda.synchronize()
+        res["plain_ms"][name] = (time.perf_counter() - t) * 1e3
+        p_p = em.softmax_canonical_plain(za_p)
+        out4 = persistent.make_persistent_generator(
+            cfg, B, stream_weights=True, **kw)(params, 0, cp, s_in, *fresh())
+        f4 = persistent.make_persistent_generator(
+            cfg, B, mode="forced", stream_weights=True, **kw)(
+                params, 0, cp, y_p.to(torch.float32), *fresh())
+        torch.cuda.synchronize()
+        mism = (int((out4[0] != y_p).sum()) + int(not torch.equal(out4[2], ys_p))
+                + int((f4[0] != y_p).sum()) + int(not torch.equal(f4[2], ys_p)))
+        ring_err = max(float((o[1] - ring_p).abs().max()) for o in (out4, f4))
+        p_err = float((f4[-1] - p_p).abs().max())
+        ok = (rel_close(ring_p.cpu(), out4[1].cpu(), 1e-2, 3e-4)
+              and rel_close(ring_p.cpu(), f4[1].cpu(), 1e-2, 3e-4)
+              and rel_close(p_p.cpu(), f4[-1].cpu(), 1e-3))
+        log(f"[K4 flagship] {name}: K4 vs plain over {T} steps: y and y_state "
+            f"{mism} mismatches (sample and forced); ring max abs err "
+            f"{ring_err:.3g}, p_seq {p_err:.3g}, in ladder {ok}; plain "
+            f"{res['plain_ms'][name]:.1f} ms")
+        res["mismatches"] += mism
+        res["ring_err"] = max(res["ring_err"], ring_err)
+        res["p_err"] = max(res["p_err"], p_err)
+        res["ok"] &= ok
+    return res
+
+
+def check_config4(torch, np, persistent, cfg_lib, params_lib, dev) -> dict:
+    """Config 4 (CONFIG4, B=C4_B): K4 fp32 against K1 over C4_T steps, bit
+    for bit; K4 in every storage and K1 timed over a C4_TIME_T-step
+    launch."""
+    cfg = cfg_lib.WaveNetConfig(**CONFIG4)
+    B, T = C4_B, C4_T
+    params = params_lib.canonical_to_torch(params_lib.to_canonical(
+        params_lib.random_reference_weights(cfg, seed=4), cfg), dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    cond = torch.rand((T, cfg.num_layers, B, 2 * cfg.R), generator=g,
+                      device=dev) - 0.5
+    sel = torch.rand((T, B), generator=g, device=dev)
+    n = C4_TIME_T
+    cp = (cond + params["dil_b"][None, :, None, :]).contiguous()
+    cond = cond[:n].clone()
+
+    def fresh():
+        return fresh_state(torch, persistent, cfg, B, dev)
+    k1 = persistent.make_persistent_generator(cfg, B)
+    k4 = persistent.make_persistent_generator(cfg, B, stream_weights=True)
+    out1 = k1(params, 0, cp, sel, *fresh())
+    out4 = k4(params, 0, cp, sel, *fresh())
+    torch.cuda.synchronize()
+    res = {"mismatches": int((out4[0] != out1[0]).sum())
+           + bit_mismatches(torch, out4[1], out1[1])
+           + int(not torch.equal(out4[2], out1[2])), "ms": {}, "bound": {}}
+    del out1, out4
+    res["ms"]["K1"] = time_launch_ms(torch, np, lambda r, ys: k1(
+        params, 0, cp[:n], sel[:n], r, ys), fresh, reps=2)
+    res["bound"]["K1"] = bound_ms(k1_bytes(cfg, B, n),
+                                  k1_ops_per_row_step(cfg) * B * n)
+    for name in STORAGES:
+        kw = storage_kw(torch, name)
+        view = storage_view(persistent, params, kw)
+        cpv = (cond + view["dil_b"][None, :, None, :]).contiguous()
+        gen = persistent.make_persistent_generator(cfg, B, stream_weights=True,
+                                                   **kw)
+        res["ms"][name] = time_launch_ms(torch, np, lambda r, ys: gen(
+            params, 0, cpv, sel[:n], r, ys), fresh, reps=2)
+        res["bound"][name] = bound_ms(k4_bytes(cfg, B, n, name),
+                                      k4_ops(cfg, B, n, name))
+    res["plan"] = {name: plan_dict(torch, persistent, cfg, B, name)
+                   for name in STORAGES}
+    log(f"[config 4] 40L R128 S256 A256 maxD128, B={B}: K4 fp32 vs K1 over "
+        f"{T} steps {res['mismatches']} mismatches (y, ring bits, y_state); "
+        f"us per step over {n}-step launches: " + ", ".join(
+            f"{k} {v / n * 1e3:.1f}" for k, v in res["ms"].items()))
+    return res
+
+
 def time_ms(torch, fn, reps: int) -> float:
     """Mean device time of one call of fn over reps back-to-back calls,
     after one warm-up call, by CUDA events."""
@@ -432,7 +821,7 @@ def main() -> int:
         fail("the nv_wavenet_tpu_torch package is not beside chip_smoke.py")
     sys.path.insert(0, HERE)
     from nv_wavenet_tpu_torch import config as cfg_lib
-    from nv_wavenet_tpu_torch.engine.wavenet_infer import WaveNetInfer
+    from nv_wavenet_tpu_torch.engine.wavenet_infer import Impl, WaveNetInfer
     from nv_wavenet_tpu_torch.models import params as params_lib
     from nv_wavenet_tpu_torch.ops import exact_math as em
     from nv_wavenet_tpu_torch.ops import ordered_matmul as om
@@ -459,16 +848,32 @@ def main() -> int:
     log(f"[device] nvcc {nvcc}: {nvcc_ver.splitlines()[-1]}")
 
     # -- phase 2: build -------------------------------------------------------
-    t = time.perf_counter()
-    logs = build.build_all()
-    log(f"[build] {len(logs)} libraries in {time.perf_counter() - t:.2f} s "
-        f"({' '.join(build.NVCC_FLAGS)}) -> {build.build_dir()}")
+    mark("phase 2: build")
+    # nvcc runs in its own processes: the horizon case's plain CPU run (it
+    # needs no kernel) goes on beside it, on one thread (its operations are
+    # small, and more threads only contend with nvcc for the cores)
+    def timed_build():
+        t = time.perf_counter()
+        return build.build_all(), time.perf_counter() - t
+    threads = torch.get_num_threads()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        job = pool.submit(timed_build)
+        torch.set_num_threads(1)
+        t = time.perf_counter()
+        horizon = horizon_plain(torch, np, cfg_lib, params_lib, persistent)
+        horizon_s = time.perf_counter() - t
+        torch.set_num_threads(threads)
+        logs, build_s = job.result()
+    log(f"[build] {len(logs)} libraries in {build_s:.2f} s "
+        f"({' '.join(build.NVCC_FLAGS)}) -> {build.build_dir()}; beside it "
+        f"the horizon case's plain CPU run, {horizon_s:.2f} s")
     for src, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"[build] {src}: {line.strip()}")
 
     # -- phase 3: K0a vs plain ------------------------------------------------
+    mark("phase 3: K0a vs plain")
     x_np = dense_sweep()
     x = torch.from_numpy(x_np).to(dev)
     k0a = {"mismatches": 0, "max_abs_err": 0.0, "cpu_plain_mismatches": 0}
@@ -490,6 +895,7 @@ def main() -> int:
         fail(f"K0a disagrees with its plain version: {k0a['mismatches']}")
 
     # -- phase 4: K0b vs plain ------------------------------------------------
+    mark("phase 4: K0b vs plain")
     rng = np.random.RandomState(4)
     za = torch.from_numpy(rng.uniform(-8, 8, (4096, 256)).astype(np.float32)
                           ).to(dev)
@@ -524,6 +930,7 @@ def main() -> int:
         fail(f"K7 disagrees with its plain version: {k7['mismatches']}")
 
     # -- phase 5: K1 vs plain, small config -----------------------------------
+    mark("phase 5: K1 vs plain, small config")
     cfg = cfg_lib.TEST_CONFIG_MED
     B, T = 4, 64
     ref_w = params_lib.random_reference_weights(cfg, seed=11)
@@ -635,33 +1042,21 @@ def main() -> int:
         fail("K3 disagrees with its plain version, or is not chunk "
              "invariant, or ignores its seed")
 
-    # the horizon case, with the inputs of the CPU test from its seeds
-    hcfg = cfg_lib.WaveNetConfig(num_layers=4, R=32, S=128, A=256,
-                                 max_dilation=4)
-    rng = np.random.RandomState(123)
-    h_ref = params_lib.to_canonical(
-        params_lib.random_reference_weights(hcfg, seed=321), hcfg)
-    h_cond = rng.uniform(-0.5, 0.5, (HORIZON_T, hcfg.num_layers, HORIZON_B,
-                                     2 * hcfg.R)).astype(np.float32)
-    h_sel = rng.uniform(0, 1, (HORIZON_T, HORIZON_B)).astype(np.float32)
-    h_y = {}
-    for d in (dev, torch.device("cpu")):
-        h_params = params_lib.canonical_to_torch(h_ref, d)
-        cond_pre = (torch.from_numpy(h_cond).to(d)
-                    + h_params["dil_b"][None, :, None, :]).contiguous()
-        sel = torch.from_numpy(h_sel).to(d)
-        ring = persistent.init_ring(hcfg, HORIZON_B, d)
-        y_state = torch.full((2, HORIZON_B), hcfg.silence_bin,
-                             dtype=torch.int32, device=d)
-        if d.type == "cuda":
-            gen = persistent.make_persistent_generator(hcfg, HORIZON_B)
-            ys = [gen(h_params, t0, cond_pre[t0:t0 + HORIZON_CHUNK],
-                      sel[t0:t0 + HORIZON_CHUNK], ring, y_state)[0]
-                  for t0 in range(0, HORIZON_T, HORIZON_CHUNK)]
-            h_y[d.type] = torch.cat(ys).cpu()
-        else:
-            h_y[d.type] = persistent.generate_plain(
-                hcfg, h_params, 0, cond_pre, sel, ring, y_state, HORIZON_T)[0]
+    # the horizon case: K1 on the card in chunks against the plain run on
+    # the CPU made beside the build
+    hcfg, h_ref, h_cond, h_sel, h_y_cpu = horizon
+    h_params = params_lib.canonical_to_torch(h_ref, dev)
+    cond_pre = (torch.from_numpy(h_cond).to(dev)
+                + h_params["dil_b"][None, :, None, :]).contiguous()
+    sel = torch.from_numpy(h_sel).to(dev)
+    ring = persistent.init_ring(hcfg, HORIZON_B, dev)
+    y_state = torch.full((2, HORIZON_B), hcfg.silence_bin, dtype=torch.int32,
+                         device=dev)
+    gen = persistent.make_persistent_generator(hcfg, HORIZON_B)
+    ys = [gen(h_params, t0, cond_pre[t0:t0 + HORIZON_CHUNK],
+              sel[t0:t0 + HORIZON_CHUNK], ring, y_state)[0]
+          for t0 in range(0, HORIZON_T, HORIZON_CHUNK)]
+    h_y = {"cuda": torch.cat(ys).cpu(), "cpu": h_y_cpu}
     h_mism = int((h_y["cuda"] != h_y["cpu"]).sum())
     log(f"[K1 horizon] {h_mism}/{HORIZON_B * HORIZON_T} mismatches, K1 on the "
         f"card in chunks of {HORIZON_CHUNK} vs plain on the CPU")
@@ -669,6 +1064,7 @@ def main() -> int:
         fail(f"K1 disagrees with the plain version over the horizon: {h_mism}")
 
     # -- phase 6: K5 vs plain, small config -----------------------------------
+    mark("phase 6: K5 vs plain, small config")
     # one seeded schedule of ragged ticks (one with every length 0, one with
     # one row at 0) through an engine on the card (K5) and through the plain
     # ragged generator on the card, carrying their own state
@@ -743,6 +1139,7 @@ def main() -> int:
         rows * A * (2 + EXP_OPS + (A.bit_length() - 1) + 2))
 
     # -- phase 7: the main path at full width ---------------------------------
+    mark("phase 7: the main path at full width")
     cfg = cfg_lib.FLAGSHIP_CONFIG
     L, R = cfg.num_layers, cfg.R
     ref_w = params_lib.random_reference_weights(cfg, seed=1)
@@ -755,10 +1152,10 @@ def main() -> int:
     all_kernels = (em.EXACT_FN_KERNEL, em.SAMPLE_KERNEL, em.SOFTMAX_KERNEL,
                    om.ORDERED_MATMUL_KERNEL, persistent.PERSISTENT_KERNEL,
                    persistent.RAGGED_KERNEL, persistent.FORCED_KERNEL,
-                   persistent.PRNG_KERNEL)
+                   persistent.PRNG_KERNEL, persistent.STREAM_KERNEL)
     for k in all_kernels:
         k.launches = 0
-    requests = []
+    requests, main_ys = [], []
     for r in range(MAIN_REQUESTS):
         cond = (torch.rand((MAIN_T, L, MAIN_B, 2 * R), generator=gen_dev,
                            device=dev) - 0.5)
@@ -779,6 +1176,7 @@ def main() -> int:
         if not ok:
             fail(f"request {r + 1}: malformed output")
         requests.append({"seconds": dt, "khz_per_utt": MAIN_T / dt / 1e3})
+        main_ys.append(y)
         if r == 0:
             first = (cond, sel, y)
     launches = {k.symbol: k.launches for k in all_kernels}
@@ -834,6 +1232,7 @@ def main() -> int:
         f"PERF.md)")
 
     # -- phase 8: serving at full width ---------------------------------------
+    mark("phase 8: serving at full width")
     def flagship_engine():
         e = WaveNetInfer(num_layers=L, max_dilation=cfg.max_dilation, R=R,
                          S=cfg.S, A=cfg.A, max_batch=SERVE["B"],
@@ -871,6 +1270,7 @@ def main() -> int:
              f"{serve_launches}")
 
     # -- phase 9: correctness at full width -----------------------------------
+    mark("phase 9: correctness at full width")
     # the first utterances completed, replayed as one lockstep batch on a
     # fresh engine: each must equal what it was served, sample for sample
     chosen = completed[:SERVE_REPLAY]
@@ -936,6 +1336,7 @@ def main() -> int:
         fail("K5 disagrees with its plain version at the flagship")
 
     # -- phase 10: K2 and K3 at the flagship ----------------------------------
+    mark("phase 10: K2 and K3 at the flagship")
     # request 1's samples are the symbols K2 forces; the plain versions run
     # K5_PLAIN_T steps, the kernels are timed over CHECK_T-step launches
     y_tb = torch.from_numpy(np.ascontiguousarray(y_main.T)).to(dev)  # [T, B]
@@ -995,6 +1396,7 @@ def main() -> int:
         fail("K2 or K3 disagrees with its plain version at the flagship")
 
     # -- phase 11: scoring at full width --------------------------------------
+    mark("phase 11: scoring at full width")
     # request 1's window scored from silence by the engine's time-parallel
     # scorer (K7, K0a, K0c) and by K2 on the same state and symbols
     for k in all_kernels:
@@ -1082,6 +1484,7 @@ def main() -> int:
              f"{score_launches}")
 
     # -- phase 12: score -> feed handoff --------------------------------------
+    mark("phase 12: score -> feed handoff")
     half = MAIN_T // 2
     heng = flagship_engine()
     heng.begin_stream(MAIN_B)
@@ -1105,6 +1508,7 @@ def main() -> int:
     del p_eng, p_half
 
     # -- phase 13: prng at full width -----------------------------------------
+    mark("phase 13: prng at full width")
     for k in all_kernels:
         k.launches = 0
     peng = flagship_engine()
@@ -1134,7 +1538,139 @@ def main() -> int:
         fail(f"the prng request did not launch K3 or is malformed: "
              f"{prng_launches}")
 
-    # -- phase 14: the kernels line -------------------------------------------
+    # -- phase 14: K4 vs plain, small config ----------------------------------
+    mark("phase 14: K4 vs plain, small config")
+    mcfg = cfg_lib.TEST_CONFIG_MED
+    m_params = params_lib.canonical_to_torch(params_lib.to_canonical(
+        params_lib.random_reference_weights(mcfg, seed=11), mcfg), dev)
+    rng = np.random.RandomState(1011)
+    m_cond = torch.from_numpy((rng.uniform(
+        -1, 1, (K4_SMALL_T, mcfg.num_layers, 4, 2 * mcfg.R)) * 0.5).astype(np.float32)
+                              ).to(dev)
+    m_sel = torch.from_numpy(rng.uniform(0, 1, (K4_SMALL_T, 4)).astype(np.float32)
+                             ).to(dev)
+    k4_small = check_k4_small(torch, np, persistent, mcfg, m_params, m_cond,
+                              m_sel, dev)
+    if k4_small["mismatches"] or not k4_small["ok"]:
+        fail(f"K4 disagrees with its plain version: {k4_small}")
+
+    # -- phase 15: K4 at the flagship -----------------------------------------
+    mark("phase 15: K4 at the flagship")
+    k4_flag = check_k4_flagship(torch, np, persistent, cfg, params, cond, sel,
+                                dev)
+    if (k4_flag["schedule_mismatches"] or k4_flag["k1_mismatches"]
+            or k4_flag["forced_mismatches"] or k4_flag["prng_mismatches"]):
+        fail("K4 disagrees with K1/K2/K3, or its schedules disagree")
+    k4_plainf = check_k4_plain_flagship(torch, persistent, tsg, em, cfg,
+                                        params, cond, sel, dev)
+    if k4_plainf["mismatches"] or not k4_plainf["ok"]:
+        fail(f"K4 disagrees with its plain version at the flagship: "
+             f"{k4_plainf}")
+    k4_plain = k4_plainf["plain_ms"]["fp32"]
+
+    # -- phase 16: the MANYBLOCK main path at full width ----------------------
+    mark("phase 16: the MANYBLOCK main path at full width")
+    # the main path's 3 requests again (the same generator seed), through
+    # WaveNetInfer(implementation=Impl.MANYBLOCK) in every storage; fp32
+    # must give the main path's samples, bf16 and int8 must equal K1 fed
+    # their values over request 1's first CHECK_T samples (compared after
+    # the counts are read)
+    for k in all_kernels:
+        k.launches = 0
+    manyblock, heads = {}, {}
+    for name in STORAGES:
+        meng = WaveNetInfer(num_layers=L, max_dilation=cfg.max_dilation, R=R,
+                            S=cfg.S, A=cfg.A, max_batch=MAIN_B,
+                            chunk_size=MAIN_CHUNK, device="cuda",
+                            implementation=Impl.MANYBLOCK,
+                            **storage_kw(torch, name, engine=True))
+        meng.set_reference_weights(ref_w)
+        gen_dev.manual_seed(0)
+        reqs, mism = [], 0
+        for r in range(MAIN_REQUESTS):
+            rc = (torch.rand((MAIN_T, L, MAIN_B, 2 * R), generator=gen_dev,
+                             device=dev) - 0.5)
+            rs = torch.rand((MAIN_T, MAIN_B), generator=gen_dev, device=dev)
+            meng.set_inputs(rc, rs)
+            del rc
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            y = meng.run_chunks(MAIN_CHUNK, lambda yc, off, n: None, MAIN_T,
+                                MAIN_B)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            if not (y.shape == (MAIN_B, MAIN_T) and int(y.min()) >= 0
+                    and int(y.max()) < cfg.A):
+                fail(f"MANYBLOCK {name} request {r + 1}: malformed output")
+            if name == "fp32":
+                mism += int((y != main_ys[r]).sum())
+            elif r == 0:
+                heads[name] = y[:, :CHECK_T]
+            reqs.append({"seconds": dt, "khz_per_utt": MAIN_T / dt / 1e3})
+        manyblock[name] = {
+            "requests": reqs, "mismatches": mism,
+            "khz_per_utt": float(np.mean([q["khz_per_utt"] for q in reqs])),
+            "k4_us_per_step": k4_flag["k4_ms"][name] / CHECK_T * 1e3,
+            "k1_us_per_step": k1_us,
+            "plan": plan_dict(torch, persistent, cfg, MAIN_B, name)}
+        del meng
+    mb_launches = {k.symbol: k.launches for k in all_kernels}
+    k1_gen = persistent.make_persistent_generator(cfg, MAIN_B)
+    for name, head in heads.items():
+        view = storage_view(persistent, params, storage_kw(torch, name))
+        cpv = (first[0][:CHECK_T] + view["dil_b"][None, :, None, :]
+               ).contiguous()
+        y1 = k1_gen(view, 0, cpv, first[1][:CHECK_T].contiguous(), *fresh())
+        manyblock[name]["mismatches"] += int(
+            (head != y1[0].T.cpu().numpy()).sum())
+    for name, mb in manyblock.items():
+        log(f"[manyblock] {name}: {MAIN_REQUESTS} requests of {MAIN_B} x "
+            f"{MAIN_T} at " + ", ".join(f"{q['khz_per_utt']:.3f}"
+                                        for q in mb["requests"])
+            + f" kHz per utterance; {mb['mismatches']} mismatches (fp32: "
+            f"every sample vs the main path; bf16/int8: request 1's first "
+            f"{CHECK_T} vs K1 on the storage's values); K4 "
+            f"{mb['k4_us_per_step']:.2f} us per step, K1 {k1_us:.2f}")
+        if mb["mismatches"]:
+            fail(f"the MANYBLOCK main path ({name}) disagrees with K1")
+    log(json.dumps({"manyblock": {
+        "config": "flagship 20L R64 S256 A256 maxD512", "batch": MAIN_B,
+        "samples_per_request": MAIN_T, "storages": manyblock,
+        "launches": mb_launches, "card": card}}))
+    stream_sym = persistent.STREAM_KERNEL.symbol
+    if (not mb_launches[stream_sym]
+            or mb_launches[persistent.PERSISTENT_KERNEL.symbol]):
+        fail(f"the MANYBLOCK path did not run on K4 alone: {mb_launches}")
+
+    # -- phase 17: config 4 ---------------------------------------------------
+    mark("phase 17: config 4")
+    c4 = check_config4(torch, np, persistent, cfg_lib, params_lib, dev)
+    if c4["mismatches"]:
+        fail("K4 disagrees with K1 at config 4")
+
+    # -- phase 18: score -> feed under MANYBLOCK int8 (fault R9) --------------
+    mark("phase 18: score -> feed under MANYBLOCK int8 (fault R9)")
+    half = R9_T // 2
+    r9 = WaveNetInfer(num_layers=L, max_dilation=cfg.max_dilation, R=R,
+                      S=cfg.S, A=cfg.A, max_batch=MAIN_B, device="cuda",
+                      implementation=Impl.MANYBLOCK, stream_quant="int8")
+    r9.set_reference_weights(ref_w)
+    r9.begin_stream(MAIN_B)
+    y_head = r9.feed(cond[:half], sel[:half])
+    ring_gen = r9.export_state()["ring"]
+    y_tail = r9.feed(cond[half:R9_T], sel[half:R9_T])
+    r9.begin_stream(MAIN_B)
+    r9.score(cond[:half], y_head)
+    r9_ring = bit_mismatches(torch, r9.export_state()["ring"], ring_gen)
+    r9_mism = int((r9.feed(cond[half:R9_T], sel[half:R9_T]) != y_tail).sum())
+    log(f"[R9] MANYBLOCK int8, {MAIN_B} x {R9_T}: score the first half, feed "
+        f"the second: {r9_mism} mismatches against one int8 generation; the "
+        f"scored ring vs the generated: {r9_ring} bit mismatches")
+    if r9_mism or r9_ring:
+        fail("the int8 score -> feed handoff is not exact (R9)")
+
+    # -- phase 19: the kernels line -------------------------------------------
+    mark("phase 19: the kernels line")
     def entry(name, source, replaces, n_launches, mism, err, ms, plain, bnd,
               by, lib, shape, **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -1202,6 +1738,43 @@ def main() -> int:
               f"plain_ms over {K5_PLAIN_T} steps",
               variant='mode="prng", prng_uniform_sel (:74-83, 404-405)',
               launches_on="the prng request"),
+        entry("K4 stream_generate_kernel", csrc + "stream_generate.cu",
+              "nv_wavenet_tpu/ops/persistent.py:762",
+              mb_launches[stream_sym],
+              k4_small["mismatches"] + k4_flag["schedule_mismatches"]
+              + k4_flag["k1_mismatches"] + k4_flag["forced_mismatches"]
+              + k4_flag["prng_mismatches"] + c4["mismatches"] + r9_mism
+              + r9_ring + sum(m["mismatches"] for m in manyblock.values())
+              + k4_plainf["mismatches"],
+              max(k4_small["ring_err"], k4_small["p_err"],
+                  k4_plainf["ring_err"], k4_plainf["p_err"]),
+              k4_flag["k4_ms"]["fp32"], k4_plain, *k4_flag["bound"]["fp32"],
+              None,
+              f"flagship, B={MAIN_B}, T={CHECK_T} steps per launch, fp32 "
+              f"stacks; plain_ms over {K5_PLAIN_T} steps",
+              variant="stream_weights (:128-199, 353-361), stream_quant "
+                      "(:105-108, 189-197, 434-465, 726-729), weight_dtype "
+                      "(:723-725)",
+              launches_on="the MANYBLOCK main path (3 storages x "
+                          f"{MAIN_REQUESTS} requests)",
+              instances=[f"stream_generate_kernel<{st}, {sl}>"
+                         for st in ("kStorageF32", "kStorageBF16",
+                                    "kStorageI8")
+                         for sl in ("kSelInjected", "kSelForced",
+                                    "kSelPrng")],
+              storages={n: {"ms": k4_flag["k4_ms"][n],
+                            "us_per_step": k4_flag["k4_ms"][n] / CHECK_T
+                            * 1e3,
+                            "bound_ms": k4_flag["bound"][n][0],
+                            "bound_by": k4_flag["bound"][n][1],
+                            "plain_ms": k4_plainf["plain_ms"][n],
+                            "khz_per_utt": manyblock[n]["khz_per_utt"],
+                            "plan": manyblock[n]["plan"]}
+                        for n in STORAGES},
+              schedule_ms=k4_flag["schedule_ms"],
+              config4={"batch": C4_B, "steps": C4_TIME_T,
+                       "ms": c4["ms"], "bound": c4["bound"],
+                       "plan": c4["plan"]}),
         entry("K0c softmax_p_kernel", csrc + "exact_math_kernels.cu",
               "none (XLA in nv_wavenet_tpu/ops/score_parallel.py:169; "
               "softmax_canonical, nv_wavenet_tpu/ops/persistent.py:64)",
@@ -1221,6 +1794,7 @@ def main() -> int:
               per_shape=k7["per_shape"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
+    mark("done")
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -88,16 +88,13 @@
 #include <cuda_runtime.h>
 
 #include "exact_math.cuh"
+#include "step_common.cuh"
 
 namespace {
 
+using namespace nvw;
+
 constexpr int kThreads = 256;
-constexpr int kModeSample = 0;
-constexpr int kModeArgmax = 1;
-// where a step's selector comes from
-constexpr int kSelInjected = 0;   // sel[j, b], a uniform (K1, K5)
-constexpr int kSelForced = 1;     // sel[j, b], the symbol to emit (K2)
-constexpr int kSelPrng = 2;       // Philox4x32-10 on the card (K3)
 
 struct GenArgs {
   const float* embed;   // [2A, R]
@@ -131,63 +128,10 @@ struct GenArgs {
   unsigned long long seed;   // K3 only: the Philox key
 };
 
-// v[0, K) . w[0], w[stride], ... in the fixed order k = 0, 1, ..., K-1
-__device__ __forceinline__ float dot_column(const float* v, const float* __restrict__ w,
-                                            int K, int stride) {
-  float acc = 0.0f;
-#pragma unroll 8
-  for (int k = 0; k < K; ++k) acc = acc + v[k] * __ldg(w + (size_t)k * stride);
-  return acc;
-}
-
-// dot_column's sums in the same order, with the weights of eight k-steps
-// loaded before their products, so eight L2 loads are in flight at once.
-// In the K2 instance ptxas interleaved dot_column's loads with the
-// dependent adds, exposing each load's latency alone (295 us per flagship
-// step on an H100 against K1's 183; PERF.md).  K2 and K3 use this form,
-// K1 and K5 keep dot_column, so their code stays as it was.
-__device__ __forceinline__ float dot_column_batched(const float* v, const float* __restrict__ w,
-                                                    int K, int stride) {
-  float acc = 0.0f;
-  int k = 0;
-  for (; k + 8 <= K; k += 8) {
-    float wk[8];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) wk[u] = __ldg(w + (size_t)(k + u) * stride);
-#pragma unroll
-    for (int u = 0; u < 8; ++u) acc = acc + v[k + u] * wk[u];
-  }
-  for (; k < K; ++k) acc = acc + v[k] * __ldg(w + (size_t)k * stride);
-  return acc;
-}
-
 template <int kSel>
 __device__ __forceinline__ float dot(const float* v, const float* __restrict__ w, int K,
                                      int stride) {
   return kSel == kSelInjected ? dot_column(v, w, K, stride) : dot_column_batched(v, w, K, stride);
-}
-
-// Philox4x32-10 word 0 for counter (t_lo, t_hi, row, 0), key (seed_lo,
-// seed_hi), mapped to [0, 1) by its top 24 bits: the kernel's uniform for
-// absolute step t of row `row`
-__device__ __forceinline__ float philox_uniform(unsigned long long seed, long long t, int row) {
-  unsigned c0 = (unsigned)t, c1 = (unsigned)((unsigned long long)t >> 32);
-  unsigned c2 = (unsigned)row, c3 = 0u;
-  unsigned k0 = (unsigned)seed, k1 = (unsigned)(seed >> 32);
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const unsigned hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
-    const unsigned hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
-    c0 = hi1 ^ c1 ^ k0;
-    c1 = lo1;
-    c2 = hi0 ^ c3 ^ k1;
-    c3 = lo0;
-  }
-  return (float)(c0 >> 8) * 0x1.0p-24f;
 }
 
 template <bool kRagged, int kSel>

@@ -15,9 +15,22 @@ surface: `begin_stream`, `feed` / `feed_device` (with per-row `lengths`),
     to the persistent kernel (`ops/persistent.py`): K1 in modes "sample"
     and "argmax", K2 in mode "forced" (the selectors carry the symbols to
     emit), K3 in mode "prng" (selectors drawn on the card from Philox keyed
-    on `sampling_seed` and the absolute clock).  MANYBLOCK (weights
-    streamed per layer, kernel K4) is still to port and raises
-    NotImplementedError.
+    on `sampling_seed` and the absolute clock).  AUTO stays on K1, which
+    keeps nothing resident and so runs any size; the JAX engine's AUTO
+    picks MANYBLOCK from a VMEM budget, which has no counterpart here
+    (`vmem_budget` is not ported).  MANYBLOCK runs K4 in every mode of
+    `run*`, lockstep `feed` and the dumps: K1's step with dil_w and rs_w
+    streamed through shared memory (`stream_group_size`, `stream_prefetch`
+    schedule the copies and change no value).  Ragged or desynced feeds
+    need K5 and raise under MANYBLOCK, as in the JAX engine.
+  * Weight storage: `weight_dtype=torch.bfloat16` stores all nine
+    parameters as bf16; `stream_quant="int8"` stores dil_w and rs_w as int8
+    with per-column scales, and takes effect under MANYBLOCK only, as in
+    the JAX engine.  Every path that does not read the stored form (the
+    plain loop, K1/K2/K3/K5, the dil_b prefold and the scorer) computes
+    with its fp32 values, `persistent.value_view`, so a score -> feed
+    handoff stays exact under int8 too (the JAX engine's scorer keeps the
+    fp32 stacks there: fault R9 of ROADMAP.md).
   * `score` / `score_device` run the time-parallel scorer
     (`ops/score_parallel.py`: kernels K7, K0a, K0c) over a window of given
     symbols and leave the state generation would leave.
@@ -29,9 +42,10 @@ surface: `begin_stream`, `feed` / `feed_device` (with per-row `lengths`),
     launch would.  A feed is one launch whatever its length.
   * Streams keep one absolute clock per batch row (`_stream_t_row`), the
     one source of truth for FIFO phase and default selectors.  A feed whose
-    rows share a clock and a length runs lockstep on K1; per-row `lengths`
-    or desynced clocks (after a ragged feed or `reset_utterances`) run on
-    K5, and feeds return to K1 once the clocks realign.
+    rows share a clock and a length runs lockstep on K1 (K4 under
+    MANYBLOCK); per-row `lengths` or desynced clocks (after a ragged feed
+    or `reset_utterances`) run on K5, and feeds return to K1 once the
+    clocks realign.
 """
 
 from __future__ import annotations
@@ -132,12 +146,15 @@ class WaveNetInfer:
                  implementation: Impl = Impl.AUTO,
                  tanh_embed: bool = True,
                  chunk_size: int = 64,
+                 weight_dtype=torch.float32,
+                 stream_group_size: int = 8,
+                 stream_prefetch: bool = False,
+                 stream_quant: Optional[str] = None,
                  temperature: float = 1.0,
                  device=None):
-        if implementation == Impl.MANYBLOCK:
-            raise NotImplementedError(
-                "Impl.MANYBLOCK streams weights per layer: kernel K4 of "
-                "ROADMAP.md, still to port")
+        if stream_quant not in (None, "int8"):
+            raise ValueError(f"stream_quant must be None or 'int8', got "
+                             f"{stream_quant!r}")
         if chunk_size < 1:
             raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
         # sampling temperature: softmax(za / T) as a weight transform, end_w
@@ -152,12 +169,26 @@ class WaveNetInfer:
         self.implementation = implementation
         self.chunk_size = chunk_size
         self.sampling_seed = 0
+        # weight storage and K4's copy schedule (ops/persistent.py); int8
+        # applies to the streamed stacks, so only under MANYBLOCK
+        self.weight_dtype = weight_dtype
+        self.stream_group_size = stream_group_size
+        self.stream_prefetch = bool(stream_prefetch)
+        self.stream_quant = stream_quant
+        self._stream = implementation == Impl.MANYBLOCK
+        self._quant = stream_quant == "int8" and self._stream
+        persistent.check_storage(weight_dtype, stream_quant == "int8")
+        if self._stream:   # a geometry K4 cannot run raises here
+            persistent.stream_plan(
+                self.cfg, max_batch, torch.int8 if self._quant
+                else weight_dtype, stream_group_size)
         L = num_layers
         # canonical params assembled incrementally by the setters (host)
         self._np_params: Dict[str, np.ndarray] = {
             k: np.zeros(s, np.float32)
             for k, s in params_lib.canonical_shapes(L, R, S, A).items()}
         self._params: Optional[Dict[str, torch.Tensor]] = None  # device copy
+        self._values: Optional[Dict[str, torch.Tensor]] = None  # their view
         self._cond: Optional[torch.Tensor] = None
         self._cond_pre: Optional[torch.Tensor] = None
         self._selectors: Optional[torch.Tensor] = None
@@ -179,6 +210,7 @@ class WaveNetInfer:
 
     def _invalidate(self):
         self._params = None
+        self._values = None
         self._cond_pre = None
 
     def set_embeddings(self, embed_prev, embed_cur):
@@ -245,6 +277,7 @@ class WaveNetInfer:
         if temperature == self.temperature:
             return
         self.temperature = temperature
+        self._values = None
         if self._params is not None:
             tempered = self._tempered_params()
             for k in ("end_w", "end_b"):
@@ -252,10 +285,20 @@ class WaveNetInfer:
                     tempered[k], device=self.device).contiguous()
 
     def _device_params(self) -> Dict[str, torch.Tensor]:
+        """The canonical fp32 (tempered) params on the device: what the
+        generators take, each applying its storage itself."""
         if self._params is None:
             self._params = params_lib.canonical_to_torch(
                 self._tempered_params(), self.device)
         return self._params
+
+    def _value_params(self) -> Dict[str, torch.Tensor]:
+        """The fp32 values of the weight storage (`persistent.value_view`,
+        temperature applied first): what the prefold and the scorer use."""
+        if self._values is None:
+            self._values = persistent.value_view(
+                self._device_params(), self.weight_dtype, self._quant)
+        return self._values
 
     # ------------------------------------------------------------------
     # inputs
@@ -300,7 +343,7 @@ class WaveNetInfer:
         exactly-rounded elementwise add, the same values the JAX engine
         prefolds."""
         if self._cond_pre is None:
-            dil_b = self._device_params()["dil_b"]
+            dil_b = self._value_params()["dil_b"]
             self._cond_pre = self._cond + dil_b[None, :, None, :]
         return self._cond_pre
 
@@ -408,7 +451,12 @@ class WaveNetInfer:
         key = (batch, mode, dump, ragged)
         if key not in self._gens:
             self._gens[key] = persistent.make_persistent_generator(
-                self.cfg, batch, mode=mode, dump=dump, ragged=ragged)
+                self.cfg, batch, mode=mode, dump=dump,
+                weight_dtype=self.weight_dtype,
+                stream_weights=self._stream,
+                stream_group_size=self.stream_group_size,
+                stream_prefetch=self.stream_prefetch,
+                stream_quant=self._quant, ragged=ragged)
         return self._gens[key]
 
     # ------------------------------------------------------------------
@@ -459,8 +507,9 @@ class WaveNetInfer:
         """`feed` without the read-back: returns the device y [n, batch].
         `cond_chunk` [n, L, batch, 2R] may already be on the card; a host
         array is staged through pinned memory.  Per feed, on the card: one
-        dil_b prefold and one kernel launch (K1 lockstep, K5 ragged), with
-        no host synchronisation before the launch."""
+        dil_b prefold and one kernel launch (K1 lockstep, K4 under
+        MANYBLOCK, K5 ragged), with no host synchronisation before the
+        launch."""
         if self._stream_t_row is None:
             raise RuntimeError("call begin_stream(batch_size) first")
         B = len(self._stream_t_row)
@@ -499,6 +548,10 @@ class WaveNetInfer:
         if mode != "sample":
             raise ValueError("ragged feeds (per-row lengths or desynced row "
                              "clocks) run mode='sample' only")
+        if self._stream:
+            raise ValueError("ragged feeds (per-row lengths or desynced row "
+                             "clocks) run on K5, with the weights read in "
+                             "place; this engine streams them (MANYBLOCK)")
         B, T = len(self._stream_t_row), cond.shape[0]
         if not (lengths.shape == (B,)
                 and np.issubdtype(lengths.dtype, np.integer)
@@ -552,7 +605,7 @@ class WaveNetInfer:
             self._scorers[B] = score_parallel.make_parallel_scorer(
                 self.cfg, B, prefold_cond=True)
         y = torch.as_tensor(y_chunk, device=self.device).to(torch.int32)
-        p_seq = self._scorers[B](self._device_params(), int(clocks[0]),
+        p_seq = self._scorers[B](self._value_params(), int(clocks[0]),
                                  self._stage_cond_pre(cond_chunk), y,
                                  self._ring, self._y_state)[0]
         self._stream_t_row = clocks + T
@@ -577,7 +630,7 @@ class WaveNetInfer:
 
     def _stage_cond_pre(self, cond) -> torch.Tensor:
         """cond + dil_b on the device, the values `_prefolded_cond` gives."""
-        dil_b = self._device_params()["dil_b"]
+        dil_b = self._value_params()["dil_b"]
         return self._stage(cond) + dil_b[None, :, None, :]
 
     def reset_utterances(self, rows):

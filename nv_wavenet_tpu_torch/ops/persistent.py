@@ -1,6 +1,6 @@
 """The persistent generator: the whole generation of a call in one kernel
-launch (K1, K2, K3 and K5, `csrc/persistent.cu`), with its plain PyTorch
-version.
+launch (K1, K2, K3 and K5, `csrc/persistent.cu`; K4,
+`csrc/stream_generate.cu`), with its plain PyTorch version.
 
 The port's counterpart of `nv_wavenet_tpu/ops/persistent.py`
 (`make_persistent_generator`): modes "sample" and "argmax" with the
@@ -10,8 +10,29 @@ selectors drawn on the card from Philox, `scan_generate.prng_uniform_sel`),
 and `ragged=True`, per-row clocks and lengths in mode "sample" (K5, the
 ragged feeds of the serving path).  A CUDA tensor launches the kernel; a CPU
 tensor runs the plain loop of `ops/scan_generate.py`.  Nothing falls back
-from one to the other.  `stream_weights`/`stream_quant` (K4) are still to
-port and raise NotImplementedError.
+from one to the other.
+
+Weight storage and streaming (K4, the engine's `Impl.MANYBLOCK`):
+  * `weight_dtype=torch.bfloat16` stores the nine parameters as bf16; every
+    path computes with their fp32 values, `value_view`.  `stream_quant`
+    stores dil_w and rs_w as int8 with one fp32 scale per (layer, output
+    column) (`quantize_stream_weights`); the value of a weight is the one
+    rounded product q * s (`dequantize_stream_params`).
+  * `stream_weights=True` launches K4: K1's step, with dil_w and rs_w
+    copied into a ring of shared-memory stages by bulk asynchronous copies
+    (1D TMA), each stage a block of `StreamPlan.rows_per_stage` whole rows
+    of one matrix.  Every output column still sums k = 0, 1, ..., K-1 from
+    0 across the stages, so K4 equals K1 fed `value_view` bit for bit.
+  * `stream_group_size` G: on the TPU one copy brings G layers, double
+    buffered, so the copies run one group ahead.  A Hopper block may use
+    227 KB of shared memory, less than two fp32 flagship layers (288 KB),
+    so here G sets how far ahead the copies run: the ring holds G layers of
+    stages (G * stages-per-layer + 1 slots), clamped to the shared memory;
+    `stream_plan` reports the clamp.  `stream_prefetch=True` lets the
+    copies run on past the end of a step, so the next step's first stages
+    load under this step's last layers, output stack and sampler;
+    otherwise each step starts with an empty ring.  Neither changes a
+    value, and no copy is issued for a step past n_valid.
 
 Differences from the TPU kernel, all value-preserving:
   * no chunk padding and no grid: the kernel loops over `n_valid` steps
@@ -35,7 +56,7 @@ Differences from the TPU kernel, all value-preserving:
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
 
@@ -65,6 +86,155 @@ FORCED_KERNEL = build.CudaKernel(
 PRNG_KERNEL = build.CudaKernel(
     "persistent.cu", "nvw_persistent_generate_prng",
     [_P] * 18 + [ctypes.c_longlong] + [_I] * 8 + [ctypes.c_ulonglong, _P])
+# K4: K1 with dil_w and rs_w streamed through shared memory, every mode
+STREAM_KERNEL = build.CudaKernel(
+    "stream_generate.cu", "nvw_stream_generate",
+    [_P] * 22 + [ctypes.c_longlong, ctypes.c_ulonglong] + [_I] * 15 + [_P])
+_STREAM_MODE_IDS = {"sample": 0, "argmax": 1, "forced": 2, "prng": 3}
+# the stacks' storage dtypes in K4 (csrc/stream_generate.cu kStorage*)
+_STORAGE_IDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+# the shared memory one H100 block may use, and the H100's SMs
+SMEM_PER_BLOCK = 232448
+SMS = 132
+STREAM_MAX_COLUMNS = 1024  # output columns of one product: kMaxTasks * kThreads
+_STATIC_SMEM = 1024       # the block helpers' static shared memory, rounded up
+
+
+def stream_group(L: int, group_size: int = 8):
+    """(group size, group count) of HBM weight streaming: `group_size`
+    layers per group, at most L (the JAX package's `stream_group`)."""
+    if group_size < 1:
+        raise ValueError(f"stream_group_size must be >= 1, got {group_size}")
+    G = min(group_size, L)
+    return G, -(-L // G)
+
+
+def quantize_stream_weights(params: Dict[str, torch.Tensor]):
+    """Per-output-column symmetric int8 quantization of the two streamed
+    stacks, dil_w [L, 2R, 2R] and rs_w [L, R, R+S]: s = max|w| / 127 over
+    the input axis per (layer, output column), 1 where that is 0, and
+    q = clip(round_half_even(w / s), -127, 127).  Returns (q_dil int8,
+    s_dil [L, 2R], q_rs int8, s_rs [L, R+S]) on the params' device."""
+    def q(w):
+        w = w.to(torch.float32)
+        s = w.abs().amax(dim=1) / 127.0
+        s = torch.where(s > 0, s, torch.ones_like(s))
+        qw = torch.clamp(torch.round(w / s[:, None, :]), -127, 127)
+        return qw.to(torch.int8), s
+
+    qd, sd = q(params["dil_w"])
+    qr, sr = q(params["rs_w"])
+    return qd, sd, qr, sr
+
+
+def dequantize_stream_params(params: Dict[str, torch.Tensor]
+                             ) -> Dict[str, torch.Tensor]:
+    """params with dil_w and rs_w replaced by their int8 round trip q * s,
+    one rounded fp32 product per weight: the values K4 computes with under
+    `stream_quant`."""
+    qd, sd, qr, sr = quantize_stream_weights(params)
+    return {**params,
+            "dil_w": qd.to(torch.float32) * sd[:, None, :],
+            "rs_w": qr.to(torch.float32) * sr[:, None, :]}
+
+
+def check_storage(weight_dtype, stream_quant: bool) -> None:
+    """Raise ValueError for a storage the port does not have: the JAX
+    package's weight dtypes fp32 and bf16, int8 stacks only over fp32."""
+    if weight_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"weight_dtype must be torch.float32 or "
+                         f"torch.bfloat16, got {weight_dtype}")
+    if stream_quant and weight_dtype != torch.float32:
+        raise ValueError("stream_quant (int8) replaces the stacks' storage "
+                         "dtype; combine it with weight_dtype=torch.float32 "
+                         "only")
+
+
+def value_view(params: Dict[str, torch.Tensor],
+               weight_dtype=torch.float32,
+               stream_quant: bool = False) -> Dict[str, torch.Tensor]:
+    """The fp32 values a weight storage computes with: every parameter
+    rounded to bf16 under weight_dtype=torch.bfloat16, dil_w and rs_w
+    dequantized (q * s) under stream_quant, the params themselves under
+    fp32.  Apply it to canonical params once: the int8 round trip is not
+    idempotent."""
+    check_storage(weight_dtype, stream_quant)
+    if weight_dtype == torch.bfloat16:
+        return {k: v.to(torch.bfloat16).to(torch.float32)
+                for k, v in params.items()}
+    if stream_quant:
+        return dequantize_stream_params(params)
+    return params
+
+
+class StreamPlan(NamedTuple):
+    """K4's shared-memory plan (`stream_plan`)."""
+    storage: torch.dtype      # the stacks' dtype in device memory
+    rows_per_stage: int       # weight rows one stage (one copy) brings
+    stage_bytes: int          # one ring slot
+    stages: int               # ring slots
+    smem_bytes: int           # dynamic shared memory K4 asks for
+    group_layers: int         # the lookahead asked for, min(G, L) layers
+    lookahead_layers: float   # what the ring holds: (stages - 1) / per layer
+    clamped: bool             # the shared memory cut the lookahead
+    waves: int                # CTA waves of the batch, one CTA per SM
+
+
+def stream_plan(cfg: WaveNetConfig, batch: int, storage=torch.float32,
+                stream_group_size: int = 8) -> StreamPlan:
+    """Decide K4's stages for `batch` rows with the stacks stored as
+    `storage` (torch.float32, torch.bfloat16 or torch.int8).
+
+    A stage is one block of `rows_per_stage` whole rows: for dil_w those
+    rows of Wprev and of Wcur, for rs_w those rows of [R, R+S]; a layer
+    takes 2 R / rows_per_stage stages.  Every stage costs a barrier and a
+    wait (~0.45 us on an H100, PERF.md), so the stage is the largest power
+    of two of rows dividing R of which two fit: the whole of Wprev and Wcur
+    (64 KB) or of rs_w (80 KB) at the flagship widths in fp32.  The ring has
+    G * stages-per-layer + 1 slots (G = stream_group_size, at most L), as
+    many as fit beside the step's activations ((7R + S + 4A) floats, as K1)
+    and the stages' barriers.  One CTA runs one batch row and, with this
+    much shared memory, has its SM alone: a batch of more than 132 rows
+    runs in waves.  Raises ValueError for a geometry K4 cannot run: more
+    than 1024 output columns in a product (4R or R+S), rows that are not
+    whole 16-byte units (the unit of a bulk copy), or fewer than two stages
+    of one row."""
+    if storage not in _STORAGE_IDS:
+        raise ValueError(f"K4 stores its stacks as {list(_STORAGE_IDS)}, "
+                         f"got {storage}")
+    if batch < 1:
+        raise ValueError(f"batch must be >= 1, got {batch}")
+    L, R, S, A = cfg.num_layers, cfg.R, cfg.S, cfg.A
+    eb = torch.empty((), dtype=storage).element_size()
+    if max(4 * R, R + S) > STREAM_MAX_COLUMNS:
+        raise ValueError(f"K4 computes at most {STREAM_MAX_COLUMNS} output "
+                         f"columns per product; 4R = {4 * R} and R+S = "
+                         f"{R + S}")
+    for name, n in (("dil_w", 2 * R), ("rs_w", R + S)):
+        if n * eb % 16:
+            raise ValueError(f"K4 copies whole 16-byte units: a row of "
+                             f"{name} is {n * eb} bytes in {storage}")
+    act = -(-(7 * R + S + 4 * A) * 4 // 16) * 16
+    budget = SMEM_PER_BLOCK - _STATIC_SMEM - act - 8
+    rows = R & -R
+    while True:
+        stage = -(-max(2 * rows * 2 * R, rows * (R + S)) * eb // 128) * 128
+        fit = budget // (stage + 8)
+        if fit >= 2 or rows == 1:
+            break
+        rows //= 2
+    if fit < 2:
+        raise ValueError(f"K4 needs two stages of {stage} bytes beside "
+                         f"{act} bytes of activations in {SMEM_PER_BLOCK} "
+                         f"bytes of shared memory")
+    per_layer = 2 * (R // rows)
+    G, _ = stream_group(L, stream_group_size)
+    stages = min(G * per_layer + 1, fit)
+    smem = stages * stage + -(-8 * stages // 16) * 16 + act
+    return StreamPlan(storage, rows, stage, stages, smem, G,
+                      (stages - 1) / per_layer, stages < G * per_layer + 1,
+                      -(-batch // SMS))
 
 
 def init_ring(cfg: WaveNetConfig, batch: int, device,
@@ -155,6 +325,44 @@ def _launch_kernel(cfg: WaveNetConfig, params: Dict[str, torch.Tensor],
     return out
 
 
+def _launch_stream(cfg: WaveNetConfig, plan: StreamPlan, prefetch: bool,
+                   params: Dict[str, torch.Tensor], stacks: tuple,
+                   sched: torch.Tensor, t0: int, cond_pre: torch.Tensor,
+                   sel: torch.Tensor, ring: torch.Tensor,
+                   y_state: torch.Tensor, n_valid: int, mode: str, dump: bool,
+                   seed: int):
+    """K4: `params` gives the fp32 values of the small tensors, `stacks`
+    the stored (dil_w, rs_w, dil_s, rs_s); outputs as `_launch_kernel`."""
+    T, _, B, _ = cond_pre.shape
+    dev = cond_pre.device
+    y = torch.zeros((T, B), dtype=torch.int32, device=dev)
+    dumps = _empty_dumps(cfg, B, dev) if dump else None
+    p_seq = (torch.zeros((T, B, cfg.A), dtype=torch.float32, device=dev)
+             if mode == "forced" else None)
+    outs = ([dumps[k] for k in _DUMP_KEYS] if dump else []) + (
+        [p_seq] if mode == "forced" else [])
+    dil, rs, dil_s, rs_s = stacks
+    if dil.data_ptr() % 16 or rs.data_ptr() % 16:
+        raise ValueError("K4 copies dil_w and rs_w in 16-byte units: both "
+                         "must start on a 16-byte boundary")
+    if n_valid:
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        STREAM_KERNEL(
+            params["embed"].data_ptr(), dil.data_ptr(), rs.data_ptr(),
+            ptr(dil_s), ptr(rs_s),
+            *(params[k].data_ptr() for k in _WEIGHTS[3:]),
+            cond_pre.data_ptr(), sel.data_ptr(), sched.data_ptr(),
+            ring.data_ptr(), y_state.data_ptr(), y.data_ptr(),
+            *(ptr(dumps[k]) if dump else None for k in _DUMP_KEYS),
+            ptr(p_seq), t0, seed & 0xFFFFFFFFFFFFFFFF, n_valid, B,
+            cfg.num_layers, cfg.R, cfg.S, cfg.A, int(cfg.tanh_embed),
+            cfg.silence_bin, _STREAM_MODE_IDS[mode],
+            _STORAGE_IDS[plan.storage], plan.rows_per_stage, plan.stages,
+            plan.stage_bytes, int(prefetch), plan.smem_bytes,
+            build.current_stream(dev))
+    return (y, ring, y_state, *outs)
+
+
 def _launch_ragged(cfg: WaveNetConfig, params: Dict[str, torch.Tensor],
                    sched: torch.Tensor, t0_row: torch.Tensor,
                    cond_pre: torch.Tensor, sel: torch.Tensor,
@@ -179,9 +387,23 @@ def _launch_ragged(cfg: WaveNetConfig, params: Dict[str, torch.Tensor],
     return y, ring, y_state
 
 
+def _stream_stacks(params: Dict[str, torch.Tensor], weight_dtype,
+                   stream_quant: bool) -> tuple:
+    """K4's stored stacks (dil_w, rs_w, dil_s, rs_s): int8 with their scales,
+    bf16, or the fp32 tensors themselves (no scales)."""
+    if stream_quant:
+        qd, sd, qr, sr = quantize_stream_weights(params)
+        return qd, qr, sd, sr
+    return (params["dil_w"].to(weight_dtype).contiguous(),
+            params["rs_w"].to(weight_dtype).contiguous(), None, None)
+
+
 def make_persistent_generator(cfg: WaveNetConfig, batch: int,
                               mode: str = "sample", dump: bool = False,
+                              weight_dtype=torch.float32,
                               stream_weights: bool = False,
+                              stream_group_size: int = 8,
+                              stream_prefetch: bool = False,
                               stream_quant: bool = False,
                               ragged: bool = False):
     """Build `generate(params, t0, cond_pre, sel, ring, y_state, n_valid=None,
@@ -213,20 +435,49 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
     place), plus xt [L,B,R], skip [L,B,S], zs, za, p [B,A] of the last run
     step when dump=True, plus p_seq [T, B, A] float32 (zero past n_valid)
     in mode "forced": the JAX order.  All tensors on one device: CPU runs
-    the plain loop, CUDA launches K1 (K2, K3, K5).
+    the plain loop, CUDA launches K1 (K2, K3, K5), or K4 in every mode with
+    stream_weights=True.
+
+    Storage (see the module docstring): params stay the canonical fp32
+    tensors; weight_dtype=torch.bfloat16 and stream_quant (int8 stacks, only
+    with stream_weights, as in the JAX package) make every path compute
+    with `value_view(params)`, and K4 holds the stored form on the card
+    (bf16 stacks, or int8 stacks and their scales), both built once per
+    params object.  stream_group_size and stream_prefetch schedule K4's
+    copies (`stream_plan`) and change no value.  ragged=True never streams.
     """
     if mode not in scan_generate.MODES:
         raise ValueError(f"unknown mode {mode!r}")
-    if stream_weights or stream_quant:
-        raise NotImplementedError("stream_weights / stream_quant are kernel "
-                                  "K4 of ROADMAP.md, still to port")
-    if ragged and (mode != "sample" or dump):
+    stream_quant = bool(stream_quant and stream_weights)
+    check_storage(weight_dtype, stream_quant)
+    if ragged and (mode != "sample" or dump or stream_weights):
         raise ValueError("ragged=True (K5) runs mode='sample' without dump "
-                         "only, as the TPU kernel's ragged variant")
+                         "or stream_weights only, as the TPU kernel's ragged "
+                         "variant")
     L, R, A = cfg.num_layers, cfg.R, cfg.A
     B = batch
+    plan = (stream_plan(cfg, B, torch.int8 if stream_quant else weight_dtype,
+                        stream_group_size) if stream_weights else None)
     shapes = params_lib.canonical_shapes(L, R, cfg.S, A)
     scheds: Dict[torch.device, torch.Tensor] = {}  # the FIFO layout per card
+    stored: Dict[str, tuple] = {}   # the last params object's storage
+
+    def storage(params, dev):
+        """(value view, K4's stacks or None), rebuilt when a tensor of
+        params is replaced or changed in place."""
+        if (weight_dtype == torch.float32 and not stream_quant
+                and plan is None):
+            return params, None
+        src = tuple(params[k] for k in params_lib.PARAM_ORDER)
+        key = tuple(t._version for t in src)
+        old = stored.get("src")
+        if (old is None or stored["key"] != key
+                or any(a is not b for a, b in zip(old, src))):
+            stacks = (_stream_stacks(params, weight_dtype, stream_quant)
+                      if plan is not None and dev.type == "cuda" else None)
+            stored.update(src=src, key=key, stacks=stacks, view=value_view(
+                params, weight_dtype, stream_quant))
+        return stored["view"], stored["stacks"]
 
     def check(params, cond_pre, sel, ring, y_state):
         dev = cond_pre.device
@@ -261,10 +512,15 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
                         .all()):
                 raise ValueError(f"mode 'forced': sel must hold symbols, "
                                  f"integers in [0, A={A})")
+        view, stacks = storage(params, dev)
         if dev.type == "cpu":
-            return generate_plain(cfg, params, t0, cond_pre, sel, ring,
+            return generate_plain(cfg, view, t0, cond_pre, sel, ring,
                                   y_state, n_valid, mode, dump, int(seed))
-        return _launch_kernel(cfg, params, scheds[dev], t0, cond_pre, sel,
+        if plan is not None:
+            return _launch_stream(cfg, plan, stream_prefetch, view, stacks,
+                                  scheds[dev], t0, cond_pre, sel, ring,
+                                  y_state, n_valid, mode, dump, int(seed))
+        return _launch_kernel(cfg, view, scheds[dev], t0, cond_pre, sel,
                               ring, y_state, n_valid, mode, dump, int(seed))
 
     def generate_ragged(params: Dict[str, torch.Tensor],
@@ -280,10 +536,11 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
         if int(n_valid_row.min()) < 0 or int(n_valid_row.max()) > T:
             raise ValueError(f"n_valid_row {n_valid_row.tolist()} outside "
                              f"[0, T={T}]")
+        view, _ = storage(params, dev)
         if dev.type == "cpu":
-            return generate_plain(cfg, params, t0_row, cond_pre, sel, ring,
+            return generate_plain(cfg, view, t0_row, cond_pre, sel, ring,
                                   y_state, n_valid_row)
-        return _launch_ragged(cfg, params, scheds[dev], t0_row, cond_pre,
+        return _launch_ragged(cfg, view, scheds[dev], t0_row, cond_pre,
                               sel, ring, y_state, n_valid_row)
 
     return generate_ragged if ragged else generate

@@ -1,0 +1,41 @@
+"""The kernels' build (`nv_wavenet_tpu_torch/utils/build.py`), checked on
+the CPU without nvcc: every CUDA source is built, every header it includes
+lies in csrc/, and the build directory changes with any file of csrc/, so
+an edit to a header shared by several sources rebuilds each of them."""
+
+import pathlib
+import re
+import shutil
+
+import pytest
+
+from nv_wavenet_tpu_torch.utils import build
+
+CSRC = pathlib.Path(build.CSRC_DIR)
+FILES = sorted(p.name for p in CSRC.iterdir()
+               if p.suffix in (".cu", ".cuh"))
+
+
+def test_every_cuda_source_is_built():
+    assert sorted(build.SOURCES) == sorted(
+        f for f in FILES if f.endswith(".cu"))
+
+
+@pytest.mark.parametrize("name", FILES)
+def test_local_includes_lie_in_csrc(name):
+    text = (CSRC / name).read_text()
+    for inc in re.findall(r'^#include "([^"]+)"', text, re.M):
+        assert (CSRC / inc).is_file(), f"{name} includes missing {inc}"
+
+
+@pytest.mark.parametrize("name", FILES)
+def test_build_dir_keys_on_every_csrc_file(name, tmp_path, monkeypatch):
+    copy = tmp_path / "csrc"
+    shutil.copytree(CSRC, copy)
+    monkeypatch.setattr(build, "CSRC_DIR", str(copy))
+    before = build.build_dir()
+    with open(copy / name, "a") as f:
+        f.write("\n// edited\n")
+    assert build.build_dir() != before
+    assert all(build.library_path(s).startswith(build.build_dir())
+               for s in build.SOURCES)

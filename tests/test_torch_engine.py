@@ -1,6 +1,6 @@
 """The port's engine, `WaveNetInfer(device="cpu")`, against the numpy golden
-model over the engine matrix of tests/test_engine.py (MANYBLOCK rows run as
-AUTO until kernel K4 lands): exact integer samples through `run`,
+model over the engine matrix of tests/test_engine.py (MANYBLOCK rows on the
+plain version of the streaming kernel K4): exact integer samples through `run`,
 `run_chunks` with ragged chunks, and the dump getters within the reference
 ladder (xt/skip 1e-2 with atol 3e-4, zs/za 1e-4 with atol 2e-5, p 1e-3)."""
 
@@ -40,13 +40,13 @@ def test_engine_matches_golden(cfg, impl, batch):
     ref_w, cond, sel = make_case(cfg, batch, samples, seed=21)
     golden, y_gold = golden_run(cfg, ref_w, cond, sel, batch, samples)
 
-    eng = make_engine(cfg, batch,
-                      Impl.AUTO if impl.name == "MANYBLOCK" else Impl[impl.name])
+    eng = make_engine(cfg, batch, Impl[impl.name])
     eng.set_reference_weights(ref_w)
     eng.set_inputs(cond, sel)
-    launches = tper.PERSISTENT_KERNEL.launches
+    launches = (tper.PERSISTENT_KERNEL.launches, tper.STREAM_KERNEL.launches)
     y = eng.run(samples, batch, dump_activations=True)
-    assert tper.PERSISTENT_KERNEL.launches == launches
+    assert (tper.PERSISTENT_KERNEL.launches,
+            tper.STREAM_KERNEL.launches) == launches    # CPU: no kernel
     assert np.array_equal(y_gold, y)
 
     for l in range(cfg.num_layers):
@@ -126,11 +126,18 @@ def test_device_defaults_to_the_card():
 
 
 def test_unported_paths_raise():
-    """MANYBLOCK (K4) is still to port; modes "prng" (K3) and "forced" (K2)
-    run: forced echoes the symbols its selectors hold, prng draws the same
+    """MANYBLOCK (K4) constructs with its storage knobs and a geometry K4
+    cannot run raises there; modes "prng" (K3) and "forced" (K2) run:
+    forced echoes the symbols its selectors hold, prng draws the same
     samples for the same seed; an unknown mode raises."""
-    with pytest.raises(NotImplementedError, match="K4"):
-        WaveNetInfer(num_layers=2, max_dilation=2, R=32, S=128, A=256,
+    for kw in ({}, dict(weight_dtype=torch.bfloat16),
+               dict(stream_quant="int8", stream_group_size=3,
+                    stream_prefetch=True)):
+        eng = WaveNetInfer(num_layers=2, max_dilation=2, R=32, S=128, A=256,
+                           implementation=Impl.MANYBLOCK, device="cpu", **kw)
+        assert eng.implementation == Impl.MANYBLOCK
+    with pytest.raises(ValueError, match="output columns"):
+        WaveNetInfer(num_layers=2, max_dilation=2, R=512, S=128, A=256,
                      implementation=Impl.MANYBLOCK, device="cpu")
     cfg = WaveNetConfig(num_layers=2, R=32, S=128, A=256, max_dilation=2)
     ref_w, cond, sel = make_case(cfg, 1, 4, seed=2)

@@ -139,9 +139,18 @@ def test_fifo_schedule_is_the_ring_layout(num_layers, max_dilation):
 def test_unported_options_raise_and_bad_inputs_are_rejected():
     cfg = port_cfg(WaveNetConfig(num_layers=2, R=32, S=128, A=256,
                                  max_dilation=2))
-    for kw in (dict(stream_weights=True), dict(stream_quant=True)):
-        with pytest.raises(NotImplementedError, match="K4"):
-            tper.make_persistent_generator(cfg, 1, **kw)
+    # K4's rules, the JAX package's: int8 stacks over fp32 storage only, no
+    # ragged streaming; int8 without streaming is off, as there
+    with pytest.raises(ValueError, match="stream_quant"):
+        tper.make_persistent_generator(cfg, 1, stream_weights=True,
+                                       stream_quant=True,
+                                       weight_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="stream_weights"):
+        tper.make_persistent_generator(cfg, 1, ragged=True,
+                                       stream_weights=True)
+    for kw in (dict(stream_weights=True), dict(stream_quant=True),
+               dict(weight_dtype=torch.bfloat16)):
+        tper.make_persistent_generator(cfg, 1, **kw)
     with pytest.raises(ValueError, match="mode"):
         tper.make_persistent_generator(cfg, 1, mode="beam")
     # K5 (ragged=True) is ported for mode "sample" without dump, as the TPU
