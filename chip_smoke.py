@@ -15,7 +15,9 @@ slots fed tick by tick through `begin_stream` / `feed(lengths=...)` /
 request in mode "prng"; and the weight-streaming path, the same requests
 through `WaveNetInfer(implementation=Impl.MANYBLOCK)` with fp32, bf16 and
 int8 weight stacks (kernel K4), then K4 at the JAX repo's largest
-configuration (config 4).  Phases, in order; any failure exits non-zero:
+configuration (config 4); and the latency tier, the same requests through
+`WaveNetInfer(priority="latency")` (the collapsed-chain kernel K6 with
+fast_math).  Phases, in order; any failure exits non-zero:
 
   1. device: card name and power limit (nvidia-smi), torch.version.cuda, nvcc
   2. build: every csrc/*.cu, timed; beside it (nvcc runs in its own
@@ -106,11 +108,35 @@ configuration (config 4).  Phases, in order; any failure exits non-zero:
      the first half of a 2048-step flagship window, feed the second: equal
      to one int8 generation, and the scored ring equal to the generated one
      bit for bit
- 19. the `kernels` JSON line: per kernel its launches on its path (K5: the
+ 19. K6 (the collapsed chain) vs plain, TEST_CONFIG_MED, B=4, T=32, on the
+     same prepared weights: every mode x {fp32, fast_math} unpacked, and
+     pack_gates in sample/fp32 and forced/fast_math: forced p_seq within
+     1e-5, sampled symbols >= 99% equal (mismatches printed), the ring
+     within the xt ladder and y_state equal on the rows whose samples
+     agree; a 13 + 19 split equal to one call (y, ring bits, y_state);
+     pack_gates on and off equal in y
+ 20. the TV contract on the card: the hot case of
+     tests/test_low_precision.py (6L, R=32, S=128, A=256, B=8, T=256), K6
+     forced on K1's samples against K2: fp32 max TV and max |dp| < 5e-4;
+     fast_math mean < 0.025, p99 < 0.10, max < 0.20 and TV > 0 against fp32
+     K6; bf16 weights mean < 0.02, max < 0.15
+ 21. K6 at the flagship, B=16: forced on request 1's first 256 samples
+     against K2 (max TV < 5e-4); timed over a 256-step launch in fp32 and
+     fast_math, pack_gates on and off, beside K1; fast_math against the
+     plain version over 32 steps (timed)
+ 22. the latency-tier main path: counts set to 0 just before and read just
+     after; the main path's 3 requests through
+     WaveNetInfer(priority="latency").run_chunks(256), kHz per utterance
+     beside K1's and K4's; K6 must have launched, K1 not; a dump run on the
+     same engine equal to a default engine's bit for bit (y, p); 16
+     lockstep feeds of 160 samples through it, per-feed wall time p50/p99,
+     equal to request 1's samples
+ 23. the `kernels` JSON line: per kernel its launches on its path (K5: the
      serving phase; K0a, K0c, K7, K2: the scoring phase; K3: the prng
-     request; K4: the MANYBLOCK main path), its time, the plain version's,
-     the least time the card could take for the same work (bound_ms) and,
-     where one PyTorch call computes the same function, that call's time
+     request; K4: the MANYBLOCK main path; K6: the latency-tier main path),
+     its time, the plain version's, the least time the card could take for
+     the same work (bound_ms) and, where one PyTorch call computes the same
+     function, that call's time
 
 A line "[time] <seconds>: <phase>" marks the start of each phase.  The last
 three lines of standard output are the kernels line, the card's
@@ -175,6 +201,20 @@ CONFIG4 = dict(num_layers=40, R=128, S=256, A=256, max_dilation=128)
 C4_B, C4_T, C4_TIME_T = 64, 1024, 256
 R9_T = 2048
 K4_SMALL_T = 24   # K4 vs plain at TEST_CONFIG_MED: holds the 11 + 8 split
+# K6 (the collapsed chain): against its plain version at TEST_CONFIG_MED,
+# B=4, over 32 steps (the plain version costs ~1 s per 32 steps), in every
+# mode x {fp32, fast_math} unpacked and two packed variants (mode, fast_math,
+# pack_gates); a 13 + 19 split
+K6_SMALL_B, K6_SMALL_T, K6_SPLIT = 4, 32, 13
+K6_VARIANTS = tuple((m, f, False) for m in ("sample", "argmax", "prng", "forced")
+                    for f in (False, True)) + (("sample", False, True),
+                                               ("forced", True, True))
+# the TV contract's hot case (tests/test_low_precision.py:40-54, 109-118)
+TV_CFG = dict(num_layers=6, R=32, S=128, A=256, max_dilation=8)
+TV_B, TV_T, TV_SEED = 8, 256, 7
+# the latency tier's lockstep feeds: 16 feeds of 160 samples (10 ms of audio)
+LAT_FEEDS, LAT_FEED_T = 16, 160
+PEAK_BF16_FLOPS = 989e12   # the tensor cores, dense (fast_math's products)
 START = time.perf_counter()
 
 
@@ -795,6 +835,187 @@ def check_config4(torch, np, persistent, cfg_lib, params_lib, dev) -> dict:
     return res
 
 
+def k6_macs(cfg) -> int:
+    """Multiply-adds of one K6 row-step, the useful ones (the pad rows of
+    g_pack and wskip_cat are skipped): Wprev, x0 wcur_cat, the G stack,
+    wskip_cat, the residual products and the output stack."""
+    L, R, S, A = cfg.num_layers, cfg.R, cfg.S, cfg.A
+    return (2 * L * R * 2 * R + R * 2 * R * L * (L - 1) // 2 + L * R * S
+            + (L - 1) * R * R + S * A + A * A)
+
+
+def k6_elementwise(cfg, fast: bool) -> int:
+    """fp32 operations of one K6 row-step outside the products: embedding
+    and tanh, u's three adds, the chain's adds, the gates, the residual
+    stream, the biases and relus, the sampler as K1's; under fast_math one
+    rounding per activation entering a product."""
+    L, R, S, A = cfg.num_layers, cfg.R, cfg.S, cfg.A
+    gate = TANH_LARGE_OPS + SIGMOID_OPS + 1
+    ops = (R * (1 + TANH_LARGE_OPS) + 3 * L * 2 * R + (L - 1) * 2 * R
+           + L * R * gate + 2 * (L - 1) * R + 2 * S + 2 * A + A
+           + A * (2 + EXP_OPS + A.bit_length() - 1 + 2))
+    return ops + ((2 * L * R + R + S + A) if fast else 0)
+
+
+def k6_bound(cfg, B: int, T: int, fast: bool, forced: bool = False):
+    """(bound_ms, bound_by) of a K6 launch: the folded weights (the rows the
+    fold needs, P = R), cond, sel, the ring and y_state in and out, y (and
+    p_seq) against the products at the fp32 rate (fast_math: at the bf16
+    tensor-core rate, their operands being bf16 values) plus the
+    elementwise work at the fp32 rate."""
+    L, R, S, A = cfg.num_layers, cfg.R, cfg.S, cfg.A
+    weights = (2 * A * R + 2 * L * R * 2 * R + L * R * R + L * R
+               + R * L * (L - 1) // 2 * 2 * R + L * R * S + L * 2 * R + S
+               + S * A + A + A * A + A)
+    n_bytes = 4 * (weights + T * B * L * 2 * R + T * B
+                   + 2 * cfg.ring_size * B * R + 2 * 2 * B + T * B
+                   + (T * B * A if forced else 0))
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = (2 * k6_macs(cfg) / (PEAK_BF16_FLOPS if fast else PEAK_FP32_FLOPS)
+             + k6_elementwise(cfg, fast) / PEAK_FP32_FLOPS) * B * T * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def forced_p64(np, p):
+    """p_seq as float64, each row renormalised (the TV tests' form)."""
+    p = p.cpu().numpy().astype(np.float64)
+    return p / p.sum(-1, keepdims=True)
+
+
+def tv(np, p, q):
+    return 0.5 * np.abs(p - q).sum(-1)
+
+
+def check_k6_small(torch, np, fc, persistent, cfg, params, cond, sel,
+                   dev) -> dict:
+    """K6 against its plain version on the card, on the same prepared
+    weights (the engine's dil_b prefold), in every K6_VARIANTS entry:
+    forced p_seq within 1e-5; sample/argmax/prng y agreement >= 99%; the
+    ring within the xt ladder and y_state equal on the rows whose samples
+    agree; then a K6_SPLIT + rest split against one call (fp32 and
+    fast_math) and pack_gates on against off, exact."""
+    T, B = sel.shape
+    cp = (cond + params["dil_b"][None, :, None, :]).contiguous()
+    res = {"y_mismatches": 0, "row_steps": 0, "p_err": 0.0, "ring_err": 0.0,
+           "ok": True, "split_mismatches": 0, "pack_mismatches": 0}
+
+    def fresh():
+        return fresh_state(torch, persistent, cfg, B, dev)
+    sym, ys = None, {}
+    for mode, fast, pack in K6_VARIANTS:
+        w = fc.prepare_weights(params, cfg, True, torch.float32, pack, fast)
+        s_in = sym if mode == "forced" else sel
+        gen = fc.make_fused_generator(cfg, B, mode, fast_math=fast,
+                                      prefold_cond=True, pack_gates=pack)
+        out_k = gen(w, 0, cp, s_in, *fresh(), seed=PRNG_SEED)
+        out_p = fc.generate_fused_plain(cfg, w, 0, cp, s_in, *fresh(), T,
+                                        mode, PRNG_SEED, fast, pack)
+        torch.cuda.synchronize()
+        same = out_k[0] == out_p[0]
+        mism = int((~same).sum())
+        rows = same.all(0)                        # rows whose samples agree
+        tail = same[-2:].all(0)                   # rows whose y_state must
+        ring_err = float((out_k[1] - out_p[1])[:, rows].abs().max()) \
+            if bool(rows.any()) else 0.0
+        ok = (rel_close(out_p[1][:, rows].cpu(), out_k[1][:, rows].cpu(),
+                        1e-2, 3e-4)
+              and torch.equal(out_k[2][:, tail], out_p[2][:, tail])
+              and mism <= 0.01 * T * B)
+        p_err = 0.0
+        if mode == "forced":
+            p_err = float((out_k[3] - out_p[3]).abs().max())
+            ok &= mism == 0 and p_err < 1e-5
+        if mode == "sample" and not fast:
+            ys[pack] = out_k[0]
+            sym = out_p[0].to(torch.float32) if sym is None else sym
+        log(f"[K6 small] {mode} fast_math={fast} pack={pack}: y {mism}/"
+            f"{T * B} mismatches vs plain; ring max abs err {ring_err:.3g} "
+            f"over {int(rows.sum())} agreeing rows; p_seq err {p_err:.3g}; "
+            f"ok {ok}")
+        res["y_mismatches"] += mism
+        res["row_steps"] += T * B
+        res["p_err"] = max(res["p_err"], p_err)
+        res["ring_err"] = max(res["ring_err"], ring_err)
+        res["ok"] &= ok
+    res["pack_mismatches"] = int((ys[True] != ys[False]).sum())
+    for fast in (False, True):
+        w = fc.prepare_weights(params, cfg, True, torch.float32, False, fast)
+        gen = fc.make_fused_generator(cfg, B, fast_math=fast,
+                                      prefold_cond=True)
+        one, two = fresh(), fresh()
+        y1 = gen(w, 0, cp, sel, *one)[0]
+        y2 = torch.cat([gen(w, 0, cp[:K6_SPLIT].contiguous(),
+                            sel[:K6_SPLIT].contiguous(), *two)[0],
+                        gen(w, K6_SPLIT, cp[K6_SPLIT:].contiguous(),
+                            sel[K6_SPLIT:].contiguous(), *two)[0]])
+        torch.cuda.synchronize()
+        res["split_mismatches"] += (int((y1 != y2).sum())
+                                    + bit_mismatches(torch, one[0], two[0])
+                                    + int(not torch.equal(one[1], two[1])))
+    log(f"[K6 small] {K6_SPLIT} + {T - K6_SPLIT} split vs one call (fp32, "
+        f"fast_math): {res['split_mismatches']} mismatches (y, ring bits, "
+        f"y_state); pack_gates on vs off: {res['pack_mismatches']} y "
+        f"mismatches")
+    return res
+
+
+def check_k6_tv(torch, np, fc, persistent, cfg_lib, params_lib, dev) -> dict:
+    """The TV contract on the card: the hot case of
+    tests/test_low_precision.py rebuilt with the port's weights; K1's free
+    run gives the symbols, K2 forced on them the exact distributions; K6
+    forced on the same symbols in fp32 (max TV and max |dp| < 5e-4),
+    fast_math (mean TV < 0.025, p99 < 0.10, max < 0.20, and TV > 0 against
+    fp32 K6) and bf16 weights (mean < 0.02, max < 0.15)."""
+    cfg = cfg_lib.WaveNetConfig(**TV_CFG)
+    B, T = TV_B, TV_T
+    rng = np.random.RandomState(TV_SEED + 2000)
+    ref_w = params_lib.random_reference_weights(cfg, seed=TV_SEED,
+                                                scale=1.0 / np.sqrt(cfg.R))
+    for k in ("Wzs", "Wza"):
+        ref_w[k] = (ref_w[k] * 6.0).astype(np.float32)
+    cond = torch.from_numpy(rng.uniform(
+        -1, 1, (T, cfg.num_layers, B, 2 * cfg.R)).astype(np.float32)).to(dev)
+    sel = torch.from_numpy(rng.uniform(0, 1, (T, B)).astype(np.float32)).to(dev)
+    params = params_lib.canonical_to_torch(params_lib.to_canonical(ref_w, cfg),
+                                           dev)
+    cp = (cond + params["dil_b"][None, :, None, :]).contiguous()
+
+    def fresh():
+        return fresh_state(torch, persistent, cfg, B, dev)
+    y1 = persistent.make_persistent_generator(cfg, B)(params, 0, cp, sel,
+                                                      *fresh())[0]
+    sym = y1.to(torch.float32)
+    p2 = forced_p64(np, persistent.make_persistent_generator(
+        cfg, B, mode="forced")(params, 0, cp, sym, *fresh())[3])
+    ps = {}
+    for name, kw in (("fp32", {}), ("fast_math", {"fast_math": True}),
+                     ("bf16", {"weight_dtype": torch.bfloat16})):
+        w = fc.prepare_weights(params, cfg, True, pack_gates=False, **kw)
+        ps[name] = forced_p64(np, fc.make_fused_generator(
+            cfg, B, "forced", prefold_cond=True, **kw)(w, 0, cp, sym,
+                                                       *fresh())[3])
+    res = {}
+    for name, p in ps.items():
+        t = tv(np, p2, p)
+        res[name] = {"mean": float(t.mean()),
+                     "p99": float(np.percentile(t, 99)),
+                     "max": float(t.max()),
+                     "max_abs_dp": float(np.abs(p - p2).max())}
+    res["fast_vs_fp32_max"] = float(tv(np, ps["fp32"], ps["fast_math"]).max())
+    f, m, bf = res["fp32"], res["fast_math"], res["bf16"]
+    res["ok"] = (f["max"] < 5e-4 and f["max_abs_dp"] < 5e-4
+                 and m["mean"] < 0.025 and m["p99"] < 0.10 and m["max"] < 0.20
+                 and res["fast_vs_fp32_max"] > 0
+                 and bf["mean"] < 0.02 and bf["max"] < 0.15)
+    log(f"[K6 TV] hot case 6L R32 S128 A256, B={B}, T={T}, against K2 on "
+        f"K1's samples: " + "; ".join(
+            f"{n} mean {v['mean']:.3g} p99 {v['p99']:.3g} max {v['max']:.3g}"
+            for n, v in res.items() if isinstance(v, dict))
+        + f"; fast_math vs fp32 K6 max TV {res['fast_vs_fp32_max']:.3g} "
+        f"(> 0); within the contract {res['ok']}")
+    return res
+
+
 def time_ms(torch, fn, reps: int) -> float:
     """Mean device time of one call of fn over reps back-to-back calls,
     after one warm-up call, by CUDA events."""
@@ -824,6 +1045,7 @@ def main() -> int:
     from nv_wavenet_tpu_torch.engine.wavenet_infer import Impl, WaveNetInfer
     from nv_wavenet_tpu_torch.models import params as params_lib
     from nv_wavenet_tpu_torch.ops import exact_math as em
+    from nv_wavenet_tpu_torch.ops import fused_chain as fc
     from nv_wavenet_tpu_torch.ops import ordered_matmul as om
     from nv_wavenet_tpu_torch.ops import persistent, scoring
     from nv_wavenet_tpu_torch.ops import scan_generate as tsg
@@ -1152,7 +1374,8 @@ def main() -> int:
     all_kernels = (em.EXACT_FN_KERNEL, em.SAMPLE_KERNEL, em.SOFTMAX_KERNEL,
                    om.ORDERED_MATMUL_KERNEL, persistent.PERSISTENT_KERNEL,
                    persistent.RAGGED_KERNEL, persistent.FORCED_KERNEL,
-                   persistent.PRNG_KERNEL, persistent.STREAM_KERNEL)
+                   persistent.PRNG_KERNEL, persistent.STREAM_KERNEL,
+                   *fc.FUSED_KERNELS.values())
     for k in all_kernels:
         k.launches = 0
     requests, main_ys = [], []
@@ -1669,8 +1892,162 @@ def main() -> int:
     if r9_mism or r9_ring:
         fail("the int8 score -> feed handoff is not exact (R9)")
 
-    # -- phase 19: the kernels line -------------------------------------------
-    mark("phase 19: the kernels line")
+    # -- phase 19: K6 vs plain, small config ----------------------------------
+    mark("phase 19: K6 vs plain, small config")
+    rng = np.random.RandomState(1019)
+    k6_cond = torch.from_numpy((rng.uniform(-1, 1, (
+        K6_SMALL_T, mcfg.num_layers, K6_SMALL_B, 2 * mcfg.R)) * 0.5
+    ).astype(np.float32)).to(dev)
+    k6_sel = torch.from_numpy(rng.uniform(0, 1, (K6_SMALL_T, K6_SMALL_B))
+                              .astype(np.float32)).to(dev)
+    k6_small = check_k6_small(torch, np, fc, persistent, mcfg, m_params,
+                              k6_cond, k6_sel, dev)
+    if (not k6_small["ok"] or k6_small["split_mismatches"]
+            or k6_small["pack_mismatches"]):
+        fail(f"K6 disagrees with its plain version: {k6_small}")
+
+    # -- phase 20: the TV contract on the card --------------------------------
+    mark("phase 20: the TV contract on the card")
+    k6_tv = check_k6_tv(torch, np, fc, persistent, cfg_lib, params_lib, dev)
+    if not k6_tv["ok"]:
+        fail(f"K6 breaks the TV contract: {k6_tv}")
+
+    # -- phase 21: K6 at the flagship -----------------------------------------
+    mark("phase 21: K6 at the flagship")
+    # forced on request 1's first CHECK_T samples against K2 (fp32); each
+    # (fast_math, pack_gates) timed over a CHECK_T-step launch beside K1;
+    # the latency tier's variant against the plain version over K5_PLAIN_T
+    k6w = {(f, p): fc.prepare_weights(params, cfg, True, torch.float32, p, f)
+           for f in (False, True) for p in (False, True)}
+    sym_chk = sym_main[:CHECK_T].contiguous()
+    p_k2 = forced_p64(np, gen2(params, 0, cp_chk, sym_chk, *fresh())[3])
+    p_k6 = forced_p64(np, fc.make_fused_generator(
+        cfg, MAIN_B, "forced", prefold_cond=True)(k6w[False, False], 0, cp_chk,
+                                                  sym_chk, *fresh())[3])
+    k6_flag_tv = float(tv(np, p_k2, p_k6).max())
+    del p_k2, p_k6
+    k6_ms, k6_bounds = {}, {}
+    for (f, p), w in k6w.items():
+        gen6 = fc.make_fused_generator(cfg, MAIN_B, fast_math=f,
+                                       prefold_cond=True, pack_gates=p)
+        name = f"{'fast_math' if f else 'fp32'} pack={p}"
+        k6_ms[name] = time_launch_ms(torch, np, lambda r, ys: gen6(
+            w, 0, cp_chk, sel_chk, r, ys), fresh)
+        k6_bounds[name] = k6_bound(cfg, MAIN_B, CHECK_T, f)
+    n = K5_PLAIN_T
+    gen6 = fc.make_fused_generator(cfg, MAIN_B, fast_math=True,
+                                   prefold_cond=True)
+    (ring_p, ys_p), (ring_k, ys_k) = fresh(), fresh()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    y_p = fc.generate_fused_plain(cfg, k6w[True, False], 0, cp_chk[:n],
+                                  sel_chk[:n], ring_p, ys_p, n,
+                                  fast_math=True)[0]
+    torch.cuda.synchronize()
+    k6_plain = (time.perf_counter() - t) * 1e3
+    y_k = gen6(k6w[True, False], 0, cp_chk[:n].contiguous(),
+               sel_chk[:n].contiguous(), ring_k, ys_k)[0]
+    torch.cuda.synchronize()
+    same = y_k == y_p
+    k6_flag = {"forced_max_tv": k6_flag_tv,
+               "plain_mismatches": int((~same).sum()),
+               "ring_err": float((ring_k - ring_p)[:, same.all(0)].abs().max()),
+               "plain_ms": k6_plain, "ms": k6_ms,
+               "us_per_step": {k: v / CHECK_T * 1e3 for k, v in k6_ms.items()},
+               "bound": k6_bounds}
+    log(f"[K6 flagship] forced on request 1's first {CHECK_T} samples vs K2: "
+        f"max TV {k6_flag_tv:.3g} (limit 5e-4); us per step of a {CHECK_T}"
+        f"-step launch: " + ", ".join(f"{k} {v:.2f}" for k, v
+                                      in k6_flag["us_per_step"].items())
+        + f" (K1 {k1_us:.2f}); fast_math vs plain over {n} steps: "
+        f"{k6_flag['plain_mismatches']}/{n * MAIN_B} mismatches, ring max "
+        f"abs err {k6_flag['ring_err']:.3g}, plain {k6_plain:.1f} ms")
+    if k6_flag_tv >= 5e-4 or k6_flag["plain_mismatches"] > 0.01 * n * MAIN_B:
+        fail(f"K6 disagrees with K2 or its plain version at the flagship: "
+             f"{k6_flag}")
+
+    # -- phase 22: the latency-tier main path ---------------------------------
+    mark("phase 22: the latency-tier main path")
+    # the main path's 3 requests again (the same generator seed) through
+    # WaveNetInfer(priority="latency"): K6 with fast_math must carry them
+    leng = WaveNetInfer(num_layers=L, max_dilation=cfg.max_dilation, R=R,
+                        S=cfg.S, A=cfg.A, max_batch=MAIN_B,
+                        chunk_size=MAIN_CHUNK, device="cuda",
+                        priority="latency")
+    leng.set_reference_weights(ref_w)
+    gen_dev.manual_seed(0)
+    for k in all_kernels:
+        k.launches = 0
+    lat_reqs, lat_y1 = [], None
+    for r in range(MAIN_REQUESTS):
+        rc = (torch.rand((MAIN_T, L, MAIN_B, 2 * R), generator=gen_dev,
+                         device=dev) - 0.5)
+        rs = torch.rand((MAIN_T, MAIN_B), generator=gen_dev, device=dev)
+        leng.set_inputs(rc, rs)
+        del rc
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        y = leng.run_chunks(MAIN_CHUNK, lambda yc, off, n: None, MAIN_T,
+                            MAIN_B)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        if not (y.shape == (MAIN_B, MAIN_T) and int(y.min()) >= 0
+                and int(y.max()) < cfg.A):
+            fail(f"latency tier request {r + 1}: malformed output")
+        lat_reqs.append({"seconds": dt, "khz_per_utt": MAIN_T / dt / 1e3})
+        lat_y1 = y if r == 0 else lat_y1
+    lat_launches = {k.symbol: k.launches for k in all_kernels}
+    k6_launches = sum(k.launches for k in fc.FUSED_KERNELS.values())
+    if not k6_launches or lat_launches[persistent.PERSISTENT_KERNEL.symbol]:
+        fail(f"the latency tier did not run on K6 alone: {lat_launches}")
+    # a dump run on the same engine is the exact kernel's: bit-equal to a
+    # default engine's dump run in y and p
+    leng.set_inputs(cond, sel)
+    ref_eng = flagship_engine()
+    ref_eng.set_inputs(cond, sel)
+    y_dl = leng.run(CHECK_T, MAIN_B, dump_activations=True)
+    y_dr = ref_eng.run(CHECK_T, MAIN_B, dump_activations=True)
+    dump_mism = (int((y_dl != y_dr).sum())
+                 + bit_mismatches(torch, leng.get_p(), ref_eng.get_p()))
+    # lockstep feeds through the same engine: equal to request 1's samples
+    leng.begin_stream(MAIN_B)
+    feed_ms, fed = [], []
+    for i in range(LAT_FEEDS):
+        sl = slice(i * LAT_FEED_T, (i + 1) * LAT_FEED_T)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fed.append(leng.feed(cond[sl], sel[sl]))
+        feed_ms.append((time.perf_counter() - t) * 1e3)
+    feed_mism = int((np.concatenate(fed, 1)
+                     != lat_y1[:, :LAT_FEEDS * LAT_FEED_T]).sum())
+    f50, f99 = (float(v) for v in np.percentile(feed_ms, [50, 99]))
+    latency = {
+        "config": "flagship 20L R64 S256 A256 maxD512, fast_math, fp32 "
+                  "weights", "batch": MAIN_B, "samples_per_request": MAIN_T,
+        "requests": lat_reqs,
+        "khz_per_utt": float(np.mean([q["khz_per_utt"] for q in lat_reqs])),
+        "khz_per_utt_k1": khz,
+        "khz_per_utt_k4_fp32": manyblock["fp32"]["khz_per_utt"],
+        "k6_us_per_step": k6_flag["us_per_step"]["fast_math pack=False"],
+        "k1_us_per_step": k1_us, "dump_mismatches": dump_mism,
+        "feeds": LAT_FEEDS, "feed_samples": LAT_FEED_T,
+        "feed_ms_p50": f50, "feed_ms_p99": f99,
+        "feed_vs_run_mismatches": feed_mism, "launches": lat_launches,
+        "card": card}
+    log(json.dumps({"latency_tier": latency}))
+    log(f"[latency] {MAIN_REQUESTS} requests of {MAIN_B} x {MAIN_T} at "
+        + ", ".join(f"{q['khz_per_utt']:.3f}" for q in lat_reqs)
+        + f" kHz per utterance (K1 {khz:.3f}, K4 fp32 "
+        f"{manyblock['fp32']['khz_per_utt']:.3f}); {k6_launches} K6 "
+        f"launches; dump run vs a default engine's: {dump_mism} mismatches "
+        f"(y, p bits); {LAT_FEEDS} feeds of {LAT_FEED_T}: p50 {f50:.2f} ms, "
+        f"p99 {f99:.2f} ms, {feed_mism} mismatches against the run")
+    if dump_mism or feed_mism:
+        fail("the latency tier's dump run is not the exact kernel's, or its "
+             "feeds differ from its run")
+
+    # -- phase 23: the kernels line -------------------------------------------
+    mark("phase 23: the kernels line")
     def entry(name, source, replaces, n_launches, mism, err, ms, plain, bnd,
               by, lib, shape, **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -1775,6 +2152,31 @@ def main() -> int:
               config4={"batch": C4_B, "steps": C4_TIME_T,
                        "ms": c4["ms"], "bound": c4["bound"],
                        "plan": c4["plan"]}),
+        entry("K6 fused_generate_kernel<kSel, kFast>", csrc + "fused_chain.cu",
+              "nv_wavenet_tpu/ops/fused_chain.py:414", k6_launches,
+              k6_small["y_mismatches"] + k6_small["split_mismatches"]
+              + k6_small["pack_mismatches"] + dump_mism + feed_mism,
+              max(k6_small["p_err"], k6_small["ring_err"], k6_flag["ring_err"]),
+              k6_ms["fast_math pack=False"], k6_flag["plain_ms"],
+              *k6_bounds["fast_math pack=False"], None,
+              f"flagship, B={MAIN_B}, T={CHECK_T} steps per launch, "
+              f"fast_math (the latency tier's variant); plain_ms over "
+              f"{K5_PLAIN_T} steps",
+              launches_on=f"the latency-tier main path ({MAIN_REQUESTS} "
+                          f"requests through priority='latency')",
+              library="none: no single torch call computes it",
+              mismatches_are="sampled symbols against the plain version "
+                             "(K6 is TV-governed: >= 99% agreement)",
+              instances=[f"fused_generate_kernel<{sl}, {f}>"
+                         for sl in ("kSelInjected", "kSelForced", "kSelPrng")
+                         for f in ("false", "true")],
+              variants={k: {"ms": v, "us_per_step": v / CHECK_T * 1e3,
+                            "bound_ms": k6_bounds[k][0],
+                            "bound_by": k6_bounds[k][1]}
+                        for k, v in k6_ms.items()},
+              k1_ms=k1_ms, tv={"flagship_forced_max": k6_flag_tv, **k6_tv},
+              khz_per_utt=latency["khz_per_utt"],
+              feed_ms_p50=f50, feed_ms_p99=f99),
         entry("K0c softmax_p_kernel", csrc + "exact_math_kernels.cu",
               "none (XLA in nv_wavenet_tpu/ops/score_parallel.py:169; "
               "softmax_canonical, nv_wavenet_tpu/ops/persistent.py:64)",

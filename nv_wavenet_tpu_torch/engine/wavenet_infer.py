@@ -31,9 +31,22 @@ surface: `begin_stream`, `feed` / `feed_device` (with per-row `lengths`),
     with its fp32 values, `persistent.value_view`, so a score -> feed
     handoff stays exact under int8 too (the JAX engine's scorer keeps the
     fp32 stacks there: fault R9 of ROADMAP.md).
+  * The collapsed-chain latency tier: `fuse_chain=True` sends lockstep
+    `run*` and `feed` dispatches to kernel K6 (`ops/fused_chain.py`, the
+    residual stream folded into the weights once per weight upload or
+    temperature), governed by the TV contract, not bit-exact.
+    `fast_math=True` rounds both operands of every K6 product to bf16 (the
+    TPU's single-pass DEFAULT precision; sums stay fp32, the exact math
+    stays exact).  `priority="latency"` turns on both; `priority="exact"`
+    or None leaves every knob as passed.  Dumps, ragged or desynced feeds
+    (K5), MANYBLOCK (K4) and `score` stay on the exact kernels; a dump
+    drops the fast_math that priority set.  fast_math on any kernel but K6
+    is not ported (ROADMAP.md item 10b): a dispatch that would need it
+    raises ValueError.
   * `score` / `score_device` run the time-parallel scorer
     (`ops/score_parallel.py`: kernels K7, K0a, K0c) over a window of given
-    symbols and leave the state generation would leave.
+    symbols and leave the state generation would leave.  It is exact under
+    every tier, as in the JAX engine.
   * Conditioning is uploaded to the device once, in `set_inputs`; the
     dil_b-prefolded copy `cond_pre = cond + dil_b` is built there lazily,
     once per (inputs, weights).
@@ -43,9 +56,9 @@ surface: `begin_stream`, `feed` / `feed_device` (with per-row `lengths`),
   * Streams keep one absolute clock per batch row (`_stream_t_row`), the
     one source of truth for FIFO phase and default selectors.  A feed whose
     rows share a clock and a length runs lockstep on K1 (K4 under
-    MANYBLOCK); per-row `lengths` or desynced clocks (after a ragged feed
-    or `reset_utterances`) run on K5, and feeds return to K1 once the
-    clocks realign.
+    MANYBLOCK, K6 under fuse_chain); per-row `lengths` or desynced clocks
+    (after a ragged feed or `reset_utterances`) run on K5, and feeds return
+    to the lockstep kernel once the clocks realign.
 """
 
 from __future__ import annotations
@@ -59,7 +72,7 @@ import torch
 
 from nv_wavenet_tpu_torch.config import WaveNetConfig
 from nv_wavenet_tpu_torch.models import params as params_lib
-from nv_wavenet_tpu_torch.ops import persistent, score_parallel
+from nv_wavenet_tpu_torch.ops import fused_chain, persistent, score_parallel
 
 
 class Impl(enum.Enum):
@@ -151,7 +164,30 @@ class WaveNetInfer:
                  stream_prefetch: bool = False,
                  stream_quant: Optional[str] = None,
                  temperature: float = 1.0,
+                 fast_math: bool = False,
+                 fuse_chain: bool = False,
+                 fuse_pack: bool = False,
+                 priority: Optional[str] = None,
                  device=None):
+        """`fuse_chain`: lockstep generation on the collapsed-chain kernel
+        K6; `fuse_pack`: its gate blocks at R rows instead of 128
+        (`fused_chain._row_stride`; the same values); `fast_math`: bf16
+        operands in K6's products (ROADMAP.md item 10b for the other
+        kernels); `priority`: None or "exact" (every knob as passed) or
+        "latency" (fuse_chain and fast_math, the latter dropped on dumps).
+        A geometry K6 cannot run raises ValueError here."""
+        if priority not in (None, "exact", "latency"):
+            raise ValueError(f"unknown priority {priority!r}: expected None, "
+                             f"'exact' or 'latency'")
+        self.priority = priority
+        # fast_math that priority turned on (a dump drops it); an explicit
+        # fast_math is the caller's and stays
+        self._fast_math_from_priority = priority == "latency" and not fast_math
+        if priority == "latency":
+            fuse_chain = fast_math = True
+        self.fast_math = bool(fast_math)
+        self.fuse_chain = bool(fuse_chain)
+        self.fuse_pack = bool(fuse_pack)
         if stream_quant not in (None, "int8"):
             raise ValueError(f"stream_quant must be None or 'int8', got "
                              f"{stream_quant!r}")
@@ -182,6 +218,8 @@ class WaveNetInfer:
             persistent.stream_plan(
                 self.cfg, max_batch, torch.int8 if self._quant
                 else weight_dtype, stream_group_size)
+        if self.fuse_chain:   # a geometry K6 cannot run raises here
+            fused_chain.fused_plan(self.cfg, self.fuse_pack)
         L = num_layers
         # canonical params assembled incrementally by the setters (host)
         self._np_params: Dict[str, np.ndarray] = {
@@ -189,6 +227,7 @@ class WaveNetInfer:
             for k, s in params_lib.canonical_shapes(L, R, S, A).items()}
         self._params: Optional[Dict[str, torch.Tensor]] = None  # device copy
         self._values: Optional[Dict[str, torch.Tensor]] = None  # their view
+        self._fused_prep: Optional[tuple] = None   # K6's folded weights
         self._cond: Optional[torch.Tensor] = None
         self._cond_pre: Optional[torch.Tensor] = None
         self._selectors: Optional[torch.Tensor] = None
@@ -211,6 +250,7 @@ class WaveNetInfer:
     def _invalidate(self):
         self._params = None
         self._values = None
+        self._fused_prep = None
         self._cond_pre = None
 
     def set_embeddings(self, embed_prev, embed_cur):
@@ -278,6 +318,7 @@ class WaveNetInfer:
             return
         self.temperature = temperature
         self._values = None
+        self._fused_prep = None
         if self._params is not None:
             tempered = self._tempered_params()
             for k in ("end_w", "end_b"):
@@ -299,6 +340,17 @@ class WaveNetInfer:
             self._values = persistent.value_view(
                 self._device_params(), self.weight_dtype, self._quant)
         return self._values
+
+    def _fused_weights(self) -> tuple:
+        """K6's folded weights (`fused_chain.prepare_weights` with the dil_b
+        prefold, the engine's storage, fuse_pack and fast_math), made once
+        per weight upload or temperature: the O(L^2) fold stays off every
+        chunked or streaming dispatch."""
+        if self._fused_prep is None:
+            self._fused_prep = fused_chain.prepare_weights(
+                self._device_params(), self.cfg, True, self.weight_dtype,
+                self.fuse_pack, self.fast_math)
+        return self._fused_prep
 
     # ------------------------------------------------------------------
     # inputs
@@ -380,9 +432,8 @@ class WaveNetInfer:
         elif self._y_state.shape[1] != B:
             raise ValueError(f"batch_size {B} differs from the carried "
                              f"state's batch {self._y_state.shape[1]}")
-        params = self._device_params()
+        gen, params = self._generator(B, mode, dump_activations)
         cond_pre = self._prefolded_cond()
-        gen = self._generator(B, mode, dump_activations)
         ys = []
         for t0 in range(init_sample, init_sample + num_samples,
                         self.chunk_size):
@@ -446,18 +497,47 @@ class WaveNetInfer:
         consume(y_host, off, n)
         return y_host
 
+    def _effective_fast_math(self, dump: bool) -> bool:
+        """fast_math for this dispatch: a dump drops the fast_math that
+        priority="latency" turned on, so the getters read the exact kernel;
+        an explicit fast_math stays."""
+        return self.fast_math and not (dump and self._fast_math_from_priority)
+
     def _generator(self, batch: int, mode: str, dump: bool = False,
-                   ragged: bool = False) -> Callable:
+                   ragged: bool = False):
+        """(generator, the weights it takes) for this dispatch: K6 and its
+        folded weights under fuse_chain for a lockstep run or feed that is
+        no dump and not MANYBLOCK, else the exact kernels (K1/K2/K3, K5
+        when ragged, K4 under MANYBLOCK) and the canonical params.  Raises
+        ValueError where the dispatch would need fast_math on an exact
+        kernel (ROADMAP.md item 10b)."""
+        fused = self.fuse_chain and not (dump or ragged or self._stream)
+        fast = self._effective_fast_math(dump)
+        if fast and not fused:
+            where = ("K5, the ragged or desynced feeds" if ragged
+                     else "K4, Impl.MANYBLOCK" if self._stream
+                     else "a dump run of K1/K2/K3" if dump
+                     else "K1/K2/K3, fast_math without fuse_chain")
+            raise ValueError(f"fast_math on {where}, is not ported "
+                             f"(ROADMAP.md item 10b); in the port only the "
+                             f"collapsed-chain kernel K6 (fuse_chain) "
+                             f"computes with fast_math")
         key = (batch, mode, dump, ragged)
         if key not in self._gens:
-            self._gens[key] = persistent.make_persistent_generator(
-                self.cfg, batch, mode=mode, dump=dump,
-                weight_dtype=self.weight_dtype,
-                stream_weights=self._stream,
-                stream_group_size=self.stream_group_size,
-                stream_prefetch=self.stream_prefetch,
-                stream_quant=self._quant, ragged=ragged)
-        return self._gens[key]
+            self._gens[key] = (
+                fused_chain.make_fused_generator(
+                    self.cfg, batch, mode=mode,
+                    weight_dtype=self.weight_dtype, fast_math=fast,
+                    prefold_cond=True, pack_gates=self.fuse_pack)
+                if fused else persistent.make_persistent_generator(
+                    self.cfg, batch, mode=mode, dump=dump,
+                    weight_dtype=self.weight_dtype,
+                    stream_weights=self._stream,
+                    stream_group_size=self.stream_group_size,
+                    stream_prefetch=self.stream_prefetch,
+                    stream_quant=self._quant, ragged=ragged))
+        return (self._gens[key],
+                self._fused_weights() if fused else self._device_params())
 
     # ------------------------------------------------------------------
     # streaming serving surface
@@ -508,8 +588,8 @@ class WaveNetInfer:
         `cond_chunk` [n, L, batch, 2R] may already be on the card; a host
         array is staged through pinned memory.  Per feed, on the card: one
         dil_b prefold and one kernel launch (K1 lockstep, K4 under
-        MANYBLOCK, K5 ragged), with no host synchronisation before the
-        launch."""
+        MANYBLOCK, K6 under fuse_chain, K5 ragged), with no host
+        synchronisation before the launch."""
         if self._stream_t_row is None:
             raise RuntimeError("call begin_stream(batch_size) first")
         B = len(self._stream_t_row)
@@ -529,12 +609,12 @@ class WaveNetInfer:
             if not (aligned and la.shape == (B,) and np.all(la == T)):
                 return self._feed_ragged(cond_chunk, selectors_chunk, mode, la)
         t0 = int(clocks[0])
-        gen = self._generator(B, mode)
+        gen, params = self._generator(B, mode)
         if selectors_chunk is None:
             selectors_chunk = (_selector_stream(self.sampling_seed, t0, T, B)
                                if mode == "sample"
                                else np.zeros((T, B), np.float32))
-        y = gen(self._device_params(), t0, self._stage_cond_pre(cond_chunk),
+        y = gen(params, t0, self._stage_cond_pre(cond_chunk),
                 self._stage(selectors_chunk), self._ring, self._y_state,
                 seed=self.sampling_seed)[0]
         self._stream_t_row = clocks + T
@@ -564,8 +644,8 @@ class WaveNetInfer:
         clocks = self._stream_t_row
         if sel is None:
             sel = _selector_stream(self.sampling_seed, clocks, T, B)
-        gen = self._generator(B, "sample", ragged=True)
-        y = gen(self._device_params(), torch.from_numpy(clocks.copy()),
+        gen, params = self._generator(B, "sample", ragged=True)
+        y = gen(params, torch.from_numpy(clocks.copy()),
                 self._stage_cond_pre(cond), self._stage(sel), self._ring,
                 self._y_state,
                 torch.from_numpy(lengths.astype(np.int32)))[0]

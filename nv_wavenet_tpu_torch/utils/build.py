@@ -30,7 +30,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(PKG_DIR), "build",
                           "nv_wavenet_tpu_torch")
 SOURCES = ("exact_math_kernels.cu", "ordered_matmul.cu", "persistent.cu",
-           "stream_generate.cu")
+           "stream_generate.cu", "fused_chain.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-fmad=false", "-Xptxas=-v", "-shared",
               "-Xcompiler", "-fPIC")

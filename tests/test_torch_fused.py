@@ -1,0 +1,336 @@
+"""The port's collapsed-chain tier on the CPU (`ops/fused_chain.py`: the
+fold and the plain version of kernel K6; the engine's `fuse_chain`,
+`fuse_pack`, `fast_math` and `priority`) against the JAX package: its fold,
+its fused kernel and its engine in interpret mode, its scan generator.
+
+The case is the hot case of tests/test_low_precision.py (6 layers, R=32,
+S=128, A=256, max_dilation 8; B=8, T=64; trained-scale weights, p_max
+~0.85), as tests/test_fused_chain.py uses it.  Tolerances and why:
+  * the fold: 1e-6 absolute per element; the port and XLA sum the same
+    products of O(0.1) values in another order (~1e-8 apart);
+  * port vs JAX fused kernel: forced p within 2e-5, the ring within 1e-4 of
+    the unpacked JAX ring: both compute the same fold in fp32 and differ
+    only in the summation order of their products (~1e-7 relative);
+    sampled and argmax symbols agree on >= 99% (the JAX bar for fused vs
+    exact, tests/test_fused_chain.py:65-90; measured here: all);
+  * the TV contract against the exact path (tests/test_fused_chain.py
+    :55-62, tests/test_low_precision.py:168-178): fp32 fused max TV < 5e-4;
+    bf16 weights mean < 0.02, max < 0.15; fast_math mean < 0.025, p99 <
+    0.10, max < 0.20, and TV > 0 against fp32 fused (fast_math really
+    rounds: JAX on the CPU computes DEFAULT as fp32, so only the port's
+    test sees it);
+  * chunking, prng, the handoff to the exact generator and the engine's
+    routing: exact (same computation in the same order).
+The JAX interpret-mode runs are made once, in the module fixture."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from nv_wavenet_tpu.engine import wavenet_infer as jinfer
+from nv_wavenet_tpu.ops import fused_chain as jfc
+from nv_wavenet_tpu.ops import persistent as jper
+from nv_wavenet_tpu_torch.engine.wavenet_infer import Impl, WaveNetInfer
+from nv_wavenet_tpu_torch.models import params as tparams
+from nv_wavenet_tpu_torch.ops import fused_chain as tfc
+from nv_wavenet_tpu_torch.ops import persistent as tper
+from nv_wavenet_tpu_torch.ops import scan_generate as tsg
+
+from tests.test_low_precision import (CFG, free_run_forced, hot_case,
+                                      scan_forced_probs, tv)
+from tests.test_torch_persistent import port_cfg, unpack_ring
+
+B, T, SPLIT = 8, 64, 24
+PCFG = port_cfg(CFG)
+PRNG_SEED = 5
+
+
+def jax_engine(params, cond, sel):
+    eng = jinfer.WaveNetInfer(
+        num_layers=CFG.num_layers, max_dilation=CFG.max_dilation, R=CFG.R,
+        S=CFG.S, A=CFG.A, max_batch=B, implementation=jinfer.Impl.PERSISTENT,
+        chunk_size=8, fuse_chain=True)
+    eng.set_canonical_params({k: np.asarray(v) for k, v in params.items()})
+    eng.set_inputs(cond, sel)
+    return eng
+
+
+@pytest.fixture(scope="module")
+def case():
+    """The hot case, its fp32 trajectory and distributions (JAX scan), the
+    JAX fused kernel in interpret mode in every mode, and the JAX engine's
+    fused run and fused -> exact handoff."""
+    params, cond, sel, ref_w = hot_case(CFG, B, T, seed=7)
+    forced = np.ascontiguousarray(free_run_forced(CFG, params, cond, sel))
+    p32 = scan_forced_probs(CFG, params, cond, sel, forced, jnp.float32)[:T]
+    jax_runs = {}
+    for mode in ("sample", "argmax", "forced"):
+        gen = jfc.make_fused_generator(CFG, B, 8, mode=mode, interpret=True)
+        s_in = forced.astype(np.float32) if mode == "forced" else sel
+        out = gen(params, np.array([0]), jnp.asarray(cond), jnp.asarray(s_in),
+                  jper.init_ring(CFG, B),
+                  jnp.full((2, B), CFG.silence_bin, jnp.int32), n_valid=T)
+        jax_runs[mode] = [np.asarray(o) for o in out]
+    eng = jax_engine(params, cond, sel)
+    y_eng = eng.run(T, B)
+    y_handoff = np.concatenate(
+        [eng.run_partial(0, SPLIT, B),
+         eng.run_partial(SPLIT, T - SPLIT, B, dump_activations=True)], 1)
+    tp = tparams.canonical_to_torch(
+        {k: np.asarray(v, np.float32) for k, v in params.items()}, "cpu")
+    return dict(params=params, tp=tp, ref_w=ref_w, cond=cond, sel=sel,
+                forced=forced, p32=p32, jax=jax_runs, y_eng=y_eng,
+                y_handoff=y_handoff)
+
+
+def fresh(batch=B):
+    return (tper.init_ring(PCFG, batch, "cpu"),
+            torch.full((2, batch), PCFG.silence_bin, dtype=torch.int32))
+
+
+def port_fused(c, mode="sample", sel=None, state=None, t0=0, n=None,
+               **kw):
+    """The port's fused generator on the CPU over raw cond (fbias carries
+    dil_b, as the JAX kernel's default); returns its outputs."""
+    gen = tfc.make_fused_generator(PCFG, B, mode=mode, **kw)
+    s_in = c["sel"] if sel is None else sel
+    sl = slice(t0, T if n is None else t0 + n)
+    state = fresh() if state is None else state
+    return gen(c["tp"], t0, torch.from_numpy(c["cond"][sl]),
+               torch.from_numpy(np.ascontiguousarray(s_in[sl])), *state,
+               seed=PRNG_SEED)
+
+
+def forced_probs(out) -> np.ndarray:
+    p = out[-1].numpy().astype(np.float64)
+    return p / p.sum(-1, keepdims=True)
+
+
+def port_engine(c, **kw):
+    eng = WaveNetInfer(num_layers=CFG.num_layers,
+                       max_dilation=CFG.max_dilation, R=CFG.R, S=CFG.S,
+                       A=CFG.A, max_batch=B, chunk_size=8, device="cpu", **kw)
+    eng.set_reference_weights(c["ref_w"])
+    eng.set_inputs(c["cond"], c["sel"])
+    return eng
+
+
+# ----------------------------------------------------------------------
+# the fold and the plain K6 against the JAX package
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("pack", [False, True])
+@pytest.mark.parametrize("prefold", [False, True])
+def test_prepare_weights_match_jax_fold(case, pack, prefold):
+    j = jfc.prepare_weights(case["params"], CFG, prefold, jnp.float32, pack)
+    t = tfc.prepare_weights(case["tp"], PCFG, prefold, torch.float32, pack)
+    shapes = tfc.folded_shapes(PCFG, pack)
+    for k, a, b in zip(tfc.FOLDED_ORDER, j, t):
+        assert tuple(b.shape) == shapes[k] == a.shape, k
+        assert b.is_contiguous() and b.dtype == torch.float32, k
+        err = float(np.abs(np.asarray(a) - b.numpy()).max())
+        assert err < 1e-6, f"{k}: max abs err {err:.3g}"
+
+
+@pytest.mark.parametrize("mode", ["forced", "sample", "argmax"])
+def test_plain_matches_jax_interpret_kernel(case, mode):
+    j_y, j_ring, j_ys = case["jax"][mode][:3]
+    s_in = case["forced"].astype(np.float32) if mode == "forced" else None
+    launches = sum(k.launches for k in tfc.FUSED_KERNELS.values())
+    out = port_fused(case, mode, sel=s_in)
+    assert sum(k.launches for k in tfc.FUSED_KERNELS.values()) == launches
+    y = out[0].numpy()
+    agree = float(np.mean(y == j_y))
+    assert agree >= 0.99, f"{mode}: agreement {agree:.4f}"
+    assert np.array_equal(out[2].numpy(), j_ys)
+    ring_err = float(np.abs(unpack_ring(CFG, j_ring) - out[1].numpy()).max())
+    assert ring_err < 1e-4, f"{mode}: ring max abs err {ring_err:.3g}"
+    if mode == "forced":
+        assert np.array_equal(y, case["forced"])
+        p_err = float(np.abs(case["jax"]["forced"][3] - out[3].numpy()).max())
+        assert p_err < 2e-5, f"p max abs err {p_err:.3g}"
+
+
+def test_fp32_fused_within_tv_of_port_exact_path(case):
+    """The fold's reassociation only: fused p against the port's exact
+    forced generator (plain K2) on the same symbols."""
+    cond_pre = (torch.from_numpy(case["cond"])
+                + case["tp"]["dil_b"][None, :, None, :]).contiguous()
+    sym = torch.from_numpy(case["forced"].astype(np.float32))
+    exact = tper.make_persistent_generator(PCFG, B, mode="forced")(
+        case["tp"], 0, cond_pre, sym, *fresh())
+    p_exact = forced_probs(exact)
+    p_fused = forced_probs(port_fused(case, "forced", sel=case["forced"]
+                                      .astype(np.float32)))
+    t = tv(p_exact, p_fused)
+    assert t.max() < 5e-4, f"max TV {t.max():.2e}"
+    assert np.abs(p_exact - p_fused).max() < 5e-4
+
+
+@pytest.mark.parametrize("kw,bounds", [
+    (dict(weight_dtype=torch.bfloat16), (0.02, None, 0.15)),
+    (dict(fast_math=True), (0.025, 0.10, 0.20)),
+    (dict(fast_math=True, pack_gates=True), (0.025, 0.10, 0.20)),
+], ids=["bf16_weights", "fast_math", "fast_math_packed"])
+def test_low_precision_tiers_meet_the_tv_contract(case, kw, bounds):
+    """Against the fp32 exact path (JAX scan) on the teacher-forced
+    trajectory; the positive control: each tier's p differs from fp32
+    fused, so the rounding is really applied."""
+    sym = case["forced"].astype(np.float32)
+    p = forced_probs(port_fused(case, "forced", sel=sym, **kw))
+    t = tv(case["p32"], p)
+    mean_b, p99_b, max_b = bounds
+    msg = (f"{kw}: mean TV {t.mean():.5f} p99 {np.percentile(t, 99):.5f} "
+           f"max {t.max():.5f}")
+    assert t.mean() < mean_b and t.max() < max_b, msg
+    assert p99_b is None or np.percentile(t, 99) < p99_b, msg
+    p_fp32 = forced_probs(port_fused(case, "forced", sel=sym))
+    assert tv(p_fp32, p).max() > 0, "the low-precision tier changed nothing"
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_prng_equals_sample_fed_philox(case, fast):
+    sel = tsg.prng_uniform_sel(PRNG_SEED, np.arange(T), B)
+    a, b = fresh(), fresh()
+    y_p = port_fused(case, "prng", state=a, fast_math=fast)[0]
+    y_s = port_fused(case, "sample", sel=sel, state=b, fast_math=fast)[0]
+    assert torch.equal(y_p, y_s)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("pack,fast", [(False, False), (True, True)])
+def test_split_24_40_equals_one_run(case, pack, fast):
+    one, two = fresh(), fresh()
+    y = port_fused(case, state=one, pack_gates=pack, fast_math=fast)[0]
+    ys = [port_fused(case, state=two, n=SPLIT, pack_gates=pack,
+                     fast_math=fast)[0],
+          port_fused(case, state=two, t0=SPLIT, pack_gates=pack,
+                     fast_math=fast)[0]]
+    assert torch.equal(torch.cat(ys), y)
+    assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
+
+
+def test_fused_run_hands_state_to_exact_generator(case):
+    """Fused for 24 steps, then the port's exact generator on the carried
+    ring and y_state for 40: the JAX engine's fused run_partial followed by
+    a dump run_partial (which it routes to the exact kernel)."""
+    state = fresh()
+    y1 = port_fused(case, state=state, n=SPLIT)[0]
+    cond_pre = (torch.from_numpy(case["cond"][SPLIT:])
+                + case["tp"]["dil_b"][None, :, None, :]).contiguous()
+    y2 = tper.make_persistent_generator(PCFG, B)(
+        case["tp"], SPLIT, cond_pre, torch.from_numpy(case["sel"][SPLIT:]),
+        *state)[0]
+    assert np.array_equal(torch.cat([y1, y2]).numpy().T, case["y_handoff"])
+
+
+def test_plan_and_inputs_are_checked(case):
+    from nv_wavenet_tpu_torch.config import WaveNetConfig
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tfc.fused_plan(WaveNetConfig(num_layers=2, R=36, S=128, A=256,
+                                     max_dilation=2))
+    with pytest.raises(ValueError, match="shared memory"):
+        tfc.make_fused_generator(WaveNetConfig(num_layers=60, R=256, S=256,
+                                               A=256, max_dilation=8), 1)
+    with pytest.raises(ValueError, match="mode"):
+        tfc.make_fused_generator(PCFG, B, mode="beam")
+    plan = tfc.fused_plan(PCFG, pack_gates=True)
+    assert plan.row_stride == CFG.R and tfc.fused_plan(PCFG).row_stride == 128
+    weights = tfc.prepare_weights(case["tp"], PCFG, False)
+    gen = tfc.make_fused_generator(PCFG, B)
+    cond = torch.from_numpy(case["cond"][:4])
+    sel = torch.from_numpy(case["sel"][:4])
+    with pytest.raises(ValueError, match="g_pack"):   # pack mismatch
+        tfc.make_fused_generator(PCFG, B, pack_gates=True)(
+            weights, 0, cond, sel, *fresh())
+    with pytest.raises(ValueError, match="cond"):
+        gen(weights, 0, cond.double(), sel, *fresh())
+    with pytest.raises(ValueError, match="n_valid"):
+        gen(weights, 0, cond, sel, *fresh(), n_valid=5)
+    with pytest.raises(ValueError, match="symbols"):
+        tfc.make_fused_generator(PCFG, B, mode="forced")(
+            weights, 0, cond, sel + 0.5, *fresh())
+    # a prepared tuple and the canonical params give the same run
+    assert torch.equal(gen(weights, 0, cond, sel, *fresh())[0],
+                       gen(case["tp"], 0, cond, sel, *fresh())[0])
+
+
+# ----------------------------------------------------------------------
+# the engine against the JAX engine
+# ----------------------------------------------------------------------
+
+def test_engine_fuse_chain_agrees_with_jax_engine(case):
+    y = port_engine(case, fuse_chain=True).run(T, B)
+    agree = float(np.mean(y == case["y_eng"]))
+    assert agree >= 0.99, f"agreement {agree:.4f}"
+    assert float(np.mean(y == case["forced"].T)) >= 0.99
+
+
+@pytest.mark.parametrize("kw", [dict(priority="latency"),
+                                dict(fuse_chain=True, fuse_pack=True)],
+                         ids=["latency", "fuse_pack"])
+def test_engine_dump_runs_the_exact_kernel(case, kw):
+    """Dumps leave the fused kernel and drop the fast_math priority set:
+    bit-equal to a default engine's dump run, samples and getters."""
+    eng, ref = port_engine(case, **kw), port_engine(case)
+    assert np.array_equal(eng.run(T, B, dump_activations=True),
+                          ref.run(T, B, dump_activations=True))
+    for get in ("get_p", "get_za", "get_zs"):
+        assert np.array_equal(getattr(eng, get)(), getattr(ref, get)())
+    assert np.array_equal(eng.get_xt_out(3), ref.get_xt_out(3))
+
+
+def test_priority_tiers(case):
+    eng = port_engine(case, priority="latency")
+    assert eng.fuse_chain and eng.fast_math
+    assert eng._effective_fast_math(False) and not eng._effective_fast_math(True)
+    y_lat = eng.run(T, B)
+    assert np.array_equal(y_lat, port_engine(case, fuse_chain=True,
+                                             fast_math=True).run(T, B))
+    exact = port_engine(case, priority="exact")
+    assert not (exact.fuse_chain or exact.fast_math)
+    assert np.array_equal(exact.run(T, B), port_engine(case).run(T, B))
+    # the fold follows the weights' temperature: a fresh engine at T=0.8
+    eng.set_temperature(0.8)
+    assert np.array_equal(eng.run(T, B), port_engine(
+        case, priority="latency", temperature=0.8).run(T, B))
+
+
+def test_lockstep_feeds_13_6_45_equal_the_run(case):
+    eng = port_engine(case, priority="latency")
+    y_run = eng.run(T, B)
+    eng.begin_stream(B)
+    outs, off = [], 0
+    for n in (13, 6, 45):
+        outs.append(eng.feed(case["cond"][off:off + n],
+                             case["sel"][off:off + n]))
+        off += n
+    assert np.array_equal(np.concatenate(outs, 1), y_run)
+
+
+@pytest.mark.parametrize("where", ["no_fuse_chain", "dump", "ragged",
+                                   "manyblock"])
+def test_unported_fast_math_dispatches_raise(case, where):
+    """fast_math exists on K6 only; each dispatch that would need it on an
+    exact kernel raises, naming ROADMAP item 10b, and never runs exact."""
+    kw = {"no_fuse_chain": dict(fast_math=True),
+          "dump": dict(fuse_chain=True, fast_math=True),
+          "ragged": dict(priority="latency"),
+          "manyblock": dict(priority="latency",
+                            implementation=Impl.MANYBLOCK)}[where]
+    eng = port_engine(case, **kw)
+    with pytest.raises(ValueError, match="10b"):
+        if where == "ragged":
+            eng.begin_stream(B)
+            eng.feed(case["cond"][:8], case["sel"][:8],
+                     lengths=np.arange(B) % 8)
+        else:
+            eng.run(8, B, dump_activations=where == "dump")
+
+
+def test_unknown_priority_raises():
+    with pytest.raises(ValueError, match="priority"):
+        WaveNetInfer(num_layers=2, max_dilation=2, R=32, S=128, A=256,
+                     device="cpu", priority="throughput")
