@@ -15,9 +15,12 @@ slots fed tick by tick through `begin_stream` / `feed(lengths=...)` /
 request in mode "prng"; and the weight-streaming path, the same requests
 through `WaveNetInfer(implementation=Impl.MANYBLOCK)` with fp32, bf16 and
 int8 weight stacks (kernel K4), then K4 at the JAX repo's largest
-configuration (config 4); and the latency tier, the same requests through
+configuration (config 4); the latency tier, the same requests through
 `WaveNetInfer(priority="latency")` (the collapsed-chain kernel K6 with
-fast_math).  Phases, in order; any failure exits non-zero:
+fast_math); and the two precision knobs, the same requests through
+`WaveNetInfer(compute_dtype=torch.bfloat16)` and `WaveNetInfer(
+fast_math=True)` (the fast and bf16 instances of K1-K6), with the latency
+tier's slot handover.  Phases, in order; any failure exits non-zero:
 
   1. device: card name and power limit (nvidia-smi), torch.version.cuda, nvcc
   2. build: every csrc/*.cu, timed; beside it (nvcc runs in its own
@@ -28,7 +31,7 @@ fast_math).  Phases, in order; any failure exits non-zero:
      (canonical softmax) vs plain on the same za: 0 bit mismatches; K7 (the
      scorer's fixed-order product) vs plain at the scorer's flagship shapes
      with 4096 rows: 0 bit mismatches, timed beside torch.matmul
-  5. K1 (persistent generation) vs plain, TEST_CONFIG_MED, B=4, T=64, sample
+  5. K1 (persistent generation) vs plain, TEST_CONFIG_MED, B=4, T=32, sample
      and argmax modes with the dump: exact y, activations within the
      reference ladder; 7+7+...+1 chunked run_partial calls equal one call;
      then the 65,536-draw horizon case of tests/test_torch_generate.py (4
@@ -48,7 +51,7 @@ fast_math).  Phases, in order; any failure exits non-zero:
      card and through the plain ragged generator on the card: 0 integer
      mismatches, equal y_state and clocks, the ring within the xt ladder
   7. main path: kernel launch counts set to 0 just before and read just
-     after; K1 must have launched; the first 256 samples of request 1 must
+     after; K1 must have launched; the first 16 samples of request 1 must
      equal the plain version's on the card (0 integer mismatches); the
      lockstep K1's time per step
   8. serving: counts set to 0 just before and read just after; 192 ticks of
@@ -66,8 +69,8 @@ fast_math).  Phases, in order; any failure exits non-zero:
      they were served (0 mismatches), among them one that crossed the
      migration and one that began at the full reset and ran through the
      partial reset; then K5 on one 160-step ragged tick of the scenario,
-     timed, and on a 32-step tick against the plain version (0 mismatches)
- 10. K2 and K3 at the flagship: vs plain over 32 steps of request 1 (K2
+     timed, and on a 16-step tick against the plain version (0 mismatches)
+ 10. K2 and K3 at the flagship: vs plain over 16 steps of request 1 (K2
      forcing its samples), each timed over a 256-step launch
  11. scoring at full width: counts set to 0 just before and read just
      after; request 1's window (16 x 8192 samples) scored from silence by
@@ -82,7 +85,7 @@ fast_math).  Phases, in order; any failure exits non-zero:
  13. prng at full width: counts set to 0 just before and read just after;
      one request of 16 x 8192 samples through run_chunks(256, mode="prng"),
      its time per step beside K1's
- 14. K4 (weight streaming) vs plain, TEST_CONFIG_MED, B=4, T=24, in each
+ 14. K4 (weight streaming) vs plain, TEST_CONFIG_MED, B=4, T=19, in each
      storage (fp32, bf16, int8) and mode (sample, argmax with the dump,
      forced, prng): 0 integer mismatches, ring, p_seq and dumps within the
      ladder; a 7-of-8 n_valid call and an 11 + 8 split, with and without
@@ -92,7 +95,7 @@ fast_math).  Phases, in order; any failure exits non-zero:
      storage's values over 2048 steps, bit for bit in y, ring and y_state;
      K4-forced against K2 (p_seq bits) and K4-prng against K3 in fp32;
      each storage timed over a 256-step launch; then in each storage K4
-     against the plain version on the storage's values over 32 steps
+     against the plain version on the storage's values over 16 steps
      (timed): y and y_state exact, the ring within the ladder, and
      K4-forced fed the plain samples gives p_seq within the ladder
  16. the MANYBLOCK main path: counts set to 0 just before and read just
@@ -108,22 +111,24 @@ fast_math).  Phases, in order; any failure exits non-zero:
      the first half of a 2048-step flagship window, feed the second: equal
      to one int8 generation, and the scored ring equal to the generated one
      bit for bit
- 19. K6 (the collapsed chain) vs plain, TEST_CONFIG_MED, B=4, T=32, on the
+ 19. K6 (the collapsed chain) vs plain, TEST_CONFIG_MED, B=4, T=16, on the
      same prepared weights: every mode x {fp32, fast_math} unpacked, and
      pack_gates in sample/fp32 and forced/fast_math: forced p_seq within
      1e-5, sampled symbols >= 99% equal (mismatches printed), the ring
      within the xt ladder and y_state equal on the rows whose samples
-     agree; a 13 + 19 split equal to one call (y, ring bits, y_state);
+     agree; a 7 + 9 split equal to one call (y, ring bits, y_state);
      pack_gates on and off equal in y
  20. the TV contract on the card: the hot case of
      tests/test_low_precision.py (6L, R=32, S=128, A=256, B=8, T=256), K6
      forced on K1's samples against K2: fp32 max TV and max |dp| < 5e-4;
      fast_math mean < 0.025, p99 < 0.10, max < 0.20 and TV > 0 against fp32
-     K6; bf16 weights mean < 0.02, max < 0.15
+     K6; bf16 weights mean < 0.02, max < 0.15; K2-fast, K2-bf16 and
+     K6-bf16 forced on the same symbols: mean < 0.025, p99 < 0.10, max <
+     0.20, TV > 0
  21. K6 at the flagship, B=16: forced on request 1's first 256 samples
      against K2 (max TV < 5e-4); timed over a 256-step launch in fp32 and
      fast_math, pack_gates on and off, beside K1; fast_math against the
-     plain version over 32 steps (timed)
+     plain version over 16 steps (timed)
  22. the latency-tier main path: counts set to 0 just before and read just
      after; the main path's 3 requests through
      WaveNetInfer(priority="latency").run_chunks(256), kHz per utterance
@@ -131,12 +136,40 @@ fast_math).  Phases, in order; any failure exits non-zero:
      same engine equal to a default engine's bit for bit (y, p); 16
      lockstep feeds of 160 samples through it, per-feed wall time p50/p99,
      equal to request 1's samples
- 23. the `kernels` JSON line: per kernel its launches on its path (K5: the
+ 23. the fast and bf16 instances vs plain, TEST_CONFIG_MED, B=4, T=8: K1
+     (sample; argmax with the dump), K2 (forced), K3 (prng), K5 (a ragged
+     call), K4 in each storage and mode, K6-bf16 in each mode: sampled
+     symbols agree on >= 99% (mismatches printed), forced p_seq within a
+     mean TV of 1e-3 and a max of 0.05, the ring within the xt ladder,
+     y_state equal where the symbols agree, the dumps within 1e-2
+ 24. bit for bit in fast and bf16: K4 against K1 in each storage over 2048
+     flagship steps (y, ring bits, y_state), K4-forced against K2 and
+     K4-prng against K3; the bf16 scorer (WaveNetInfer(compute_dtype=
+     torch.bfloat16).score_device) against K2-bf16 on request 1's window
+     (p_seq, ring bits, y_state); a bf16 score -> feed handoff over 1024
+ 25. the main path in bf16 and in fast: counts set to 0 just before and
+     read just after; the main path's 3 requests, a prng and a forced
+     request of 1024 (K1, K3 and K2 of that precision must launch, exact K1
+     not), kHz per utterance beside K1-exact's; request 1's first 8 samples
+     against the plain version (>= 99% equal); one MANYBLOCK request of
+     each precision on its own counts (K4 of that precision must launch)
+     equal to that precision's request 1
+ 26. the latency tier's slot handover: SERVE's scenario cut to 48 ticks
+     through WaveNetInfer(priority="latency"), fast and with
+     compute_dtype=torch.bfloat16; counts set to 0 just before and read
+     just after: K5 of that precision and K6 must launch, exact K5 not;
+     per-feed p50/p99; the utterances begun at the partial reset or later,
+     replayed lockstep without fuse_chain: 0 mismatches
+ 27. every fast and bf16 instance timed over a 256-step flagship launch (K5:
+     a 160-step ragged tick) beside its exact instance (exact, fast, bf16,
+     exact), and its plain version over 8 steps
+ 28. the `kernels` JSON line: per kernel its launches on its path (K5: the
      serving phase; K0a, K0c, K7, K2: the scoring phase; K3: the prng
-     request; K4: the MANYBLOCK main path; K6: the latency-tier main path),
-     its time, the plain version's, the least time the card could take for
-     the same work (bound_ms) and, where one PyTorch call computes the same
-     function, that call's time
+     request; K4: the MANYBLOCK main path; K6: the latency-tier main path;
+     each fast and bf16 instance: its phase 25 or 26 path), its time, the
+     plain version's, the least time the card could take for the same work
+     (bound_ms) and, where one PyTorch call computes the same function, that
+     call's time
 
 A line "[time] <seconds>: <phase>" marks the start of each phase.  The last
 three lines of standard output are the kernels line, the card's
@@ -184,7 +217,9 @@ SERVE = dict(B=16, ticks=192, tick_t=160, len_min=40, p_stall=1 / 8,
              partial_tick=16, partial_rows=(0, 1, 2, 3),  # full, then partial
              migrate_tick=40)                          # the R7 sequence
 SERVE_REPLAY = 16   # the first utterances completed, replayed lockstep
-K5_PLAIN_T = 32   # the plain step costs ~32 ms at the flagship
+# steps of the exact kernels' checks against their plain versions at the
+# flagship (K1, K2, K3, K4, K5, K6): the plain step costs ~32 ms there
+FLAG_PLAIN_T = 16
 # K7 at the scorer's flagship products, (M, K, N): the dilated halves
 # [x_{t-d} | x_t] W, the fused res/skip product, and the output stack
 K7_SHAPES = ((4096, 64, 128), (4096, 64, 320), (4096, 256, 256))
@@ -200,12 +235,12 @@ K4_FLAG_T = 2048
 CONFIG4 = dict(num_layers=40, R=128, S=256, A=256, max_dilation=128)
 C4_B, C4_T, C4_TIME_T = 64, 1024, 256
 R9_T = 2048
-K4_SMALL_T = 24   # K4 vs plain at TEST_CONFIG_MED: holds the 11 + 8 split
+K4_SMALL_T = 19   # K4 vs plain at TEST_CONFIG_MED: holds the 11 + 8 split
 # K6 (the collapsed chain): against its plain version at TEST_CONFIG_MED,
-# B=4, over 32 steps (the plain version costs ~1 s per 32 steps), in every
+# B=4, over 16 steps (the plain version costs ~1 s per 32 steps), in every
 # mode x {fp32, fast_math} unpacked and two packed variants (mode, fast_math,
-# pack_gates); a 13 + 19 split
-K6_SMALL_B, K6_SMALL_T, K6_SPLIT = 4, 32, 13
+# pack_gates); a 7 + 9 split
+K6_SMALL_B, K6_SMALL_T, K6_SPLIT = 4, 16, 7
 K6_VARIANTS = tuple((m, f, False) for m in ("sample", "argmax", "prng", "forced")
                     for f in (False, True)) + (("sample", False, True),
                                                ("forced", True, True))
@@ -214,6 +249,25 @@ TV_CFG = dict(num_layers=6, R=32, S=128, A=256, max_dilation=8)
 TV_B, TV_T, TV_SEED = 8, 256, 7
 # the latency tier's lockstep feeds: 16 feeds of 160 samples (10 ms of audio)
 LAT_FEEDS, LAT_FEED_T = 16, 160
+# the fast and bf16 instances against their plain versions (lowp_compare):
+# each run's sampled symbols agree on >= 99%; forced p_seq within a mean TV
+# per step of 2e-8, the dumps within 1e-2 relative.  The limit lies between
+# the sound instances' largest readings (4.7e-10 at TEST_CONFIG_MED, B=4, 8
+# steps; 1.2e-9 at the flagship, B=16, 8 steps) and the control, the exact
+# instance against the precision's plain version on the same symbols
+# (2.0e-7 and 2.4e-7): the script fails if a control reads under it, since
+# the check could then not tell a kernel that skips its roundings.  The max
+# TV is no such test: one rounding of x that flips in a sound instance
+# moves that step's p about as far as the control moves every step (max
+# 1.4e-7 against 2.9e-7 at the flagship).  (The hot case's fp32-vs-bf16 TV
+# is 5.5e-3; at these random weights p is sharper and every TV smaller.)
+LOWP_AGREE, LOWP_TV, LOWP_DUMP_TOL = 0.99, 2e-8, 1e-2
+LOWP_SMALL_T = 8   # steps of the small-config check (~50 ms a plain step)
+LOWP_SHORT_T = 1024   # the forced and prng requests and the bf16 handoff
+LOWP_SERVE_TICKS = 48   # the latency tier's slot handover: SERVE, cut
+# steps of the fast and bf16 instances' checks against their plain versions
+# at the flagship (also their plain_ms)
+LOWP_PLAIN_T = 8
 PEAK_BF16_FLOPS = 989e12   # the tensor cores, dense (fast_math's products)
 START = time.perf_counter()
 
@@ -394,8 +448,14 @@ def serve_scenario(torch, np, make_engine, cfg, dev, rng, gen, B, ticks,
              "row_steps": steps, "dead_row_steps": dead,
              "utterances_started": len(utts),
              "utterances_completed": len(completed),
-             "tick_of_160": tick_of_160}
+             "tick_of_160": tick_of_160, "live": live}
     return completed, stats
+
+
+def served_prefix(u) -> dict:
+    """An utterance cut to the samples it has been served so far."""
+    return {**u, "n": u["pos"], "cond": u["cond"][:u["pos"]],
+            "sel": u["sel"][:u["pos"]]}
 
 
 def replay_lockstep(torch, np, make_engine, cfg, dev, utts):
@@ -737,11 +797,11 @@ def check_k4_flagship(torch, np, persistent, cfg, params, cond, sel,
 def check_k4_plain_flagship(torch, persistent, tsg, em, cfg, params, cond,
                             sel, dev) -> dict:
     """At the flagship, B=16, in every storage: K4 against the plain version
-    on the storage's values over K5_PLAIN_T steps (the plain version's
+    on the storage's values over FLAG_PLAIN_T steps (the plain version's
     time is taken on the way).  y and y_state exact, the ring within the
     ladder; K4-forced fed the plain version's samples gives p_seq within
     the ladder of the plain distributions."""
-    T, B = K5_PLAIN_T, MAIN_B
+    T, B = FLAG_PLAIN_T, MAIN_B
     s_in = sel[:T].contiguous()
     res = {"mismatches": 0, "ring_err": 0.0, "p_err": 0.0, "ok": True,
            "plain_ms": {}}
@@ -857,22 +917,58 @@ def k6_elementwise(cfg, fast: bool) -> int:
     return ops + ((2 * L * R + R + S + A) if fast else 0)
 
 
-def k6_bound(cfg, B: int, T: int, fast: bool, forced: bool = False):
+def k6_bound(cfg, B: int, T: int, fast: bool, forced: bool = False,
+             ring_bytes: int = 4):
     """(bound_ms, bound_by) of a K6 launch: the folded weights (the rows the
-    fold needs, P = R), cond, sel, the ring and y_state in and out, y (and
-    p_seq) against the products at the fp32 rate (fast_math: at the bf16
-    tensor-core rate, their operands being bf16 values) plus the
-    elementwise work at the fp32 rate."""
+    fold needs, P = R), cond, sel, the ring (ring_bytes an element: 2 under
+    bf16) and y_state in and out, y (and p_seq) against the products at the
+    fp32 rate (fast_math and bf16: at the bf16 tensor-core rate, their
+    operands being bf16 values) plus the elementwise work at the fp32
+    rate."""
     L, R, S, A = cfg.num_layers, cfg.R, cfg.S, cfg.A
     weights = (2 * A * R + 2 * L * R * 2 * R + L * R * R + L * R
                + R * L * (L - 1) // 2 * 2 * R + L * R * S + L * 2 * R + S
                + S * A + A + A * A + A)
-    n_bytes = 4 * (weights + T * B * L * 2 * R + T * B
-                   + 2 * cfg.ring_size * B * R + 2 * 2 * B + T * B
-                   + (T * B * A if forced else 0))
+    n_bytes = (4 * (weights + T * B * L * 2 * R + T * B + 2 * 2 * B + T * B
+                    + (T * B * A if forced else 0))
+               + ring_bytes * 2 * cfg.ring_size * B * R)
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = (2 * k6_macs(cfg) / (PEAK_BF16_FLOPS if fast else PEAK_FP32_FLOPS)
              + k6_elementwise(cfg, fast) / PEAK_FP32_FLOPS) * B * T * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def lowp_bound(cfg, B: int, T: int, prec: str, live: int | None = None,
+               mode: str = "sample", storage: str | None = None):
+    """(bound_ms, bound_by) of a fast or bf16 instance of K1's step (K1,
+    K2, K3, K5; K4 with `storage`) over B x T row-steps, `live` of them
+    run: K1's bytes with the matrices that enter products as bf16 (2 bytes
+    a weight; int8 stacks 1 byte and their scales) and under "bf16" the
+    ring in and out as bf16; the products at the bf16 tensor-core rate,
+    K1's elementwise work plus one rounding per activation entering a
+    product (R + 3LR + S + A a row-step) and int8's dequantisation at the
+    fp32 rate."""
+    L, R, S, A = cfg.num_layers, cfg.R, cfg.S, cfg.A
+    live = T * B if live is None else live
+    stack = L * (2 * R * 2 * R + R * (R + S))
+    macs = stack + S * A + A * A
+    n_bytes = k1_bytes(cfg, B, T, live) - 2 * (2 * A * R + macs)
+    if storage == "int8":
+        n_bytes += -stack + 4 * L * (2 * R + R + S)
+    if prec == "bf16":
+        n_bytes -= 2 * 2 * cfg.ring_size * B * R
+    if live != T * B:
+        n_bytes += 12 * B
+    elem = k1_ops_per_row_step(cfg) - 2 * macs + R + 3 * L * R + S + A
+    if mode == "forced":
+        n_bytes += 4 * T * B * A
+        elem -= A
+    elif mode == "prng":
+        n_bytes -= 4 * T * B
+        elem += PHILOX_OPS
+    t_ops = (2 * macs * live / PEAK_BF16_FLOPS + elem * live / PEAK_FP32_FLOPS
+             + (2 * stack if storage == "int8" else 0) / PEAK_FP32_FLOPS) * 1e3
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -965,7 +1061,9 @@ def check_k6_tv(torch, np, fc, persistent, cfg_lib, params_lib, dev) -> dict:
     run gives the symbols, K2 forced on them the exact distributions; K6
     forced on the same symbols in fp32 (max TV and max |dp| < 5e-4),
     fast_math (mean TV < 0.025, p99 < 0.10, max < 0.20, and TV > 0 against
-    fp32 K6) and bf16 weights (mean < 0.02, max < 0.15)."""
+    fp32 K6) and bf16 weights (mean < 0.02, max < 0.15); K2-fast, K2-bf16
+    and K6-bf16 forced on them too (mean < 0.025, p99 < 0.10, max < 0.20,
+    TV > 0 against K2)."""
     cfg = cfg_lib.WaveNetConfig(**TV_CFG)
     B, T = TV_B, TV_T
     rng = np.random.RandomState(TV_SEED + 2000)
@@ -994,6 +1092,19 @@ def check_k6_tv(torch, np, fc, persistent, cfg_lib, params_lib, dev) -> dict:
         ps[name] = forced_p64(np, fc.make_fused_generator(
             cfg, B, "forced", prefold_cond=True, **kw)(w, 0, cp, sym,
                                                        *fresh())[3])
+    bf_state = (persistent.init_ring(cfg, B, dev, torch.bfloat16),
+                fresh()[1])
+    for prec in ("fast", "bf16"):
+        kw = prec_kw(torch, prec)
+        st = bf_state if prec == "bf16" else fresh()
+        ps[f"K2 {prec}"] = forced_p64(np, persistent.make_persistent_generator(
+            cfg, B, mode="forced", **kw)(params, 0, cp, sym, *st)[3])
+    kw = prec_kw(torch, "bf16")
+    w = fc.prepare_weights(params, cfg, True, pack_gates=False, **kw)
+    ps["K6 bf16"] = forced_p64(np, fc.make_fused_generator(
+        cfg, B, "forced", prefold_cond=True, **kw)(
+            w, 0, cp, sym, persistent.init_ring(cfg, B, dev, torch.bfloat16),
+            fresh()[1])[3])
     res = {}
     for name, p in ps.items():
         t = tv(np, p2, p)
@@ -1007,12 +1118,244 @@ def check_k6_tv(torch, np, fc, persistent, cfg_lib, params_lib, dev) -> dict:
                  and m["mean"] < 0.025 and m["p99"] < 0.10 and m["max"] < 0.20
                  and res["fast_vs_fp32_max"] > 0
                  and bf["mean"] < 0.02 and bf["max"] < 0.15)
+    for name in ("K2 fast", "K2 bf16", "K6 bf16"):
+        v = res[name]
+        res["ok"] &= (v["mean"] < 0.025 and v["p99"] < 0.10
+                      and v["max"] < 0.20 and v["max"] > 0)
     log(f"[K6 TV] hot case 6L R32 S128 A256, B={B}, T={T}, against K2 on "
         f"K1's samples: " + "; ".join(
             f"{n} mean {v['mean']:.3g} p99 {v['p99']:.3g} max {v['max']:.3g}"
             for n, v in res.items() if isinstance(v, dict))
         + f"; fast_math vs fp32 K6 max TV {res['fast_vs_fp32_max']:.3g} "
         f"(> 0); within the contract {res['ok']}")
+    return res
+
+
+def forced_tv(np, p_a, p_b) -> tuple:
+    """(mean, max) over the steps and rows of the TV between two p_seq."""
+    t = tv(np, forced_p64(np, p_a), forced_p64(np, p_b))
+    return float(t.mean()), float(t.max())
+
+
+def lowp_control(np, prec: str, where: str, p_exact, p_plain) -> dict:
+    """The exact instance's p_seq against the plain version of `prec` on the
+    same symbols: a kernel that skips its roundings would read this, so
+    LOWP_TV must lie under its mean TV (else the check cannot tell such a
+    kernel)."""
+    tv_mean, tv_max = forced_tv(np, p_exact, p_plain)
+    ok = tv_mean > LOWP_TV
+    log(f"[lowp control] {where} {prec}: exact instance vs {prec} plain, "
+        f"forced TV mean {tv_mean:.3g} (limit {LOWP_TV:.3g}; above it {ok}),"
+        f" max {tv_max:.3g}")
+    return {"tv_mean": tv_mean, "tv_max": tv_max, "ok": ok}
+
+
+def prec_kw(torch, prec: str) -> dict:
+    """The keywords of a precision for the generators and WaveNetInfer."""
+    return {"compute_dtype": torch.bfloat16 if prec == "bf16"
+            else torch.float32, "fast_math": prec == "fast"}
+
+
+def lowp_compare(torch, np, out_k, out_p, mode: str, dump: bool) -> dict:
+    """A low-precision instance against its plain version on the same
+    inputs.  Both sum the same exact bf16 x bf16 products in fp32, in other
+    orders (cuBLAS in the plain version), so a rounding of x to bf16 may
+    flip now and then and the sampled symbols part: they agree on
+    >= LOWP_AGREE of the run's row-steps; the ring within the xt ladder and
+    y_state equal on the rows whose symbols agree; forced p_seq within
+    LOWP_TV (the mean TV per step); the dumps within LOWP_DUMP_TOL (a bf16
+    ulp is 3.9e-3)."""
+    T, B = out_k[0].shape
+    same = out_k[0] == out_p[0]
+    mism = int((~same).sum())
+    rows, tail = same.all(0), same[-2:].all(0)
+    ring_k, ring_p = (o[1].to(torch.float32) for o in (out_k, out_p))
+    ring_err = (float((ring_k - ring_p)[:, rows].abs().max())
+                if bool(rows.any()) else 0.0)
+    ok = (mism <= (1 - LOWP_AGREE) * T * B
+          and rel_close(ring_p[:, rows].cpu(), ring_k[:, rows].cpu(), 1e-2,
+                        3e-4)
+          and torch.equal(out_k[2][:, tail], out_p[2][:, tail]))
+    tv_mean = tv_max = 0.0
+    if mode == "forced":
+        tv_mean, tv_max = forced_tv(np, out_k[-1], out_p[-1])
+        ok &= mism == 0 and tv_mean < LOWP_TV
+    if dump:
+        ok &= all(rel_close(p[b].cpu() if p.dim() == 2 else p[:, b].cpu(),
+                            k[b].cpu() if k.dim() == 2 else k[:, b].cpu(),
+                            LOWP_DUMP_TOL, 3e-4)
+                  for k, p in zip(out_k[3:8], out_p[3:8])
+                  for b in range(B) if bool(rows[b]))
+    return {"mismatches": mism, "row_steps": T * B, "ring_err": ring_err,
+            "tv_mean": tv_mean, "tv_max": tv_max, "ok": bool(ok)}
+
+
+def check_lowp_small(torch, np, persistent, fc, tsg, cfg, params, cond, sel,
+                     dev) -> dict:
+    """Every fast and bf16 instance against its plain version at a small
+    config, B=4: K1 (sample; argmax with the dump), K2 (forced on the plain
+    version's samples), K3 (prng), K5 (a seeded ragged call), K4 in every
+    storage and mode, and K6 in bf16 in every mode (`lowp_compare`); the
+    controls of K2 and K6 (`lowp_control`) read above LOWP_TV."""
+    T, B = sel.shape
+    res = {"mismatches": 0, "row_steps": 0, "ring_err": 0.0, "tv_mean": 0.0,
+           "tv_max": 0.0, "ok": True, "runs": 0, "per": {}, "controls": {}}
+
+    def exact_state():
+        return (persistent.init_ring(cfg, B, dev),
+                torch.full((2, B), cfg.silence_bin, dtype=torch.int32,
+                           device=dev))
+
+    def control(name, prec, p_exact, p_plain):
+        c = lowp_control(np, prec, f"small {name}", p_exact, p_plain)
+        res["controls"][f"{name} {prec}"] = c
+        res["ok"] &= c["ok"]
+    lens = torch.from_numpy(np.random.RandomState(1023).randint(
+        0, T + 1, size=B).astype(np.int32))
+    t0_row = torch.from_numpy(np.array([0, 5, 11, 2][:B], np.int64))
+
+    def record(kernel, prec, detail, out_k, out_p, mode, dump=False):
+        """Compare, log, and sum into res and res["per"][kernel prec]."""
+        r = lowp_compare(torch, np, out_k, out_p, mode, dump)
+        log(f"[lowp small] {kernel} {prec} {detail}: y {r['mismatches']}/"
+            f"{r['row_steps']} mismatches vs plain; ring max abs err "
+            f"{r['ring_err']:.3g}; forced TV mean {r['tv_mean']:.3g} max "
+            f"{r['tv_max']:.3g}; ok {r['ok']}")
+        per = res["per"].setdefault(f"{kernel} {prec}", {
+            "mismatches": 0, "row_steps": 0, "ring_err": 0.0,
+            "tv_mean": 0.0, "tv_max": 0.0, "ok": True})
+        for acc in (res, per):
+            for k in ("mismatches", "row_steps"):
+                acc[k] += r[k]
+            for k in ("ring_err", "tv_mean", "tv_max"):
+                acc[k] = max(acc[k], r[k])
+            acc["ok"] &= r["ok"]
+        res["runs"] += 1
+
+    for prec in ("fast", "bf16"):
+        kw = prec_kw(torch, prec)
+        rdt = tsg.ring_dtype(prec)
+
+        def fresh():
+            return (persistent.init_ring(cfg, B, dev, rdt),
+                    torch.full((2, B), cfg.silence_bin, dtype=torch.int32,
+                               device=dev))
+        for name in ("K1",) + STORAGES:
+            skw = {} if name == "K1" else {"stream_weights": True,
+                                           **storage_kw(torch, name)}
+            view = storage_view(persistent, params, skw)
+            cp = (cond + view["dil_b"][None, :, None, :]).contiguous()
+            sym = None
+            for mode, dump in (("sample", False), ("argmax", True),
+                               ("forced", False), ("prng", False)):
+                s_in = sym if mode == "forced" else sel
+                gen = persistent.make_persistent_generator(
+                    cfg, B, mode=mode, dump=dump, **skw, **kw)
+                out_k = gen(params, 0, cp, s_in, *fresh(), seed=PRNG_SEED)
+                out_p = persistent.generate_plain(
+                    cfg, view, 0, cp, s_in, *fresh(), T, mode=mode,
+                    dump=dump, seed=PRNG_SEED, prec=prec)
+                torch.cuda.synchronize()
+                if mode == "sample":
+                    sym = out_p[0].to(torch.float32)
+                kernel = ("K4" if skw else
+                          {"forced": "K2", "prng": "K3"}.get(mode, "K1"))
+                record(kernel, prec, f"{'' if kernel != 'K4' else name + ' '}"
+                       f"{mode}{' + dump' if dump else ''}", out_k, out_p,
+                       mode, dump)
+                if kernel == "K2":
+                    out_x = persistent.make_persistent_generator(
+                        cfg, B, mode="forced")(params, 0, cp, sym,
+                                               *exact_state())
+                    control("K2", prec, out_x[-1], out_p[-1])
+            if name == "K1":
+                gen = persistent.make_persistent_generator(cfg, B,
+                                                           ragged=True, **kw)
+                out_k = gen(params, t0_row, cp, sel, *fresh(), lens)
+                out_p = persistent.generate_plain(cfg, view, t0_row, cp, sel,
+                                                  *fresh(), lens, prec=prec)
+                torch.cuda.synchronize()
+                record("K5", prec, f"lengths {lens.tolist()} clocks "
+                       f"{t0_row.tolist()}", out_k, out_p, "sample")
+    cp = (cond + params["dil_b"][None, :, None, :]).contiguous()
+    sym = None
+    kw = prec_kw(torch, "bf16")
+    w = fc.prepare_weights(params, cfg, True, torch.float32, False, **kw)
+    for mode in ("sample", "argmax", "forced", "prng"):
+        s_in = sym if mode == "forced" else sel
+        rings = [persistent.init_ring(cfg, B, dev, torch.bfloat16)
+                 for _ in range(2)]
+        states = [torch.full((2, B), cfg.silence_bin, dtype=torch.int32,
+                             device=dev) for _ in range(2)]
+        out_k = fc.make_fused_generator(cfg, B, mode, prefold_cond=True,
+                                        **kw)(w, 0, cp, s_in, rings[0],
+                                              states[0], seed=PRNG_SEED)
+        out_p = fc.generate_fused_plain(cfg, w, 0, cp, s_in, rings[1],
+                                        states[1], T, mode, PRNG_SEED,
+                                        compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        if mode == "sample":
+            sym = out_p[0].to(torch.float32)
+        record("K6", "bf16", mode, out_k, out_p, mode)
+        if mode == "forced":
+            w_x = fc.prepare_weights(params, cfg, True)
+            out_x = fc.make_fused_generator(cfg, B, mode, prefold_cond=True)(
+                w_x, 0, cp, sym, *exact_state())
+            control("K6", "bf16", out_x[-1], out_p[-1])
+    return res
+
+
+def check_lowp_k4_k1(torch, np, persistent, tsg, cfg, params, cond, sel,
+                     dev) -> dict:
+    """K4 against K1 of the same precision over K4_FLAG_T flagship steps,
+    bit for bit in y, the ring and y_state, in each precision and storage,
+    on the same stored values; then K4-forced against K2 and K4-prng
+    against K3 over CHECK_T steps in each precision (fp32 storage)."""
+    T, B = K4_FLAG_T, MAIN_B
+    res = {"mismatches": 0, "runs": 0}
+
+    def compare(a, b):
+        return (int((a[0] != b[0]).sum()) + bit_mismatches(
+            torch, a[1].to(torch.float32), b[1].to(torch.float32))
+                + int(not torch.equal(a[2], b[2]))
+                + (bit_mismatches(torch, a[-1], b[-1]) if len(a) > 3 else 0))
+    for prec in ("fast", "bf16"):
+        kw = prec_kw(torch, prec)
+
+        def fresh():
+            return (persistent.init_ring(cfg, B, dev, tsg.ring_dtype(prec)),
+                    torch.full((2, B), cfg.silence_bin, dtype=torch.int32,
+                               device=dev))
+        for name in STORAGES:
+            skw = storage_kw(torch, name)
+            view = storage_view(persistent, params, skw)
+            cp = (cond[:T] + view["dil_b"][None, :, None, :]).contiguous()
+            k1 = persistent.make_persistent_generator(cfg, B, **kw)
+            k4 = persistent.make_persistent_generator(
+                cfg, B, stream_weights=True, **skw, **kw)
+            mism = compare(k4(params, 0, cp, sel[:T], *fresh()),
+                           k1(view, 0, cp, sel[:T], *fresh()))
+            torch.cuda.synchronize()
+            log(f"[lowp K4 vs K1] {prec} {name}: {T} flagship steps, {mism} "
+                f"mismatches (y, ring bits, y_state)")
+            res["mismatches"] += mism
+            res["runs"] += 1
+        cp = (cond[:CHECK_T] + params["dil_b"][None, :, None, :]).contiguous()
+        y1 = persistent.make_persistent_generator(cfg, B, **kw)(
+            params, 0, cp, sel[:CHECK_T], *fresh())[0]
+        for mode, s_in in (("forced", y1.to(torch.float32)),
+                           ("prng", sel[:CHECK_T])):
+            ref = persistent.make_persistent_generator(cfg, B, mode=mode, **kw)
+            k4 = persistent.make_persistent_generator(
+                cfg, B, mode=mode, stream_weights=True, **kw)
+            mism = compare(k4(params, 0, cp, s_in, *fresh(), seed=PRNG_SEED),
+                           ref(params, 0, cp, s_in, *fresh(), seed=PRNG_SEED))
+            torch.cuda.synchronize()
+            log(f"[lowp K4 vs K1] {prec} {mode}: K4 vs "
+                f"{'K2' if mode == 'forced' else 'K3'} over {CHECK_T} steps: "
+                f"{mism} mismatches (y, ring bits, y_state, p_seq bits)")
+            res["mismatches"] += mism
+            res["runs"] += 1
     return res
 
 
@@ -1086,12 +1429,15 @@ def main() -> int:
         horizon_s = time.perf_counter() - t
         torch.set_num_threads(threads)
         logs, build_s = job.result()
-    log(f"[build] {len(logs)} libraries in {build_s:.2f} s "
+    log(f"[build] {len(logs)} libraries ({len(build.SOURCES)} sources, "
+        f"{', '.join(build.PRECISION_SOURCES)} one library per precision) "
+        f"in {build_s:.2f} s "
         f"({' '.join(build.NVCC_FLAGS)}) -> {build.build_dir()}; beside it "
         f"the horizon case's plain CPU run, {horizon_s:.2f} s")
     for src, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
+            if ("registers" in line or "spill" in line or "Compiling" in line
+                    or line.startswith("built in")):
                 log(f"[build] {src}: {line.strip()}")
 
     # -- phase 3: K0a vs plain ------------------------------------------------
@@ -1154,7 +1500,7 @@ def main() -> int:
     # -- phase 5: K1 vs plain, small config -----------------------------------
     mark("phase 5: K1 vs plain, small config")
     cfg = cfg_lib.TEST_CONFIG_MED
-    B, T = 4, 64
+    B, T = 4, 32
     ref_w = params_lib.random_reference_weights(cfg, seed=11)
     params = params_lib.canonical_to_torch(
         params_lib.to_canonical(ref_w, cfg), dev)
@@ -1305,7 +1651,8 @@ def main() -> int:
                          device=dev)
     clocks = np.zeros(B, np.int64)
     k5_small_mism = 0
-    k5_launches = persistent.RAGGED_KERNEL.launches
+    k5_kernel = persistent.RAGGED_KERNELS["exact"]
+    k5_launches = k5_kernel.launches
     for lens in sched:
         cond = torch.from_numpy(rng.uniform(
             -0.5, 0.5, (T, cfg.num_layers, B, 2 * cfg.R)).astype(np.float32)
@@ -1331,7 +1678,7 @@ def main() -> int:
     log(f"[K5 small] {K5_SMALL_TICKS} ticks, lengths {sched.tolist()}: y "
         f"{k5_small_mism} mismatches, y_state and clocks equal and ring in "
         f"ladder {k5_small_ok} (max abs err {k5_small_err:.3g}); "
-        f"{persistent.RAGGED_KERNEL.launches - k5_launches} K5 launches")
+        f"{k5_kernel.launches - k5_launches} K5 launches")
     if k5_small_mism or not k5_small_ok:
         fail("K5 disagrees with its plain version")
 
@@ -1371,10 +1718,15 @@ def main() -> int:
     eng.set_reference_weights(ref_w)
     gen_dev = torch.Generator(device=dev)
     gen_dev.manual_seed(0)
+    k1_tables = {"K1": persistent.PERSISTENT_KERNELS,
+                 "K5": persistent.RAGGED_KERNELS,
+                 "K2": persistent.FORCED_KERNELS,
+                 "K3": persistent.PRNG_KERNELS,
+                 "K4": persistent.STREAM_KERNELS}
+    exact_sym = {k: t["exact"].symbol for k, t in k1_tables.items()}
     all_kernels = (em.EXACT_FN_KERNEL, em.SAMPLE_KERNEL, em.SOFTMAX_KERNEL,
-                   om.ORDERED_MATMUL_KERNEL, persistent.PERSISTENT_KERNEL,
-                   persistent.RAGGED_KERNEL, persistent.FORCED_KERNEL,
-                   persistent.PRNG_KERNEL, persistent.STREAM_KERNEL,
+                   om.ORDERED_MATMUL_KERNEL,
+                   *(k for t in k1_tables.values() for k in t.values()),
                    *fc.FUSED_KERNELS.values())
     for k in all_kernels:
         k.launches = 0
@@ -1404,15 +1756,16 @@ def main() -> int:
             first = (cond, sel, y)
     launches = {k.symbol: k.launches for k in all_kernels}
     log(f"[main] launches on the main path: {launches}")
-    if launches[persistent.PERSISTENT_KERNEL.symbol] == 0:
+    if launches[exact_sym["K1"]] == 0:
         fail("the main path did not launch K1")
 
-    # request 1's first CHECK_T samples: plain version vs the main path's y,
-    # and K1 at the same shape (with the dump) vs the plain version
+    # request 1's first FLAG_PLAIN_T samples: plain version vs the main path's
+    # y, and K1 at the same shape (with the dump) vs the plain version
     cond, sel, y_main = first
     params = eng._device_params()
     cond_pre = (cond[:CHECK_T] + params["dil_b"][None, :, None, :]).contiguous()
     sel_c = sel[:CHECK_T].contiguous()
+    n = FLAG_PLAIN_T
 
     def fresh():
         return (persistent.init_ring(cfg, MAIN_B, dev),
@@ -1420,19 +1773,20 @@ def main() -> int:
                            device=dev))
     torch.cuda.synchronize()
     t = time.perf_counter()
-    out_p = persistent.generate_plain(cfg, params, 0, cond_pre, sel_c,
-                                      *fresh(), CHECK_T, dump=True)
+    out_p = persistent.generate_plain(cfg, params, 0, cond_pre[:n],
+                                      sel_c[:n], *fresh(), n, dump=True)
     torch.cuda.synchronize()
     k1_plain = (time.perf_counter() - t) * 1e3
-    plain_mism = int((out_p[0].T.cpu().numpy() != y_main[:, :CHECK_T]).sum())
+    plain_mism = int((out_p[0].T.cpu().numpy() != y_main[:, :n]).sum())
     gen = persistent.make_persistent_generator(cfg, MAIN_B, dump=True)
-    out_k = gen(params, 0, cond_pre, sel_c, *fresh())
+    out_k = gen(params, 0, cond_pre[:n].contiguous(), sel_c[:n].contiguous(),
+                *fresh())
     torch.cuda.synchronize()
     k1_mism = int((out_k[0] != out_p[0]).sum())
     k1_err = max(float((k - p).abs().max())
                  for k, p in zip(out_k[1:2] + out_k[3:], out_p[1:2] + out_p[3:]))
-    log(f"[main] first {CHECK_T} samples of request 1: {plain_mism}/"
-        f"{MAIN_B * CHECK_T} mismatches main path vs plain on the card; "
+    log(f"[main] first {n} samples of request 1: {plain_mism}/"
+        f"{MAIN_B * n} mismatches main path vs plain on the card; "
         f"K1 (dump) vs plain {k1_mism}; max abs err of ring and dumps "
         f"{k1_err:.3g}")
     if plain_mism or k1_mism:
@@ -1456,10 +1810,10 @@ def main() -> int:
 
     # -- phase 8: serving at full width ---------------------------------------
     mark("phase 8: serving at full width")
-    def flagship_engine():
+    def flagship_engine(**kw):
         e = WaveNetInfer(num_layers=L, max_dilation=cfg.max_dilation, R=R,
                          S=cfg.S, A=cfg.A, max_batch=SERVE["B"],
-                         chunk_size=MAIN_CHUNK, device="cuda")
+                         chunk_size=MAIN_CHUNK, device="cuda", **kw)
         e.set_reference_weights(ref_w)
         return e
     gen_serve = torch.Generator(device=dev)
@@ -1487,8 +1841,8 @@ def main() -> int:
         "utterances_completed": st["utterances_completed"],
         "launches": serve_launches, "card": card}
     log(json.dumps({"serving": serving}))
-    if not (serve_launches[persistent.RAGGED_KERNEL.symbol]
-            and serve_launches[persistent.PERSISTENT_KERNEL.symbol]):
+    if not (serve_launches[exact_sym["K5"]]
+            and serve_launches[exact_sym["K1"]]):
         fail(f"the serving path did not launch both K1 and K5: "
              f"{serve_launches}")
 
@@ -1517,8 +1871,9 @@ def main() -> int:
              "misses the R3 or R7 sequence")
 
     # K5 at the flagship: one 160-step ragged tick of the scenario (its
-    # lengths and row clocks), timed; the plain version over a 32-step tick
-    # (the same rows scaled to 32 steps), and K5 on it against the plain
+    # lengths and row clocks), timed; the plain version over a
+    # FLAG_PLAIN_T-step tick (the same rows scaled to FLAG_PLAIN_T steps),
+    # and K5 on it against the plain
     if st["tick_of_160"] is None:
         fail("no ragged tick of 160 steps to time")
     lens, clocks = st["tick_of_160"]
@@ -1534,10 +1889,10 @@ def main() -> int:
     live = int(lens.sum())
     k5_bound, k5_by = bound_ms(k5_bytes(cfg, MAIN_B, SERVE["tick_t"], live),
                                k1_ops_per_row_step(cfg) * live)
-    lens32 = torch.from_numpy((lens * K5_PLAIN_T // SERVE["tick_t"]
+    lens32 = torch.from_numpy((lens * FLAG_PLAIN_T // SERVE["tick_t"]
                                ).astype(np.int32))
-    cp32 = cond_pre[:K5_PLAIN_T].contiguous()
-    sel32 = sel_c[:K5_PLAIN_T].contiguous()
+    cp32 = cond_pre[:FLAG_PLAIN_T].contiguous()
+    sel32 = sel_c[:FLAG_PLAIN_T].contiguous()
     (ring_p, ys_p), (ring_k, ys_k) = fresh(), fresh()
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -1552,7 +1907,7 @@ def main() -> int:
     log(f"[K5 flagship] 160-step tick, lengths {lens.tolist()}: "
         f"{k5_ms:.3f} ms = {k5_ms / SERVE['tick_t'] * 1e3:.2f} us per step "
         f"of the longest row (lockstep K1 {k1_us:.2f}); bound {k5_bound:.4f}"
-        f" ms ({k5_by}, {live} live row-steps); plain over a {K5_PLAIN_T}"
+        f" ms ({k5_by}, {live} live row-steps); plain over a {FLAG_PLAIN_T}"
         f"-step tick {k5_plain:.1f} ms; K5 vs plain on it: {k5_flag_mism} "
         f"mismatches, ring max abs err {k5_err:.3g}")
     if k5_flag_mism:
@@ -1561,12 +1916,12 @@ def main() -> int:
     # -- phase 10: K2 and K3 at the flagship ----------------------------------
     mark("phase 10: K2 and K3 at the flagship")
     # request 1's samples are the symbols K2 forces; the plain versions run
-    # K5_PLAIN_T steps, the kernels are timed over CHECK_T-step launches
+    # FLAG_PLAIN_T steps, the kernels are timed over CHECK_T-step launches
     y_tb = torch.from_numpy(np.ascontiguousarray(y_main.T)).to(dev)  # [T, B]
     sym_main = y_tb.to(torch.float32)
     cp_chk = (cond[:CHECK_T] + params["dil_b"][None, :, None, :]).contiguous()
     sel_chk = sel[:CHECK_T].contiguous()
-    n = K5_PLAIN_T
+    n = FLAG_PLAIN_T
     gen2 = persistent.make_persistent_generator(cfg, MAIN_B, mode="forced")
     gen3 = persistent.make_persistent_generator(cfg, MAIN_B, mode="prng")
     sel3 = torch.from_numpy(tsg.prng_uniform_sel(PRNG_SEED, np.arange(n),
@@ -1701,7 +2056,7 @@ def main() -> int:
         fail("the time-parallel scorer and K2 disagree, or the two scoring "
              "functions' bits per sample differ by more than 1e-5")
     scoring_kernels = (om.ORDERED_MATMUL_KERNEL, em.EXACT_FN_KERNEL,
-                       em.SOFTMAX_KERNEL, persistent.FORCED_KERNEL)
+                       em.SOFTMAX_KERNEL, persistent.FORCED_KERNELS["exact"])
     if not all(score_launches[k.symbol] for k in scoring_kernels):
         fail(f"the scoring path did not launch K7, K0a, K0c and K2: "
              f"{score_launches}")
@@ -1757,7 +2112,7 @@ def main() -> int:
         f"{requests[0]['seconds'] / MAIN_T * 1e6:.2f}); K3 "
         f"{k3_ms / CHECK_T * 1e3:.2f} us per step on the card, K1 "
         f"{k1_us:.2f}; output well-formed {prng_ok}")
-    if not prng_ok or not prng_launches[persistent.PRNG_KERNEL.symbol]:
+    if not prng_ok or not prng_launches[exact_sym["K3"]]:
         fail(f"the prng request did not launch K3 or is malformed: "
              f"{prng_launches}")
 
@@ -1860,9 +2215,9 @@ def main() -> int:
         "config": "flagship 20L R64 S256 A256 maxD512", "batch": MAIN_B,
         "samples_per_request": MAIN_T, "storages": manyblock,
         "launches": mb_launches, "card": card}}))
-    stream_sym = persistent.STREAM_KERNEL.symbol
+    stream_sym = exact_sym["K4"]
     if (not mb_launches[stream_sym]
-            or mb_launches[persistent.PERSISTENT_KERNEL.symbol]):
+            or mb_launches[exact_sym["K1"]]):
         fail(f"the MANYBLOCK path did not run on K4 alone: {mb_launches}")
 
     # -- phase 17: config 4 ---------------------------------------------------
@@ -1916,7 +2271,7 @@ def main() -> int:
     mark("phase 21: K6 at the flagship")
     # forced on request 1's first CHECK_T samples against K2 (fp32); each
     # (fast_math, pack_gates) timed over a CHECK_T-step launch beside K1;
-    # the latency tier's variant against the plain version over K5_PLAIN_T
+    # the latency tier's variant against the plain version over FLAG_PLAIN_T
     k6w = {(f, p): fc.prepare_weights(params, cfg, True, torch.float32, p, f)
            for f in (False, True) for p in (False, True)}
     sym_chk = sym_main[:CHECK_T].contiguous()
@@ -1934,7 +2289,7 @@ def main() -> int:
         k6_ms[name] = time_launch_ms(torch, np, lambda r, ys: gen6(
             w, 0, cp_chk, sel_chk, r, ys), fresh)
         k6_bounds[name] = k6_bound(cfg, MAIN_B, CHECK_T, f)
-    n = K5_PLAIN_T
+    n = FLAG_PLAIN_T
     gen6 = fc.make_fused_generator(cfg, MAIN_B, fast_math=True,
                                    prefold_cond=True)
     (ring_p, ys_p), (ring_k, ys_k) = fresh(), fresh()
@@ -1998,7 +2353,7 @@ def main() -> int:
         lat_y1 = y if r == 0 else lat_y1
     lat_launches = {k.symbol: k.launches for k in all_kernels}
     k6_launches = sum(k.launches for k in fc.FUSED_KERNELS.values())
-    if not k6_launches or lat_launches[persistent.PERSISTENT_KERNEL.symbol]:
+    if not k6_launches or lat_launches[exact_sym["K1"]]:
         fail(f"the latency tier did not run on K6 alone: {lat_launches}")
     # a dump run on the same engine is the exact kernel's: bit-equal to a
     # default engine's dump run in y and p
@@ -2046,8 +2401,380 @@ def main() -> int:
         fail("the latency tier's dump run is not the exact kernel's, or its "
              "feeds differ from its run")
 
-    # -- phase 23: the kernels line -------------------------------------------
-    mark("phase 23: the kernels line")
+
+    # -- phase 23: fast and bf16 against their plain versions, small config --
+    mark("phase 23: fast and bf16 vs plain, small config")
+    lowp_small = check_lowp_small(
+        torch, np, persistent, fc, tsg, mcfg, m_params,
+        m_cond[:LOWP_SMALL_T].contiguous(), m_sel[:LOWP_SMALL_T].contiguous(),
+        dev)
+    log(f"[lowp small] {lowp_small['runs']} runs: {lowp_small['mismatches']}"
+        f"/{lowp_small['row_steps']} symbol mismatches, forced TV mean <= "
+        f"{lowp_small['tv_mean']:.3g} max <= {lowp_small['tv_max']:.3g}, ring"
+        f" max abs err {lowp_small['ring_err']:.3g}; controls (mean, max) "
+        + ", ".join(f"{k} ({c['tv_mean']:.3g}, {c['tv_max']:.3g})"
+                    for k, c in lowp_small["controls"].items())
+        + f"; ok {lowp_small['ok']}")
+    if not lowp_small["ok"]:
+        fail(f"a fast or bf16 instance disagrees with its plain version: "
+             f"{lowp_small}")
+
+    # -- phase 24: fast and bf16, bit for bit ---------------------------------
+    mark("phase 24: fast and bf16, bit for bit")
+    # K4 against K1, K2, K3 of the same precision; the bf16 scorer against
+    # K2-bf16 on request 1's window; a bf16 score -> feed handoff
+    lowp_k4 = check_lowp_k4_k1(torch, np, persistent, tsg, cfg, params, cond,
+                               sel, dev)
+    if lowp_k4["mismatches"]:
+        fail(f"K4 disagrees with K1/K2/K3 in fast or bf16: {lowp_k4}")
+    bf_kw = prec_kw(torch, "bf16")
+
+    def fresh_bf16():
+        return (persistent.init_ring(cfg, MAIN_B, dev, torch.bfloat16),
+                fresh()[1])
+    beng = flagship_engine(**bf_kw)
+    beng.begin_stream(MAIN_B)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    p_bf = beng.score_device(cond, y_tb)
+    ev[1].record()
+    ring_b, ys_b = fresh_bf16()
+    cp_full = (cond + params["dil_b"][None, :, None, :]).contiguous()
+    ev[2].record()
+    out_b = persistent.make_persistent_generator(
+        cfg, MAIN_B, mode="forced", **bf_kw)(params, 0, cp_full, sym_main,
+                                              ring_b, ys_b)
+    ev[3].record()
+    torch.cuda.synchronize()
+    del cp_full
+    snap = beng.export_state()
+    bf_score = {
+        "p_bit_mismatches": bit_mismatches(torch, p_bf, out_b[3]),
+        "ring_bit_mismatches": bit_mismatches(
+            torch, snap["ring"], ring_b.to(torch.float32).cpu()),
+        "y_state_equal": bool(np.array_equal(snap["y_state"],
+                                             ys_b.cpu().numpy())),
+        "ring_dtype": str(beng._ring.dtype),
+        "scorer_ms": ev[0].elapsed_time(ev[1]),
+        "k2_window_ms": ev[2].elapsed_time(ev[3])}
+    del p_bf, out_b
+    half = LOWP_SHORT_T // 2
+    beng.begin_stream(MAIN_B)
+    y_head = beng.feed(cond[:half], sel[:half])
+    y_tail = beng.feed(cond[half:LOWP_SHORT_T], sel[half:LOWP_SHORT_T])
+    beng.begin_stream(MAIN_B)
+    beng.score(cond[:half], y_head)
+    bf_score["handoff_mismatches"] = int(
+        (beng.feed(cond[half:LOWP_SHORT_T], sel[half:LOWP_SHORT_T])
+         != y_tail).sum())
+    log(f"[lowp scoring] bf16 scorer vs K2-bf16 over {MAIN_B} x {MAIN_T}: "
+        f"p_seq {bf_score['p_bit_mismatches']} bit mismatches, ring "
+        f"{bf_score['ring_bit_mismatches']} ({bf_score['ring_dtype']}), "
+        f"y_state equal {bf_score['y_state_equal']}; scorer "
+        f"{bf_score['scorer_ms']:.2f} ms, K2-bf16 "
+        f"{bf_score['k2_window_ms']:.1f} ms; bf16 score -> feed over "
+        f"{LOWP_SHORT_T}: {bf_score['handoff_mismatches']} mismatches")
+    if (bf_score["p_bit_mismatches"] or bf_score["ring_bit_mismatches"]
+            or not bf_score["y_state_equal"]
+            or bf_score["handoff_mismatches"]
+            or bf_score["ring_dtype"] != "torch.bfloat16"):
+        fail(f"the bf16 scorer and K2-bf16 disagree, or the bf16 handoff is "
+             f"not exact: {bf_score}")
+
+    # -- phase 25: the main path in bf16 and in fast --------------------------
+    mark("phase 25: the main path in bf16 and in fast")
+    # the main path's 3 requests (the same generator seed) through
+    # WaveNetInfer(compute_dtype=torch.bfloat16) and WaveNetInfer(
+    # fast_math=True), then a prng and a forced request of LOWP_SHORT_T on
+    # request 1's inputs; counts set to 0 just before, read just after;
+    # then one MANYBLOCK request of each precision (its own counts), equal
+    # to the main path's request 1 of that precision (K4 == K1)
+    lowp_main = {}
+    for prec in ("bf16", "fast"):
+        kw = prec_kw(torch, prec)
+        peng2 = flagship_engine(**kw)
+        gen_dev.manual_seed(0)
+        for k in all_kernels:
+            k.launches = 0
+        reqs = []
+        for r in range(MAIN_REQUESTS):
+            rc = (torch.rand((MAIN_T, L, MAIN_B, 2 * R), generator=gen_dev,
+                             device=dev) - 0.5)
+            rs = torch.rand((MAIN_T, MAIN_B), generator=gen_dev, device=dev)
+            peng2.set_inputs(rc, rs)
+            del rc
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            y = peng2.run_chunks(MAIN_CHUNK, lambda yc, off, n: None, MAIN_T,
+                                 MAIN_B)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            if not (y.shape == (MAIN_B, MAIN_T) and int(y.min()) >= 0
+                    and int(y.max()) < cfg.A):
+                fail(f"{prec} request {r + 1}: malformed output")
+            reqs.append({"seconds": dt, "khz_per_utt": MAIN_T / dt / 1e3})
+            y1 = y if r == 0 else y1
+        n = LOWP_SHORT_T
+        peng2.sampling_seed = PRNG_SEED
+        peng2.set_inputs(cond[:n], sel[:n])
+        y_prng = peng2.run_chunks(MAIN_CHUNK, lambda yc, off, n_: None, n,
+                                  MAIN_B, mode="prng")
+        peng2.set_inputs(cond[:n], torch.from_numpy(np.ascontiguousarray(
+            y1[:, :n].T, np.float32)).to(dev))
+        y_forced = peng2.run_chunks(MAIN_CHUNK, lambda yc, off, n_: None, n,
+                                    MAIN_B, mode="forced")
+        lw = {k.symbol: k.launches for k in all_kernels}
+        need = [k1_tables[k][prec] for k in ("K1", "K2", "K3")]
+        if (not all(lw[k.symbol] for k in need)
+                or lw[exact_sym["K1"]]):
+            fail(f"the {prec} main path did not run on K1/K2/K3-{prec} "
+                 f"alone: {lw}")
+        # request 1's first LOWP_PLAIN_T samples against the plain version
+        # of this precision (timed: the plain_ms of K1-{prec})
+        cpp = (first[0][:LOWP_PLAIN_T] + params["dil_b"][None, :, None, :]
+               ).contiguous()
+        st = ((persistent.init_ring(cfg, MAIN_B, dev, tsg.ring_dtype(prec)),
+               fresh()[1]))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        y_p = persistent.generate_plain(
+            cfg, params, 0, cpp, first[1][:LOWP_PLAIN_T].contiguous(), *st,
+            LOWP_PLAIN_T, prec=prec)[0]
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t) * 1e3
+        plain_mism = int((y_p.T.cpu().numpy() != y1[:, :LOWP_PLAIN_T]).sum())
+        # one MANYBLOCK request (request 1's inputs)
+        meng = flagship_engine(implementation=Impl.MANYBLOCK, **kw)
+        meng.set_inputs(first[0], first[1])
+        for k in all_kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        y_mb = meng.run_chunks(MAIN_CHUNK, lambda yc, off, n_: None, MAIN_T,
+                               MAIN_B)
+        torch.cuda.synchronize()
+        mb_s = time.perf_counter() - t
+        mbl = {k.symbol: k.launches for k in all_kernels}
+        del meng
+        if (not mbl[k1_tables["K4"][prec].symbol]
+                or mbl[k1_tables["K1"][prec].symbol]):
+            fail(f"the {prec} MANYBLOCK request did not run on K4-{prec} "
+                 f"alone: {mbl}")
+        lowp_main[prec] = {
+            "requests": reqs,
+            "khz_per_utt": float(np.mean([q["khz_per_utt"] for q in reqs])),
+            "khz_per_utt_exact": khz, "launches": lw,
+            "forced_echo_mismatches": int((y_forced != y1[:, :n]).sum()),
+            "prng_well_formed": bool(y_prng.shape == (MAIN_B, n)
+                                     and int(y_prng.min()) >= 0
+                                     and int(y_prng.max()) < cfg.A),
+            "plain_mismatches": plain_mism, "plain_ms": plain_ms,
+            "manyblock_khz_per_utt": MAIN_T / mb_s / 1e3,
+            "manyblock_vs_k1_mismatches": int((y_mb != y1).sum()),
+            "manyblock_launches": mbl}
+        m = lowp_main[prec]
+        log(f"[lowp main] {prec}: {MAIN_REQUESTS} requests of {MAIN_B} x "
+            f"{MAIN_T} at " + ", ".join(f"{q['khz_per_utt']:.3f}"
+                                        for q in reqs)
+            + f" kHz per utterance (exact K1 {khz:.3f}); forced request "
+            f"echoes {m['forced_echo_mismatches']} mismatches, prng well-"
+            f"formed {m['prng_well_formed']}; request 1's first "
+            f"{LOWP_PLAIN_T} vs plain: {plain_mism}/{LOWP_PLAIN_T * MAIN_B} "
+            f"mismatches; MANYBLOCK {m['manyblock_khz_per_utt']:.3f} kHz per "
+            f"utterance, {m['manyblock_vs_k1_mismatches']} mismatches vs "
+            f"K1-{prec}")
+        if (m["forced_echo_mismatches"] or not m["prng_well_formed"]
+                or plain_mism > (1 - LOWP_AGREE) * LOWP_PLAIN_T * MAIN_B
+                or m["manyblock_vs_k1_mismatches"]):
+            fail(f"the {prec} main path is malformed, or disagrees with its "
+                 f"plain version or with MANYBLOCK: {m}")
+    log(json.dumps({"lowp_main_path": {
+        "config": "flagship 20L R64 S256 A256 maxD512", "batch": MAIN_B,
+        "samples_per_request": MAIN_T, "precisions": lowp_main,
+        "card": card}}))
+
+    # -- phase 26: the latency tier's slot handover, fast and bf16 -----------
+    mark("phase 26: the latency tier's slot handover")
+    # SERVE's scenario cut to LOWP_SERVE_TICKS ticks through
+    # WaveNetInfer(priority="latency") (fast) and with
+    # compute_dtype=torch.bfloat16 (bf16): the lockstep ticks on K6, the
+    # ragged ticks after slot resets on K5 in that precision; counts set to
+    # 0 just before, read just after.  The utterances begun at the partial
+    # reset or later (they never ran on K6; some crossed the migration),
+    # as far as they were served, replayed lockstep on an engine without
+    # fuse_chain in the same precision: 0 mismatches
+    handover = {}
+    for prec in ("fast", "bf16"):
+        kw = {"priority": "latency",
+              **({"compute_dtype": torch.bfloat16} if prec == "bf16" else {})}
+        gen_h = torch.Generator(device=dev)
+        gen_h.manual_seed(3)
+        for k in all_kernels:
+            k.launches = 0
+        _, st_h = serve_scenario(
+            torch, np, lambda: flagship_engine(**kw), cfg, dev,
+            np.random.RandomState(2025), gen_h,
+            **{**SERVE, "ticks": LOWP_SERVE_TICKS})
+        hl = {k.symbol: k.launches for k in all_kernels}
+        fed = np.array(st_h["feed_ms"])
+        late = [served_prefix(u) for u in st_h["live"]
+                if u["start"] >= SERVE["full_reset_tick"]
+                + SERVE["lockstep_ticks"] and u["pos"] > 0]
+        if not late:
+            fail(f"the {prec} handover has no row that began after the "
+                 f"lockstep ticks")
+        mism = replay_lockstep(torch, np,
+                               lambda: flagship_engine(**prec_kw(torch, prec)),
+                               cfg, dev, late)
+        handover[prec] = {
+            "ticks": st_h["ticks"], "lockstep_ticks": st_h["lockstep_ticks"],
+            "feed_ms_p50": float(np.percentile(fed, 50)),
+            "feed_ms_p99": float(np.percentile(fed, 99)),
+            "samples_served": st_h["samples_served"],
+            "dead_row_step_share": st_h["dead_row_steps"] / st_h["row_steps"],
+            "replayed_rows": len(late),
+            "replayed_samples": int(sum(u["n"] for u in late)),
+            "replay_mismatches": int(sum(mism)),
+            "migrated_rows": sum(u["migrated"] for u in late),
+            "launches": hl}
+        h = handover[prec]
+        log(f"[lowp handover] {prec}: {h['ticks']} ticks, feeds p50 "
+            f"{h['feed_ms_p50']:.2f} ms p99 {h['feed_ms_p99']:.2f} ms; "
+            f"{h['replayed_rows']} rows reset at tick "
+            f"{SERVE['partial_tick']} or later ({h['replayed_samples']} "
+            f"samples, {h['migrated_rows']} across the migration) replayed "
+            f"lockstep: {h['replay_mismatches']} mismatches")
+        if (not hl[k1_tables["K5"][prec].symbol]
+                or not hl[fc.FUSED_KERNELS[("injected", prec)].symbol]
+                or hl[exact_sym["K5"]]
+                or h["replay_mismatches"] or not h["migrated_rows"]):
+            fail(f"the {prec} slot handover did not run on K5-{prec} and K6, "
+                 f"or does not replay: {h}")
+    log(json.dumps({"latency_handover": {
+        "config": "flagship 20L R64 S256 A256 maxD512, priority='latency'",
+        "slots": SERVE["B"], "precisions": handover, "card": card}}))
+
+    # -- phase 27: every instance timed at the flagship -----------------------
+    mark("phase 27: every instance timed at the flagship")
+    # each fast and bf16 instance over a CHECK_T-step flagship launch (K5: the
+    # serving phase's 160-step ragged tick) beside its exact instance, in
+    # turns, two launches after a warm-up each turn; then each held against
+    # its plain version over LOWP_PLAIN_T steps
+    sel3 = torch.from_numpy(tsg.prng_uniform_sel(
+        PRNG_SEED, np.arange(LOWP_PLAIN_T), MAIN_B)).to(dev)
+    lowp_time, lowp_flag = {}, {}
+    for prec in ("exact", "fast", "bf16", "exact2"):
+        pr = prec.rstrip("2")
+        kw = prec_kw(torch, pr)
+
+        def fresh_p():
+            return (persistent.init_ring(cfg, MAIN_B, dev,
+                                         tsg.ring_dtype(pr)), fresh()[1])
+        row = lowp_time.setdefault(pr, {})
+        g1, g2, g3 = (persistent.make_persistent_generator(
+            cfg, MAIN_B, mode=m, **kw) for m in ("sample", "forced", "prng"))
+        g5 = persistent.make_persistent_generator(cfg, MAIN_B, ragged=True,
+                                                  **kw)
+        tms = {"K1": time_launch_ms(torch, np, lambda r_, y_: g1(
+                   params, 0, cp_chk, sel_chk, r_, y_), fresh_p, reps=2),
+               "K2": time_launch_ms(torch, np, lambda r_, y_: g2(
+                   params, 0, cp_chk, sym_chk, r_, y_), fresh_p, reps=2),
+               "K3": time_launch_ms(torch, np, lambda r_, y_: g3(
+                   params, 0, cp_chk, sel_chk, r_, y_, seed=PRNG_SEED),
+                   fresh_p, reps=2),
+               "K5": time_launch_ms(torch, np, lambda r_, y_: g5(
+                   params, t0_row, cp_chk[:SERVE["tick_t"]].contiguous(),
+                   sel_chk[:SERVE["tick_t"]].contiguous(), r_, y_, nvr),
+                   fresh_p, reps=2)}
+        for name in ("bf16", "int8"):
+            g4 = persistent.make_persistent_generator(
+                cfg, MAIN_B, stream_weights=True, **storage_kw(torch, name),
+                **kw)
+            tms[f"K4 {name}"] = time_launch_ms(torch, np, lambda r_, y_: g4(
+                params, 0, cp_chk, sel_chk, r_, y_), fresh_p, reps=2)
+        w6 = fc.prepare_weights(params, cfg, True, torch.float32, False, **kw)
+        g6 = fc.make_fused_generator(cfg, MAIN_B, prefold_cond=True, **kw)
+        tms["K6"] = time_launch_ms(torch, np, lambda r_, y_: g6(
+            w6, 0, cp_chk, sel_chk, r_, y_), fresh_p, reps=2)
+        for k, v in tms.items():
+            row.setdefault(k, []).append(v)
+        if pr == "exact" or prec == "exact2":
+            continue
+        # each instance against its plain version of this precision over
+        # LOWP_PLAIN_T steps on the same inputs (lowp_compare; K3's plain
+        # version fed prng_uniform_sel, K5's the tick's lengths cut to n),
+        # the plain run timed (plain_ms); then the control, K2-exact
+        # against the forced plain run
+        n = LOWP_PLAIN_T
+        cp_n, sel_n, sym_n = (t_[:n].contiguous()
+                              for t_ in (cp_chk, sel_chk, sym_chk))
+        nv_n = torch.from_numpy(np.minimum(lens, n).astype(np.int32))
+
+        def plain_fn(p_, t0=0, s_=sel_n, n_valid=n, mode="sample"):
+            return lambda st: persistent.generate_plain(
+                cfg, p_, t0, cp_n, s_, *st, n_valid, mode=mode, prec=pr)
+        checks = [
+            ("K1", "sample", lambda st: g1(params, 0, cp_n, sel_n, *st),
+             plain_fn(params)),
+            ("K2", "forced", lambda st: g2(params, 0, cp_n, sym_n, *st),
+             plain_fn(params, s_=sym_n, mode="forced")),
+            ("K3", "prng", lambda st: g3(params, 0, cp_n, sel_n, *st,
+                                         seed=PRNG_SEED),
+             plain_fn(params, s_=sel3)),
+            ("K5", "sample", lambda st: g5(params, t0_row, cp_n, sel_n, *st,
+                                           nv_n),
+             plain_fn(params, t0=t0_row, n_valid=nv_n))]
+        for name in ("bf16", "int8"):
+            g4 = persistent.make_persistent_generator(
+                cfg, MAIN_B, stream_weights=True, **storage_kw(torch, name),
+                **kw)
+            checks.append((f"K4 {name}", "sample",
+                           lambda st, g4=g4: g4(params, 0, cp_n, sel_n, *st),
+                           plain_fn(storage_view(persistent, params,
+                                                 storage_kw(torch, name)))))
+        checks.append(("K6", "sample",
+                       lambda st: g6(w6, 0, cp_n, sel_n, *st),
+                       lambda st: fc.generate_fused_plain(
+                           cfg, w6, 0, cp_n, sel_n, *st, n, **kw)))
+        plain, flag = {}, lowp_flag.setdefault(pr, {})
+        for k, mode, kernel, plain_call in checks:
+            out_k = kernel(fresh_p())
+            st = fresh_p()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out_p = plain_call(st)
+            torch.cuda.synchronize()
+            plain[k] = (time.perf_counter() - t) * 1e3
+            flag[k] = r = lowp_compare(torch, np, out_k, out_p, mode, False)
+            log(f"[lowp flagship] {k} {pr}: {n} steps vs plain: y "
+                f"{r['mismatches']}/{r['row_steps']} mismatches; ring max "
+                f"abs err {r['ring_err']:.3g}; forced TV mean "
+                f"{r['tv_mean']:.3g} max {r['tv_max']:.3g}; ok {r['ok']}")
+            if k == "K2":
+                out_x = persistent.make_persistent_generator(
+                    cfg, MAIN_B, mode="forced")(
+                        params, 0, cp_n, sym_n,
+                        persistent.init_ring(cfg, MAIN_B, dev), fresh()[1])
+                flag["control"] = lowp_control(np, pr, "flagship K2",
+                                               out_x[-1], out_p[-1])
+            del out_k, out_p
+        row["plain_ms"] = plain
+    us = {pr: {k: float(np.mean(v)) / (SERVE["tick_t"] if k == "K5"
+                                        else CHECK_T) * 1e3
+               for k, v in row.items() if k != "plain_ms"}
+          for pr, row in lowp_time.items()}
+    log(json.dumps({"lowp_times_us_per_step": us, "card": card}))
+    log(json.dumps({"lowp_flagship_vs_plain": lowp_flag, "card": card}))
+    if not all(r["ok"] for f in lowp_flag.values() for r in f.values()):
+        fail(f"a fast or bf16 instance disagrees with its plain version at "
+             f"the flagship, or a control reads under LOWP_TV: {lowp_flag}")
+    for k in us["exact"]:
+        log(f"[lowp time] {k}: " + ", ".join(
+            f"{pr} {us[pr][k]:.2f}" for pr in ("exact", "fast", "bf16"))
+            + " us per step (exact: the mean of the first and last turn)")
+
+    # -- phase 28: the kernels line -------------------------------------------
+    mark("phase 28: the kernels line")
     def entry(name, source, replaces, n_launches, mism, err, ms, plain, bnd,
               by, lib, shape, **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -2075,44 +2802,44 @@ def main() -> int:
               inlined_in="K1, K3, K5"),
         entry("K1 persistent_generate_kernel<false>", csrc + "persistent.cu",
               "nv_wavenet_tpu/ops/persistent.py:762",
-              launches[persistent.PERSISTENT_KERNEL.symbol],
+              launches[exact_sym["K1"]],
               plain_mism + k1_mism + h_mism,
               k1_err, k1_ms, k1_plain, k1_bound, k1_by, None,
-              f"flagship, B={MAIN_B}, T={CHECK_T} steps per launch",
-              serving_launches=serve_launches[
-                  persistent.PERSISTENT_KERNEL.symbol]),
+              f"flagship, B={MAIN_B}, T={CHECK_T} steps per launch; "
+              f"plain_ms over {FLAG_PLAIN_T} steps",
+              serving_launches=serve_launches[exact_sym["K1"]]),
         entry("K5 persistent_generate_kernel<true>", csrc + "persistent.cu",
               "nv_wavenet_tpu/ops/persistent.py:762",
-              serve_launches[persistent.RAGGED_KERNEL.symbol],
+              serve_launches[exact_sym["K5"]],
               k5_small_mism + k5_flag_mism + sum(replay_mism), k5_err, k5_ms,
               k5_plain, k5_bound, k5_by, None,
               f"flagship, B={MAIN_B}, one {SERVE['tick_t']}-step ragged tick "
-              f"({live} live row-steps); plain_ms over a {K5_PLAIN_T}-step "
+              f"({live} live row-steps); plain_ms over a {FLAG_PLAIN_T}-step "
               f"ragged tick",
               variant="ragged=True (:109-118, 252-256, 302-311, 410-416) "
                       "and rotate_ring_phase (:785)",
               launches_on="the serving phase"),
         entry("K2 persistent_generate_kernel<false, kSelForced>",
               csrc + "persistent.cu", "nv_wavenet_tpu/ops/persistent.py:762",
-              score_launches[persistent.FORCED_KERNEL.symbol],
+              score_launches[exact_sym["K2"]],
               k2_small["echo_mismatches"] + k2_flag["echo_mismatches"]
               + score_cmp["p_bit_mismatches"]
               + score_cmp["ring_bit_mismatches"],
               max(k2_small["p_err"], k2_flag["p_err"]), k2_ms,
               k2_flag["plain_ms"], k2_bound, k2_by, None,
               f"flagship, B={MAIN_B}, T={CHECK_T} steps per launch; "
-              f"plain_ms over {K5_PLAIN_T} steps",
+              f"plain_ms over {FLAG_PLAIN_T} steps",
               variant='mode="forced" (:139-146, 387-400, 692-694)',
               launches_on="the scoring phase",
               window_ms=k2_window_ms),
         entry("K3 persistent_generate_kernel<false, kSelPrng>",
               csrc + "persistent.cu", "nv_wavenet_tpu/ops/persistent.py:762",
-              prng_launches[persistent.PRNG_KERNEL.symbol],
+              prng_launches[exact_sym["K3"]],
               k3_small["mismatches"] + k3_small["chunk_mismatches"]
               + k3_flag["mismatches"], 0.0, k3_ms, k3_flag["plain_ms"],
               k3_bound, k3_by, None,
               f"flagship, B={MAIN_B}, T={CHECK_T} steps per launch; "
-              f"plain_ms over {K5_PLAIN_T} steps",
+              f"plain_ms over {FLAG_PLAIN_T} steps",
               variant='mode="prng", prng_uniform_sel (:74-83, 404-405)',
               launches_on="the prng request"),
         entry("K4 stream_generate_kernel", csrc + "stream_generate.cu",
@@ -2128,7 +2855,7 @@ def main() -> int:
               k4_flag["k4_ms"]["fp32"], k4_plain, *k4_flag["bound"]["fp32"],
               None,
               f"flagship, B={MAIN_B}, T={CHECK_T} steps per launch, fp32 "
-              f"stacks; plain_ms over {K5_PLAIN_T} steps",
+              f"stacks; plain_ms over {FLAG_PLAIN_T} steps",
               variant="stream_weights (:128-199, 353-361), stream_quant "
                       "(:105-108, 189-197, 434-465, 726-729), weight_dtype "
                       "(:723-725)",
@@ -2155,21 +2882,22 @@ def main() -> int:
         entry("K6 fused_generate_kernel<kSel, kFast>", csrc + "fused_chain.cu",
               "nv_wavenet_tpu/ops/fused_chain.py:414", k6_launches,
               k6_small["y_mismatches"] + k6_small["split_mismatches"]
-              + k6_small["pack_mismatches"] + dump_mism + feed_mism,
+              + k6_small["pack_mismatches"] + dump_mism + feed_mism
+              + lowp_flag["fast"]["K6"]["mismatches"],
               max(k6_small["p_err"], k6_small["ring_err"], k6_flag["ring_err"]),
               k6_ms["fast_math pack=False"], k6_flag["plain_ms"],
               *k6_bounds["fast_math pack=False"], None,
               f"flagship, B={MAIN_B}, T={CHECK_T} steps per launch, "
               f"fast_math (the latency tier's variant); plain_ms over "
-              f"{K5_PLAIN_T} steps",
+              f"{FLAG_PLAIN_T} steps",
               launches_on=f"the latency-tier main path ({MAIN_REQUESTS} "
                           f"requests through priority='latency')",
               library="none: no single torch call computes it",
               mismatches_are="sampled symbols against the plain version "
                              "(K6 is TV-governed: >= 99% agreement)",
-              instances=[f"fused_generate_kernel<{sl}, {f}>"
+              instances=[f"fused_generate_kernel<{sl}, {pr}>"
                          for sl in ("kSelInjected", "kSelForced", "kSelPrng")
-                         for f in ("false", "true")],
+                         for pr in ("kPrecExact", "kPrecFast")],
               variants={k: {"ms": v, "us_per_step": v / CHECK_T * 1e3,
                             "bound_ms": k6_bounds[k][0],
                             "bound_by": k6_bounds[k][1]}
@@ -2195,6 +2923,91 @@ def main() -> int:
               launches_on="the scoring phase",
               per_shape=k7["per_shape"]),
     ]
+    # the fast and bf16 instances, each with its launches on its own path
+    src_k1 = "nv_wavenet_tpu/ops/persistent.py:762"
+    for prec, kp in (("fast", "kPrecFast"), ("bf16", "kPrecBF16")):
+        per, tm = lowp_small["per"], lowp_time[prec]
+        main_l = lowp_main[prec]["launches"]
+        variant = ("fast_math=True (:553, 589-591)" if prec == "fast" else
+                   "compute_dtype=jnp.bfloat16 (:550; casts :221-222, "
+                   "268-280, 313-347, 367-369)")
+        specs = [
+            ("K1", "persistent.cu",
+             f"persistent_generate_kernel<false, kSelInjected, {kp}>",
+             main_l[k1_tables["K1"][prec].symbol],
+             f"the {prec} main path ({MAIN_REQUESTS} requests)",
+             lowp_bound(cfg, MAIN_B, CHECK_T, prec),
+             f"flagship, B={MAIN_B}, T={CHECK_T} steps per launch",
+             lowp_main[prec]["plain_mismatches"]),
+            ("K5", "persistent.cu",
+             f"persistent_generate_kernel<true, kSelInjected, {kp}>",
+             handover[prec]["launches"][k1_tables["K5"][prec].symbol],
+             f"the latency tier's slot handover ({prec}, "
+             f"{LOWP_SERVE_TICKS} ticks)",
+             lowp_bound(cfg, MAIN_B, SERVE["tick_t"], prec, live=live),
+             f"flagship, B={MAIN_B}, one {SERVE['tick_t']}-step ragged "
+             f"tick ({live} live row-steps)",
+             handover[prec]["replay_mismatches"]),
+            ("K2", "persistent.cu",
+             f"persistent_generate_kernel<false, kSelForced, {kp}>",
+             main_l[k1_tables["K2"][prec].symbol],
+             f"the {prec} forced request ({LOWP_SHORT_T} steps)",
+             lowp_bound(cfg, MAIN_B, CHECK_T, prec, mode="forced"),
+             f"flagship, B={MAIN_B}, T={CHECK_T} steps per launch",
+             lowp_main[prec]["forced_echo_mismatches"] + (
+                 bf_score["p_bit_mismatches"]
+                 + bf_score["ring_bit_mismatches"] if prec == "bf16" else 0)),
+            ("K3", "persistent.cu",
+             f"persistent_generate_kernel<false, kSelPrng, {kp}>",
+             main_l[k1_tables["K3"][prec].symbol],
+             f"the {prec} prng request ({LOWP_SHORT_T} steps)",
+             lowp_bound(cfg, MAIN_B, CHECK_T, prec, mode="prng"),
+             f"flagship, B={MAIN_B}, T={CHECK_T} steps per launch", 0),
+            ("K4", "stream_generate.cu",
+             f"stream_generate_kernel<kStorageBF16|kStorageI8, kSel, {kp}>",
+             lowp_main[prec]["manyblock_launches"][
+                 k1_tables["K4"][prec].symbol],
+             f"one {prec} MANYBLOCK request",
+             lowp_bound(cfg, MAIN_B, CHECK_T, prec, storage="bf16"),
+             f"flagship, B={MAIN_B}, T={CHECK_T} steps per launch, bf16 "
+             f"stacks (fp32 weights stream as bf16 stacks)",
+             lowp_k4["mismatches"]
+             + lowp_main[prec]["manyblock_vs_k1_mismatches"])]
+        if prec == "bf16":
+            specs.append((
+                "K6", "fused_chain.cu", "fused_generate_kernel<kSel, kPrecBF16>",
+                handover[prec]["launches"][
+                    fc.FUSED_KERNELS[("injected", prec)].symbol],
+                "the latency tier's slot handover (bf16, lockstep ticks)",
+                k6_bound(cfg, MAIN_B, CHECK_T, True, ring_bytes=2),
+                f"flagship, B={MAIN_B}, T={CHECK_T} steps per launch", 0))
+        for k, source, inst, n_l, on, (bnd, by), shape, more in specs:
+            if not n_l:
+                fail(f"{k}-{prec} did not launch on {on}")
+            sm = per[f"{k} {prec}"]
+            key = "K4 bf16" if k == "K4" else k
+            # the flagship holds against the plain version (phase 27)
+            fl = [lowp_flag[prec][f] for f in (("K4 bf16", "K4 int8")
+                                                if k == "K4" else (k,))]
+            mism = sm["mismatches"] + more + sum(f["mismatches"] for f in fl)
+            kernels.append(entry(
+                f"{k}-{prec} {inst}", csrc + source,
+                src_k1 if k != "K6" else "nv_wavenet_tpu/ops/fused_chain.py:414",
+                n_l, mism, max([sm["ring_err"]] + [f["ring_err"] for f in fl]),
+                float(np.mean(tm[key])), tm["plain_ms"][key], bnd, by, None,
+                f"{shape}; plain_ms over {LOWP_PLAIN_T} steps",
+                variant=variant if k != "K6" else
+                "compute_dtype=jnp.bfloat16 (:166-241)",
+                launches_on=on, library="none: no single torch call "
+                "computes it", exact_ms=float(np.mean(lowp_time["exact"][key])),
+                small_config=sm, flagship_vs_plain=fl,
+                **({"int8_ms": float(np.mean(tm["K4 int8"])),
+                    "int8_plain_ms": tm["plain_ms"]["K4 int8"],
+                    "int8_exact_ms": float(np.mean(lowp_time["exact"][
+                        "K4 int8"])),
+                    "int8_bound": lowp_bound(cfg, MAIN_B, CHECK_T, prec,
+                                             storage="int8")}
+                   if k == "K4" else {})))
     print(json.dumps({"kernels": kernels}), flush=True)
     mark("done")
     print(card, flush=True)

@@ -4,8 +4,9 @@
 // Replaces the TPU kernel nv_wavenet_tpu/ops/fused_chain.py:414
 // (make_fused_generator.generate; body _kernel_body :118-253), modes sample
 // and argmax (kSelInjected, chosen at run time), forced (p_seq) and prng
-// (Philox on the card), each with and without fast_math: 6 instances, one
-// entry point each.  What it computes (ops/fused_chain.py): the residual
+// (Philox on the card), each in three precisions (kPrec, step_common.cuh:
+// fp32, fast_math, compute_dtype=bfloat16): 9 instances, one entry point
+// each.  What it computes (ops/fused_chain.py): the residual
 // stream is folded into the weights, so layer l's pre-activation is
 //   u_l = ((x_0 Wcur_l + x_{t-d} Wprev_l) + fbias_l) + cond_l
 //         + [h_0 .. h_{l-1}] G_l,        G_l = [Wres_j Wcur_l]_{j<l},
@@ -43,12 +44,16 @@
 //     within tolerance, not bit for bit.  The G and skip products skip the
 //     zero pad rows of g_pack and wskip_cat (blocks of R rows at stride P):
 //     a zero row adds an exact 0 to an ordered sum.
-//   * fast_math (kFast) is the TPU's single-pass DEFAULT matrix precision:
-//     the activations are rounded to bf16 (__float2bfloat16_rn) as they are
-//     stored for a product, the weights arrive rounded, the products and sums
-//     stay fp32.  A product of two bf16 values is exact in fp32, so the
-//     fused multiply-add rounds as the separate multiply and add would.
-//     Biases and the residual stream stay fp32; the exact math stays exact.
+//   * fast_math (kPrecFast) is the TPU's single-pass DEFAULT matrix
+//     precision: the activations are rounded to bf16 (__float2bfloat16_rn)
+//     as they are stored for a product, the weights arrive rounded, the
+//     products and sums stay fp32.  A product of two bf16 values is exact in
+//     fp32, so the fused multiply-add rounds as the separate multiply and add
+//     would.  Biases and the residual stream stay fp32; the exact math stays
+//     exact.  compute_dtype=bfloat16 (kPrecBF16, the TPU kernel's `:166-241`)
+//     rounds the same operands and also stores the residual stream rounded:
+//     x_0 after the tanh and x_l after each residual add (done in fp32), and
+//     the FIFO ring holds bf16.
 //
 // What bounds it: the chain of 2L dependent phases on one SM per row, each
 // product's weight loads from L2 (the G stack alone is 2.8x the bytes K1
@@ -91,7 +96,7 @@ struct FusedArgs {
   const float* cond;       // [T, L, B, 2R]
   const float* sel;        // [T, B] (null in mode prng)
   const int* sched;        // [2, L]: ring_offsets, then dilations
-  float* ring;             // [ring_size, B, R], updated in place
+  float* ring;             // [ring_size, B, R], updated in place (bf16 under kPrecBF16)
   int* y_state;            // [2, B] (y_prev, y_cur), updated in place
   int* y;                  // [T, B]
   float* p_seq;            // [T, B, A], forced only
@@ -103,11 +108,6 @@ struct FusedArgs {
   int mode;                // kModeSample or kModeArgmax (kSelInjected)
   unsigned long long seed; // the Philox key (prng only)
 };
-
-template <bool kFast>
-__device__ __forceinline__ float operand(float v) {
-  return kFast ? __bfloat162float(__float2bfloat16_rn(v)) : v;
-}
 
 // acc += v[0, K) . w[k * ldw + 0..3], k = 0, 1, ..., K-1 in order (K a
 // multiple of kBatch), the rows of a batch loaded before their products
@@ -173,7 +173,7 @@ int smem_floats(int L, int R, int S, int A) {
   return 2 * R + 4 * L * R + S + 4 * A + part;
 }
 
-template <int kSel, bool kFast>
+template <int kSel, int kPrec>
 __global__ void __launch_bounds__(kThreads) fused_generate_kernel(const FusedArgs a) {
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.x, tid = threadIdx.x;
@@ -203,13 +203,14 @@ __global__ void __launch_bounds__(kThreads) fused_generate_kernel(const FusedArg
       const float v = __ldg(a.embed + (size_t)y_prev * R + i) +
                       __ldg(a.embed + (size_t)(A + y_cur) * R + i);
       const float x = a.tanh_embed ? em_tanh(v) : v;
-      x0[i] = x;
-      xop[i] = operand<kFast>(x);
+      x0[i] = stored<kPrec>(x);
+      xop[i] = operand<kPrec>(x);
     }
     for (int e = tid; e < L * R; e += kThreads) {
       const int l = e / R, i = e - l * R;
       const int offset = __ldg(a.sched + l), d = __ldg(a.sched + L + l);
-      xp[e] = operand<kFast>(a.ring[((size_t)(offset + (int)(t & (d - 1))) * B + b) * R + i]);
+      xp[e] = operand<kPrec>(
+          ring_get<kPrec>(a.ring, ((size_t)(offset + (int)(t & (d - 1))) * B + b) * R + i));
     }
     __syncthreads();
 
@@ -245,7 +246,7 @@ __global__ void __launch_bounds__(kThreads) fused_generate_kernel(const FusedArg
           zt = zt + sum_parts(part, R2, sg, i);
           zg = zg + sum_parts(part, R2, sg, R + i);
         }
-        hbuf[l * R + i] = operand<kFast>(em_tanh(zt) * em_sigmoid(zg));
+        hbuf[l * R + i] = operand<kPrec>(em_tanh(zt) * em_sigmoid(zg));
       }
       __syncthreads();
     }
@@ -264,13 +265,16 @@ __global__ void __launch_bounds__(kThreads) fused_generate_kernel(const FusedArg
 
     // skip = relu(. + skipb); the residual stream and the FIFO writes
     for (int i = tid; i < S; i += kThreads)
-      skip[i] = operand<kFast>(fmaxf(sum_parts(part, S, ss, i) + __ldg(a.skipb + i), 0.0f));
+      skip[i] = operand<kPrec>(fmaxf(sum_parts(part, S, ss, i) + __ldg(a.skipb + i), 0.0f));
     for (int i = tid; i < R; i += kThreads) {
       float x = x0[i];
       for (int l = 0; l < L; ++l) {
-        if (l) x = (x + xp[(l - 1) * R + i]) + __ldg(a.bres + (size_t)(l - 1) * R + i);
+        if (l) {
+          x = stored<kPrec>((x + xp[(l - 1) * R + i]) +
+                            __ldg(a.bres + (size_t)(l - 1) * R + i));
+        }
         const int offset = __ldg(a.sched + l), d = __ldg(a.sched + L + l);
-        a.ring[((size_t)(offset + (int)(t & (d - 1))) * B + b) * R + i] = x;
+        ring_put<kPrec>(a.ring, ((size_t)(offset + (int)(t & (d - 1))) * B + b) * R + i, x);
       }
     }
     __syncthreads();
@@ -279,7 +283,7 @@ __global__ void __launch_bounds__(kThreads) fused_generate_kernel(const FusedArg
     block_matvec_parts(skip, a.out_w, A, A, S, S, S, part);
     __syncthreads();
     for (int i = tid; i < A; i += kThreads)
-      zs[i] = operand<kFast>(fmaxf(sum_parts(part, A, sa, i) + __ldg(a.out_b + i), 0.0f));
+      zs[i] = operand<kPrec>(fmaxf(sum_parts(part, A, sa, i) + __ldg(a.out_b + i), 0.0f));
     __syncthreads();
     block_matvec_parts(zs, a.end_w, A, A, A, A, A, part);
     __syncthreads();
@@ -319,12 +323,12 @@ __global__ void __launch_bounds__(kThreads) fused_generate_kernel(const FusedArg
   }
 }
 
-template <int kSel, bool kFast>
+template <int kSel, int kPrec>
 int launch(const FusedArgs& args, int smem_bytes, void* stream) {
   if (args.R % 8 || args.S % 8 || args.A % 8 || args.P < args.R ||
       smem_bytes < 4 * smem_floats(args.L, args.R, args.S, args.A))
     return (int)cudaErrorInvalidValue;
-  auto kernel = fused_generate_kernel<kSel, kFast>;
+  auto kernel = fused_generate_kernel<kSel, kPrec>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
@@ -336,8 +340,8 @@ int launch(const FusedArgs& args, int smem_bytes, void* stream) {
 
 // One entry point per instance, all with this argument list: the 13 folded
 // weights of ops/fused_chain.py::FOLDED_ORDER, the inputs and state, then
-// the shape and the plan's shared memory.
-#define NVW_FUSED_ENTRY(name, kSel, kFast)                                                       \
+// the shape and the plan's shared memory; `ring` is bf16 for _bf16.
+#define NVW_FUSED_ENTRY(name, kSel, kPrec)                                                       \
   int name(const float* embed, const float* wprev, const float* wres, const float* bres,        \
            const float* g_pack, const float* wcur_cat, const float* wskip_cat,                  \
            const float* fbias, const float* skipb, const float* out_w, const float* out_b,      \
@@ -349,21 +353,35 @@ int launch(const FusedArgs& args, int smem_bytes, void* stream) {
                          skipb, out_w, out_b, end_w, end_b, cond, sel, sched, ring, y_state,   \
                          y, p_seq, t0, n_valid, B, L, R, S, A, P, tanh_embed, silence_bin,     \
                          mode == kModeArgmax ? kModeArgmax : kModeSample, seed};               \
-    return launch<kSel, kFast>(args, smem_bytes, stream);                                        \
+    return launch<kSel, kPrec>(args, smem_bytes, stream);                                        \
   }
+
+// This source is built once per precision (utils/build.py: -DNVW_PREC=0
+// exact, 1 fast, 2 bf16), each library holding that precision's entry
+// points, so the instances compile in parallel.
+#ifndef NVW_PREC
+#define NVW_PREC 0
+#endif
 
 extern "C" {
 
 const char* nvw_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// sel: uniforms; mode 0 sample, 1 argmax
-NVW_FUSED_ENTRY(nvw_fused_generate, kSelInjected, false)
-NVW_FUSED_ENTRY(nvw_fused_generate_fast, kSelInjected, true)
-// sel: the symbols to emit; p_seq [T, B, A] (zeroed by the wrapper)
-NVW_FUSED_ENTRY(nvw_fused_generate_forced, kSelForced, false)
-NVW_FUSED_ENTRY(nvw_fused_generate_forced_fast, kSelForced, true)
-// selectors from Philox keyed on seed; sel not read
-NVW_FUSED_ENTRY(nvw_fused_generate_prng, kSelPrng, false)
-NVW_FUSED_ENTRY(nvw_fused_generate_prng_fast, kSelPrng, true)
+// sel: uniforms, mode 0 sample, 1 argmax; forced: sel holds the symbols to
+// emit, p_seq [T, B, A] (zeroed by the wrapper); prng: selectors from Philox
+// keyed on seed, sel not read
+#if NVW_PREC == 0
+NVW_FUSED_ENTRY(nvw_fused_generate, kSelInjected, kPrecExact)
+NVW_FUSED_ENTRY(nvw_fused_generate_forced, kSelForced, kPrecExact)
+NVW_FUSED_ENTRY(nvw_fused_generate_prng, kSelPrng, kPrecExact)
+#elif NVW_PREC == 1
+NVW_FUSED_ENTRY(nvw_fused_generate_fast, kSelInjected, kPrecFast)
+NVW_FUSED_ENTRY(nvw_fused_generate_forced_fast, kSelForced, kPrecFast)
+NVW_FUSED_ENTRY(nvw_fused_generate_prng_fast, kSelPrng, kPrecFast)
+#elif NVW_PREC == 2
+NVW_FUSED_ENTRY(nvw_fused_generate_bf16, kSelInjected, kPrecBF16)
+NVW_FUSED_ENTRY(nvw_fused_generate_forced_bf16, kSelForced, kPrecBF16)
+NVW_FUSED_ENTRY(nvw_fused_generate_prng_bf16, kSelPrng, kPrecBF16)
+#endif
 
 }  // extern "C"

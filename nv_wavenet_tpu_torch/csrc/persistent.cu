@@ -82,6 +82,23 @@
 // and K3 existed (K1's time has moved 1.77x from a change to one
 // loop-carried pair, so no mode becomes a runtime branch inside it).
 //
+// The precision is a compile-time parameter too (kPrec, step_common.cuh),
+// the TPU kernel's fast_math (`:553, 589-591`) and compute_dtype (`:550`,
+// casts `:221-222, 268-280, 313-347, 367-369`): kPrecFast rounds every
+// activation entering a product to bf16 where the TPU kernel casts it
+// (x_{t-d} as it is read, x, h, relu(skip), zs) and keeps x and the ring
+// fp32, so the product x_t Wcur reads a rounded copy of x (R more floats of
+// shared memory); kPrecBF16 also stores x rounded (after the embedding's
+// tanh and after each residual add, done in fp32) and keeps the ring as
+// bf16.  The weights arrive rounded from the wrapper, the biases and
+// cond_pre do not (they are added, not multiplied).  The dumps read skip and
+// zs before their rounding, and xt as stored: what the TPU kernel dumps.  A
+// bf16 x bf16 product is exact in fp32, so the low-precision instances sum
+// in K1's order and equal K4's bit for bit.  Each precision is an instance
+// with its own entry point; the exact code stays in `if constexpr`
+// branches, so the kPrecExact instances compile as they did before the
+// other precisions existed.
+//
 // Compiled with -fmad=false (utils/build.py) so the inlined exact math and
 // every a*b+c here round twice, as in the plain torch version.
 
@@ -108,7 +125,7 @@ struct GenArgs {
   const float* cond;    // [T, L, B, 2R], dil_b already added
   const float* sel;     // [T, B]
   const int* sched;     // [2, L]: ring_offsets, then dilations
-  float* ring;          // [ring_size, B, R], updated in place
+  float* ring;          // [ring_size, B, R], updated in place (bf16 under kPrecBF16)
   int* y_state;         // [2, B] (y_prev, y_cur), updated in place
   int* y;               // [T, B]
   float* d_xt;          // [L, B, R]  } last-step dump, all null when off
@@ -134,7 +151,7 @@ __device__ __forceinline__ float dot(const float* v, const float* __restrict__ w
   return kSel == kSelInjected ? dot_column(v, w, K, stride) : dot_column_batched(v, w, K, stride);
 }
 
-template <bool kRagged, int kSel>
+template <bool kRagged, int kSel, int kPrec>
 __global__ void __launch_bounds__(kThreads) persistent_generate_kernel(const GenArgs a) {
   extern __shared__ float smem[];
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
@@ -149,6 +166,9 @@ __global__ void __launch_bounds__(kThreads) persistent_generate_kernel(const Gen
   float* za = zs + A;      // [A]
   float* c0 = za + A;      // [A]   prefix-sum ping-pong buffers
   float* c1 = c0 + A;      // [A]
+  // [R] x as the operand of x_t Wcur: a rounded copy under kPrecFast (x
+  // stays fp32 for the residual adds); x itself otherwise
+  float* xop = kPrec == kPrecFast ? c1 + A : x;
 
   int y_prev = a.y_state[b];
   int y_cur = a.y_state[B + b];
@@ -163,7 +183,13 @@ __global__ void __launch_bounds__(kThreads) persistent_generate_kernel(const Gen
     for (int i = tid; i < R; i += nt) {
       const float v = __ldg(a.embed + (size_t)y_prev * R + i) +
                       __ldg(a.embed + (size_t)(A + y_cur) * R + i);
-      x[i] = a.tanh_embed ? nvw::em_tanh(v) : v;
+      if constexpr (kPrec == kPrecExact) {
+        x[i] = a.tanh_embed ? nvw::em_tanh(v) : v;
+      } else {
+        const float e = a.tanh_embed ? nvw::em_tanh(v) : v;
+        x[i] = stored<kPrec>(e);
+        xop[i] = operand<kPrec>(e);
+      }
     }
     for (int i = tid; i < S; i += nt) skip[i] = 0.0f;
     __syncthreads();
@@ -172,10 +198,18 @@ __global__ void __launch_bounds__(kThreads) persistent_generate_kernel(const Gen
       // FIFO: read x_{t-d} and write x_t in the same slot (same thread per
       // element, so the read always precedes the write)
       const int offset = __ldg(a.sched + l), d = __ldg(a.sched + L + l);
-      float* slot = a.ring + ((size_t)(offset + (int)(t & (d - 1))) * B + b) * R;
-      for (int i = tid; i < R; i += nt) {
-        xp[i] = slot[i];
-        slot[i] = x[i];
+      if constexpr (kPrec == kPrecExact) {
+        float* slot = a.ring + ((size_t)(offset + (int)(t & (d - 1))) * B + b) * R;
+        for (int i = tid; i < R; i += nt) {
+          xp[i] = slot[i];
+          slot[i] = x[i];
+        }
+      } else {
+        const size_t slot = ((size_t)(offset + (int)(t & (d - 1))) * B + b) * R;
+        for (int i = tid; i < R; i += nt) {
+          xp[i] = operand<kPrec>(ring_get<kPrec>(a.ring, slot + i));
+          ring_put<kPrec>(a.ring, slot + i, x[i]);
+        }
       }
       __syncthreads();
 
@@ -184,7 +218,7 @@ __global__ void __launch_bounds__(kThreads) persistent_generate_kernel(const Gen
       const float* W = a.dil_w + (size_t)l * R2 * R2;
       for (int q = tid; q < 2 * R2; q += nt) {
         const int cur = q >= R2;
-        zh[q] = dot<kSel>(cur ? x : xp, W + (size_t)cur * R * R2 + (q - cur * R2), R, R2);
+        zh[q] = dot<kSel>(cur ? xop : xp, W + (size_t)cur * R * R2 + (q - cur * R2), R, R2);
       }
       __syncthreads();
 
@@ -193,7 +227,7 @@ __global__ void __launch_bounds__(kThreads) persistent_generate_kernel(const Gen
       for (int i = tid; i < R; i += nt) {
         const float zt = (zh[i] + zh[R2 + i]) + __ldg(cond + i);
         const float zg = (zh[R + i] + zh[R2 + R + i]) + __ldg(cond + R + i);
-        h[i] = nvw::em_tanh(zt) * nvw::em_sigmoid(zg);
+        h[i] = operand<kPrec>(nvw::em_tanh(zt) * nvw::em_sigmoid(zg));
       }
       __syncthreads();
 
@@ -203,7 +237,9 @@ __global__ void __launch_bounds__(kThreads) persistent_generate_kernel(const Gen
       for (int o = tid; o < RS; o += nt) {
         const float acc = dot<kSel>(h, Wrs + o, R, RS);
         if (o < R) {
-          x[o] = (acc + __ldg(brs + o)) + x[o];
+          const float v = (acc + __ldg(brs + o)) + x[o];
+          x[o] = stored<kPrec>(v);
+          if constexpr (kPrec == kPrecFast) xop[o] = operand<kPrec>(v);
         } else {
           skip[o - R] = (skip[o - R] + acc) + __ldg(brs + o);
         }
@@ -216,15 +252,32 @@ __global__ void __launch_bounds__(kThreads) persistent_generate_kernel(const Gen
       }
     }
 
-    for (int i = tid; i < S; i += nt) skip[i] = fmaxf(skip[i], 0.0f);
-    __syncthreads();
-    if (dump) {
-      for (int i = tid; i < S; i += nt) a.d_skip[((size_t)(L - 1) * B + b) * S + i] = skip[i];
+    if constexpr (kPrec == kPrecExact) {
+      for (int i = tid; i < S; i += nt) skip[i] = fmaxf(skip[i], 0.0f);
+      __syncthreads();
+      if (dump) {
+        for (int i = tid; i < S; i += nt) a.d_skip[((size_t)(L - 1) * B + b) * S + i] = skip[i];
+      }
+    } else {
+      // the dump takes relu(skip) in fp32, the product its rounded copy
+      for (int i = tid; i < S; i += nt) {
+        const float s = fmaxf(skip[i], 0.0f);
+        if (dump) a.d_skip[((size_t)(L - 1) * B + b) * S + i] = s;
+        skip[i] = operand<kPrec>(s);
+      }
+      __syncthreads();
     }
 
     // output stack: zs = relu(skip Wzs + bzs); za = zs Wza + bza
     for (int o = tid; o < A; o += nt) {
-      zs[o] = fmaxf(dot<kSel>(skip, a.out_w + o, S, A) + __ldg(a.out_b + o), 0.0f);
+      const float v = fmaxf(dot<kSel>(skip, a.out_w + o, S, A) + __ldg(a.out_b + o), 0.0f);
+      if constexpr (kPrec == kPrecExact) {
+        zs[o] = v;
+      } else {
+        // the dump takes zs in fp32, the product its rounded copy
+        zs[o] = operand<kPrec>(v);
+        if (dump) a.d_zs[(size_t)b * A + o] = v;
+      }
     }
     __syncthreads();
     for (int o = tid; o < A; o += nt) {
@@ -247,7 +300,7 @@ __global__ void __launch_bounds__(kThreads) persistent_generate_kernel(const Gen
         // p = e / sum: a tolerance-governed output (sampling never divides)
         const float total = cum[A - 1];
         for (int i = tid; i < A; i += nt) {
-          a.d_zs[(size_t)b * A + i] = zs[i];
+          if constexpr (kPrec == kPrecExact) a.d_zs[(size_t)b * A + i] = zs[i];
           a.d_za[(size_t)b * A + i] = za[i];
           a.d_p[(size_t)b * A + i] = nvw::em_exp(za[i] - zmax) / total;
         }
@@ -277,85 +330,114 @@ __global__ void __launch_bounds__(kThreads) persistent_generate_kernel(const Gen
   }
 }
 
-template <bool kRagged, int kSel>
+template <bool kRagged, int kSel, int kPrec>
 int launch(const GenArgs& args, void* stream) {
-  const size_t smem = (size_t)(7 * args.R + args.S + 4 * args.A) * sizeof(float);
+  const size_t smem = (size_t)(7 * args.R + args.S + 4 * args.A +
+                               (kPrec == kPrecFast ? args.R : 0)) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err =
-        cudaFuncSetAttribute(persistent_generate_kernel<kRagged, kSel>,
+        cudaFuncSetAttribute(persistent_generate_kernel<kRagged, kSel, kPrec>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  persistent_generate_kernel<kRagged, kSel><<<args.B, kThreads, smem, (cudaStream_t)stream>>>(args);
+  persistent_generate_kernel<kRagged, kSel, kPrec>
+      <<<args.B, kThreads, smem, (cudaStream_t)stream>>>(args);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// One entry point per (instance, precision): the exact one under the name it
+// always had, the others with the suffix _fast or _bf16.  `ring` is the
+// ring's pointer whatever its element type (bf16 for _bf16).
+
+// K1: sel carries uniforms; mode 0 sample, 1 argmax; the dump pointers are
+// all null when off
+#define NVW_GENERATE_ENTRY(name, kPrec)                                                       \
+  int name(const float* embed, const float* dil_w, const float* rs_w, const float* rs_b,      \
+           const float* out_w, const float* out_b, const float* end_w, const float* end_b,    \
+           const float* cond, const float* sel, const int* sched, float* ring, int* y_state,  \
+           int* y, float* d_xt, float* d_skip, float* d_zs, float* d_za, float* d_p,          \
+           long long t0, int n_valid, int B, int L, int R, int S, int A, int tanh_embed,      \
+           int silence_bin, int mode, void* stream) {                                         \
+    const GenArgs args{embed, dil_w, rs_w, rs_b, out_w, out_b, end_w, end_b, cond,           \
+                       sel, sched, ring, y_state, y, d_xt, d_skip, d_zs, d_za, d_p, t0,      \
+                       n_valid, B, L, R, S, A, tanh_embed, silence_bin, mode,                \
+                       nullptr, nullptr, nullptr, 0};                                        \
+    return launch<false, kSelInjected, kPrec>(args, stream);                                  \
+  }
+
+// K5: mode "sample", no dump; t0_row [B] and n_valid_row [B] on the device
+#define NVW_RAGGED_ENTRY(name, kPrec)                                                         \
+  int name(const float* embed, const float* dil_w, const float* rs_w, const float* rs_b,      \
+           const float* out_w, const float* out_b, const float* end_w, const float* end_b,    \
+           const float* cond, const float* sel, const int* sched, float* ring, int* y_state,  \
+           int* y, const long long* t0_row, const int* n_valid_row, int B, int L, int R,      \
+           int S, int A, int tanh_embed, int silence_bin, void* stream) {                     \
+    const GenArgs args{embed, dil_w, rs_w, rs_b, out_w, out_b, end_w, end_b, cond,           \
+                       sel, sched, ring, y_state, y, nullptr, nullptr, nullptr, nullptr,     \
+                       nullptr, 0, 0, B, L, R, S, A, tanh_embed, silence_bin, kModeSample,   \
+                       t0_row, n_valid_row, nullptr, 0};                                     \
+    return launch<true, kSelInjected, kPrec>(args, stream);                                   \
+  }
+
+// K2: sel carries the symbols; p_seq [T, B, A] gets every run step's
+// distribution (the wrapper zeroes it, so steps past n_valid stay 0)
+#define NVW_FORCED_ENTRY(name, kPrec)                                                         \
+  int name(const float* embed, const float* dil_w, const float* rs_w, const float* rs_b,      \
+           const float* out_w, const float* out_b, const float* end_w, const float* end_b,    \
+           const float* cond, const float* sel, const int* sched, float* ring, int* y_state,  \
+           int* y, float* d_xt, float* d_skip, float* d_zs, float* d_za, float* d_p,          \
+           float* p_seq, long long t0, int n_valid, int B, int L, int R, int S, int A,        \
+           int tanh_embed, int silence_bin, void* stream) {                                   \
+    const GenArgs args{embed, dil_w, rs_w, rs_b, out_w, out_b, end_w, end_b, cond,           \
+                       sel, sched, ring, y_state, y, d_xt, d_skip, d_zs, d_za, d_p, t0,      \
+                       n_valid, B, L, R, S, A, tanh_embed, silence_bin, kModeSample,         \
+                       nullptr, nullptr, p_seq, 0};                                          \
+    return launch<false, kSelForced, kPrec>(args, stream);                                    \
+  }
+
+// K3: the selectors come from Philox keyed on `seed`; no sel input
+#define NVW_PRNG_ENTRY(name, kPrec)                                                           \
+  int name(const float* embed, const float* dil_w, const float* rs_w, const float* rs_b,      \
+           const float* out_w, const float* out_b, const float* end_w, const float* end_b,    \
+           const float* cond, const int* sched, float* ring, int* y_state, int* y,            \
+           float* d_xt, float* d_skip, float* d_zs, float* d_za, float* d_p, long long t0,    \
+           int n_valid, int B, int L, int R, int S, int A, int tanh_embed, int silence_bin,   \
+           unsigned long long seed, void* stream) {                                           \
+    const GenArgs args{embed, dil_w, rs_w, rs_b, out_w, out_b, end_w, end_b, cond,           \
+                       nullptr, sched, ring, y_state, y, d_xt, d_skip, d_zs, d_za, d_p, t0,  \
+                       n_valid, B, L, R, S, A, tanh_embed, silence_bin, kModeSample,         \
+                       nullptr, nullptr, nullptr, seed};                                     \
+    return launch<false, kSelPrng, kPrec>(args, stream);                                      \
+  }
+
+// This source is built once per precision (utils/build.py: -DNVW_PREC=0
+// exact, 1 fast, 2 bf16), each library holding that precision's entry
+// points, so the instances compile in parallel.
+#ifndef NVW_PREC
+#define NVW_PREC 0
+#endif
+
 extern "C" {
 
 const char* nvw_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-int nvw_persistent_generate(const float* embed, const float* dil_w, const float* rs_w,
-                            const float* rs_b, const float* out_w, const float* out_b,
-                            const float* end_w, const float* end_b, const float* cond,
-                            const float* sel, const int* sched, float* ring, int* y_state,
-                            int* y, float* d_xt, float* d_skip, float* d_zs, float* d_za,
-                            float* d_p, long long t0, int n_valid, int B, int L, int R, int S,
-                            int A, int tanh_embed, int silence_bin, int mode, void* stream) {
-  const GenArgs args{embed, dil_w, rs_w, rs_b, out_w, out_b, end_w, end_b, cond,
-                     sel, sched, ring, y_state, y, d_xt, d_skip, d_zs, d_za, d_p, t0,
-                     n_valid, B, L, R, S, A, tanh_embed, silence_bin, mode,
-                     nullptr, nullptr, nullptr, 0};
-  return launch<false, kSelInjected>(args, stream);
-}
-
-// K5: mode "sample", no dump; t0_row [B] and n_valid_row [B] on the device
-int nvw_persistent_generate_ragged(const float* embed, const float* dil_w, const float* rs_w,
-                                   const float* rs_b, const float* out_w, const float* out_b,
-                                   const float* end_w, const float* end_b, const float* cond,
-                                   const float* sel, const int* sched, float* ring,
-                                   int* y_state, int* y, const long long* t0_row,
-                                   const int* n_valid_row, int B, int L, int R, int S, int A,
-                                   int tanh_embed, int silence_bin, void* stream) {
-  const GenArgs args{embed, dil_w, rs_w, rs_b, out_w, out_b, end_w, end_b, cond,
-                     sel, sched, ring, y_state, y, nullptr, nullptr, nullptr, nullptr,
-                     nullptr, 0, 0, B, L, R, S, A, tanh_embed, silence_bin, kModeSample,
-                     t0_row, n_valid_row, nullptr, 0};
-  return launch<true, kSelInjected>(args, stream);
-}
-
-// K2: sel carries the symbols; p_seq [T, B, A] gets every run step's
-// distribution (the wrapper zeroes it, so steps past n_valid stay 0)
-int nvw_persistent_generate_forced(const float* embed, const float* dil_w, const float* rs_w,
-                                   const float* rs_b, const float* out_w, const float* out_b,
-                                   const float* end_w, const float* end_b, const float* cond,
-                                   const float* sel, const int* sched, float* ring,
-                                   int* y_state, int* y, float* d_xt, float* d_skip,
-                                   float* d_zs, float* d_za, float* d_p, float* p_seq,
-                                   long long t0, int n_valid, int B, int L, int R, int S,
-                                   int A, int tanh_embed, int silence_bin, void* stream) {
-  const GenArgs args{embed, dil_w, rs_w, rs_b, out_w, out_b, end_w, end_b, cond,
-                     sel, sched, ring, y_state, y, d_xt, d_skip, d_zs, d_za, d_p, t0,
-                     n_valid, B, L, R, S, A, tanh_embed, silence_bin, kModeSample,
-                     nullptr, nullptr, p_seq, 0};
-  return launch<false, kSelForced>(args, stream);
-}
-
-// K3: the selectors come from Philox keyed on `seed`; no sel input
-int nvw_persistent_generate_prng(const float* embed, const float* dil_w, const float* rs_w,
-                                 const float* rs_b, const float* out_w, const float* out_b,
-                                 const float* end_w, const float* end_b, const float* cond,
-                                 const int* sched, float* ring, int* y_state, int* y,
-                                 float* d_xt, float* d_skip, float* d_zs, float* d_za,
-                                 float* d_p, long long t0, int n_valid, int B, int L, int R,
-                                 int S, int A, int tanh_embed, int silence_bin,
-                                 unsigned long long seed, void* stream) {
-  const GenArgs args{embed, dil_w, rs_w, rs_b, out_w, out_b, end_w, end_b, cond,
-                     nullptr, sched, ring, y_state, y, d_xt, d_skip, d_zs, d_za, d_p, t0,
-                     n_valid, B, L, R, S, A, tanh_embed, silence_bin, kModeSample,
-                     nullptr, nullptr, nullptr, seed};
-  return launch<false, kSelPrng>(args, stream);
-}
+#if NVW_PREC == 0
+NVW_GENERATE_ENTRY(nvw_persistent_generate, kPrecExact)
+NVW_RAGGED_ENTRY(nvw_persistent_generate_ragged, kPrecExact)
+NVW_FORCED_ENTRY(nvw_persistent_generate_forced, kPrecExact)
+NVW_PRNG_ENTRY(nvw_persistent_generate_prng, kPrecExact)
+#elif NVW_PREC == 1
+NVW_GENERATE_ENTRY(nvw_persistent_generate_fast, kPrecFast)
+NVW_RAGGED_ENTRY(nvw_persistent_generate_ragged_fast, kPrecFast)
+NVW_FORCED_ENTRY(nvw_persistent_generate_forced_fast, kPrecFast)
+NVW_PRNG_ENTRY(nvw_persistent_generate_prng_fast, kPrecFast)
+#elif NVW_PREC == 2
+NVW_GENERATE_ENTRY(nvw_persistent_generate_bf16, kPrecBF16)
+NVW_RAGGED_ENTRY(nvw_persistent_generate_ragged_bf16, kPrecBF16)
+NVW_FORCED_ENTRY(nvw_persistent_generate_forced_bf16, kPrecBF16)
+NVW_PRNG_ENTRY(nvw_persistent_generate_prng_bf16, kPrecBF16)
+#endif
 
 }  // extern "C"

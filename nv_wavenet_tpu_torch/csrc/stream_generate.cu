@@ -65,6 +65,15 @@
 // what one CTA per row can reach; wgmma, clusters and TMA multicast are
 // later work.
 //
+// The precisions (kPrec, step_common.cuh) round where K1's do: fast_math and
+// compute_dtype=bfloat16 (`:550, 553, 589-591`).  The stacks enter products
+// rounded to bf16, so under both the fp32 and the bf16 storage hold the
+// same values: the wrapper passes the rounded stacks as bf16 storage, and
+// only kStorageBF16 and kStorageI8 have low-precision instances (int8
+// dequantises to q * s in fp32 and rounds that).  K4 still equals K1 of
+// the same precision bit for bit.  The kPrecExact code stays in `if
+// constexpr` branches, so the exact instances compile as they did.
+//
 // A separate source from persistent.cu so that K1, K2, K3 and K5 compile
 // exactly as they did.  The selector sources, the batched column product
 // and the Philox draw are step_common.cuh's, shared with them; the step's
@@ -111,7 +120,7 @@ struct StreamArgs {
   const float* cond;    // [T, L, B, 2R], dil_b already added
   const float* sel;     // [T, B] (null in mode prng)
   const int* sched;     // [2, L]: ring_offsets, then dilations
-  float* ring;          // [ring_size, B, R], updated in place
+  float* ring;          // [ring_size, B, R], updated in place (bf16 under kPrecBF16)
   int* y_state;         // [2, B] (y_prev, y_cur), updated in place
   int* y;               // [T, B]
   float* d_xt;          // [L, B, R]  } last-step dump, all null when off
@@ -232,12 +241,24 @@ __device__ __forceinline__ void issue_stage(const StreamArgs& a, unsigned char* 
   }
 }
 
+// The value of a stored weight as a product operand: int8 dequantises to
+// q * s, rounded to bf16 under the low precisions; bf16 and fp32 storage
+// hold operands already
+template <int kStorage, int kPrec>
+__device__ __forceinline__ float weight(typename Storage<kStorage>::T w, float s) {
+  if constexpr (kStorage == kStorageI8) {
+    return operand<kPrec>(Storage<kStorage>::value(w, s));
+  } else {
+    return Storage<kStorage>::value(w, s);
+  }
+}
+
 // acc[i] += v_i[k] * w_i[k] for k = 0, 1, ..., kc - 1 in order, for the
 // thread's NT columns: v_i[k] the float at smem offset voff[i] + k (floats),
 // w_i[k] the value of the weight at woff[i] + k * ld (TW elements).  Eight
 // terms of every column are loaded before their products, and the columns'
 // chains of adds interleave.
-template <int kStorage, int NT>
+template <int kStorage, int kPrec, int NT>
 __device__ __forceinline__ void add_stage(float (&acc)[kMaxTasks], const int (&voff)[kMaxTasks],
                                           const int (&woff)[kMaxTasks],
                                           const float (&s)[kMaxTasks], int kc, int ld) {
@@ -251,7 +272,7 @@ __device__ __forceinline__ void add_stage(float (&acc)[kMaxTasks], const int (&v
     for (int i = 0; i < NT; ++i) {
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
-        wk[i][u] = Storage<kStorage>::value(ws[woff[i] + (k + u) * ld], s[i]);
+        wk[i][u] = weight<kStorage, kPrec>(ws[woff[i] + (k + u) * ld], s[i]);
         vk[i][u] = fs[voff[i] + k + u];
       }
     }
@@ -264,25 +285,25 @@ __device__ __forceinline__ void add_stage(float (&acc)[kMaxTasks], const int (&v
   for (; k < kc; ++k) {
 #pragma unroll
     for (int i = 0; i < NT; ++i)
-      acc[i] = acc[i] + fs[voff[i] + k] * Storage<kStorage>::value(ws[woff[i] + k * ld], s[i]);
+      acc[i] = acc[i] + fs[voff[i] + k] * weight<kStorage, kPrec>(ws[woff[i] + k * ld], s[i]);
   }
 }
 
 // add_stage for the thread's n columns (0 <= n <= kMaxTasks)
-template <int kStorage>
+template <int kStorage, int kPrec>
 __device__ __forceinline__ void add_stage_n(float (&acc)[kMaxTasks], const int (&voff)[kMaxTasks],
                                             const int (&woff)[kMaxTasks],
                                             const float (&s)[kMaxTasks], int n, int kc, int ld) {
-  if (n == 1) add_stage<kStorage, 1>(acc, voff, woff, s, kc, ld);
-  else if (n == 2) add_stage<kStorage, 2>(acc, voff, woff, s, kc, ld);
-  else if (n == 3) add_stage<kStorage, 3>(acc, voff, woff, s, kc, ld);
-  else if (n == 4) add_stage<kStorage, 4>(acc, voff, woff, s, kc, ld);
+  if (n == 1) add_stage<kStorage, kPrec, 1>(acc, voff, woff, s, kc, ld);
+  else if (n == 2) add_stage<kStorage, kPrec, 2>(acc, voff, woff, s, kc, ld);
+  else if (n == 3) add_stage<kStorage, kPrec, 3>(acc, voff, woff, s, kc, ld);
+  else if (n == 4) add_stage<kStorage, kPrec, 4>(acc, voff, woff, s, kc, ld);
 }
 
 // One CTA per SM (its shared memory allows no second): ptxas may give each
 // thread up to 255 registers, where it otherwise held some instances to 128
 // and spilled.
-template <int kStorage, int kSel>
+template <int kStorage, int kSel, int kPrec>
 __global__ void __launch_bounds__(kThreads, 1) stream_generate_kernel(const StreamArgs a) {
   using TW = typename Storage<kStorage>::T;
   constexpr bool kQuant = kStorage == kStorageI8;
@@ -301,6 +322,9 @@ __global__ void __launch_bounds__(kThreads, 1) stream_generate_kernel(const Stre
   float* za = zs + A;      // [A]
   float* c0 = za + A;      // [A]   prefix-sum ping-pong buffers
   float* c1 = c0 + A;      // [A]
+  // [R] x as the operand of x_t Wcur: a rounded copy under kPrecFast (x
+  // stays fp32 for the residual adds); x itself otherwise
+  float* xop = kPrec == kPrecFast ? c1 + A : x;
 
   if (tid == 0) {
     for (int s = 0; s < P; ++s) bar_init(full + s);
@@ -355,7 +379,12 @@ __global__ void __launch_bounds__(kThreads, 1) stream_generate_kernel(const Stre
   auto fetch = [&](int jj, int ll) {
     if (tid < R) {
       const int off = __ldg(a.sched + ll), d = __ldg(a.sched + L + ll);
-      xp_next = a.ring[((size_t)(off + (int)((t0 + jj) & (d - 1))) * B + b) * R + tid];
+      if constexpr (kPrec == kPrecExact) {
+        xp_next = a.ring[((size_t)(off + (int)((t0 + jj) & (d - 1))) * B + b) * R + tid];
+      } else {
+        xp_next = ring_get<kPrec>(
+            a.ring, ((size_t)(off + (int)((t0 + jj) & (d - 1))) * B + b) * R + tid);
+      }
       const float* c = a.cond + (((size_t)jj * L + ll) * B + b) * R2;
       ct_next = __ldg(c + tid);
       cg_next = __ldg(c + R + tid);
@@ -372,7 +401,13 @@ __global__ void __launch_bounds__(kThreads, 1) stream_generate_kernel(const Stre
     for (int i = tid; i < R; i += nt) {
       const float v = __ldg(a.embed + (size_t)y_prev * R + i) +
                       __ldg(a.embed + (size_t)(A + y_cur) * R + i);
-      x[i] = a.tanh_embed ? nvw::em_tanh(v) : v;
+      if constexpr (kPrec == kPrecExact) {
+        x[i] = a.tanh_embed ? nvw::em_tanh(v) : v;
+      } else {
+        const float e = a.tanh_embed ? nvw::em_tanh(v) : v;
+        x[i] = stored<kPrec>(e);
+        xop[i] = operand<kPrec>(e);
+      }
     }
     for (int i = tid; i < S; i += nt) skip[i] = 0.0f;
     __syncthreads();
@@ -392,11 +427,19 @@ __global__ void __launch_bounds__(kThreads, 1) stream_generate_kernel(const Stre
       // FIFO: x_{t-d} (fetched a layer ahead) out, x_t into the same slot;
       // then fetch the next layer's
       const int offset = __ldg(a.sched + l), d = __ldg(a.sched + L + l);
-      float* slot = a.ring + ((size_t)(offset + (int)(t & (d - 1))) * B + b) * R;
       const float ct = ct_next, cg = cg_next;
-      if (tid < R) {
-        xp[tid] = xp_next;
-        slot[tid] = x[tid];
+      if constexpr (kPrec == kPrecExact) {
+        float* slot = a.ring + ((size_t)(offset + (int)(t & (d - 1))) * B + b) * R;
+        if (tid < R) {
+          xp[tid] = xp_next;
+          slot[tid] = x[tid];
+        }
+      } else {
+        if (tid < R) {
+          xp[tid] = operand<kPrec>(xp_next);
+          ring_put<kPrec>(a.ring, ((size_t)(offset + (int)(t & (d - 1))) * B + b) * R + tid,
+                          x[tid]);
+        }
       }
       if (l + 1 < L) {
         fetch(j, l + 1);
@@ -411,6 +454,7 @@ __global__ void __launch_bounds__(kThreads, 1) stream_generate_kernel(const Stre
       const int n_dil = (2 * R2 - tid + kThreads - 1) / kThreads;  // this thread's tasks
       // operand offsets from smem: floats for v, TW elements for w
       const int x_off = (int)(x - (const float*)smem), xp_off = x_off + R;
+      const int xop_off = kPrec == kPrecFast ? (int)(xop - (const float*)smem) : x_off;
       const int h_off = (int)(h - (const float*)smem);
       float acc[kMaxTasks];
       int voff[kMaxTasks], woff[kMaxTasks];
@@ -423,10 +467,10 @@ __global__ void __launch_bounds__(kThreads, 1) stream_generate_kernel(const Stre
 #pragma unroll
         for (int i = 0; i < kMaxTasks; ++i) {
           const int q = tid + i * kThreads, cur = q >= R2;
-          voff[i] = (cur ? x_off : xp_off) + ch * kc;
+          voff[i] = (cur ? xop_off : xp_off) + ch * kc;
           woff[i] = w0 + cur * kc * R2 + (q - cur * R2);
         }
-        add_stage_n<kStorage>(acc, voff, woff, sd, n_dil, kc, R2);
+        add_stage_n<kStorage, kPrec>(acc, voff, woff, sd, n_dil, kc, R2);
         release();
       }
 #pragma unroll
@@ -440,7 +484,7 @@ __global__ void __launch_bounds__(kThreads, 1) stream_generate_kernel(const Stre
       if (tid < R) {
         const float zt = (zh[tid] + zh[R2 + tid]) + ct;
         const float zg = (zh[R + tid] + zh[R2 + R + tid]) + cg;
-        h[tid] = nvw::em_tanh(zt) * nvw::em_sigmoid(zg);
+        h[tid] = operand<kPrec>(nvw::em_tanh(zt) * nvw::em_sigmoid(zg));
       }
       __syncthreads();
 
@@ -457,14 +501,16 @@ __global__ void __launch_bounds__(kThreads, 1) stream_generate_kernel(const Stre
           voff[i] = h_off + ch * kc;
           woff[i] = w0 + tid + i * kThreads;
         }
-        add_stage_n<kStorage>(acc, voff, woff, sr, n_rs, kc, RS);
+        add_stage_n<kStorage, kPrec>(acc, voff, woff, sr, n_rs, kc, RS);
         release();
       }
 #pragma unroll
       for (int i = 0; i < kMaxTasks; ++i) {
         const int o = tid + i * kThreads;
         if (o < R) {
-          x[o] = (acc[i] + br[i]) + x[o];
+          const float v = (acc[i] + br[i]) + x[o];
+          x[o] = stored<kPrec>(v);
+          if constexpr (kPrec == kPrecFast) xop[o] = operand<kPrec>(v);
         } else if (o < RS) {
           skip[o - R] = (skip[o - R] + acc[i]) + br[i];
         }
@@ -477,15 +523,33 @@ __global__ void __launch_bounds__(kThreads, 1) stream_generate_kernel(const Stre
       }
     }
 
-    for (int i = tid; i < S; i += nt) skip[i] = fmaxf(skip[i], 0.0f);
-    __syncthreads();
-    if (dump) {
-      for (int i = tid; i < S; i += nt) a.d_skip[((size_t)(L - 1) * B + b) * S + i] = skip[i];
+    if constexpr (kPrec == kPrecExact) {
+      for (int i = tid; i < S; i += nt) skip[i] = fmaxf(skip[i], 0.0f);
+      __syncthreads();
+      if (dump) {
+        for (int i = tid; i < S; i += nt) a.d_skip[((size_t)(L - 1) * B + b) * S + i] = skip[i];
+      }
+    } else {
+      // the dump takes relu(skip) in fp32, the product its rounded copy
+      for (int i = tid; i < S; i += nt) {
+        const float s = fmaxf(skip[i], 0.0f);
+        if (dump) a.d_skip[((size_t)(L - 1) * B + b) * S + i] = s;
+        skip[i] = operand<kPrec>(s);
+      }
+      __syncthreads();
     }
 
     // output stack: zs = relu(skip Wzs + bzs); za = zs Wza + bza
     for (int o = tid; o < A; o += nt) {
-      zs[o] = fmaxf(dot_column_batched(skip, a.out_w + o, S, A) + __ldg(a.out_b + o), 0.0f);
+      const float v =
+          fmaxf(dot_column_batched(skip, a.out_w + o, S, A) + __ldg(a.out_b + o), 0.0f);
+      if constexpr (kPrec == kPrecExact) {
+        zs[o] = v;
+      } else {
+        // the dump takes zs in fp32, the product its rounded copy
+        zs[o] = operand<kPrec>(v);
+        if (dump) a.d_zs[(size_t)b * A + o] = v;
+      }
     }
     __syncthreads();
     for (int o = tid; o < A; o += nt) {
@@ -507,7 +571,7 @@ __global__ void __launch_bounds__(kThreads, 1) stream_generate_kernel(const Stre
       if (dump) {
         const float total = cum[A - 1];
         for (int i = tid; i < A; i += nt) {
-          a.d_zs[(size_t)b * A + i] = zs[i];
+          if constexpr (kPrec == kPrecExact) a.d_zs[(size_t)b * A + i] = zs[i];
           a.d_za[(size_t)b * A + i] = za[i];
           a.d_p[(size_t)b * A + i] = nvw::em_exp(za[i] - zmax) / total;
         }
@@ -536,9 +600,9 @@ __global__ void __launch_bounds__(kThreads, 1) stream_generate_kernel(const Stre
   }
 }
 
-template <int kStorage, int kSel>
+template <int kStorage, int kSel, int kPrec>
 int launch(const StreamArgs& args, int smem, void* stream) {
-  auto kernel = stream_generate_kernel<kStorage, kSel>;
+  auto kernel = stream_generate_kernel<kStorage, kSel, kPrec>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -546,33 +610,33 @@ int launch(const StreamArgs& args, int smem, void* stream) {
   return (int)cudaGetLastError();
 }
 
-template <int kStorage>
+template <int kStorage, int kPrec>
 int launch_mode(const StreamArgs& args, int mode, int smem, void* stream) {
-  if (mode == kModeForced) return launch<kStorage, kSelForced>(args, smem, stream);
-  if (mode == kModePrng) return launch<kStorage, kSelPrng>(args, smem, stream);
-  return launch<kStorage, kSelInjected>(args, smem, stream);
+  if (mode == kModeForced) return launch<kStorage, kSelForced, kPrec>(args, smem, stream);
+  if (mode == kModePrng) return launch<kStorage, kSelPrng, kPrec>(args, smem, stream);
+  return launch<kStorage, kSelInjected, kPrec>(args, smem, stream);
 }
 
-}  // namespace
+// The entry points' arguments.  mode: 0 sample, 1 argmax (sel: uniforms), 2
+// forced (sel: symbols, p_seq written), 3 prng (sel not read); storage: 0
+// fp32, 1 bf16, 2 int8 (with dil_s, rs_s); rows/stages/stage_bytes/
+// prefetch/smem_bytes from the plan
+#define NVW_STREAM_PARAMS                                                                     \
+  const float *embed, const void *dil_w, const void *rs_w, const float *dil_s,                \
+      const float *rs_s, const float *rs_b, const float *out_w, const float *out_b,           \
+      const float *end_w, const float *end_b, const float *cond, const float *sel,            \
+      const int *sched, float *ring, int *y_state, int *y, float *d_xt, float *d_skip,        \
+      float *d_zs, float *d_za, float *d_p, float *p_seq, long long t0,                       \
+      unsigned long long seed, int n_valid, int B, int L, int R, int S, int A, int tanh_embed, \
+      int silence_bin, int mode, int storage, int rows, int stages, int stage_bytes,          \
+      int prefetch, int smem_bytes, void *stream
 
-extern "C" {
-
-const char* nvw_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
-
-// mode: 0 sample, 1 argmax (sel: uniforms), 2 forced (sel: symbols, p_seq
-// written), 3 prng (sel not read); storage: 0 fp32, 1 bf16, 2 int8 (with
-// dil_s, rs_s); rows/stages/stage_bytes/prefetch/smem_bytes from the plan
-int nvw_stream_generate(const float* embed, const void* dil_w, const void* rs_w,
-                        const float* dil_s, const float* rs_s, const float* rs_b,
-                        const float* out_w, const float* out_b, const float* end_w,
-                        const float* end_b, const float* cond, const float* sel,
-                        const int* sched, float* ring, int* y_state, int* y, float* d_xt,
-                        float* d_skip, float* d_zs, float* d_za, float* d_p, float* p_seq,
-                        long long t0, unsigned long long seed, int n_valid, int B, int L,
-                        int R, int S, int A, int tanh_embed, int silence_bin, int mode,
-                        int storage, int rows, int stages, int stage_bytes, int prefetch,
-                        int smem_bytes, void* stream) {
-  if (mode < kModeSample || mode > kModePrng || storage < kStorageF32 ||
+template <int kPrec>
+int stream_generate(NVW_STREAM_PARAMS) {
+  // the low precisions take the stacks as bf16 (fp32 stacks rounded to bf16
+  // hold the same operands) or int8
+  const int lowest = kPrec == kPrecExact ? kStorageF32 : kStorageBF16;
+  if (mode < kModeSample || mode > kModePrng || storage < lowest ||
       storage > kStorageI8 || rows < 1 || R % rows || stages < 2 || stage_bytes % 128 ||
       4 * R > kMaxTasks * kThreads || R + S > kMaxTasks * kThreads)
     return (int)cudaErrorInvalidValue;
@@ -581,9 +645,46 @@ int nvw_stream_generate(const float* embed, const void* dil_w, const void* rs_w,
                         d_za, d_p, p_seq, t0, seed, n_valid, B, L, R, S, A, tanh_embed,
                         silence_bin, mode == kModeArgmax ? kModeArgmax : kModeSample, rows,
                         stages, stage_bytes, prefetch};
-  if (storage == kStorageBF16) return launch_mode<kStorageBF16>(args, mode, smem_bytes, stream);
-  if (storage == kStorageI8) return launch_mode<kStorageI8>(args, mode, smem_bytes, stream);
-  return launch_mode<kStorageF32>(args, mode, smem_bytes, stream);
+  if (storage == kStorageBF16)
+    return launch_mode<kStorageBF16, kPrec>(args, mode, smem_bytes, stream);
+  if (storage == kStorageI8) return launch_mode<kStorageI8, kPrec>(args, mode, smem_bytes, stream);
+  if constexpr (kPrec == kPrecExact) {
+    return launch_mode<kStorageF32, kPrec>(args, mode, smem_bytes, stream);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
 }
+
+}  // namespace
+
+#define NVW_STREAM_ENTRY(name, kPrec)                                                        \
+  int name(NVW_STREAM_PARAMS) {                                                              \
+    return stream_generate<kPrec>(embed, dil_w, rs_w, dil_s, rs_s, rs_b, out_w, out_b,       \
+                                  end_w, end_b, cond, sel, sched, ring, y_state, y, d_xt,    \
+                                  d_skip, d_zs, d_za, d_p, p_seq, t0, seed, n_valid, B, L,   \
+                                  R, S, A, tanh_embed, silence_bin, mode, storage, rows,     \
+                                  stages, stage_bytes, prefetch, smem_bytes, stream);        \
+  }
+
+// This source is built once per precision (utils/build.py: -DNVW_PREC=0
+// exact, 1 fast, 2 bf16), each library holding that precision's entry
+// points, so the instances compile in parallel.
+#ifndef NVW_PREC
+#define NVW_PREC 0
+#endif
+
+extern "C" {
+
+const char* nvw_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+// One entry point per precision (`ring` is bf16 for _bf16); the storage and
+// the mode are run-time arguments
+#if NVW_PREC == 0
+NVW_STREAM_ENTRY(nvw_stream_generate, kPrecExact)
+#elif NVW_PREC == 1
+NVW_STREAM_ENTRY(nvw_stream_generate_fast, kPrecFast)
+#elif NVW_PREC == 2
+NVW_STREAM_ENTRY(nvw_stream_generate_bf16, kPrecBF16)
+#endif
 
 }  // extern "C"

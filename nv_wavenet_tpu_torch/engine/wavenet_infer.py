@@ -31,22 +31,32 @@ surface: `begin_stream`, `feed` / `feed_device` (with per-row `lengths`),
     with its fp32 values, `persistent.value_view`, so a score -> feed
     handoff stays exact under int8 too (the JAX engine's scorer keeps the
     fp32 stacks there: fault R9 of ROADMAP.md).
+  * Precision, on every kernel and the plain path (`scan_generate.
+    PRECISIONS`): `fast_math=True` rounds both operands of every product to
+    bf16 (the TPU's single-pass DEFAULT precision; products and sums stay
+    fp32, the exact math stays exact, x and the ring stay fp32);
+    `compute_dtype=torch.bfloat16` does that and stores x rounded and the
+    FIFO ring as bf16 (the snapshot's `ring` stays float32 numpy, which
+    holds bf16 values exactly).  Both are governed by the TV contract, not
+    bit-exact against fp32; within one precision K4 equals K1 and the bf16
+    scorer equals K2 bit for bit on the card, and chunked, ragged, migrated
+    and handed-over streams continue exactly.
   * The collapsed-chain latency tier: `fuse_chain=True` sends lockstep
     `run*` and `feed` dispatches to kernel K6 (`ops/fused_chain.py`, the
     residual stream folded into the weights once per weight upload or
     temperature), governed by the TV contract, not bit-exact.
-    `fast_math=True` rounds both operands of every K6 product to bf16 (the
-    TPU's single-pass DEFAULT precision; sums stay fp32, the exact math
-    stays exact).  `priority="latency"` turns on both; `priority="exact"`
-    or None leaves every knob as passed.  Dumps, ragged or desynced feeds
-    (K5), MANYBLOCK (K4) and `score` stay on the exact kernels; a dump
-    drops the fast_math that priority set.  fast_math on any kernel but K6
-    is not ported (ROADMAP.md item 10b): a dispatch that would need it
-    raises ValueError.
+    `priority="latency"` turns on fuse_chain and fast_math;
+    `priority="exact"` or None leaves every knob as passed.  Dumps, ragged
+    or desynced feeds (K5) and MANYBLOCK (K4) leave K6 for the kernels of
+    K1's step in the engine's precision; a dump drops the fast_math that
+    priority set.  A geometry K6 cannot run (`fused_chain.fused_plan`)
+    sends every dispatch to those kernels too, with a note printed once,
+    as the JAX engine does.
   * `score` / `score_device` run the time-parallel scorer
     (`ops/score_parallel.py`: kernels K7, K0a, K0c) over a window of given
-    symbols and leave the state generation would leave.  It is exact under
-    every tier, as in the JAX engine.
+    symbols and leave the state generation would leave.  It computes in
+    compute_dtype and in fp32 under fast_math, as in the JAX engine, so a
+    score -> feed handoff is exact on the fp32 and the bf16 tier.
   * Conditioning is uploaded to the device once, in `set_inputs`; the
     dil_b-prefolded copy `cond_pre = cond + dil_b` is built there lazily,
     once per (inputs, weights).
@@ -72,7 +82,8 @@ import torch
 
 from nv_wavenet_tpu_torch.config import WaveNetConfig
 from nv_wavenet_tpu_torch.models import params as params_lib
-from nv_wavenet_tpu_torch.ops import fused_chain, persistent, score_parallel
+from nv_wavenet_tpu_torch.ops import (fused_chain, persistent,
+                                      scan_generate, score_parallel)
 
 
 class Impl(enum.Enum):
@@ -168,17 +179,22 @@ class WaveNetInfer:
                  fuse_chain: bool = False,
                  fuse_pack: bool = False,
                  priority: Optional[str] = None,
+                 compute_dtype=torch.float32,
                  device=None):
         """`fuse_chain`: lockstep generation on the collapsed-chain kernel
         K6; `fuse_pack`: its gate blocks at R rows instead of 128
         (`fused_chain._row_stride`; the same values); `fast_math`: bf16
-        operands in K6's products (ROADMAP.md item 10b for the other
-        kernels); `priority`: None or "exact" (every knob as passed) or
-        "latency" (fuse_chain and fast_math, the latter dropped on dumps).
-        A geometry K6 cannot run raises ValueError here."""
+        operands in every product; `compute_dtype`: torch.float32 or
+        torch.bfloat16 (bf16 operands, x stored rounded, a bf16 ring);
+        `priority`: None or "exact" (every knob as passed) or "latency"
+        (fuse_chain and fast_math, the latter dropped on dumps).  A
+        geometry K6 cannot run leaves fuse_chain to the other kernels, with
+        a note printed once."""
         if priority not in (None, "exact", "latency"):
             raise ValueError(f"unknown priority {priority!r}: expected None, "
                              f"'exact' or 'latency'")
+        scan_generate.precision(compute_dtype)   # raises for another dtype
+        self.compute_dtype = compute_dtype
         self.priority = priority
         # fast_math that priority turned on (a dump drops it); an explicit
         # fast_math is the caller's and stays
@@ -215,11 +231,21 @@ class WaveNetInfer:
         self._quant = stream_quant == "int8" and self._stream
         persistent.check_storage(weight_dtype, stream_quant == "int8")
         if self._stream:   # a geometry K4 cannot run raises here
-            persistent.stream_plan(
-                self.cfg, max_batch, torch.int8 if self._quant
-                else weight_dtype, stream_group_size)
-        if self.fuse_chain:   # a geometry K6 cannot run raises here
-            fused_chain.fused_plan(self.cfg, self.fuse_pack)
+            for prec in {self._precision(False), self._precision(True)}:
+                persistent.stream_plan(
+                    self.cfg, max_batch, persistent.stream_storage(
+                        weight_dtype, self._quant, prec),
+                    stream_group_size, prec)
+        # a geometry K6 cannot run sends fuse_chain's dispatches to the
+        # other kernels, fast_math intact (the JAX engine's VMEM fallback)
+        self._fuse_fits = self.fuse_chain
+        if self.fuse_chain:
+            try:
+                fused_chain.fused_plan(self.cfg, self.fuse_pack)
+            except ValueError as err:
+                self._fuse_fits = False
+                print(f"note: fuse_chain disabled ({err}); using the exact "
+                      f"kernels' step", flush=True)
         L = num_layers
         # canonical params assembled incrementally by the setters (host)
         self._np_params: Dict[str, np.ndarray] = {
@@ -343,13 +369,13 @@ class WaveNetInfer:
 
     def _fused_weights(self) -> tuple:
         """K6's folded weights (`fused_chain.prepare_weights` with the dil_b
-        prefold, the engine's storage, fuse_pack and fast_math), made once
-        per weight upload or temperature: the O(L^2) fold stays off every
-        chunked or streaming dispatch."""
+        prefold, the engine's storage, fuse_pack, fast_math and
+        compute_dtype), made once per weight upload or temperature: the
+        O(L^2) fold stays off every chunked or streaming dispatch."""
         if self._fused_prep is None:
             self._fused_prep = fused_chain.prepare_weights(
                 self._device_params(), self.cfg, True, self.weight_dtype,
-                self.fuse_pack, self.fast_math)
+                self.fuse_pack, self.fast_math, self.compute_dtype)
         return self._fused_prep
 
     # ------------------------------------------------------------------
@@ -382,10 +408,16 @@ class WaveNetInfer:
         self._cond_pre = None
         self._reset_state(B)
 
+    @property
+    def _ring_dtype(self) -> torch.dtype:
+        """The FIFO ring's dtype: bf16 under compute_dtype=bfloat16."""
+        return scan_generate.ring_dtype(self._precision(False))
+
     def _reset_state(self, batch: int):
         """Silence for `batch` rows; an open stream ends (its clocks
         described the state this replaces)."""
-        self._ring = persistent.init_ring(self.cfg, batch, self.device)
+        self._ring = persistent.init_ring(self.cfg, batch, self.device,
+                                          self._ring_dtype)
         self._y_state = torch.full((2, batch), self.cfg.silence_bin,
                                    dtype=torch.int32, device=self.device)
         self._stream_t_row = None
@@ -503,39 +535,36 @@ class WaveNetInfer:
         an explicit fast_math stays."""
         return self.fast_math and not (dump and self._fast_math_from_priority)
 
+    def _precision(self, dump: bool) -> str:
+        """The precision of a dispatch (`scan_generate.PRECISIONS`)."""
+        return scan_generate.precision(self.compute_dtype,
+                                       self._effective_fast_math(dump))
+
     def _generator(self, batch: int, mode: str, dump: bool = False,
                    ragged: bool = False):
         """(generator, the weights it takes) for this dispatch: K6 and its
         folded weights under fuse_chain for a lockstep run or feed that is
-        no dump and not MANYBLOCK, else the exact kernels (K1/K2/K3, K5
-        when ragged, K4 under MANYBLOCK) and the canonical params.  Raises
-        ValueError where the dispatch would need fast_math on an exact
-        kernel (ROADMAP.md item 10b)."""
-        fused = self.fuse_chain and not (dump or ragged or self._stream)
+        no dump and not MANYBLOCK, on a geometry K6 runs; else the kernels
+        of K1's step (K1/K2/K3, K5 when ragged, K4 under MANYBLOCK) and the
+        canonical params.  Either in the dispatch's precision."""
+        fused = self._fuse_fits and not (dump or ragged or self._stream)
         fast = self._effective_fast_math(dump)
-        if fast and not fused:
-            where = ("K5, the ragged or desynced feeds" if ragged
-                     else "K4, Impl.MANYBLOCK" if self._stream
-                     else "a dump run of K1/K2/K3" if dump
-                     else "K1/K2/K3, fast_math without fuse_chain")
-            raise ValueError(f"fast_math on {where}, is not ported "
-                             f"(ROADMAP.md item 10b); in the port only the "
-                             f"collapsed-chain kernel K6 (fuse_chain) "
-                             f"computes with fast_math")
-        key = (batch, mode, dump, ragged)
+        key = (batch, mode, dump, ragged, self._precision(dump))
         if key not in self._gens:
             self._gens[key] = (
                 fused_chain.make_fused_generator(
                     self.cfg, batch, mode=mode,
                     weight_dtype=self.weight_dtype, fast_math=fast,
-                    prefold_cond=True, pack_gates=self.fuse_pack)
+                    prefold_cond=True, pack_gates=self.fuse_pack,
+                    compute_dtype=self.compute_dtype)
                 if fused else persistent.make_persistent_generator(
                     self.cfg, batch, mode=mode, dump=dump,
                     weight_dtype=self.weight_dtype,
                     stream_weights=self._stream,
                     stream_group_size=self.stream_group_size,
                     stream_prefetch=self.stream_prefetch,
-                    stream_quant=self._quant, ragged=ragged))
+                    stream_quant=self._quant, ragged=ragged,
+                    compute_dtype=self.compute_dtype, fast_math=fast))
         return (self._gens[key],
                 self._fused_weights() if fused else self._device_params())
 
@@ -683,7 +712,8 @@ class WaveNetInfer:
                              f"{tuple(y_chunk.shape)} != {(T, B)}")
         if B not in self._scorers:
             self._scorers[B] = score_parallel.make_parallel_scorer(
-                self.cfg, B, prefold_cond=True)
+                self.cfg, B, compute_dtype=self.compute_dtype,
+                prefold_cond=True)
         y = torch.as_tensor(y_chunk, device=self.device).to(torch.int32)
         p_seq = self._scorers[B](self._value_params(), int(clocks[0]),
                                  self._stage_cond_pre(cond_chunk), y,
@@ -734,8 +764,9 @@ class WaveNetInfer:
 
     def export_state(self) -> Dict[str, np.ndarray]:
         """Snapshot the generation state as host numpy, for session
-        migration and recovery: `ring` [ring_size, B, R] in the port's plain
-        layout (each row's FIFO slots at its absolute phase), `y_state`
+        migration and recovery: `ring` [ring_size, B, R] float32 in the
+        port's plain layout (each row's FIFO slots at its absolute phase; a
+        bf16 ring's values, exactly), `y_state`
         [2, B], `stream_t_row` [B] int64 (each row's clock), `stream_t` (the
         largest clock, -1 when no stream is open) and `stream_batch`.  The
         JAX package's snapshot holds a lane-packed ring and its scan path's
@@ -745,7 +776,7 @@ class WaveNetInfer:
         B = self._y_state.shape[1]
         streaming = self._stream_t_row is not None
         return {
-            "ring": np.array(self._ring.cpu()),
+            "ring": np.array(self._ring.to(torch.float32).cpu()),
             "y_state": np.array(self._y_state.cpu()),
             "stream_t_row": (self._stream_t_row.copy() if streaming
                              else np.zeros(B, np.int64)),
@@ -758,7 +789,9 @@ class WaveNetInfer:
         """Restore a snapshot of `export_state`, possibly taken by another
         engine or process with the same config and weights: the next `feed`
         or `run_partial` continues exactly where the exporter left off,
-        every row at its own clock."""
+        every row at its own clock.  The ring takes this engine's dtype
+        (bf16 under compute_dtype=bfloat16, rounding a float32 snapshot's
+        values, as the JAX engine casts it)."""
         ring = np.asarray(state["ring"], np.float32)
         y_state = np.asarray(state["y_state"], np.int32)
         B = y_state.shape[-1]
@@ -775,7 +808,8 @@ class WaveNetInfer:
                     or int(state["stream_batch"]) != B):
                 raise ValueError(f"snapshot stream_t_row {clocks.tolist()} "
                                  f"does not fit its batch {B}")
-        self._ring = torch.from_numpy(ring.copy()).to(self.device)
+        self._ring = torch.from_numpy(ring.copy()).to(self.device,
+                                                      self._ring_dtype)
         self._y_state = torch.from_numpy(y_state.copy()).to(self.device)
         self._stream_t_row = clocks.copy() if streaming else None
 

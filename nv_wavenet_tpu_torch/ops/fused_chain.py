@@ -24,7 +24,12 @@ stays exact.  The weights entering products are stored rounded
 (`prepare_weights`), the activations are rounded as they enter each
 product; biases stay fp32, added outside the products as in the JAX
 kernel.  JAX on the CPU computes DEFAULT as full fp32, so only the port's
-CPU tests see this rounding.
+CPU tests see this rounding.  `compute_dtype=torch.bfloat16` (JAX
+`ops/fused_chain.py:166-241`) rounds the same operands, stores the
+residual stream rounded (x_0 after its tanh, x_l after each residual add,
+done in fp32) and keeps the FIFO ring as bf16; JAX's casts are explicit
+there, so JAX on the CPU is its oracle.  The precisions are
+`scan_generate.PRECISIONS`.
 
 The state format is `persistent.make_persistent_generator`'s: the plain
 [ring_size, B, R] FIFO ring of `init_ring`, `fifo_schedule`, and `ring` /
@@ -48,7 +53,8 @@ from nv_wavenet_tpu_torch.utils import build
 FOLDED_ORDER = ("embed", "wprev", "wres", "bres", "g_pack", "wcur_cat",
                 "wskip_cat", "fbias", "skipb", "out_w", "out_b", "end_w",
                 "end_b")
-# the folded tensors that enter products: bf16-rounded under fast_math
+# the folded tensors that enter products: bf16-rounded under fast_math and
+# compute_dtype=torch.bfloat16
 PRODUCT_WEIGHTS = ("embed", "wprev", "wres", "g_pack", "wcur_cat",
                    "wskip_cat", "out_w", "end_w")
 
@@ -57,13 +63,14 @@ _I = ctypes.c_int
 _ARGTYPES = ([_P] * 20 + [ctypes.c_longlong] + [_I] * 11
              + [ctypes.c_ulonglong, _P])
 # K6: one CTA per batch row, all steps inside one launch; one entry point
-# per (selector source, fast_math) instance
+# per (selector source, precision) instance
 FUSED_KERNELS = {
-    (sel, fast): build.CudaKernel(
-        "fused_chain.cu",
+    (sel, prec): build.CudaKernel(
+        build.unit("fused_chain.cu", prec),
         "nvw_fused_generate" + ("" if sel == "injected" else "_" + sel)
-        + ("_fast" if fast else ""), _ARGTYPES)
-    for sel in ("injected", "forced", "prng") for fast in (False, True)}
+        + ("" if prec == "exact" else "_" + prec), _ARGTYPES)
+    for sel in ("injected", "forced", "prng")
+    for prec in scan_generate.PRECISIONS}
 _SEL = {"sample": "injected", "argmax": "injected", "forced": "forced",
         "prng": "prng"}
 THREADS = 256   # csrc/fused_chain.cu kThreads
@@ -73,11 +80,6 @@ def _row_stride(R: int, pack_gates: bool = False) -> int:
     """Rows of one layer's block in g_pack and wskip_cat: R packed, else the
     TPU's 128-lane blocks (max(R, 128); the pad rows are zero)."""
     return R if pack_gates else max(R, 128)
-
-
-def _round_bf16(t: torch.Tensor) -> torch.Tensor:
-    """The fp32 value of t rounded to bf16 (round to nearest even)."""
-    return t.to(torch.bfloat16).to(torch.float32)
 
 
 def fold_params(params: Dict[str, torch.Tensor], cfg: WaveNetConfig,
@@ -119,16 +121,18 @@ def fold_params(params: Dict[str, torch.Tensor], cfg: WaveNetConfig,
 
 def prepare_weights(params: Dict[str, torch.Tensor], cfg: WaveNetConfig,
                     prefold_cond: bool, weight_dtype=torch.float32,
-                    pack_gates: bool = False, fast_math: bool = False
-                    ) -> tuple:
+                    pack_gates: bool = False, fast_math: bool = False,
+                    compute_dtype=torch.float32) -> tuple:
     """The fold plus embed/out_w/out_b/end_w/end_b as K6's operand tuple
     (FOLDED_ORDER), contiguous fp32 tensors on the params' device holding
     the values the storage computes with: every tensor rounded to bf16
     under weight_dtype=torch.bfloat16 (the fold itself is taken over the
-    fp32 weights), and under fast_math also the matrices that enter
-    products (PRODUCT_WEIGHTS).  Callers that reuse weights (the engine)
-    run it once per weight upload; pack_gates must match the generator's."""
+    fp32 weights), and under fast_math or compute_dtype=torch.bfloat16
+    also the matrices that enter products (PRODUCT_WEIGHTS).  Callers that
+    reuse weights (the engine) run it once per weight upload; pack_gates
+    must match the generator's."""
     persistent.check_storage(weight_dtype, False)
+    lowp = scan_generate.precision(compute_dtype, fast_math) != "exact"
     folded = fold_params(params, cfg, prefold_cond, pack_gates)
     for k in ("embed", "out_w", "end_w"):
         folded[k] = params[k].to(torch.float32)
@@ -137,9 +141,9 @@ def prepare_weights(params: Dict[str, torch.Tensor], cfg: WaveNetConfig,
     out = []
     for k in FOLDED_ORDER:
         v = folded[k]
-        if weight_dtype == torch.bfloat16 or (fast_math
+        if weight_dtype == torch.bfloat16 or (lowp
                                               and k in PRODUCT_WEIGHTS):
-            v = _round_bf16(v)
+            v = scan_generate.round_bf16(v)
         out.append(v.contiguous())
     return tuple(out)
 
@@ -195,7 +199,8 @@ def generate_fused_plain(cfg: WaveNetConfig, weights: tuple, t0: int,
                          cond: torch.Tensor, sel: torch.Tensor,
                          ring: torch.Tensor, y_state: torch.Tensor,
                          n_valid: int, mode: str = "sample", seed: int = 0,
-                         fast_math: bool = False, pack_gates: bool = False):
+                         fast_math: bool = False, pack_gates: bool = False,
+                         compute_dtype=torch.float32):
     """The plain version of K6, on any device, in the JAX kernel's
     association (`_do_sample_step`): per step the embedding and exact tanh;
     all L x_{t-d} Wprev_l from the FIFO, read before any write of the step;
@@ -203,17 +208,20 @@ def generate_fused_plain(cfg: WaveNetConfig, weights: tuple, t0: int,
     then u + hbuf[:, :l*P] G_l for l > 0, h = tanh(u[:R]) * sigmoid(u[R:]);
     skip = relu(hbuf wskip_cat + skipb), zs, za; the sampler; and the
     residual stream x_l = (x_{l-1} + h_{l-1} Wres_{l-1}) + bres_{l-1} for
-    the FIFO writes.  Under fast_math every product takes bf16-rounded
-    activations (the weights arrive rounded).  Outputs as
-    `make_fused_generator`'s."""
+    the FIFO writes.  Under fast_math and compute_dtype=torch.bfloat16
+    every product takes bf16-rounded activations (the weights arrive
+    rounded); under bf16 x_0 and each x_l are stored rounded and the ring
+    is bf16.  Outputs as `make_fused_generator`'s."""
     (embed, wprev, wres, bres, g_pack, wcur_cat, wskip_cat, fbias, skipb,
      out_w, out_b, end_w, end_b) = weights
     scan_generate._check_fp32_matmul(cond)
+    prec = scan_generate.precision(compute_dtype, fast_math)
+    scan_generate.check_ring(ring, prec)
     L, R, A = cfg.num_layers, cfg.R, cfg.A
     P = _row_stride(R, pack_gates)
     T, _, B, _ = cond.shape
     dev = cond.device
-    q = _round_bf16 if fast_math else (lambda x: x)
+    q, st = scan_generate.roundings(prec)   # an operand, the stored x
     if mode == "prng":
         sel = torch.from_numpy(scan_generate.prng_uniform_sel(
             seed, np.arange(t0, t0 + n_valid), B)).to(dev)
@@ -225,9 +233,9 @@ def generate_fused_plain(cfg: WaveNetConfig, weights: tuple, t0: int,
         t = t0 + j
         slots = [off + (t & (d - 1))
                  for off, d in zip(cfg.ring_offsets, cfg.dilations)]
-        x0 = scan_generate.embed_lookup(embed, y_prev, y_cur, A,
-                                        cfg.tanh_embed)
-        xp = ring[slots]                                   # [L, B, R]
+        x0 = st(scan_generate.embed_lookup(embed, y_prev, y_cur, A,
+                                           cfg.tanh_embed))
+        xp = ring[slots].to(torch.float32)                 # [L, B, R]
         pts = torch.bmm(q(xp), wprev)                      # [L, B, 2R]
         w0 = q(x0) @ wcur_cat                              # [B, L*2R]
         hbuf = torch.zeros((B, L * P), dtype=torch.float32, device=dev)
@@ -257,8 +265,8 @@ def generate_fused_plain(cfg: WaveNetConfig, weights: tuple, t0: int,
         x = x0
         for l in range(L):
             if l > 0:
-                x = (x + q(hs[l - 1]) @ wres[l - 1]) + bres[l - 1]
-            ring[slots[l]] = x
+                x = st((x + q(hs[l - 1]) @ wres[l - 1]) + bres[l - 1])
+            ring[slots[l]] = x.to(ring.dtype)
         y_prev, y_cur = y_cur, y_t
         y[j] = y_t
     y_state[0] = y_prev
@@ -271,7 +279,7 @@ def _launch_fused(cfg: WaveNetConfig, plan: FusedPlan, weights: tuple,
                   sched: torch.Tensor, t0: int, cond: torch.Tensor,
                   sel: torch.Tensor, ring: torch.Tensor,
                   y_state: torch.Tensor, n_valid: int, mode: str,
-                  fast_math: bool, seed: int):
+                  prec: str, seed: int):
     T, _, B, _ = cond.shape
     dev = cond.device
     y = torch.zeros((T, B), dtype=torch.int32, device=dev)
@@ -283,7 +291,7 @@ def _launch_fused(cfg: WaveNetConfig, plan: FusedPlan, weights: tuple,
             raise ValueError(f"K6 loads {name} in 16-byte units: it must "
                              f"start on a 16-byte boundary")
     if n_valid:
-        FUSED_KERNELS[(_SEL[mode], fast_math)](
+        FUSED_KERNELS[(_SEL[mode], prec)](
             *(w.data_ptr() for w in weights), cond.data_ptr(),
             None if mode == "prng" else sel.data_ptr(), sched.data_ptr(),
             ring.data_ptr(), y_state.data_ptr(), y.data_ptr(),
@@ -299,7 +307,8 @@ def _launch_fused(cfg: WaveNetConfig, plan: FusedPlan, weights: tuple,
 def make_fused_generator(cfg: WaveNetConfig, batch: int,
                          mode: str = "sample", weight_dtype=torch.float32,
                          fast_math: bool = False, prefold_cond: bool = False,
-                         pack_gates: bool = False):
+                         pack_gates: bool = False,
+                         compute_dtype=torch.float32):
     """Build `generate(params_or_prepared, t0, cond, sel, ring, y_state,
     n_valid=None, seed=0)` with `persistent.make_persistent_generator`'s
     call and state format: cond [T, L, B, 2R] (dil_b folded in when
@@ -307,7 +316,9 @@ def make_fused_generator(cfg: WaveNetConfig, batch: int,
     [ring_size, B, R] from `init_ring`, y_state [2, B] int32, both updated
     in place.  `params_or_prepared` is a canonical params dict (folded
     inline) or the tuple of `prepare_weights` with this generator's
-    prefold_cond, weight_dtype, pack_gates and fast_math.
+    prefold_cond, weight_dtype, pack_gates, fast_math and compute_dtype.
+    The ring is bf16 under compute_dtype=torch.bfloat16 (`init_ring` with
+    `scan_generate.ring_dtype`), else fp32.
 
     Modes: "sample", "argmax", "prng" (Philox selectors,
     `scan_generate.prng_uniform_sel`) and "forced" (sel holds the symbols;
@@ -318,6 +329,7 @@ def make_fused_generator(cfg: WaveNetConfig, batch: int,
     if mode not in scan_generate.MODES:
         raise ValueError(f"unknown mode {mode!r}")
     persistent.check_storage(weight_dtype, False)
+    prec = scan_generate.precision(compute_dtype, fast_math)
     plan = fused_plan(cfg, pack_gates)
     L, R, A = cfg.num_layers, cfg.R, cfg.A
     B = batch
@@ -331,13 +343,14 @@ def make_fused_generator(cfg: WaveNetConfig, batch: int,
         if dev.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {dev}")
         weights = (prepare_weights(params, cfg, prefold_cond, weight_dtype,
-                                   pack_gates, fast_math)
+                                   pack_gates, fast_math, compute_dtype)
                    if isinstance(params, dict) else tuple(params))
         T = cond.shape[0]
         check_t = build.check_tensor
         check_t(cond, "cond", torch.float32, (T, L, B, 2 * R), dev)
         check_t(sel, "sel", torch.float32, (T, B), dev)
-        check_t(ring, "ring", torch.float32, (cfg.ring_size, B, R), dev)
+        check_t(ring, "ring", scan_generate.ring_dtype(prec),
+                (cfg.ring_size, B, R), dev)
         check_t(y_state, "y_state", torch.int32, (2, B), dev)
         if len(weights) != len(FOLDED_ORDER):
             raise ValueError(f"expected the {len(FOLDED_ORDER)} tensors of "
@@ -359,11 +372,10 @@ def make_fused_generator(cfg: WaveNetConfig, batch: int,
         if dev.type == "cpu":
             return generate_fused_plain(cfg, weights, t0, cond, sel, ring,
                                         y_state, n_valid, mode, int(seed),
-                                        fast_math, pack_gates)
+                                        fast_math, pack_gates, compute_dtype)
         if dev not in scheds:
             scheds[dev] = persistent.fifo_schedule(cfg, dev)
         return _launch_fused(cfg, plan, weights, scheds[dev], t0, cond, sel,
-                             ring, y_state, n_valid, mode, fast_math,
-                             int(seed))
+                             ring, y_state, n_valid, mode, prec, int(seed))
 
     return generate

@@ -12,6 +12,13 @@ ragged feeds of the serving path).  A CUDA tensor launches the kernel; a CPU
 tensor runs the plain loop of `ops/scan_generate.py`.  Nothing falls back
 from one to the other.
 
+Precision (`fast_math`, `compute_dtype`; `scan_generate.PRECISIONS`): each
+of K1, K2, K3, K5 and K4 has an instance per precision, with its own entry
+point and launch count (`PERSISTENT_KERNELS[prec]`, ...).  "fast" and
+"bf16" compute with the storage's values rounded to bf16 where they enter
+products (`scan_generate.product_view`, made once per params object), and
+"bf16" keeps the FIFO ring as bf16 (`init_ring(dtype=...)`).
+
 Weight storage and streaming (K4, the engine's `Impl.MANYBLOCK`):
   * `weight_dtype=torch.bfloat16` stores the nine parameters as bf16; every
     path computes with their fp32 values, `value_view`.  `stream_quant`
@@ -70,24 +77,34 @@ _DUMP_KEYS = ("xt", "skip", "zs", "za", "p")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
+
+def _kernels(source: str, symbol: str, argtypes) -> Dict[str, build.CudaKernel]:
+    """One entry point per precision, each in its precision's library
+    (`build.unit`): `symbol` for "exact", `symbol_fast` and `symbol_bf16`
+    for the others."""
+    return {p: build.CudaKernel(build.unit(source, p), symbol + (
+        "" if p == "exact" else "_" + p), argtypes)
+            for p in scan_generate.PRECISIONS}
+
+
 # K1: one CTA per batch row, all steps and layers inside one launch
-PERSISTENT_KERNEL = build.CudaKernel(
+PERSISTENT_KERNELS = _kernels(
     "persistent.cu", "nvw_persistent_generate",
     [_P] * 19 + [ctypes.c_longlong] + [_I] * 9 + [_P])
 # K5: K1's instance with per-row clocks and lengths (ragged feeds)
-RAGGED_KERNEL = build.CudaKernel(
+RAGGED_KERNELS = _kernels(
     "persistent.cu", "nvw_persistent_generate_ragged",
     [_P] * 16 + [_I] * 7 + [_P])
 # K2: K1's instance that consumes the symbols in sel and writes p_seq
-FORCED_KERNEL = build.CudaKernel(
+FORCED_KERNELS = _kernels(
     "persistent.cu", "nvw_persistent_generate_forced",
     [_P] * 20 + [ctypes.c_longlong] + [_I] * 8 + [_P])
 # K3: K1's instance that draws its selectors from Philox on the card
-PRNG_KERNEL = build.CudaKernel(
+PRNG_KERNELS = _kernels(
     "persistent.cu", "nvw_persistent_generate_prng",
     [_P] * 18 + [ctypes.c_longlong] + [_I] * 8 + [ctypes.c_ulonglong, _P])
 # K4: K1 with dil_w and rs_w streamed through shared memory, every mode
-STREAM_KERNEL = build.CudaKernel(
+STREAM_KERNELS = _kernels(
     "stream_generate.cu", "nvw_stream_generate",
     [_P] * 22 + [ctypes.c_longlong, ctypes.c_ulonglong] + [_I] * 15 + [_P])
 _STREAM_MODE_IDS = {"sample": 0, "argmax": 1, "forced": 2, "prng": 3}
@@ -181,10 +198,24 @@ class StreamPlan(NamedTuple):
     waves: int                # CTA waves of the batch, one CTA per SM
 
 
+def stream_storage(weight_dtype=torch.float32, stream_quant: bool = False,
+                   prec: str = "exact"):
+    """The dtype K4's stacks are stored in on the card: int8 under
+    stream_quant, else bf16 under the low precisions (the stacks enter
+    products rounded to bf16, so bf16 holds their operands exactly), else
+    weight_dtype."""
+    if stream_quant:
+        return torch.int8
+    return torch.bfloat16 if prec != "exact" else weight_dtype
+
+
 def stream_plan(cfg: WaveNetConfig, batch: int, storage=torch.float32,
-                stream_group_size: int = 8) -> StreamPlan:
+                stream_group_size: int = 8, prec: str = "exact"
+                ) -> StreamPlan:
     """Decide K4's stages for `batch` rows with the stacks stored as
-    `storage` (torch.float32, torch.bfloat16 or torch.int8).
+    `storage` (torch.float32, torch.bfloat16 or torch.int8; `stream_storage`)
+    in precision `prec` (`scan_generate.PRECISIONS`; "fast" keeps a rounded
+    copy of x beside the activations, R more floats).
 
     A stage is one block of `rows_per_stage` whole rows: for dil_w those
     rows of Wprev and of Wcur, for rs_w those rows of [R, R+S]; a layer
@@ -203,6 +234,9 @@ def stream_plan(cfg: WaveNetConfig, batch: int, storage=torch.float32,
     if storage not in _STORAGE_IDS:
         raise ValueError(f"K4 stores its stacks as {list(_STORAGE_IDS)}, "
                          f"got {storage}")
+    if prec != "exact" and storage == torch.float32:
+        raise ValueError(f"K4 in precision {prec!r} takes its stacks as bf16 "
+                         f"or int8 (stream_storage)")
     if batch < 1:
         raise ValueError(f"batch must be >= 1, got {batch}")
     L, R, S, A = cfg.num_layers, cfg.R, cfg.S, cfg.A
@@ -215,7 +249,8 @@ def stream_plan(cfg: WaveNetConfig, batch: int, storage=torch.float32,
         if n * eb % 16:
             raise ValueError(f"K4 copies whole 16-byte units: a row of "
                              f"{name} is {n * eb} bytes in {storage}")
-    act = -(-(7 * R + S + 4 * A) * 4 // 16) * 16
+    act = -(-(7 * R + S + 4 * A + (R if prec == "fast" else 0)) * 4
+            // 16) * 16
     budget = SMEM_PER_BLOCK - _STATIC_SMEM - act - 8
     rows = R & -R
     while True:
@@ -240,7 +275,8 @@ def stream_plan(cfg: WaveNetConfig, batch: int, storage=torch.float32,
 def init_ring(cfg: WaveNetConfig, batch: int, device,
               dtype=torch.float32) -> torch.Tensor:
     """Zero FIFO state [ring_size, batch, R]: 'no past activations', as the
-    golden model treats t < d_l."""
+    golden model treats t < d_l.  dtype: torch.bfloat16 under the "bf16"
+    precision (`scan_generate.ring_dtype`), else fp32."""
     return torch.zeros((cfg.ring_size, batch, cfg.R), dtype=dtype,
                        device=device)
 
@@ -248,16 +284,17 @@ def init_ring(cfg: WaveNetConfig, batch: int, device,
 def generate_plain(cfg: WaveNetConfig, params: Dict[str, torch.Tensor],
                    t0, cond_pre: torch.Tensor, sel: torch.Tensor,
                    ring: torch.Tensor, y_state: torch.Tensor, n_valid,
-                   mode: str = "sample", dump: bool = False, seed: int = 0):
-    """The plain version of K1, K2, K3 and K5, on any device: the loop of
-    `scan_generate.run_steps`, with the kernel's outputs (see
-    `make_persistent_generator`).  t0 and n_valid are ints (K1, K2, K3) or
-    the per-row host tensors t0_row and n_valid_row (K5)."""
+                   mode: str = "sample", dump: bool = False, seed: int = 0,
+                   prec: str = "exact"):
+    """The plain version of K1, K2, K3 and K5 in precision `prec`, on any
+    device: the loop of `scan_generate.run_steps`, with the kernel's outputs
+    (see `make_persistent_generator`).  t0 and n_valid are ints (K1, K2, K3)
+    or the per-row host tensors t0_row and n_valid_row (K5)."""
     if isinstance(n_valid, torch.Tensor):
         t0, n_valid = t0.to(cond_pre.device), n_valid.to(cond_pre.device)
     y, aux, p_seq = scan_generate.run_steps(
         params, cfg, t0, cond_pre, sel, ring, y_state, n_valid, mode, dump,
-        seed, "p" if mode == "forced" else None)
+        seed, "p" if mode == "forced" else None, prec)
     out = (y, ring, y_state)
     if dump:
         if aux is None:
@@ -291,7 +328,7 @@ def _launch_kernel(cfg: WaveNetConfig, params: Dict[str, torch.Tensor],
                    sched: torch.Tensor, t0: int, cond_pre: torch.Tensor,
                    sel: torch.Tensor, ring: torch.Tensor,
                    y_state: torch.Tensor, n_valid: int, mode: str, dump: bool,
-                   seed: int):
+                   seed: int, prec: str):
     T, _, B, _ = cond_pre.shape
     dev = cond_pre.device
     y = torch.zeros((T, B), dtype=torch.int32, device=dev)
@@ -309,14 +346,14 @@ def _launch_kernel(cfg: WaveNetConfig, params: Dict[str, torch.Tensor],
     stream = build.current_stream(dev)
     if n_valid:
         if mode == "forced":
-            FORCED_KERNEL(*head, sel.data_ptr(), *state, p_seq.data_ptr(),
-                          *shape, stream)
+            FORCED_KERNELS[prec](*head, sel.data_ptr(), *state,
+                                 p_seq.data_ptr(), *shape, stream)
         elif mode == "prng":
-            PRNG_KERNEL(*head, *state, *shape, seed & 0xFFFFFFFFFFFFFFFF,
-                        stream)
+            PRNG_KERNELS[prec](*head, *state, *shape,
+                               seed & 0xFFFFFFFFFFFFFFFF, stream)
         else:
-            PERSISTENT_KERNEL(*head, sel.data_ptr(), *state, *shape,
-                              _MODE_IDS[mode], stream)
+            PERSISTENT_KERNELS[prec](*head, sel.data_ptr(), *state, *shape,
+                                     _MODE_IDS[mode], stream)
     out = (y, ring, y_state)
     if dump:
         out += tuple(dumps[k] for k in _DUMP_KEYS)
@@ -330,7 +367,7 @@ def _launch_stream(cfg: WaveNetConfig, plan: StreamPlan, prefetch: bool,
                    sched: torch.Tensor, t0: int, cond_pre: torch.Tensor,
                    sel: torch.Tensor, ring: torch.Tensor,
                    y_state: torch.Tensor, n_valid: int, mode: str, dump: bool,
-                   seed: int):
+                   seed: int, prec: str):
     """K4: `params` gives the fp32 values of the small tensors, `stacks`
     the stored (dil_w, rs_w, dil_s, rs_s); outputs as `_launch_kernel`."""
     T, _, B, _ = cond_pre.shape
@@ -347,7 +384,7 @@ def _launch_stream(cfg: WaveNetConfig, plan: StreamPlan, prefetch: bool,
                          "must start on a 16-byte boundary")
     if n_valid:
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-        STREAM_KERNEL(
+        STREAM_KERNELS[prec](
             params["embed"].data_ptr(), dil.data_ptr(), rs.data_ptr(),
             ptr(dil_s), ptr(rs_s),
             *(params[k].data_ptr() for k in _WEIGHTS[3:]),
@@ -367,7 +404,7 @@ def _launch_ragged(cfg: WaveNetConfig, params: Dict[str, torch.Tensor],
                    sched: torch.Tensor, t0_row: torch.Tensor,
                    cond_pre: torch.Tensor, sel: torch.Tensor,
                    ring: torch.Tensor, y_state: torch.Tensor,
-                   n_valid_row: torch.Tensor):
+                   n_valid_row: torch.Tensor, prec: str):
     T, _, B, _ = cond_pre.shape
     dev = cond_pre.device
     # zeros, never empty: K5 writes no step past a row's length
@@ -377,7 +414,7 @@ def _launch_ragged(cfg: WaveNetConfig, params: Dict[str, torch.Tensor],
         # nothing queued before it
         t0_dev, nv_dev = (x.pin_memory().to(dev, non_blocking=True)
                           for x in (t0_row, n_valid_row))
-        RAGGED_KERNEL(
+        RAGGED_KERNELS[prec](
             *(params[k].data_ptr() for k in _WEIGHTS),
             cond_pre.data_ptr(), sel.data_ptr(), sched.data_ptr(),
             ring.data_ptr(), y_state.data_ptr(), y.data_ptr(),
@@ -387,15 +424,15 @@ def _launch_ragged(cfg: WaveNetConfig, params: Dict[str, torch.Tensor],
     return y, ring, y_state
 
 
-def _stream_stacks(params: Dict[str, torch.Tensor], weight_dtype,
-                   stream_quant: bool) -> tuple:
-    """K4's stored stacks (dil_w, rs_w, dil_s, rs_s): int8 with their scales,
-    bf16, or the fp32 tensors themselves (no scales)."""
-    if stream_quant:
+def _stream_stacks(params: Dict[str, torch.Tensor], storage) -> tuple:
+    """K4's stored stacks (dil_w, rs_w, dil_s, rs_s) in `storage`
+    (`stream_storage`): int8 with their scales, bf16, or the fp32 tensors
+    themselves (no scales)."""
+    if storage == torch.int8:
         qd, sd, qr, sr = quantize_stream_weights(params)
         return qd, qr, sd, sr
-    return (params["dil_w"].to(weight_dtype).contiguous(),
-            params["rs_w"].to(weight_dtype).contiguous(), None, None)
+    return (params["dil_w"].to(storage).contiguous(),
+            params["rs_w"].to(storage).contiguous(), None, None)
 
 
 def make_persistent_generator(cfg: WaveNetConfig, batch: int,
@@ -405,7 +442,9 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
                               stream_group_size: int = 8,
                               stream_prefetch: bool = False,
                               stream_quant: bool = False,
-                              ragged: bool = False):
+                              ragged: bool = False,
+                              compute_dtype=torch.float32,
+                              fast_math: bool = False):
     """Build `generate(params, t0, cond_pre, sel, ring, y_state, n_valid=None,
     seed=0)` (K1, K2, K3), or with ragged=True `generate(params, t0_row,
     cond_pre, sel, ring, y_state, n_valid_row)` (K5).
@@ -445,9 +484,18 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
     (bf16 stacks, or int8 stacks and their scales), both built once per
     params object.  stream_group_size and stream_prefetch schedule K4's
     copies (`stream_plan`) and change no value.  ragged=True never streams.
+
+    Precision (`scan_generate.precision(compute_dtype, fast_math)`): under
+    fast_math or compute_dtype=torch.bfloat16 every path computes with
+    `scan_generate.product_view` of the storage's values and rounds the
+    activations entering products; K4 then streams the stacks as bf16
+    (`stream_storage`; int8 stays int8).  compute_dtype=torch.bfloat16
+    stores x rounded and takes the ring as bf16 (`init_ring(dtype=
+    scan_generate.ring_dtype(...))`); a ring of another dtype raises.
     """
     if mode not in scan_generate.MODES:
         raise ValueError(f"unknown mode {mode!r}")
+    prec = scan_generate.precision(compute_dtype, fast_math)
     stream_quant = bool(stream_quant and stream_weights)
     check_storage(weight_dtype, stream_quant)
     if ragged and (mode != "sample" or dump or stream_weights):
@@ -456,27 +504,31 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
                          "variant")
     L, R, A = cfg.num_layers, cfg.R, cfg.A
     B = batch
-    plan = (stream_plan(cfg, B, torch.int8 if stream_quant else weight_dtype,
-                        stream_group_size) if stream_weights else None)
+    plan = (stream_plan(cfg, B, stream_storage(weight_dtype, stream_quant,
+                                               prec),
+                        stream_group_size, prec) if stream_weights else None)
     shapes = params_lib.canonical_shapes(L, R, cfg.S, A)
     scheds: Dict[torch.device, torch.Tensor] = {}  # the FIFO layout per card
     stored: Dict[str, tuple] = {}   # the last params object's storage
 
     def storage(params, dev):
-        """(value view, K4's stacks or None), rebuilt when a tensor of
-        params is replaced or changed in place."""
+        """(the values the products take, K4's stacks or None), rebuilt
+        when a tensor of params is replaced or changed in place."""
         if (weight_dtype == torch.float32 and not stream_quant
-                and plan is None):
+                and plan is None and prec == "exact"):
             return params, None
         src = tuple(params[k] for k in params_lib.PARAM_ORDER)
         key = tuple(t._version for t in src)
         old = stored.get("src")
         if (old is None or stored["key"] != key
                 or any(a is not b for a, b in zip(old, src))):
-            stacks = (_stream_stacks(params, weight_dtype, stream_quant)
+            view = scan_generate.product_view(
+                value_view(params, weight_dtype, stream_quant), prec)
+            # int8 quantises the canonical params; K4 rounds q * s itself
+            stacks = (_stream_stacks(params if stream_quant else view,
+                                     plan.storage)
                       if plan is not None and dev.type == "cuda" else None)
-            stored.update(src=src, key=key, stacks=stacks, view=value_view(
-                params, weight_dtype, stream_quant))
+            stored.update(src=src, key=key, stacks=stacks, view=view)
         return stored["view"], stored["stacks"]
 
     def check(params, cond_pre, sel, ring, y_state):
@@ -487,7 +539,8 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
         check_t = build.check_tensor
         check_t(cond_pre, "cond_pre", torch.float32, (T, L, B, 2 * R), dev)
         check_t(sel, "sel", torch.float32, (T, B), dev)
-        check_t(ring, "ring", torch.float32, (cfg.ring_size, B, R), dev)
+        check_t(ring, "ring", scan_generate.ring_dtype(prec),
+                (cfg.ring_size, B, R), dev)
         check_t(y_state, "y_state", torch.int32, (2, B), dev)
         for k, shape in shapes.items():
             check_t(params[k], k, torch.float32, shape, dev)
@@ -515,13 +568,16 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
         view, stacks = storage(params, dev)
         if dev.type == "cpu":
             return generate_plain(cfg, view, t0, cond_pre, sel, ring,
-                                  y_state, n_valid, mode, dump, int(seed))
+                                  y_state, n_valid, mode, dump, int(seed),
+                                  prec)
         if plan is not None:
             return _launch_stream(cfg, plan, stream_prefetch, view, stacks,
                                   scheds[dev], t0, cond_pre, sel, ring,
-                                  y_state, n_valid, mode, dump, int(seed))
+                                  y_state, n_valid, mode, dump, int(seed),
+                                  prec)
         return _launch_kernel(cfg, view, scheds[dev], t0, cond_pre, sel,
-                              ring, y_state, n_valid, mode, dump, int(seed))
+                              ring, y_state, n_valid, mode, dump, int(seed),
+                              prec)
 
     def generate_ragged(params: Dict[str, torch.Tensor],
                         t0_row: torch.Tensor, cond_pre: torch.Tensor,
@@ -539,8 +595,8 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
         view, _ = storage(params, dev)
         if dev.type == "cpu":
             return generate_plain(cfg, view, t0_row, cond_pre, sel, ring,
-                                  y_state, n_valid_row)
+                                  y_state, n_valid_row, prec=prec)
         return _launch_ragged(cfg, view, scheds[dev], t0_row, cond_pre,
-                              sel, ring, y_state, n_valid_row)
+                              sel, ring, y_state, n_valid_row, prec)
 
     return generate_ragged if ragged else generate

@@ -26,6 +26,23 @@ row per table, so it yields exactly fl(row_prev + row_cur) too.
 The ring is the plain [ring_size, B, R] FIFO buffer of
 `WaveNetConfig.ring_offsets`, updated IN PLACE (torch may update in place
 where the JAX version is functional; it saves a ring copy per step).
+
+Precision (`PRECISIONS`, one definition for the whole port; JAX
+`ops/persistent.py:550, 553, 589-591`, `ops/scan_generate.py:94-142`):
+  * "exact": fp32 throughout, the contract above;
+  * "fast" (fast_math): the TPU's DEFAULT matrix precision.  Every weight
+    matrix that enters a product (`PRODUCT_PARAMS`) is rounded to bf16
+    (`product_view`, after the temperature and the storage's values) and
+    every activation as it enters one: x_{t-d}, x, h, relu(skip), zs.  A
+    bf16 x bf16 product is exact in fp32 and the sums stay fp32; biases and
+    cond_pre are never rounded; x and the ring stay fp32;
+  * "bf16" (compute_dtype=bfloat16): "fast", and x is stored rounded after
+    the embedding's tanh and after every residual add (done in fp32), and
+    the ring holds bf16.
+The dumps hold skip and zs before their rounding, xt as stored.  JAX's scan
+rounds the embedding only after its lookup (its one-hot product runs at
+DEFAULT precision, which XLA:CPU computes as fp32); the kernels of both
+packages round the table first, and so does the port everywhere.
 """
 
 from __future__ import annotations
@@ -39,6 +56,9 @@ from nv_wavenet_tpu_torch.config import WaveNetConfig
 from nv_wavenet_tpu_torch.ops import exact_math as em
 
 MODES = ("sample", "argmax", "forced", "prng")
+PRECISIONS = ("exact", "fast", "bf16")
+# the canonical params that enter products: bf16-rounded unless "exact"
+PRODUCT_PARAMS = ("embed", "dil_w", "rs_w", "out_w", "end_w")
 
 # Philox4x32-10 (Salmon et al., SC '11), the constants of Random123
 PHILOX_M = (np.uint64(0xD2511F53), np.uint64(0xCD9E8D57))
@@ -76,6 +96,59 @@ def prng_uniform_sel(seed: int, t, B: int) -> np.ndarray:
         (seed & _U32, seed >> np.uint64(32)))[0]
     return ((word0 >> np.uint64(8)).astype(np.float32)
             * np.float32(2.0 ** -24))
+
+
+def precision(compute_dtype=torch.float32, fast_math: bool = False) -> str:
+    """The precision of a dispatch (`PRECISIONS`): "bf16" under
+    compute_dtype=torch.bfloat16 (with or without fast_math: both are
+    DEFAULT precision in JAX), "fast" under fast_math, else "exact".
+    Raises ValueError for any other compute_dtype."""
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype must be torch.float32 or "
+                         f"torch.bfloat16, got {compute_dtype}")
+    if compute_dtype == torch.bfloat16:
+        return "bf16"
+    return "fast" if fast_math else "exact"
+
+
+def ring_dtype(prec: str) -> torch.dtype:
+    """The FIFO ring's dtype under a precision: bf16 only under "bf16"."""
+    return torch.bfloat16 if prec == "bf16" else torch.float32
+
+
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """The fp32 value of t rounded to bf16 (round to nearest even)."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _identity(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def roundings(prec: str):
+    """(operand, stored): what an activation becomes as it enters a
+    product, and what the residual stream x is stored as, under `prec`."""
+    _check_precision(prec)
+    return (_identity if prec == "exact" else round_bf16,
+            round_bf16 if prec == "bf16" else _identity)
+
+
+def product_view(params: Dict[str, torch.Tensor], prec: str
+                 ) -> Dict[str, torch.Tensor]:
+    """params with the matrices that enter products (`PRODUCT_PARAMS`)
+    rounded to bf16 under "fast" and "bf16"; the params themselves under
+    "exact".  Idempotent."""
+    _check_precision(prec)
+    if prec == "exact":
+        return params
+    return {k: round_bf16(v) if k in PRODUCT_PARAMS else v
+            for k, v in params.items()}
+
+
+def _check_precision(prec: str) -> None:
+    if prec not in PRECISIONS:
+        raise ValueError(f"unknown precision {prec!r}; the port has "
+                         f"{PRECISIONS}")
 
 
 class GenState(NamedTuple):
@@ -117,6 +190,14 @@ def _check_mode(mode: str) -> None:
         raise ValueError(f"unknown mode {mode!r}; the port has {MODES}")
 
 
+def check_ring(ring: torch.Tensor, prec: str) -> None:
+    """Raise ValueError unless `ring` has the dtype of precision `prec`."""
+    _check_precision(prec)
+    if ring.dtype != ring_dtype(prec):
+        raise ValueError(f"precision {prec!r} keeps its FIFO ring as "
+                         f"{ring_dtype(prec)}, got {ring.dtype}")
+
+
 def _check_fp32_matmul(t: torch.Tensor) -> None:
     if t.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(
@@ -127,7 +208,8 @@ def _check_fp32_matmul(t: torch.Tensor) -> None:
 def step(params: Dict[str, torch.Tensor], cfg: WaveNetConfig,
          ring: torch.Tensor, y_prev: torch.Tensor, y_cur: torch.Tensor,
          t, zbias: torch.Tensor, sel_t: torch.Tensor, mode: str,
-         dump: bool = False, live: Optional[torch.Tensor] = None):
+         dump: bool = False, live: Optional[torch.Tensor] = None,
+         prec: str = "exact"):
     """One sample for every row.  zbias [L, B, 2R] is the term added to the
     dilated GEMM (dil_b + cond, or the pre-folded cond_pre).  `t` is the
     absolute index of the sample: an int shared by every row, or a [B] int64
@@ -135,11 +217,14 @@ def step(params: Dict[str, torch.Tensor], cfg: WaveNetConfig,
     clock.  `live` [B] bool (per-row clocks only): rows outside it keep their
     FIFO content.  sel_t [B]: the uniforms (modes "sample" and "prng"), or
     the symbols to emit as exact small-integer floats (mode "forced").
+    `prec` (`PRECISIONS`): params must be `product_view(params, prec)`; the
+    activations are rounded here, and the ring is bf16 under "bf16".
     Writes the FIFOs in `ring` in place.  Returns (y [B] int32, aux or None,
     za [B, A], p [B, A] in mode "forced" or with dump, else None)."""
     L, R, S, A = cfg.num_layers, cfg.R, cfg.S, cfg.A
     dils, offs = cfg.dilations, cfg.ring_offsets
-    x = embed_lookup(params["embed"], y_prev, y_cur, A, cfg.tanh_embed)
+    op, st = roundings(prec)
+    x = st(embed_lookup(params["embed"], y_prev, y_cur, A, cfg.tanh_embed))
     skip = torch.zeros((x.shape[0], S), dtype=x.dtype, device=x.device)
     rows = (torch.arange(x.shape[0], device=x.device)
             if isinstance(t, torch.Tensor) else None)
@@ -147,25 +232,25 @@ def step(params: Dict[str, torch.Tensor], cfg: WaveNetConfig,
     for l in range(L):
         slot = offs[l] + (t & (dils[l] - 1))
         if rows is None:
-            x_prev = ring[slot].clone()
-            ring[slot] = x
+            x_prev = ring[slot].to(torch.float32, copy=True)
+            ring[slot] = x.to(ring.dtype)
         else:
-            x_prev = ring[slot, rows]
-            ring[slot, rows] = (x if live is None
-                                else torch.where(live[:, None], x, x_prev))
+            x_prev = ring[slot, rows].to(torch.float32)
+            ring[slot, rows] = (x if live is None else torch.where(
+                live[:, None], x, x_prev)).to(ring.dtype)
         dw = params["dil_w"][l]
-        z = (x_prev @ dw[:R]) + (x @ dw[R:])
+        z = (op(x_prev) @ dw[:R]) + (op(x) @ dw[R:])
         z = z + zbias[l]
         h = em.tanh(z[:, :R]) * em.sigmoid(z[:, R:])
-        rs = h @ params["rs_w"][l]
-        x = (rs[:, :R] + params["rs_b"][l, :R]) + x
+        rs = op(h) @ params["rs_w"][l]
+        x = st((rs[:, :R] + params["rs_b"][l, :R]) + x)
         skip = (skip + rs[:, R:]) + params["rs_b"][l, R:]
         if dump:
             xt_dump.append(x)
             skip_dump.append(skip)
     skip = torch.clamp_min(skip, 0.0)
-    zs = torch.clamp_min(skip @ params["out_w"] + params["out_b"], 0.0)
-    za = zs @ params["end_w"] + params["end_b"]
+    zs = torch.clamp_min(op(skip) @ params["out_w"] + params["out_b"], 0.0)
+    za = op(zs) @ params["end_w"] + params["end_b"]
     if mode != "argmax" or dump:
         e, cum = em.softmax_cumsum(za)
     if mode == "argmax":
@@ -186,14 +271,18 @@ def step(params: Dict[str, torch.Tensor], cfg: WaveNetConfig,
 def wavenet_step(params: Dict[str, torch.Tensor], state: GenState,
                  cond_t: torch.Tensor, sel_t: torch.Tensor,
                  cfg: WaveNetConfig, mode: str = "sample",
-                 forced_y_t: Optional[torch.Tensor] = None, seed: int = 0):
+                 forced_y_t: Optional[torch.Tensor] = None, seed: int = 0,
+                 prec: str = "exact"):
     """One autoregressive sample for all utterances.  cond_t [L, B, 2R]
     (bias NOT folded: dil_b is added here); sel_t [B]; forced_y_t [B]: the
     symbols the chain consumes instead of its own samples; mode "prng"
-    draws `prng_uniform_sel(seed, state.t, B)`.  Returns (new_state, y [B]
+    draws `prng_uniform_sel(seed, state.t, B)`; prec: `PRECISIONS` (the
+    ring's dtype must be `ring_dtype(prec)`).  Returns (new_state, y [B]
     int32, aux dict of this step's activations)."""
     _check_mode(mode)
     _check_fp32_matmul(cond_t)
+    check_ring(state.ring, prec)
+    params = product_view(params, prec)
     if forced_y_t is not None:
         mode, sel_t = "forced", forced_y_t.to(torch.float32)
     elif mode == "prng":
@@ -201,7 +290,7 @@ def wavenet_step(params: Dict[str, torch.Tensor], state: GenState,
             seed, state.t, cond_t.shape[1])).to(cond_t.device)
     zbias = params["dil_b"][:, None, :] + cond_t
     y, aux, _, _ = step(params, cfg, state.ring, state.y_prev, state.y_cur,
-                        state.t, zbias, sel_t, mode, dump=True)
+                        state.t, zbias, sel_t, mode, dump=True, prec=prec)
     return GenState(state.ring, state.y_cur, y, state.t + 1), y, aux
 
 
@@ -209,8 +298,10 @@ def run_steps(params: Dict[str, torch.Tensor], cfg: WaveNetConfig, t0,
               cond_pre: torch.Tensor, sel: torch.Tensor, ring: torch.Tensor,
               y_state: torch.Tensor, n_valid, mode: str = "sample",
               dump: bool = False, seed: int = 0,
-              record: Optional[str] = None):
-    """The sequential loop, with the contract of kernels K1, K2, K3 and K5:
+              record: Optional[str] = None, prec: str = "exact"):
+    """The sequential loop, with the contract of kernels K1, K2, K3 and K5
+    in each precision `prec` (`PRECISIONS`; the weights are rounded here,
+    `product_view`, and the ring's dtype must be `ring_dtype(prec)`):
     cond_pre [T, L, B, 2R] has dil_b folded in; sel [T, B]; the first
     n_valid steps run from absolute index t0, the rest emit 0 and touch no
     state.  Updates `ring` and `y_state` [2, B] (y_prev, y_cur) in place.
@@ -229,6 +320,8 @@ def run_steps(params: Dict[str, torch.Tensor], cfg: WaveNetConfig, t0,
     the batched products, and their results are discarded."""
     _check_mode(mode)
     _check_fp32_matmul(cond_pre)
+    check_ring(ring, prec)
+    params = product_view(params, prec)
     T, _, B, _ = cond_pre.shape
     per_row = isinstance(n_valid, torch.Tensor)
     if per_row and (dump or mode != "sample" or record is not None):
@@ -251,7 +344,7 @@ def run_steps(params: Dict[str, torch.Tensor], cfg: WaveNetConfig, t0,
         y_t, step_aux, za, p = step(params, cfg, ring, y_prev, y_cur, t0 + j,
                                     cond_pre[j], sel[j], mode,
                                     dump=dump and j == n_valid - 1,
-                                    live=live)
+                                    live=live, prec=prec)
         aux = step_aux if step_aux is not None else aux
         if record:
             seq[j] = p if record == "p" else za
@@ -271,14 +364,17 @@ def generate(params: Dict[str, torch.Tensor], state: GenState,
              cond: torch.Tensor, selectors: torch.Tensor, cfg: WaveNetConfig,
              mode: str = "sample", dump: bool = False,
              forced_y: Optional[torch.Tensor] = None,
-             return_za: bool = False, seed: int = 0):
+             return_za: bool = False, seed: int = 0,
+             compute_dtype=torch.float32, fast_math: bool = False):
     """The full sequential loop.  cond [T, L, B, 2R] (raw: dil_b is added
     here, which rounds as the per-step dil_b + cond does); selectors [T, B];
     forced_y: optional [T, B] int teacher-forcing symbols, which the chain
-    consumes instead of its own samples; seed: mode "prng".  Returns
-    (final_state, y [B, T] int32, aux) where aux is the last step's
-    activations when dump=True, the per-step logits za [T, B, A] when
-    return_za=True, else None."""
+    consumes instead of its own samples; seed: mode "prng"; compute_dtype
+    and fast_math: the precision (`precision`; `init_state` with
+    `ring_dtype` of it).  Returns (final_state, y [B, T] int32, aux) where
+    aux is the last step's activations when dump=True, the per-step logits
+    za [T, B, A] when return_za=True, else None."""
+    prec = precision(compute_dtype, fast_math)
     T = cond.shape[0]
     cond_pre = cond + params["dil_b"][None, :, None, :]
     y_state = torch.stack([state.y_prev, state.y_cur])
@@ -286,6 +382,7 @@ def generate(params: Dict[str, torch.Tensor], state: GenState,
         mode, selectors = "forced", forced_y.to(torch.float32)
     record = "za" if return_za and not dump else None
     y, aux, za = run_steps(params, cfg, state.t, cond_pre, selectors,
-                           state.ring, y_state, T, mode, dump, seed, record)
+                           state.ring, y_state, T, mode, dump, seed, record,
+                           prec)
     return (GenState(state.ring, y_state[0], y_state[1], state.t + T), y.T,
             za if record else aux)

@@ -22,6 +22,16 @@ On the card the products run in K1's summation order (kernel K7,
 softmax in K0c, so p_seq, the ring and y_state equal the forced kernel K2's
 bit for bit; on the CPU the plain versions of the three run.
 
+compute_dtype=torch.bfloat16 (JAX `ops/score_parallel.py:46, 105-167`) is
+K2's "bf16" precision term for term (`scan_generate.PRECISIONS`): the
+matrices that enter products rounded to bf16 (`scan_generate.product_view`),
+x stored rounded after the embedding and after each residual add, h,
+relu(skip) and zs rounded as they enter products, the ring bf16; K7 sums
+the exact bf16 x bf16 products in K2's order, so the scorer still equals
+K2 of that precision bit for bit.  (JAX's scorer gathers the embedding
+before rounding it; its kernels, K2 and this scorer round the table first.)
+The JAX engine scores in fp32 under fast_math, and so does the port.
+
 Layer l's FIFO is the contiguous slot block [offs[l], offs[l] + d_l) of the
 ring, holding x^l at time tau in slot offs[l] + (tau mod d_l): the history
 is that block rotated by t0 mod d_l, and the write-back the window's last
@@ -38,6 +48,7 @@ import torch
 
 from nv_wavenet_tpu_torch.config import WaveNetConfig
 from nv_wavenet_tpu_torch.ops import exact_math as em
+from nv_wavenet_tpu_torch.ops import scan_generate
 from nv_wavenet_tpu_torch.ops.ordered_matmul import ordered_matmul
 from nv_wavenet_tpu_torch.utils import build
 
@@ -50,16 +61,20 @@ def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _write_back(ring: torch.Tensor, off: int, d: int, x_full: torch.Tensor,
                 t_end: int, nv: int) -> None:
     """Slots [off, off + d) of `ring` get the d layer inputs x_full[nv:nv+d]
-    (times t_end - d .. t_end - 1), each at its residue slot tau mod d."""
-    ring[off:off + d] = torch.roll(x_full[nv:nv + d], t_end % d, 0)
+    (times t_end - d .. t_end - 1), each at its residue slot tau mod d, in
+    the ring's dtype."""
+    ring[off:off + d] = torch.roll(x_full[nv:nv + d], t_end % d,
+                                   0).to(ring.dtype)
 
 
 def _history(ring: torch.Tensor, off: int, d: int, t0: int) -> torch.Tensor:
-    """Layer inputs at times t0 - d .. t0 - 1 from slots [off, off + d)."""
-    return torch.roll(ring[off:off + d], -(t0 % d), 0)
+    """Layer inputs at times t0 - d .. t0 - 1 from slots [off, off + d),
+    as fp32."""
+    return torch.roll(ring[off:off + d], -(t0 % d), 0).to(torch.float32)
 
 
 def make_parallel_scorer(cfg: WaveNetConfig, batch: int,
+                         compute_dtype=torch.float32,
                          prefold_cond: bool = False, return_xt: bool = False,
                          return_za: bool = False):
     """Build `score(params, t0, cond, y, ring, y_state, n_valid=None)`.
@@ -68,7 +83,8 @@ def make_parallel_scorer(cfg: WaveNetConfig, batch: int,
     t0: absolute index of the window's first step; cond: [T, L, B, 2R]
     conditioning (dil_b already added iff prefold_cond); y: [T, B] int, the
     symbols EMITTED at steps t0 .. t0+T-1; ring: [ring_size, B, R] FIFO
-    state from `init_ring`; y_state: [2, B] int32 = (y_{t0-2}, y_{t0-1}).
+    state from `init_ring` (bf16 under compute_dtype=torch.bfloat16);
+    y_state: [2, B] int32 = (y_{t0-2}, y_{t0-1}).
     All tensors on one device: CPU runs the plain versions, CUDA the
     kernels K7, K0a and K0c.
 
@@ -85,14 +101,16 @@ def make_parallel_scorer(cfg: WaveNetConfig, batch: int,
     L, R, S, A = cfg.num_layers, cfg.R, cfg.S, cfg.A
     B = batch
     dils, offs = cfg.dilations, cfg.ring_offsets
+    prec = scan_generate.precision(compute_dtype)
+    op, st = scan_generate.roundings(prec)   # an operand, the stored x
 
     def score(params: Dict[str, torch.Tensor], t0, cond: torch.Tensor,
               y: torch.Tensor, ring: torch.Tensor, y_state: torch.Tensor,
               n_valid: Optional[int] = None):
         T = y.shape[0]
         dev = cond.device
-        build.check_tensor(ring, "ring", torch.float32, (cfg.ring_size, B, R),
-                           dev)
+        build.check_tensor(ring, "ring", scan_generate.ring_dtype(prec),
+                           (cfg.ring_size, B, R), dev)
         build.check_tensor(y_state, "y_state", torch.int32, (2, B), dev)
         if tuple(cond.shape) != (T, L, B, 2 * R) or cond.dtype != torch.float32:
             raise ValueError(f"cond: expected float32 {(T, L, B, 2 * R)}, "
@@ -106,12 +124,14 @@ def make_parallel_scorer(cfg: WaveNetConfig, batch: int,
             raise ValueError(f"t0={t0} must be >= 0 and n_valid={nv} in "
                              f"[0, T={T}]")
 
+        params = scan_generate.product_view(params, prec)
         # y_full[i] is the symbol emitted at time t0 - 2 + i
         y_full = torch.cat([y_state, y.to(torch.int32)], 0)   # [T+2, B]
         embed = params["embed"]
         x = embed[y_full[:T].long()] + embed[A + y_full[1:T + 1].long()]
         if cfg.tanh_embed:
             x = em.exact_fn("tanh", x)
+        x = st(x)
         xt = []
         skip = torch.zeros((T, B, S), dtype=torch.float32, device=dev)
         for l in range(L):
@@ -123,19 +143,19 @@ def make_parallel_scorer(cfg: WaveNetConfig, batch: int,
             dw = params["dil_w"][l]
             zb = (cond[:, l] if prefold_cond
                   else params["dil_b"][l] + cond[:, l])
-            z = (_mm(x_full[:T], dw[:R]) + _mm(x, dw[R:])).reshape(
+            z = (_mm(op(x_full[:T]), dw[:R]) + _mm(op(x), dw[R:])).reshape(
                 T, B, 2 * R) + zb
             h = (em.exact_fn("tanh", z[..., :R].contiguous())
                  * em.exact_fn("sigmoid", z[..., R:].contiguous()))
-            rs = _mm(h, params["rs_w"][l]).reshape(T, B, R + S)
-            x = (rs[..., :R] + params["rs_b"][l, :R]) + x
+            rs = _mm(op(h), params["rs_w"][l]).reshape(T, B, R + S)
+            x = st((rs[..., :R] + params["rs_b"][l, :R]) + x)
             skip = (skip + rs[..., R:]) + params["rs_b"][l, R:]
         if return_xt:
             xt.append(x)
         skip = torch.clamp_min(skip, 0.0)
-        zs = torch.clamp_min(_mm(skip, params["out_w"]) + params["out_b"],
-                             0.0)
-        za = _mm(zs, params["end_w"]) + params["end_b"]
+        zs = torch.clamp_min(_mm(op(skip), params["out_w"])
+                             + params["out_b"], 0.0)
+        za = _mm(op(zs), params["end_w"]) + params["end_b"]
         p_seq = em.softmax_canonical(za).reshape(T, B, A)
         y_state.copy_(y_full[nv:nv + 2])
         out = (p_seq, ring, y_state)

@@ -2,10 +2,14 @@
 bind their plain C entry points with ctypes.
 
 Each source becomes its own shared library under
-`<repo>/build/nv_wavenet_tpu_torch/<hash of sources + flags>/`; the sources
-are compiled in parallel, one nvcc per file, all started together.  Nothing
-is built or loaded at import time: the first launch of a kernel (or an
-explicit `build_all()`) does it.
+`<repo>/build/nv_wavenet_tpu_torch/<hash of sources + flags>/`, and each
+source with a compile-time precision (`PRECISION_SOURCES`) one library per
+precision (`unit`): the same file compiled with `-DNVW_PREC=0, 1, 2`, each
+holding that precision's entry points, so its instances compile in
+parallel and the exact library holds the exact instances alone.  All the
+libraries are compiled in parallel, one nvcc each, all started together.
+Nothing is built or loaded at import time: the first launch of a kernel
+(or an explicit `build_all()`) does it.
 
 Compile flags: `-fmad=false` keeps nvcc from contracting a*b+c into an FMA,
 which would change the rounding of the exact-math library
@@ -21,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from typing import Dict, Sequence
 
 import torch
@@ -31,6 +36,10 @@ BUILD_ROOT = os.path.join(os.path.dirname(PKG_DIR), "build",
                           "nv_wavenet_tpu_torch")
 SOURCES = ("exact_math_kernels.cu", "ordered_matmul.cu", "persistent.cu",
            "stream_generate.cu", "fused_chain.cu")
+PRECISION_SOURCES = ("persistent.cu", "stream_generate.cu", "fused_chain.cu")
+# -DNVW_PREC of each precision (csrc/step_common.cuh kPrec*; the names of
+# ops/scan_generate.py PRECISIONS)
+PREC_IDS = {"exact": 0, "fast": 1, "bf16": 2}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-fmad=false", "-Xptxas=-v", "-shared",
               "-Xcompiler", "-fPIC")
@@ -61,48 +70,87 @@ def build_dir() -> str:
     return os.path.join(BUILD_ROOT, h.hexdigest()[:16])
 
 
-def library_path(source: str) -> str:
-    return os.path.join(build_dir(), "lib" + os.path.splitext(source)[0] + ".so")
+def unit(source: str, prec: str = "exact") -> str:
+    """The library of `source` that holds precision `prec`'s entry points:
+    the source's name for "exact" (and for a source without precisions),
+    `source@prec` for the others."""
+    if prec == "exact":
+        return source
+    if source not in PRECISION_SOURCES or prec not in PREC_IDS:
+        raise ValueError(f"{source} has no library for precision {prec!r}")
+    return f"{source}@{prec}"
 
 
-def build_all(sources: Sequence[str] = SOURCES) -> Dict[str, str]:
-    """Compile every source whose library is missing, all in parallel.
-    Returns {source: nvcc's log (ptxas register / shared-memory report)};
-    raises RuntimeError naming the source and nvcc's output on failure."""
+UNITS = tuple(unit(s, p) for s in SOURCES
+              for p in (PREC_IDS if s in PRECISION_SOURCES else ("exact",)))
+
+
+def _split(name: str):
+    source, _, prec = name.partition("@")
+    return source, prec or "exact"
+
+
+def library_path(name: str) -> str:
+    """The library of a unit (a source's name is its exact unit)."""
+    source, prec = _split(name)
+    stem = os.path.splitext(source)[0] + ("" if prec == "exact" else "_" + prec)
+    return os.path.join(build_dir(), "lib" + stem + ".so")
+
+
+def build_all(units: Sequence[str] = UNITS) -> Dict[str, str]:
+    """Compile every unit whose library is missing, all in parallel.
+    Returns {unit: log}: the seconds from the start of the build to the
+    unit's end ("built in ... s", the first line), then nvcc's output (the
+    ptxas register / shared-memory report); raises RuntimeError naming the
+    unit and nvcc's output on failure."""
     out_dir = build_dir()
     os.makedirs(out_dir, exist_ok=True)
-    todo = [s for s in sources if not os.path.exists(library_path(s))]
-    logs = {}
+    todo = [u for u in units if not os.path.exists(library_path(u))]
     if todo:
         nvcc = find_nvcc()
-        procs = []
-        for src in todo:
-            tmp = f"{library_path(src)}.{os.getpid()}.tmp"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, src)]
-            procs.append((src, tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
+        start = time.perf_counter()
+        procs = {}
+        for u in todo:
+            source, prec = _split(u)
+            tmp = f"{library_path(u)}.{os.getpid()}.tmp"
+            defines = ([f"-DNVW_PREC={PREC_IDS[prec]}"]
+                       if source in PRECISION_SOURCES else [])
+            cmd = [nvcc, *NVCC_FLAGS, *defines, "-o", tmp,
+                   os.path.join(CSRC_DIR, source)]
+            with open(tmp + ".log", "w") as log:
+                procs[u] = (tmp, subprocess.Popen(
+                    cmd, stdout=log, stderr=subprocess.STDOUT))
         failed = []
-        for src, tmp, proc in procs:
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                failed.append(f"{src} (exit {proc.returncode}):\n{log}")
-                continue
-            os.replace(tmp, library_path(src))   # atomic against a concurrent build
-            with open(library_path(src) + ".log", "w") as f:
-                f.write(log)
+        while procs:   # in the order they end, so each time is its own
+            for u, (tmp, proc) in list(procs.items()):
+                if proc.poll() is None:
+                    continue
+                del procs[u]
+                with open(tmp + ".log") as f:
+                    log = (f"built in {time.perf_counter() - start:.1f} s\n"
+                           + f.read())
+                os.remove(tmp + ".log")
+                if proc.returncode != 0:
+                    failed.append(f"{u} (exit {proc.returncode}):\n{log}")
+                    continue
+                os.replace(tmp, library_path(u))  # atomic against a concurrent build
+                with open(library_path(u) + ".log", "w") as f:
+                    f.write(log)
+            time.sleep(0.05)
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    for src in sources:
-        log_path = library_path(src) + ".log"
+    logs = {}
+    for u in units:
+        log_path = library_path(u) + ".log"
         if os.path.exists(log_path):
             with open(log_path) as f:
-                logs[src] = f.read()
+                logs[u] = f.read()
     return logs
 
 
-def load(source: str) -> ctypes.CDLL:
-    path = library_path(source)
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of a unit, built first if it is missing."""
+    path = library_path(name)
     if path not in _LOADED:
         if not os.path.exists(path):
             build_all()
@@ -130,7 +178,7 @@ def current_stream(device) -> int:
 
 
 class CudaKernel:
-    """One C entry point of a csrc/ library (which returns
+    """One C entry point of a csrc/ library (a `unit`; it returns
     `cudaGetLastError()` after its launch) and the count of its launches.
 
     `launches` goes up by one each time the kernel is launched successfully

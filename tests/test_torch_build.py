@@ -39,3 +39,27 @@ def test_build_dir_keys_on_every_csrc_file(name, tmp_path, monkeypatch):
     assert build.build_dir() != before
     assert all(build.library_path(s).startswith(build.build_dir())
                for s in build.SOURCES)
+
+
+def test_every_kernel_is_in_a_unit_of_its_precision():
+    """Each source with a precision is built once per precision into its
+    own library, guarded by NVW_PREC; every kernel wrapper names one of the
+    units, and the precisions are scan_generate's."""
+    from nv_wavenet_tpu_torch.ops import fused_chain, persistent, scan_generate
+    assert tuple(build.PREC_IDS) == scan_generate.PRECISIONS
+    assert len({build.library_path(u) for u in build.UNITS}) == len(build.UNITS)
+    for src in build.PRECISION_SOURCES:
+        text = (CSRC / src).read_text()
+        for n in build.PREC_IDS.values():
+            assert f"NVW_PREC == {n}" in text, (src, n)
+    tables = (persistent.PERSISTENT_KERNELS, persistent.RAGGED_KERNELS,
+              persistent.FORCED_KERNELS, persistent.PRNG_KERNELS,
+              persistent.STREAM_KERNELS)
+    for table in tables:
+        for prec, kernel in table.items():
+            assert kernel.source == build.unit(kernel.source.split("@")[0],
+                                               prec) in build.UNITS
+    for (_, prec), kernel in fused_chain.FUSED_KERNELS.items():
+        assert kernel.source == build.unit("fused_chain.cu", prec)
+    with pytest.raises(ValueError, match="precision"):
+        build.unit("ordered_matmul.cu", "bf16")

@@ -43,10 +43,10 @@ def test_engine_matches_golden(cfg, impl, batch):
     eng = make_engine(cfg, batch, Impl[impl.name])
     eng.set_reference_weights(ref_w)
     eng.set_inputs(cond, sel)
-    launches = (tper.PERSISTENT_KERNEL.launches, tper.STREAM_KERNEL.launches)
+    kernels = (tper.PERSISTENT_KERNELS["exact"], tper.STREAM_KERNELS["exact"])
+    launches = [k.launches for k in kernels]
     y = eng.run(samples, batch, dump_activations=True)
-    assert (tper.PERSISTENT_KERNEL.launches,
-            tper.STREAM_KERNEL.launches) == launches    # CPU: no kernel
+    assert [k.launches for k in kernels] == launches    # CPU: no kernel
     assert np.array_equal(y_gold, y)
 
     for l in range(cfg.num_layers):

@@ -617,7 +617,7 @@ def test_plain_ragged_generator_matches_jax_ragged_kernel():
     ring_t = tper.init_ring(pcfg, B, "cpu")
     ys_t = torch.full((2, B), CFG.silence_bin, dtype=torch.int32)
     clocks = np.zeros(B, np.int64)
-    launches = tper.RAGGED_KERNEL.launches
+    launches = tper.RAGGED_KERNELS["exact"].launches
     for lens, cond, sel in zip(calls, conds, sels):
         y_j, ring_j, ys_j = jax_call(cond, sel, ring_j, ys_j,
                                      clocks.astype(np.int32),
@@ -635,7 +635,7 @@ def test_plain_ragged_generator_matches_jax_ragged_kernel():
         assert rel_close(unpack_ring(CFG, ring_j), ring_t.numpy(), 1e-2,
                          atol=3e-4)
         clocks += lens
-    assert tper.RAGGED_KERNEL.launches == launches   # CPU: no kernel
+    assert tper.RAGGED_KERNELS["exact"].launches == launches   # CPU: no kernel
 
 
 def test_lockstep_is_the_ragged_case_with_shared_clocks():

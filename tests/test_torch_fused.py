@@ -19,8 +19,10 @@ S=128, A=256, max_dilation 8; B=8, T=64; trained-scale weights, p_max
     0.10, max < 0.20, and TV > 0 against fp32 fused (fast_math really
     rounds: JAX on the CPU computes DEFAULT as fp32, so only the port's
     test sees it);
-  * chunking, prng, the handoff to the exact generator and the engine's
-    routing: exact (same computation in the same order).
+  * chunking, prng, the handoff to the exact generator, the engine's
+    routing, its fast_math dispatches off K6 against the plain "fast"
+    generator and its fallback where K6 cannot run: exact (same
+    computation in the same order).
 The JAX interpret-mode runs are made once, in the module fixture."""
 
 import numpy as np
@@ -312,22 +314,90 @@ def test_lockstep_feeds_13_6_45_equal_the_run(case):
 
 @pytest.mark.parametrize("where", ["no_fuse_chain", "dump", "ragged",
                                    "manyblock"])
-def test_unported_fast_math_dispatches_raise(case, where):
-    """fast_math exists on K6 only; each dispatch that would need it on an
-    exact kernel raises, naming ROADMAP item 10b, and never runs exact."""
+def test_fast_math_dispatches_run(case, where):
+    """fast_math off K6: each dispatch that once raised (ROADMAP item 10b)
+    now runs K1's step with fast_math: its samples and ring equal the plain
+    generator's in precision "fast" on the same symbols, and its ring (and
+    with the dump its p and za) differ from the exact engine's, so the
+    rounding is real."""
     kw = {"no_fuse_chain": dict(fast_math=True),
           "dump": dict(fuse_chain=True, fast_math=True),
           "ragged": dict(priority="latency"),
           "manyblock": dict(priority="latency",
                             implementation=Impl.MANYBLOCK)}[where]
-    eng = port_engine(case, **kw)
-    with pytest.raises(ValueError, match="10b"):
-        if where == "ragged":
-            eng.begin_stream(B)
-            eng.feed(case["cond"][:8], case["sel"][:8],
-                     lengths=np.arange(B) % 8)
-        else:
-            eng.run(8, B, dump_activations=where == "dump")
+    n = 8
+    eng, ref = port_engine(case, **kw), port_engine(case)
+    lens = np.arange(B) % n if where == "ragged" else np.full(B, n)
+    if where == "ragged":
+        for e in (eng, ref):
+            e.begin_stream(B)
+            e.feed(case["cond"][:n], case["sel"][:n], lengths=lens)
+        y = None
+    else:
+        y = eng.run(n, B, dump_activations=where == "dump")
+        ref.run(n, B, dump_activations=where == "dump")
+    ring = eng.export_state()["ring"]
+    gen = tper.make_persistent_generator(PCFG, B, fast_math=True,
+                                         ragged=where == "ragged")
+    plain_ring, plain_ys = fresh()
+    cond_pre = (torch.from_numpy(case["cond"][:n])
+                + case["tp"]["dil_b"][None, :, None, :]).contiguous()
+    sel = torch.from_numpy(case["sel"][:n])
+    if where == "ragged":
+        y_p = gen(case["tp"], torch.zeros(B, dtype=torch.int64), cond_pre,
+                  sel, plain_ring, plain_ys,
+                  torch.from_numpy(lens.astype(np.int32)))[0]
+    else:
+        y_p = gen(case["tp"], 0, cond_pre, sel, plain_ring, plain_ys)[0]
+        assert np.array_equal(y, y_p.numpy().T)
+    assert np.array_equal(ring, plain_ring.numpy())
+    assert not np.array_equal(ring, ref.export_state()["ring"])
+    if where == "dump":
+        for get in ("get_p", "get_za"):
+            assert not np.array_equal(getattr(eng, get)(),
+                                      getattr(ref, get)())
+
+
+# the geometries K6 rejects: R not a multiple of 8; activations past 227 KB
+K6_REJECTS = {"L2_R36": dict(num_layers=2, R=36, S=128, A=256,
+                             max_dilation=2),
+              "L60_R256": dict(num_layers=60, R=256, S=256, A=256,
+                               max_dilation=8)}
+
+
+@pytest.mark.parametrize("geometry", list(K6_REJECTS))
+def test_fuse_chain_falls_back_where_k6_cannot_run(geometry, capsys):
+    """Fault F1 (ROADMAP.md): a geometry K6 cannot run no longer raises in
+    the constructor.  As the JAX engine (tests/test_fused_chain.py
+    ::test_fuse_chain_vmem_fallback), fuse_chain sends every dispatch to
+    the exact kernels and says so once; priority="latency" keeps its
+    fast_math there.  make_fused_generator itself still raises."""
+    from nv_wavenet_tpu_torch.config import WaveNetConfig
+    g = K6_REJECTS[geometry]
+    cfg = WaveNetConfig(**g)
+    with pytest.raises(ValueError):
+        tfc.make_fused_generator(cfg, 1)
+    rng = np.random.RandomState(5)
+    Bg, Tg = 2, 4
+    ref_w = tparams.random_reference_weights(cfg, seed=5)
+    cond = rng.uniform(-0.5, 0.5, (Tg, cfg.num_layers, Bg, 2 * cfg.R)
+                       ).astype(np.float32)
+    sel = rng.uniform(0, 1, (Tg, Bg)).astype(np.float32)
+
+    def run(**kw):
+        eng = WaveNetInfer(max_batch=Bg, chunk_size=Tg, device="cpu", **g,
+                           **kw)
+        eng.set_reference_weights(ref_w)
+        eng.set_inputs(cond, sel)
+        return eng, eng.run(Tg, Bg)
+
+    fused, y = run(fuse_chain=True)
+    assert "fuse_chain disabled" in capsys.readouterr().out
+    assert np.array_equal(y, run()[1])
+    latency, y_lat = run(priority="latency")
+    assert latency.fast_math and latency._precision(False) == "fast"
+    assert np.array_equal(y_lat, run(fast_math=True)[1])
+    assert all(k[-1] == "fast" for k in latency._gens)
 
 
 def test_unknown_priority_raises():

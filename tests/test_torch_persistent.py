@@ -66,9 +66,9 @@ def test_plain_matches_jax_interpret_kernel(cfg, batch, samples, chunk):
                                             chunk, dump=True)
 
     port = PortRun(cfg, ref_w, batch, dump=True)
-    launches = tper.PERSISTENT_KERNEL.launches
+    launches = tper.PERSISTENT_KERNELS["exact"].launches
     y, dumps = port(cond, sel)
-    assert tper.PERSISTENT_KERNEL.launches == launches   # CPU: no kernel
+    assert tper.PERSISTENT_KERNELS["exact"].launches == launches  # no kernel
     assert np.array_equal(y_j, y)
     assert np.array_equal(np.asarray(ys_j), port.y_state.numpy())
     assert rel_close(unpack_ring(cfg, ring_j), port.ring.numpy(), 1e-2,

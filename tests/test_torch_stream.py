@@ -110,9 +110,9 @@ def test_plain_stream_matches_jax_streaming_kernel(cfg, batch, samples, chunk):
     y_j, ring_j, ys_j = run_stream(
         cfg, {k: jnp.asarray(v) for k, v in params.items()}, cond, sel,
         batch, chunk)
-    launches = tper.STREAM_KERNEL.launches
+    launches = tper.STREAM_KERNELS["exact"].launches
     y, ring, ys = port_stream(cfg, params, cond, sel, batch)
-    assert tper.STREAM_KERNEL.launches == launches   # CPU: no kernel
+    assert tper.STREAM_KERNELS["exact"].launches == launches   # CPU: no kernel
     assert np.array_equal(y_j, y)
     assert np.array_equal(np.asarray(ys_j), ys.numpy())
     assert rel_close(unpack_ring(cfg, ring_j), ring.numpy(), 1e-2, atol=3e-4)
@@ -153,12 +153,12 @@ def test_stream_schedule_is_plumbing(gs, prefetch):
     y_gold = golden.run(19, B)
     params = params_lib.to_canonical(ref_w, CFG)
     kw = dict(stream_group_size=gs, stream_prefetch=prefetch)
-    launches = tper.STREAM_KERNEL.launches
+    launches = tper.STREAM_KERNELS["exact"].launches
     y1, ring, ys = port_stream(CFG, params, cond[:11], sel[:11], B, **kw)
     y2, _, _ = port_stream(CFG, params, cond[11:], sel[11:], B, t0=11,
                            state=(ring, ys), **kw)
     assert np.array_equal(y_gold, np.concatenate([y1, y2], axis=1))
-    assert tper.STREAM_KERNEL.launches == launches
+    assert tper.STREAM_KERNELS["exact"].launches == launches
 
 
 # ----------------------------------------------------------------------
@@ -221,12 +221,12 @@ def test_engine_manyblock_streams_and_matches_golden(monkeypatch):
                         lambda *a, **kw: built.append(kw) or make(*a, **kw))
     eng = port_engine(CFG, B, ref_w)
     eng.set_inputs(cond, sel)
-    launches = (tper.STREAM_KERNEL.launches, tper.PERSISTENT_KERNEL.launches)
+    kernels = (tper.STREAM_KERNELS["exact"], tper.PERSISTENT_KERNELS["exact"])
+    launches = [k.launches for k in kernels]
     y = eng.run_chunks(7, lambda yc, off, n: None, T, B)
     assert np.array_equal(y_gold, y)
     assert built and all(kw["stream_weights"] for kw in built)
-    assert launches == (tper.STREAM_KERNEL.launches,
-                        tper.PERSISTENT_KERNEL.launches)
+    assert launches == [k.launches for k in kernels]
     for mode in ("argmax", "prng"):
         y_m = eng.run(T, B, mode=mode)
         ref = port_engine(CFG, B, ref_w, impl=Impl.PERSISTENT)
