@@ -20,7 +20,10 @@ configuration (config 4); the latency tier, the same requests through
 fast_math); and the two precision knobs, the same requests through
 `WaveNetInfer(compute_dtype=torch.bfloat16)` and `WaveNetInfer(
 fast_math=True)` (the fast and bf16 instances of K1-K6), with the latency
-tier's slot handover.  Phases, in order; any failure exits non-zero:
+tier's slot handover; the two probes (P1, the FMA contraction; P5, the
+per-stage latency floor); and speculative exact decode through
+`WaveNetInfer.run_speculative` with its H100 cost fit.  Phases, in order;
+any failure exits non-zero:
 
   1. device: card name and power limit (nvidia-smi), torch.version.cuda, nvcc
   2. build: every csrc/*.cu, timed; beside it (nvcc runs in its own
@@ -163,10 +166,34 @@ tier's slot handover.  Phases, in order; any failure exits non-zero:
  27. every fast and bf16 instance timed over a 256-step flagship launch (K5:
      a 160-step ragged tick) beside its exact instance (exact, fast, bf16,
      exact), and its plain version over 8 steps
- 28. the `kernels` JSON line: per kernel its launches on its path (K5: the
+ 28. P1 (the FMA-contraction probe, csrc/probes.cu built with -fmad=false
+     and with -fmad=true) on the JAX probe's 131,072 inputs: the guarded
+     form and the -fmad=false plain form 0 bit mismatches against numpy's
+     separate a*b+c; the -fmad=true plain form's mismatches against
+     separate and against the fp64 FMA printed (the contraction); each
+     timed beside the plain version and torch.addcmul
+ 29. P5 (the stage-chain probe) against its plain version on a 4-step chain
+     of 3 stages at R=64, B=1 and 16, each precision x W location (L2,
+     shared memory) x gate, and the whole batch in one CTA: exact bit for
+     bit, fast within 1e-3
+ 30. P5 timed: the JAX probe's variants and the card's own (rows per CTA,
+     W in shared memory) with T cut to 1024, ns per stage; the exact stage
+     at B=16 with W in L2 is utils/profiling.STAGE_NS
+ 31. speculative decode at the flagship: request 1's first 2048 samples at
+     b=1 and b=16 through WaveNetInfer.run_speculative, fixed and
+     adaptive (window 256), each on counts set to 0 just before it and
+     read just after (K6-fast, K7, K0a, K0c, K0b must launch): 0 integer
+     mismatches against run() of the same engine; rounds, branch and kHz
+     per utterance beside run()'s; the same for bf16 weights and
+     MANYBLOCK int8 over 512 samples at window 128
+ 32. the speculative cost fit at b=1: a round's time at windows 64, 128 and
+     256, least squares V0 + V1 K, E0 run()'s time per step (K1), the
+     adaptive branch over every probe result (speculative.DEFAULT_COST)
+ 33. the `kernels` JSON line: per kernel its launches on its path (K5: the
      serving phase; K0a, K0c, K7, K2: the scoring phase; K3: the prng
      request; K4: the MANYBLOCK main path; K6: the latency-tier main path;
-     each fast and bf16 instance: its phase 25 or 26 path), its time, the
+     each fast and bf16 instance: its phase 25 or 26 path; P1, P5: the
+     probe phases), its time, the
      plain version's, the least time the card could take for the same work
      (bound_ms) and, where one PyTorch call computes the same function, that
      call's time
@@ -269,6 +296,41 @@ LOWP_SERVE_TICKS = 48   # the latency tier's slot handover: SERVE, cut
 # at the flagship (also their plain_ms)
 LOWP_PLAIN_T = 8
 PEAK_BF16_FLOPS = 989e12   # the tensor cores, dense (fast_math's products)
+# probe P5: held against its plain version on a short chain at the
+# flagship's widths (exact bit for bit, fast within P5_FAST_TOL of the
+# output's largest magnitude), then at the timed shapes (B=16; D=43 with W
+# in L2, SMEM_D with W in shared memory) over P5_TIMED_HELD_T steps on the
+# timed launches' inputs, and timed over the JAX probe's variants with its
+# T=16384 cut to P5_TIME_T.  The gated chain shrinks x about 3x a stage
+# (to ~5e-20 after 43 stages, under fp32's normal range after 86), so the
+# fast hold is relative and the timed shapes take one step.  P5_FAST_TOL:
+# sound fast readings are ~1e-6 (PERF.md); products rounded to bf16 would
+# read ~1e-3
+P5_HELD_T, P5_HELD_D, P5_HELD_B, P5_FAST_TOL = 4, 3, (1, 16), 1e-5
+P5_TIMED_HELD_T = 1
+P5_TIME_T = 1024
+# the P5 instances of the kernels line: (precision, weights, the sweep's
+# label of its timed shape)
+P5_INSTANCES = (("exact", "l2", "exact + gate (K1's stage)"),
+                ("exact", "smem", "exact + gate, W in shared memory (D=6)"),
+                ("fast", "l2", "fast + gate (the TPU probe's DEFAULT)"),
+                ("fast", "smem", "fast + gate, W in shared memory (D=6)"))
+# speculative decode at the flagship: request 1's first SPEC_T samples at
+# b=1 and b=16, fixed and adaptive at SPEC_WINDOW; bf16 weights and
+# MANYBLOCK int8 over SPEC_STORE_T at SPEC_STORE_WINDOW (so the adaptive
+# tier probes: 4 x 64 + 128 < 512); the cost fit's windows at b=1
+SPEC_T, SPEC_WINDOW = 2048, 256
+SPEC_STORE_T, SPEC_STORE_WINDOW = 512, 128
+SPEC_FIT_WINDOWS = (64, 128, 256)
+# the same with a draft made wrong on purpose (rs_w + SPEC_PERT_OFFSET in its
+# fold, as tests/test_torch_speculative.py's garbage draft): b=1 and b=16,
+# SPEC_PERT_T samples, not a multiple of SPEC_PERT_WINDOW, so rounds commit
+# part of a window and the last one is short; fixed, and adaptive with the
+# costs of SPEC_PERT_COSTS forcing each branch (4 x 16 + 16 < 100 probes).
+# At these weights p is sharp: this draft misses once in 100 steps at b=1,
+# on ~40 steps at b=16 (a negated rs_w missed none at b=1)
+SPEC_PERT_T, SPEC_PERT_WINDOW, SPEC_PERT_OFFSET = 100, 16, 0.5
+SPEC_PERT_COSTS = {0: (1.0, 0.0, 1e9), 1: (-1.0, 1.0, 1e9), 2: None}
 START = time.perf_counter()
 
 
@@ -1374,6 +1436,184 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def check_p1(torch, pem, dev) -> dict:
+    """P1 from both builds on the JAX probe's inputs: bit mismatches
+    against numpy's separate a*b+c and the fp64 FMA (`fma_report`, its
+    launches counted), each build's plain form against the plain version
+    on the card, and the times of the plain forms, the plain version and
+    torch.addcmul."""
+    a, b, c = pem.probe_inputs()[:3]
+    for k in pem.FMA_PROBE_KERNELS.values():
+        k.launches = 0
+    rep = pem.fma_report(a, b, c, dev)
+    launches = {f: k.launches for f, k in pem.FMA_PROBE_KERNELS.items()}
+    ta, tb, tc = (torch.from_numpy(v).to(dev) for v in (a, b, c))
+    plain = pem.fma_plain(ta, tb, tc)
+    out = {"n": int(a.size), "launches": launches,
+           "vs_separate_and_fma64": {f"{f} {form}": v
+                                     for (f, form), v in rep.items()},
+           "plain_ms": time_ms(torch, lambda: pem.fma_plain(ta, tb, tc), 50),
+           "library_ms": time_ms(torch, lambda: torch.addcmul(tc, ta, tb),
+                                 50)}
+    for flags in pem.FMA_PROBE_KERNELS:
+        o = pem.fma_probe(ta, tb, tc, "plain", flags)
+        out[flags] = {
+            "separate": rep[(flags, "plain")][0],
+            "fma64": rep[(flags, "plain")][1],
+            "guarded_separate": rep[(flags, "guarded")][0],
+            "vs_plain_bits": bit_mismatches(torch, o, plain),
+            "max_abs_err": float((o - plain).abs().max()),
+            "ms": time_ms(torch, lambda f=flags: pem.fma_probe(
+                ta, tb, tc, "plain", f), 50)}
+    # three fp32 reads and a write; a multiply and an add per element
+    out["bound_ms"], out["bound_by"] = bound_ms(16 * a.size, 2 * a.size)
+    return out
+
+
+def check_p5_held(torch, ps, dev) -> dict:
+    """P5 against chain_plain on a P5_HELD_T-step chain of P5_HELD_D stages
+    at R=64, B in P5_HELD_B: each precision x W location x gate, and the
+    whole batch in one CTA; then over P5_TIMED_HELD_T steps at the timed
+    shapes.  Exact bit for bit, fast within P5_FAST_TOL of max |plain|
+    (`fast_max_rel_err`).  Also each precision's plain run timed at B=16
+    with the gate."""
+    T, D = P5_HELD_T, P5_HELD_D
+    res = {"cases": 0, "exact_bit_mismatches": 0, "exact_max_abs_err": 0.0,
+           "fast_max_abs_err": 0.0, "fast_max_rel_err": 0.0, "plain_ms": {}}
+
+    def held(prec, out, ref):
+        err = float((out - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        bits = bit_mismatches(torch, out, ref)
+        res["cases"] += 1
+        res[f"{prec}_max_abs_err"] = max(res[f"{prec}_max_abs_err"], err)
+        if prec == "exact":
+            res["exact_bit_mismatches"] += bits
+        else:
+            res["fast_max_rel_err"] = max(res["fast_max_rel_err"], rel)
+        return {"max_abs_err": err, "rel_err": rel, "bit_mismatches": bits}
+
+    for B in P5_HELD_B:
+        w, x = ps.chain_inputs(B, ps.R_DEFAULT, D, 1, dev)
+        for prec in ps.PRECISIONS:
+            for gate in (True, False):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                ref = ps.chain_plain(w, x, T, gate, prec)
+                torch.cuda.synchronize()
+                if B == 16 and gate:
+                    res["plain_ms"][prec] = (time.perf_counter() - t) * 1e3
+                for rows, weights in ((1, "l2"), (1, "smem"), (B, "l2")):
+                    held(prec, ps.make_chain(B, ps.R_DEFAULT, D, T, prec,
+                                             gate, 1, rows, weights)(w, x),
+                         ref)
+    # the timed shapes, on the inputs `measure` times them on (B=16, gate
+    # on): W in L2 at D=43 (one CTA per row and the whole batch in one), W
+    # in shared memory at SMEM_D
+    res["timed_shapes"] = {}
+    for D, where in ((ps.D_DEFAULT, ("l2",)), (ps.SMEM_D, ("smem",))):
+        w, x = ps.chain_inputs(ps.B_DEFAULT, ps.R_DEFAULT, D, 1, dev)
+        for prec in ps.PRECISIONS:
+            ref = ps.chain_plain(w, x, P5_TIMED_HELD_T, True, prec)
+            for rows in (1, ps.B_DEFAULT):
+                for weights in where:
+                    res["timed_shapes"][f"{prec} D={D} {weights} rows="
+                                        f"{rows}"] = held(
+                        prec, ps.make_chain(ps.B_DEFAULT, ps.R_DEFAULT, D,
+                                            P5_TIMED_HELD_T, prec, True, 1,
+                                            rows, weights)(w, x), ref)
+    return res
+
+
+def p5_bound(ps, B: int, D: int, T: int, prec: str, groups: int = 1):
+    """P5's least time: W read once, x read and written once; per row and
+    stage the products (2 R 2R) and the gate (the exact one at its cheaper
+    tanh branch, the fast one at its multiply), and the t-fold add per
+    step.  A lower bound: the data decide tanh's branch."""
+    R = ps.R_DEFAULT
+    gate = TANH_SMALL_OPS + SIGMOID_OPS + 1 if prec == "exact" else 1
+    ops = groups * B * T * (D * (2 * R * 2 * R + gate * R) + R)
+    return bound_ms(4 * (D * R * 2 * R + 2 * groups * B * R), ops)
+
+
+def spec_hold(torch, np, eng, B: int, T: int, window: int, kernels,
+              all_kernels, label: str) -> dict:
+    """`run()` of T samples at batch B, then `run_speculative` fixed and
+    adaptive on the same engine, each on launch counts set to 0 just
+    before it: 0 integer mismatches against run(), the speculative path's
+    kernels launched; rounds, branch, kHz per utterance beside run()'s."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    y_run = eng.run(T, B)
+    run_s = time.perf_counter() - t
+    out = {"run_khz_per_utt": T / run_s / 1e3, "run_us_per_step":
+           run_s / T * 1e6}
+    for adaptive in (False, True):
+        for k in all_kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        y = eng.run_speculative(T, B, window=window, adaptive=adaptive)
+        dt = time.perf_counter() - t
+        launches = {k.symbol: k.launches for k in all_kernels if k.launches}
+        r = {"mismatches": int((y != y_run).sum()),
+             "rounds": eng.spec_rounds, "branch": eng.spec_branch,
+             "khz_per_utt": T / dt / 1e3, "seconds": dt,
+             "mean_committed_run": T / eng.spec_rounds,
+             "launches": launches}
+        key = "adaptive" if adaptive else "fixed"
+        out[key] = r
+        log(f"[spec] {label} b={B} T={T} window={window} {key}: "
+            f"{r['mismatches']}/{B * T} mismatches vs run(); {r['rounds']} "
+            f"rounds (mean committed run {r['mean_committed_run']:.1f}); "
+            f"branch {r['branch']}; {r['khz_per_utt']:.3f} kHz per "
+            f"utterance against run()'s {out['run_khz_per_utt']:.3f}")
+        if r["mismatches"]:
+            fail(f"run_speculative ({label}, b={B}, {key}) differs from "
+                 f"run() in {r['mismatches']} samples")
+        missing = [k.symbol for k in kernels if not launches.get(k.symbol)]
+        if missing:
+            fail(f"run_speculative ({label}, b={B}, {key}) did not launch "
+                 f"{missing}")
+    return out
+
+
+def spec_perturbed_hold(torch, np, fc, eng, B: int, T: int, window: int,
+                        offset: float, costs: dict, label: str) -> dict:
+    """`run_speculative` with the engine's draft fold made from rs_w +
+    offset, so drafts disagree with the exact samples and rounds commit
+    part of a window: fixed, then adaptive with each of `costs`
+    (branch -> spec_cost_model forcing it, None the default).  0 integer
+    mismatches against run(), the branch asked for, and more rounds than
+    whole windows (the state committer ran)."""
+    y_run = eng.run(T, B)
+    vals = eng._value_params()
+    bad = fc.prepare_weights(dict(vals, rs_w=vals["rs_w"] + offset), eng.cfg,
+                             False, fast_math=True)
+    default_cost = eng.spec_cost_model
+    out = {}
+    for branch, cost in [(None, None)] + list(costs.items()):
+        eng.spec_cost_model = cost or default_cost
+        eng._spec_prep = bad
+        y = eng.run_speculative(T, B, window=window,
+                                adaptive=branch is not None)
+        r = {"mismatches": int((y != y_run).sum()),
+             "rounds": eng.spec_rounds, "branch": eng.spec_branch}
+        key = "fixed" if branch is None else f"adaptive, forced {branch}"
+        out[key] = r
+        log(f"[spec] {label} b={B} T={T} window={window} {key}: "
+            f"{r['mismatches']}/{B * T} mismatches vs run(); {r['rounds']} "
+            f"rounds; branch {r['branch']}")
+        if r["mismatches"] or r["branch"] != branch:
+            fail(f"run_speculative ({label}, b={B}, {key}): {r}")
+        if branch is None and r["rounds"] <= -(-T // window):
+            fail(f"run_speculative ({label}, b={B}): the wrong draft "
+                 f"committed whole windows only ({r['rounds']} rounds)")
+    eng.spec_cost_model = default_cost
+    eng._spec_prep = None
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1392,6 +1632,9 @@ def main() -> int:
     from nv_wavenet_tpu_torch.ops import ordered_matmul as om
     from nv_wavenet_tpu_torch.ops import persistent, scoring
     from nv_wavenet_tpu_torch.ops import scan_generate as tsg
+    from nv_wavenet_tpu_torch.ops import speculative
+    from nv_wavenet_tpu_torch.tools import probe_exact_math as pem
+    from nv_wavenet_tpu_torch.tools import probe_stage as ps
     from nv_wavenet_tpu_torch.utils import build
 
     # the plain versions' matrix products go to cuBLAS: full fp32, no TF32
@@ -2773,8 +3016,109 @@ def main() -> int:
             f"{pr} {us[pr][k]:.2f}" for pr in ("exact", "fast", "bf16"))
             + " us per step (exact: the mean of the first and last turn)")
 
-    # -- phase 28: the kernels line -------------------------------------------
-    mark("phase 28: the kernels line")
+    # -- phase 28: P1, the FMA-contraction probe -----------------------------
+    mark("phase 28: P1, the FMA-contraction probe")
+    p1 = check_p1(torch, pem, dev)
+    log(json.dumps({"p1": p1, "card": card}))
+    for flags in pem.FMA_PROBE_KERNELS:
+        r = p1[flags]
+        log(f"[P1] plain a*b+c built with -{flags}: {r['separate']}/"
+            f"{p1['n']} mismatches vs numpy separate, {r['fma64']} vs the "
+            f"fp64 FMA; guarded {r['guarded_separate']} vs separate")
+    if (p1["fmad=false"]["separate"] or p1["fmad=false"]["vs_plain_bits"]
+            or any(p1[f]["guarded_separate"] for f in pem.FMA_PROBE_KERNELS)):
+        fail(f"P1: a form that must not contract did: {p1}")
+    if not all(p1["launches"].values()):
+        fail(f"P1 did not launch from both builds: {p1['launches']}")
+
+    # -- phase 29: P5 against its plain version -------------------------------
+    mark("phase 29: P5 against its plain version")
+    p5_held = check_p5_held(torch, ps, dev)
+    log(json.dumps({"p5_held": p5_held, "card": card}))
+    if (p5_held["exact_bit_mismatches"]
+            or p5_held["fast_max_rel_err"] > P5_FAST_TOL):
+        fail(f"P5 disagrees with its plain version: {p5_held}")
+
+    # -- phase 30: P5 timed, the per-stage floor ------------------------------
+    mark("phase 30: P5 timed, the per-stage floor")
+    for k in ps.STAGE_CHAIN_KERNELS.values():
+        k.launches = 0
+    p5_ns = {label: ps.measure(label, T=P5_TIME_T, iters=2, **kw)
+             for label, kw in ps.VARIANTS}
+    p5_launches = {p: k.launches for p, k in ps.STAGE_CHAIN_KERNELS.items()}
+    log(json.dumps({"p5_ns_per_stage": p5_ns, "steps": P5_TIME_T,
+                    "launches": p5_launches, "card": card}))
+    log(f"[P5] the exact stage at B=16, W in L2 (profiling.STAGE_NS): "
+        f"{p5_ns[P5_INSTANCES[0][2]]:.1f} ns; {card}")
+
+    # -- phase 31: speculative decode at the flagship -------------------------
+    mark("phase 31: speculative decode at the flagship")
+    # request 1's inputs through fresh engines: fp32 at b=1 and b=16 over
+    # SPEC_T, bf16 weights and MANYBLOCK int8 over SPEC_STORE_T
+    cond1, sel1 = first[0][:SPEC_T], first[1][:SPEC_T]
+    spec_kernels = (fc.FUSED_KERNELS[("injected", "fast")],
+                    om.ORDERED_MATMUL_KERNEL, em.EXACT_FN_KERNEL,
+                    em.SOFTMAX_KERNEL, em.SAMPLE_KERNEL)
+    spec_runs = {}
+    for label, kw, T_s, window, batches in (
+            ("fp32", {}, SPEC_T, SPEC_WINDOW, (1, MAIN_B)),
+            ("bf16 weights", dict(weight_dtype=torch.bfloat16), SPEC_STORE_T,
+             SPEC_STORE_WINDOW, (1, MAIN_B)),
+            ("MANYBLOCK int8", dict(implementation=Impl.MANYBLOCK,
+                                    stream_quant="int8"), SPEC_STORE_T,
+             SPEC_STORE_WINDOW, (1, MAIN_B))):
+        s_eng = WaveNetInfer(num_layers=L, max_dilation=cfg.max_dilation,
+                             R=R, S=cfg.S, A=cfg.A, max_batch=MAIN_B,
+                             chunk_size=MAIN_CHUNK, device="cuda", **kw)
+        s_eng.set_reference_weights(ref_w)
+        s_eng.set_inputs(cond1, sel1)
+        for B_s in batches:
+            spec_runs[f"{label} b={B_s}"] = spec_hold(
+                torch, np, s_eng, B_s, T_s, window, spec_kernels,
+                all_kernels, label)
+        if label == "fp32":
+            fit_eng = s_eng
+    p_eng = WaveNetInfer(num_layers=L, max_dilation=cfg.max_dilation, R=R,
+                         S=cfg.S, A=cfg.A, max_batch=MAIN_B,
+                         chunk_size=MAIN_CHUNK, device="cuda")
+    p_eng.set_reference_weights(ref_w)
+    p_eng.set_inputs(cond1[:SPEC_PERT_T], sel1[:SPEC_PERT_T])
+    for B_s in (1, MAIN_B):
+        spec_runs[f"wrong draft b={B_s}"] = spec_perturbed_hold(
+            torch, np, fc, p_eng, B_s, SPEC_PERT_T, SPEC_PERT_WINDOW,
+            SPEC_PERT_OFFSET, SPEC_PERT_COSTS, "wrong draft")
+    log(json.dumps({"speculative": spec_runs, "card": card}))
+
+    # -- phase 32: the speculative cost fit -----------------------------------
+    mark("phase 32: the speculative cost fit")
+    # b=1: a round's time against the window, least squares V0 + V1 K; E0
+    # the exact kernel's time per step (run(), K1, at b=1)
+    fit_rows = []
+    for K in SPEC_FIT_WINDOWS:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fit_eng.run_speculative(SPEC_T, 1, window=K, adaptive=False)
+        dt = time.perf_counter() - t
+        fit_rows.append({"window": K, "rounds": fit_eng.spec_rounds,
+                         "round_us": dt / fit_eng.spec_rounds * 1e6,
+                         "us_per_sample": dt / SPEC_T * 1e6})
+    V1, V0 = np.polyfit([r["window"] for r in fit_rows],
+                        [r["round_us"] for r in fit_rows], 1)
+    E0 = spec_runs["fp32 b=1"]["run_us_per_step"]
+    fit = (float(V0), float(V1), float(E0))
+    branches = sorted({speculative.choose_branch(SPEC_WINDOW, 64, 256, n,
+                                                 fit)
+                       for n in range(1, 257)})
+    log(json.dumps({"spec_cost_fit": {
+        "rows": fit_rows, "V0_us": fit[0], "V1_us": fit[1], "E0_us": fit[2],
+        "default_cost": speculative.DEFAULT_COST,
+        "branches_over_every_probe_result": branches}, "card": card}))
+    log(f"[spec] cost fit (V0_us, V1_us, E0_us) = ({fit[0]:.1f}, "
+        f"{fit[1]:.2f}, {fit[2]:.2f}) at the flagship, b=1; the adaptive "
+        f"tier's branches over every probe result: {branches}; {card}")
+
+    # -- phase 33: the kernels line -------------------------------------------
+    mark("phase 33: the kernels line")
     def entry(name, source, replaces, n_launches, mism, err, ms, plain, bnd,
               by, lib, shape, **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -2784,6 +3128,14 @@ def main() -> int:
                 "bound_by": by, "library_ms": lib, "shape": shape, **extra}
 
     csrc = "nv_wavenet_tpu_torch/csrc/"
+    # the speculative path's launches (phase 31: fp32, b=1, fixed): K0b's
+    # only path, and a further one of K0a, K0c, K7 and K6-fast
+    spec_l = spec_runs["fp32 b=1"]["fixed"]["launches"]
+
+    def spec_n(kernel) -> int:
+        return spec_l.get(kernel.symbol, 0)
+    spec_on = (f"speculative decode (phase 31: fp32, b=1, {SPEC_T} samples, "
+               f"window {SPEC_WINDOW}, fixed)")
     kernels = [
         entry("K0a exact_fn_kernel", csrc + "exact_math_kernels.cu",
               "tools/probe_exact_math_tpu.py:90",
@@ -2793,13 +3145,15 @@ def main() -> int:
               f"exp+tanh+sigmoid over [{x.numel()}] f32",
               also_replaces="tools/probe_exact_math_tpu.py:135",
               inlined_in="K1, K2, K3, K5", launches_on="the scoring phase",
-              main_path_launches=launches[em.EXACT_FN_KERNEL.symbol]),
+              main_path_launches=launches[em.EXACT_FN_KERNEL.symbol],
+              speculative_launches=spec_n(em.EXACT_FN_KERNEL)),
         entry("K0b sample_kernel", csrc + "exact_math_kernels.cu",
               "tools/probe_exact_math_tpu.py:107",
-              launches[em.SAMPLE_KERNEL.symbol], k0b_mism, 0.0, k0b_ms,
+              spec_n(em.SAMPLE_KERNEL), k0b_mism, 0.0, k0b_ms,
               k0b_plain, k0b_bound, k0b_by, None,
               f"za [{rows},{A}] f32, sel [{rows},1]",
-              inlined_in="K1, K3, K5"),
+              inlined_in="K1, K3, K5", launches_on=spec_on,
+              main_path_launches=launches[em.SAMPLE_KERNEL.symbol]),
         entry("K1 persistent_generate_kernel<false>", csrc + "persistent.cu",
               "nv_wavenet_tpu/ops/persistent.py:762",
               launches[exact_sym["K1"]],
@@ -2904,14 +3258,17 @@ def main() -> int:
                         for k, v in k6_ms.items()},
               k1_ms=k1_ms, tv={"flagship_forced_max": k6_flag_tv, **k6_tv},
               khz_per_utt=latency["khz_per_utt"],
-              feed_ms_p50=f50, feed_ms_p99=f99),
+              feed_ms_p50=f50, feed_ms_p99=f99,
+              speculative_launches=spec_n(
+                  fc.FUSED_KERNELS[("injected", "fast")])),
         entry("K0c softmax_p_kernel", csrc + "exact_math_kernels.cu",
               "none (XLA in nv_wavenet_tpu/ops/score_parallel.py:169; "
               "softmax_canonical, nv_wavenet_tpu/ops/persistent.py:64)",
               score_launches[em.SOFTMAX_KERNEL.symbol], k0c["mismatches"],
               k0c["max_abs_err"], k0c["ms"], k0c["plain_ms"],
               k0c["bound_ms"], k0c["bound_by"], k0c["library_ms"],
-              f"za [{rows},{A}] f32", launches_on="the scoring phase"),
+              f"za [{rows},{A}] f32", launches_on="the scoring phase",
+              speculative_launches=spec_n(em.SOFTMAX_KERNEL)),
         entry("K7 ordered_matmul_kernel", csrc + "ordered_matmul.cu",
               "none (XLA in nv_wavenet_tpu/ops/score_parallel.py:135-139, "
               "150-151, 163-168)",
@@ -2921,7 +3278,8 @@ def main() -> int:
               "sum over " + ", ".join(f"[{m},{k}]x[{k},{n}]"
                                       for m, k, n in K7_SHAPES) + " f32",
               launches_on="the scoring phase",
-              per_shape=k7["per_shape"]),
+              per_shape=k7["per_shape"],
+              speculative_launches=spec_n(om.ORDERED_MATMUL_KERNEL)),
     ]
     # the fast and bf16 instances, each with its launches on its own path
     src_k1 = "nv_wavenet_tpu/ops/persistent.py:762"
@@ -3008,6 +3366,40 @@ def main() -> int:
                     "int8_bound": lowp_bound(cfg, MAIN_B, CHECK_T, prec,
                                              storage="int8")}
                    if k == "K4" else {})))
+    # the probes: P1 from both builds, P5 in each precision and W location
+    for flags in pem.FMA_PROBE_KERNELS:
+        r = p1[flags]
+        kernels.append(entry(
+            f"P1 fma_probe_kernel (-{flags})", csrc + "probes.cu",
+            "tools/probe_exact_math_tpu.py:69", p1["launches"][flags],
+            r["guarded_separate"] + (r["separate"] if flags == "fmad=false"
+                                     else 0),
+            r["max_abs_err"], r["ms"], p1["plain_ms"], p1["bound_ms"],
+            p1["bound_by"], p1["library_ms"],
+            f"a*b+c over [{p1['n']}] f32 (the plain form timed)",
+            launches_on="the probe (phase 28)", library="torch.addcmul",
+            contracted_vs_separate=r["separate"], vs_fma64=r["fma64"],
+            mismatches_are="the guarded form against numpy separate, and "
+                           "under -fmad=false the plain form too"))
+    for prec, weights, label in P5_INSTANCES:
+        kw = dict(ps.VARIANTS)[label]
+        D_t = kw.get("D", ps.D_DEFAULT)
+        ms = p5_ns[label] * P5_TIME_T * D_t / 1e6
+        kernels.append(entry(
+            f"P5 stage_chain_kernel {prec}, W in {weights}",
+            csrc + "probes.cu", "tools/probe_stage.py:65",
+            p5_launches[prec],
+            p5_held["exact_bit_mismatches"] if prec == "exact" else 0,
+            p5_held[f"{prec}_max_abs_err"], ms, p5_held["plain_ms"][prec],
+            *p5_bound(ps, ps.B_DEFAULT, D_t, P5_TIME_T, prec), None,
+            f"B={ps.B_DEFAULT}, R={ps.R_DEFAULT}, D={D_t}, T={P5_TIME_T}, "
+            f"gate on, one CTA per row; plain_ms over T={P5_HELD_T}, "
+            f"D={P5_HELD_D} at B=16",
+            ns_per_stage=p5_ns[label], launches_on="the P5 sweep (phase 30)",
+            max_rel_err=p5_held["fast_max_rel_err"] if prec == "fast"
+            else 0.0,
+            library="none: no single torch call computes it",
+            sweep_ns_per_stage=p5_ns if label == P5_INSTANCES[0][2] else None))
     print(json.dumps({"kernels": kernels}), flush=True)
     mark("done")
     print(card, flush=True)

@@ -6,7 +6,8 @@ weight setters, `set_inputs`, `run` / `run_partial` / `run_device` /
 `run_chunks`, the activation getters of dump mode, the streaming serving
 surface: `begin_stream`, `feed` / `feed_device` (with per-row `lengths`),
 `reset_utterances`, `export_state` / `import_state` and the sampling
-`temperature`, and teacher-forced scoring: `score` / `score_device`.
+`temperature`, teacher-forced scoring: `score` / `score_device`, and
+speculative exact decode: `run_speculative`.
 
   * The engine runs on the card: `device=None` means "cuda", and on a host
     without CUDA that raises (it never falls back to the CPU).  Tests pass
@@ -57,6 +58,14 @@ surface: `begin_stream`, `feed` / `feed_device` (with per-row `lengths`),
     symbols and leave the state generation would leave.  It computes in
     compute_dtype and in fp32 under fast_math, as in the JAX engine, so a
     score -> feed handoff is exact on the fp32 and the bf16 tier.
+  * `run_speculative` (`ops/speculative.py`) drafts windows with K6
+    (fast_math, raw conditioning), verifies each with the scorer and
+    commits the exact prefix, so its samples equal `run()`'s bit for bit
+    on the deterministic tiers (fp32 and bf16 weights; int8 stacks under
+    MANYBLOCK, verified with their values).  With `adaptive=True` a short
+    probe and `spec_cost_model` (H100 measurements) pick the window,
+    half of it, or `run()`'s own kernel (K1, K4 under MANYBLOCK) for the
+    rest; `spec_branch` and `spec_rounds` say what ran.
   * Conditioning is uploaded to the device once, in `set_inputs`; the
     dil_b-prefolded copy `cond_pre = cond + dil_b` is built there lazily,
     once per (inputs, weights).
@@ -83,7 +92,8 @@ import torch
 from nv_wavenet_tpu_torch.config import WaveNetConfig
 from nv_wavenet_tpu_torch.models import params as params_lib
 from nv_wavenet_tpu_torch.ops import (fused_chain, persistent,
-                                      scan_generate, score_parallel)
+                                      scan_generate, score_parallel,
+                                      speculative)
 
 
 class Impl(enum.Enum):
@@ -254,6 +264,12 @@ class WaveNetInfer:
         self._params: Optional[Dict[str, torch.Tensor]] = None  # device copy
         self._values: Optional[Dict[str, torch.Tensor]] = None  # their view
         self._fused_prep: Optional[tuple] = None   # K6's folded weights
+        self._spec_prep: Optional[tuple] = None    # the draft's fold
+        # speculative decode: the adaptive tier's cost model (V0_us, V1_us,
+        # E0_us), and what the last run_speculative did
+        self.spec_cost_model = speculative.DEFAULT_COST
+        self.spec_rounds: Optional[int] = None
+        self.spec_branch: Optional[int] = None
         self._cond: Optional[torch.Tensor] = None
         self._cond_pre: Optional[torch.Tensor] = None
         self._selectors: Optional[torch.Tensor] = None
@@ -277,6 +293,7 @@ class WaveNetInfer:
         self._params = None
         self._values = None
         self._fused_prep = None
+        self._spec_prep = None
         self._cond_pre = None
 
     def set_embeddings(self, embed_prev, embed_cur):
@@ -345,6 +362,7 @@ class WaveNetInfer:
         self.temperature = temperature
         self._values = None
         self._fused_prep = None
+        self._spec_prep = None
         if self._params is not None:
             tempered = self._tempered_params()
             for k in ("end_w", "end_b"):
@@ -567,6 +585,89 @@ class WaveNetInfer:
                     compute_dtype=self.compute_dtype, fast_math=fast))
         return (self._gens[key],
                 self._fused_weights() if fused else self._device_params())
+
+    # ------------------------------------------------------------------
+    # speculative exact decode
+    # ------------------------------------------------------------------
+
+    def run_speculative(self, num_samples: int, batch_size: int,
+                        window: int = 256, adaptive: bool = True
+                        ) -> np.ndarray:
+        """Sample by speculative exact decode (`ops/speculative.py`): draft
+        `window` steps on K6 (fast_math), verify them in one pass of the
+        exact scorer, commit the agreeing prefix and the exact correction.
+        Returns y [batch, num_samples] int32, equal to `run(num_samples,
+        batch_size)` (mode "sample", the selectors of `set_inputs`) bit for
+        bit: the draft changes only the speed.
+
+        Defined for the deterministic tiers (fp32 weights, bf16 weights,
+        int8 stacks under MANYBLOCK); raises ValueError for fast_math,
+        fuse_chain, priority="latency" and compute_dtype=bfloat16 engines,
+        whose `run()` is governed by the TV contract, for a geometry K6
+        cannot run (`fused_chain.fused_plan`), before `set_inputs` and for
+        a request longer than it holds.
+
+        adaptive=True: a probe of 4 * min(64, window) steps measures the
+        committed run length and `spec_cost_model` (V0_us, V1_us, E0_us; a
+        round ~V0 + V1 window, an exact step E0) picks the rest's branch:
+        0 window, 1 window / 2, 2 `run()`'s kernel; -1 when the request is
+        too short to probe.  `spec_branch` holds it afterwards (None after
+        adaptive=False) and `spec_rounds` the draft-verify rounds.  The
+        default cost model is measured on an H100 at the flagship, b=1
+        (`speculative.DEFAULT_COST`), where the exact kernel wins.  The
+        whole batch commits at the first disagreement of any row, so batch
+        1 is where drafting can pay."""
+        y, self.spec_rounds = self._run_speculative_device(
+            num_samples, batch_size, window, adaptive)
+        return y.T.cpu().numpy()
+
+    def _run_speculative_device(self, num_samples: int, batch_size: int,
+                                window: int = 256, adaptive: bool = False):
+        """`run_speculative` without the read-back: (device y [T, B],
+        rounds)."""
+        if self._cond is None:
+            raise ValueError("set_inputs must be called first")
+        if (self.fast_math or self.fuse_chain
+                or self.compute_dtype != torch.float32):
+            raise ValueError(
+                "run_speculative requires a deterministic engine decode path "
+                "(no fast_math / fuse_chain / priority='latency' / bf16 "
+                "compute): its output bit-matches run(), which is defined "
+                "only for the exact and the bf16-weights tiers")
+        fused_chain.fused_plan(self.cfg)   # the draft is K6: raises here
+        B = batch_size
+        if B > self._cond.shape[2]:
+            raise ValueError(f"batch_size {B} exceeds the batch of "
+                             f"set_inputs ({self._cond.shape[2]})")
+        if num_samples > self._cond.shape[0]:
+            raise ValueError(f"set_inputs holds {self._cond.shape[0]} steps "
+                             f"of conditioning; cannot generate "
+                             f"{num_samples}")
+        self._reset_state(B)
+        key = ("spec", B, window, adaptive,
+               tuple(self.spec_cost_model) if adaptive else None)
+        if key not in self._gens:
+            # the exact branch is run()'s own dispatch (K1, K4 under
+            # MANYBLOCK) on the engine's ring and y_state, which the
+            # speculative generator hands back after the probe
+            self._gens[key] = (
+                speculative.make_adaptive_generator(
+                    self.cfg, B, window,
+                    lambda t0, cond, sel, ring, ys: self._run_partial_device(
+                        t0, cond.shape[0], B, "sample", False),
+                    cost=self.spec_cost_model)
+                if adaptive else
+                speculative.make_speculative_generator(self.cfg, B, window))
+        if self._spec_prep is None:
+            # the draft's fold of the stored weights' values, raw cond
+            self._spec_prep = fused_chain.prepare_weights(
+                self._value_params(), self.cfg, False, fast_math=True)
+        cond = self._cond[:num_samples, :, :B]
+        sel = self._selectors[:num_samples, :B]
+        out = self._gens[key](self._value_params(), self._spec_prep, 0,
+                              cond, sel, self._ring, self._y_state)
+        self.spec_branch = out[4] if adaptive else None
+        return out[0], out[3]
 
     # ------------------------------------------------------------------
     # streaming serving surface

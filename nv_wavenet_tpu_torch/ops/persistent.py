@@ -209,6 +209,15 @@ def stream_storage(weight_dtype=torch.float32, stream_quant: bool = False,
     return torch.bfloat16 if prec != "exact" else weight_dtype
 
 
+def activation_smem_bytes(cfg: WaveNetConfig, prec: str = "exact") -> int:
+    """The shared memory one step's activations take in a CTA: K1's whole
+    dynamic shared memory, and what K4 keeps beside its stages ((7R + S +
+    4A) floats, R more under "fast" for the rounded copy of x; the launch
+    in csrc/persistent.cu computes the same)."""
+    return (7 * cfg.R + cfg.S + 4 * cfg.A
+            + (cfg.R if prec == "fast" else 0)) * 4
+
+
 def stream_plan(cfg: WaveNetConfig, batch: int, storage=torch.float32,
                 stream_group_size: int = 8, prec: str = "exact"
                 ) -> StreamPlan:
@@ -239,7 +248,7 @@ def stream_plan(cfg: WaveNetConfig, batch: int, storage=torch.float32,
                          f"or int8 (stream_storage)")
     if batch < 1:
         raise ValueError(f"batch must be >= 1, got {batch}")
-    L, R, S, A = cfg.num_layers, cfg.R, cfg.S, cfg.A
+    L, R, S = cfg.num_layers, cfg.R, cfg.S
     eb = torch.empty((), dtype=storage).element_size()
     if max(4 * R, R + S) > STREAM_MAX_COLUMNS:
         raise ValueError(f"K4 computes at most {STREAM_MAX_COLUMNS} output "
@@ -249,8 +258,7 @@ def stream_plan(cfg: WaveNetConfig, batch: int, storage=torch.float32,
         if n * eb % 16:
             raise ValueError(f"K4 copies whole 16-byte units: a row of "
                              f"{name} is {n * eb} bytes in {storage}")
-    act = -(-(7 * R + S + 4 * A + (R if prec == "fast" else 0)) * 4
-            // 16) * 16
+    act = -(-activation_smem_bytes(cfg, prec) // 16) * 16
     budget = SMEM_PER_BLOCK - _STATIC_SMEM - act - 8
     rows = R & -R
     while True:

@@ -6,7 +6,11 @@ Each source becomes its own shared library under
 source with a compile-time precision (`PRECISION_SOURCES`) one library per
 precision (`unit`): the same file compiled with `-DNVW_PREC=0, 1, 2`, each
 holding that precision's entry points, so its instances compile in
-parallel and the exact library holds the exact instances alone.  All the
+parallel and the exact library holds the exact instances alone.  The probe
+source (`FMAD_SOURCES`) is built twice: once with the port's flags and once
+as unit `probes.cu@fmad` with `-fmad=true` and `-DNVW_FMAD=1`, the one
+library where nvcc may contract a*b+c, so the probe shows what the flag
+prevents everywhere else (tools/probe_exact_math.py).  All the
 libraries are compiled in parallel, one nvcc each, all started together.
 Nothing is built or loaded at import time: the first launch of a kernel
 (or an explicit `build_all()`) does it.
@@ -35,8 +39,10 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(PKG_DIR), "build",
                           "nv_wavenet_tpu_torch")
 SOURCES = ("exact_math_kernels.cu", "ordered_matmul.cu", "persistent.cu",
-           "stream_generate.cu", "fused_chain.cu")
+           "stream_generate.cu", "fused_chain.cu", "probes.cu")
 PRECISION_SOURCES = ("persistent.cu", "stream_generate.cu", "fused_chain.cu")
+# sources also built with contraction allowed, as unit `<source>@fmad`
+FMAD_SOURCES = ("probes.cu",)
 # -DNVW_PREC of each precision (csrc/step_common.cuh kPrec*; the names of
 # ops/scan_generate.py PRECISIONS)
 PREC_IDS = {"exact": 0, "fast": 1, "bf16": 2}
@@ -73,16 +79,23 @@ def build_dir() -> str:
 def unit(source: str, prec: str = "exact") -> str:
     """The library of `source` that holds precision `prec`'s entry points:
     the source's name for "exact" (and for a source without precisions),
-    `source@prec` for the others."""
+    `source@prec` for the others; `source@fmad` is a source of
+    FMAD_SOURCES built with `-fmad=true`."""
     if prec == "exact":
         return source
-    if source not in PRECISION_SOURCES or prec not in PREC_IDS:
+    if not ((source in PRECISION_SOURCES and prec in PREC_IDS)
+            or (source in FMAD_SOURCES and prec == "fmad")):
         raise ValueError(f"{source} has no library for precision {prec!r}")
     return f"{source}@{prec}"
 
 
-UNITS = tuple(unit(s, p) for s in SOURCES
-              for p in (PREC_IDS if s in PRECISION_SOURCES else ("exact",)))
+def _variants(source: str) -> tuple:
+    if source in PRECISION_SOURCES:
+        return tuple(PREC_IDS)
+    return ("exact", "fmad") if source in FMAD_SOURCES else ("exact",)
+
+
+UNITS = tuple(unit(s, p) for s in SOURCES for p in _variants(s))
 
 
 def _split(name: str):
@@ -113,9 +126,13 @@ def build_all(units: Sequence[str] = UNITS) -> Dict[str, str]:
         for u in todo:
             source, prec = _split(u)
             tmp = f"{library_path(u)}.{os.getpid()}.tmp"
-            defines = ([f"-DNVW_PREC={PREC_IDS[prec]}"]
-                       if source in PRECISION_SOURCES else [])
-            cmd = [nvcc, *NVCC_FLAGS, *defines, "-o", tmp,
+            flags, defines = list(NVCC_FLAGS), []
+            if prec == "fmad":
+                flags[flags.index("-fmad=false")] = "-fmad=true"
+                defines = ["-DNVW_FMAD=1"]
+            elif source in PRECISION_SOURCES:
+                defines = [f"-DNVW_PREC={PREC_IDS[prec]}"]
+            cmd = [nvcc, *flags, *defines, "-o", tmp,
                    os.path.join(CSRC_DIR, source)]
             with open(tmp + ".log", "w") as log:
                 procs[u] = (tmp, subprocess.Popen(

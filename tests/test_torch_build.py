@@ -63,3 +63,41 @@ def test_every_kernel_is_in_a_unit_of_its_precision():
         assert kernel.source == build.unit("fused_chain.cu", prec)
     with pytest.raises(ValueError, match="precision"):
         build.unit("ordered_matmul.cu", "bf16")
+
+
+def test_the_probe_alone_is_also_built_with_contraction(tmp_path,
+                                                        monkeypatch):
+    """csrc/probes.cu is built twice: unit probes.cu with the port's
+    -fmad=false, unit probes.cu@fmad with -fmad=true and NVW_FMAD=1 (P1
+    shows the contraction there); every other library keeps -fmad=false,
+    and each probe wrapper names its unit.  The nvcc commands are recorded
+    by a stand-in for the compiler."""
+    from nv_wavenet_tpu_torch.tools import probe_exact_math, probe_stage
+    cmds = []
+
+    class FakeNvcc:
+        returncode = 0
+
+        def __init__(self, cmd, stdout, stderr):
+            cmds.append(cmd)
+            open(cmd[cmd.index("-o") + 1], "w").close()
+
+        def poll(self):
+            return 0
+
+    monkeypatch.setattr(build, "BUILD_ROOT", str(tmp_path))
+    monkeypatch.setattr(build, "find_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(build.subprocess, "Popen", FakeNvcc)
+    build.build_all()
+    assert len(cmds) == len(build.UNITS)
+    for cmd in cmds:
+        fmad = "libprobes_fmad.so" in cmd[cmd.index("-o") + 1]
+        assert ("-fmad=true" in cmd) == ("-DNVW_FMAD=1" in cmd) == fmad
+        assert ("-fmad=false" in cmd) != fmad
+    assert sum("-fmad=true" in c for c in cmds) == 1
+    with pytest.raises(ValueError, match="precision"):
+        build.unit("persistent.cu", "fmad")
+    assert "#if NVW_FMAD" in (CSRC / "probes.cu").read_text()
+    units = {k.source for k in (*probe_exact_math.FMA_PROBE_KERNELS.values(),
+                                *probe_stage.STAGE_CHAIN_KERNELS.values())}
+    assert units == {"probes.cu", "probes.cu@fmad"}

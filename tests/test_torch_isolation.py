@@ -38,6 +38,37 @@ def imported_names(path: pathlib.Path):
             yield node.args[0].value
 
 
+# the modules of the speculative slice, with its probes and cost model
+SLICE_MODULES = ("nv_wavenet_tpu_torch.ops.speculative",
+                 "nv_wavenet_tpu_torch.utils.profiling",
+                 "nv_wavenet_tpu_torch.tools.probe_exact_math",
+                 "nv_wavenet_tpu_torch.tools.probe_stage",
+                 "nv_wavenet_tpu_torch.tools.perf")
+
+
+def test_the_slice_modules_are_checked():
+    """The checks below read and import the speculative slice's modules."""
+    assert set(SLICE_MODULES) <= set(MODULES)
+    names = {p.relative_to(REPO).with_suffix("").as_posix().replace("/", ".")
+             for p in SOURCES}
+    assert set(SLICE_MODULES) <= names
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES[2:])
+def test_measuring_tools_fail_without_a_card(module, tmp_path):
+    """The probes and perf.py measure the card: with none (and no nvcc)
+    they exit non-zero and print no rate."""
+    if _cuda_available():
+        pytest.skip("a CUDA device is present: run the tools themselves")
+    out = subprocess.run([sys.executable, "-m", module, "-t", "1"]
+                         if module.endswith("perf") else
+                         [sys.executable, "-m", module], cwd=REPO,
+                         env=_env_without_nvcc(tmp_path), capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode != 0
+    assert "Sample rate" not in out.stdout and "ns/stage" not in out.stdout
+
+
 def test_forbidden_pattern():
     assert FORBIDDEN.match("nv_wavenet_tpu") and FORBIDDEN.match("jax.numpy")
     assert FORBIDDEN.match("nv_wavenet_tpu.ops.exact_math")
