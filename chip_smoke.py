@@ -31,9 +31,14 @@ any failure exits non-zero:
   3. K0a (elementwise exact exp/tanh/sigmoid) vs plain: 0 bit mismatches on
      the dense sweep of tests/test_exact_math.py
   4. K0b (canonical sampler) vs plain: 0 mismatches on za [4096, 256]; K0c
-     (canonical softmax) vs plain on the same za: 0 bit mismatches; K7 (the
-     scorer's fixed-order product) vs plain at the scorer's flagship shapes
-     with 4096 rows: 0 bit mismatches, timed beside torch.matmul
+     (canonical softmax) vs plain at za [4096, 256] and [131072, 256] (the
+     warp instance) and [4096, 250] (the block instance): 0 bit
+     mismatches, timed beside torch.softmax; K7 (the scorer's fixed-order
+     products) vs plain at the scorer's flagship shapes with 131072 rows
+     (the 16 x 8192 window) and 4096 (a verify), and a ragged case, in its
+     three entries (the product, the gate, res/skip): 0 bit mismatches,
+     timed beside torch.matmul, with the bound and the no-FMA floor (the
+     operations over 33.5 TFLOP/s)
   5. K1 (persistent generation) vs plain, TEST_CONFIG_MED, B=4, T=32, sample
      and argmax modes with the dump: exact y, activations within the
      reference ladder; 7+7+...+1 chunked run_partial calls equal one call;
@@ -77,11 +82,13 @@ any failure exits non-zero:
      forcing its samples), each timed over a 256-step launch
  11. scoring at full width: counts set to 0 just before and read just
      after; request 1's window (16 x 8192 samples) scored from silence by
-     `WaveNetInfer.score` (the time-parallel scorer: K7, K0a, K0c) and by
-     K2 on the same state and symbols: p_seq, the final ring and y_state
-     bit-equal; both timed; `scoring.score_teacher_forced_kernel` (K2) and
+     `WaveNetInfer.score` (the time-parallel scorer: K7's gate, res/skip
+     and product entries, K0a, K0c) and by K2 on the same state and
+     symbols: p_seq, the final ring and y_state bit-equal; both timed;
+     `scoring.score_teacher_forced_kernel` (K2) and
      `score_teacher_forced_parallel` on the same audio, bits per sample
-     within 1e-5
+     within 1e-5; then one scorer pass on counts of its own (L gate, L
+     res/skip, 2 product, 1 K0a, 1 K0c launches); it is traced in phase 33
  12. handoff: request 1 fed in two halves equals its run; then the first
      half scored and the second fed: 0 mismatches, and the half-window
      p_seq equals the full window's first half bit for bit
@@ -182,14 +189,20 @@ any failure exits non-zero:
  31. speculative decode at the flagship: request 1's first 2048 samples at
      b=1 and b=16 through WaveNetInfer.run_speculative, fixed and
      adaptive (window 256), each on counts set to 0 just before it and
-     read just after (K6-fast, K7, K0a, K0c, K0b must launch): 0 integer
+     read just after (K6-fast, K7's three entries, K0a, K0c, K0b must
+     launch): 0 integer
      mismatches against run() of the same engine; rounds, branch and kHz
      per utterance beside run()'s; the same for bf16 weights and
      MANYBLOCK int8 over 512 samples at window 128
  32. the speculative cost fit at b=1: a round's time at windows 64, 128 and
      256, least squares V0 + V1 K, E0 run()'s time per step (K1), the
      adaptive branch over every probe result (speculative.DEFAULT_COST)
- 33. the `kernels` JSON line: per kernel its launches on its path (K5: the
+ 33. the scorer pass of phase 11 traced with torch.profiler: its device
+     time by kernel group (K7's gate, res/skip and product entries, K0a,
+     K0c, torch's own kernels) and their shares; its Chrome trace under
+     build/traces/.  It comes last: once the profiler has started, CUPTI
+     stays attached and slows every later launch
+ 34. the `kernels` JSON line: per kernel its launches on its path (K5: the
      serving phase; K0a, K0c, K7, K2: the scoring phase; K3: the prng
      request; K4: the MANYBLOCK main path; K6: the latency-tier main path;
      each fast and bf16 instance: its phase 25 or 26 path; P1, P5: the
@@ -221,6 +234,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # bytes over the memory rate and its operations over the fp32 rate
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# K7's contract rounds every product and sum (FMUL + FADD, no FFMA): half
+# the fp32 rate is the most its operations can issue at
+PEAK_NOFMA_FLOPS = PEAK_FP32_FLOPS / 2
 
 # fp32 operations of one element of the canonical exact math
 # (ops/exact_math.py, one op per line of the normative lowering)
@@ -247,9 +263,23 @@ SERVE_REPLAY = 16   # the first utterances completed, replayed lockstep
 # steps of the exact kernels' checks against their plain versions at the
 # flagship (K1, K2, K3, K4, K5, K6): the plain step costs ~32 ms there
 FLAG_PLAIN_T = 16
-# K7 at the scorer's flagship products, (M, K, N): the dilated halves
-# [x_{t-d} | x_t] W, the fused res/skip product, and the output stack
-K7_SHAPES = ((4096, 64, 128), (4096, 64, 320), (4096, 256, 256))
+# K7 at the scorer's flagship products, (entry, M, K, N): "gate" is the
+# dilated layer (x_{t-d} Wprev + x_t Wcur + zb, then tanh * sigmoid; N = R,
+# its halves K x 2R), "res_skip" the res/skip product with the residual and
+# skip adds (N = R + S = 320, R = K), "matmul" the output stack (256 x 256,
+# out and end); at the window (16 x 8192 rows) and a 4096-row verify, and a
+# ragged case (the gate at R = 36 of tests/test_torch_fused.py, res/skip
+# with S = 37, a product with K = 37, N = 50).  tools/scorer_ab.py times
+# the product entry against another tree's in turns.
+K7_WINDOW_M = 16 * 8192
+K7_SHAPES = tuple((e, M, K, N) for M in (K7_WINDOW_M, 4096)
+                  for e, K, N in (("gate", 64, 64), ("res_skip", 64, 320),
+                                  ("matmul", 256, 256))
+                  ) + (("gate", 1000, 36, 36), ("res_skip", 1000, 36, 73),
+                       ("matmul", 1000, 37, 50))
+# K0c: za [rows, A] at the verify and window shapes (the warp instance) and
+# at A = 250 (the block instance)
+K0C_SHAPES = ((4096, 256), (K7_WINDOW_M, 256), (4096, 250))
 PRNG_SEED = 3   # the sampling_seed of the prng request
 # K4 (weight streaming): its storages, the schedules held to one another,
 # the flagship window held to K1/K2/K3, config 4 of the JAX repo's
@@ -567,55 +597,142 @@ def time_launch_ms(torch, np, launch, make_state, reps: int = 4) -> float:
     return float(np.mean(times[1:]))
 
 
-def check_k0c(torch, em, za) -> dict:
-    """K0c against its plain version on the card and on the CPU (bit
-    mismatches), and its time beside the plain version's and torch.softmax's
-    at the same shape."""
-    pk = em.softmax_canonical(za)
-    pp = em.softmax_canonical_plain(za)
-    torch.cuda.synchronize()
-    rows, A = za.shape
-    out = {"mismatches": bit_mismatches(torch, pk, pp),
-           "cpu_plain_mismatches": bit_mismatches(
-               torch, pk.cpu(), em.softmax_canonical_plain(za.cpu())),
-           "max_abs_err": float((pk - pp).abs().max()),
-           "ms": time_ms(torch, lambda: em.softmax_canonical(za), 50),
-           "plain_ms": time_ms(torch, lambda: em.softmax_canonical_plain(za),
-                               5),
-           "library_ms": time_ms(torch, lambda: torch.softmax(za, -1), 50)}
-    # max, subtract, exp, the fixed-tree prefix sum, divide
-    out["bound_ms"], out["bound_by"] = bound_ms(
-        8 * rows * A, rows * A * (3 + EXP_OPS + (A.bit_length() - 1)))
+def k0c_bound(rows: int, A: int):
+    """za read and p written once; max, subtract, exp, the fixed-tree prefix
+    sum (one add a round) and the division an element."""
+    return bound_ms(8 * rows * A,
+                    rows * A * (3 + EXP_OPS + (A - 1).bit_length()))
+
+
+def check_k0c(torch, em, dev, gen) -> dict:
+    """K0c's instances against the plain version at K0C_SHAPES (bit
+    mismatches on the card; on the CPU too at the smaller shapes), timed
+    beside the plain version and torch.softmax; "per_shape" rows, and the
+    first shape's numbers at the top.  za is drawn on the card from `gen`."""
+    out = {"mismatches": 0, "cpu_plain_mismatches": 0, "max_abs_err": 0.0,
+           "per_shape": []}
+    for rows, A in K0C_SHAPES:
+        t_shape = time.perf_counter()
+        za = torch.rand((rows, A), generator=gen, device=dev) * 16 - 8
+        inst = em.softmax_kernel(A)
+        pk = em.softmax_canonical(za)
+        pp = em.softmax_canonical_plain(za)
+        torch.cuda.synchronize()
+        row = {"shape": [rows, A], "instance": inst.symbol,
+               "mismatches": bit_mismatches(torch, pk, pp),
+               "max_abs_err": float((pk - pp).abs().max()),
+               "ms": time_ms(torch, lambda: em.softmax_canonical(za), 50),
+               "plain_ms": time_ms(torch, lambda: em.softmax_canonical_plain(
+                   za), 5),
+               "library_ms": time_ms(torch, lambda: torch.softmax(za, -1), 50)}
+        if rows <= 4096:
+            row["cpu_plain_mismatches"] = bit_mismatches(
+                torch, pk.cpu(), em.softmax_canonical_plain(za.cpu()))
+            out["cpu_plain_mismatches"] += row["cpu_plain_mismatches"]
+        row["bound_ms"], row["bound_by"] = k0c_bound(rows, A)
+        row["check_s"] = time.perf_counter() - t_shape
+        out["mismatches"] += row["mismatches"]
+        out["max_abs_err"] = max(out["max_abs_err"], row["max_abs_err"])
+        out["per_shape"].append(row)
+    first = out["per_shape"][0]
+    for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"):
+        out[k] = first[k]
     return out
 
 
+def k7_inputs(torch, dev, gen, entry: str, M: int, K: int, N: int):
+    """Seeded (args, kwargs) of one K7 shape on the card.  The gate's zb is
+    `cond[:, l]` of a [T, L, B, 2R] conditioning (B = 16, or 8 where 16
+    does not divide M; L = 20), read in place; the ragged gate also adds a
+    bias (the scorer's dil_b when it does not prefold)."""
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device=dev) - 0.5
+    if entry == "matmul":
+        return (u(M, K), u(K, N)), {}
+    if entry == "res_skip":
+        return (u(M, K), u(K, N), u(N), u(M, K), u(M, N - K)), {}
+    B = 16 if M % 16 == 0 else 8
+    cond = u(M // B, 20, B, 2 * N)
+    return ((u(M, K), u(M, K), u(K, 2 * N), u(K, 2 * N), cond[:, 1]),
+            {"bias": u(2 * N) if M % 16 else None})
+
+
+def k7_work(entry: str, M: int, K: int, N: int, z=None):
+    """(product operations, other operations, bytes) of one K7 call: each
+    input read once, each output written once.  The gate's tanh costs what
+    its branch on this run's z takes (z [M, 2R] from the plain version)."""
+    if entry == "matmul":
+        return 2 * M * K * N, 0, 4 * (M * K + K * N + M * N)
+    if entry == "res_skip":   # two adds an output; x and skip in and out
+        return 2 * M * K * N, 2 * M * N, 4 * (M * K + K * N + N + 2 * M * N)
+    R = N
+    small = int((z[:, :R].abs() < 0.5).sum())
+    # a + b, + zb (and + bias), tanh, sigmoid, the product: per h element
+    other = (2 * M * 2 * R + small * TANH_SMALL_OPS
+             + (M * R - small) * TANH_LARGE_OPS + M * R * (SIGMOID_OPS + 1))
+    return (2 * 2 * M * K * 2 * R, other,
+            4 * (2 * M * K + 2 * K * 2 * R + M * 2 * R + 2 * R + M * R))
+
+
+K7_ENTRIES = {"matmul": ("ordered_matmul", "ordered_matmul_plain"),
+              "gate": ("ordered_gate", "ordered_gate_plain"),
+              "res_skip": ("ordered_res_skip", "ordered_res_skip_plain")}
+
+
+def k7_outputs(f, entry: str, args, kw) -> tuple:
+    """The outputs of f(*args, **kw) to compare: the res/skip entry runs on
+    a copy of its skip, which it updates in place, and gives (x_out,
+    skip)."""
+    if entry != "res_skip":
+        return (f(*args, **kw),)
+    a = (*args[:4], args[4].clone())
+    return f(*a, **kw), a[4]
+
+
 def check_k7(torch, om, dev, gen) -> dict:
-    """K7 against its plain version at K7_SHAPES (bit mismatches), timed
-    beside the plain version and torch.matmul; sums over the shapes."""
-    out = {"mismatches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-           "library_ms": 0.0, "bound_ms": 0.0, "per_shape": []}
-    by = set()
-    for M, K, N in K7_SHAPES:
-        x = torch.rand((M, K), generator=gen, device=dev) - 0.5
-        w = torch.rand((K, N), generator=gen, device=dev) - 0.5
-        yk = om.ordered_matmul(x, w)
-        yp = om.ordered_matmul_plain(x, w)
+    """K7's three entries against their plain versions at K7_SHAPES (bit
+    mismatches of every output), timed beside the plain version and
+    torch.matmul (the fused entries: no single torch call), with the bound
+    and the no-FMA floor (operations over PEAK_NOFMA_FLOPS).  Returns
+    {"per_shape": rows, "mismatches": total, "max_abs_err": max}."""
+    out = {"mismatches": 0, "max_abs_err": 0.0, "per_shape": []}
+    for entry, M, K, N in K7_SHAPES:
+        t_shape = time.perf_counter()
+        args, kw = k7_inputs(torch, dev, gen, entry, M, K, N)
+        fn, plain = (getattr(om, n) for n in K7_ENTRIES[entry])
+        z = None
+        if entry == "gate":
+            zb = args[4] if kw["bias"] is None else kw["bias"] + args[4]
+            z = (om.ordered_matmul_plain(args[0], args[2])
+                 + om.ordered_matmul_plain(args[1], args[3])) + zb.reshape(
+                     M, 2 * N)
+        yk = k7_outputs(fn, entry, args, kw)
+        yp = k7_outputs(plain, entry, args, kw)
         torch.cuda.synchronize()
-        row = {"shape": [M, K, N], "mismatches": bit_mismatches(torch, yk, yp),
-               "max_abs_err": float((yk - yp).abs().max()),
-               "cublas_max_abs_diff": float((yk - x @ w).abs().max()),
-               "ms": time_ms(torch, lambda: om.ordered_matmul(x, w), 20),
-               "plain_ms": time_ms(torch, lambda: om.ordered_matmul_plain(
-                   x, w), 3),
-               "library_ms": time_ms(torch, lambda: torch.matmul(x, w), 20)}
-        row["bound_ms"], b_by = bound_ms(4 * (M * K + K * N + M * N),
-                                         2 * M * N * K)
-        by.add(b_by)
-        for k in ("mismatches", "ms", "plain_ms", "library_ms", "bound_ms"):
-            out[k] += row[k]
+        reps = 10 if M >= K7_WINDOW_M else 50
+        row = {"entry": entry, "shape": [M, K, N],
+               "mismatches": sum(bit_mismatches(torch, a, b)
+                                 for a, b in zip(yk, yp)),
+               "max_abs_err": max(float((a - b).abs().max())
+                                  for a, b in zip(yk, yp)),
+               "ms": time_ms(torch, lambda: fn(*args, **kw), reps),
+               "plain_ms": time_ms(torch, lambda: plain(*args, **kw), 1),
+               "library_ms": None}
+        if entry == "matmul":
+            row["cublas_max_abs_diff"] = float(
+                (yk[0] - args[0] @ args[1]).abs().max())
+            row["library_ms"] = time_ms(
+                torch, lambda: torch.matmul(args[0], args[1]), reps)
+        prod_ops, other_ops, n_bytes = k7_work(entry, M, K, N, z)
+        row["bound_ms"], row["bound_by"] = bound_ms(n_bytes,
+                                                    prod_ops + other_ops)
+        row["nofma_floor_ms"] = (prod_ops + other_ops) / PEAK_NOFMA_FLOPS * 1e3
+        row["product_tflops"] = prod_ops / row["ms"] / 1e9
+        out["mismatches"] += row["mismatches"]
         out["max_abs_err"] = max(out["max_abs_err"], row["max_abs_err"])
+        row["check_s"] = time.perf_counter() - t_shape
         out["per_shape"].append(row)
-    out["bound_by"] = "+".join(sorted(by))
+        del args, kw, yk, yp, z
     return out
 
 
@@ -1635,7 +1752,8 @@ def main() -> int:
     from nv_wavenet_tpu_torch.ops import speculative
     from nv_wavenet_tpu_torch.tools import probe_exact_math as pem
     from nv_wavenet_tpu_torch.tools import probe_stage as ps
-    from nv_wavenet_tpu_torch.utils import build
+    from nv_wavenet_tpu_torch.tools import scorer_ab
+    from nv_wavenet_tpu_torch.utils import build, profiling
 
     # the plain versions' matrix products go to cuBLAS: full fp32, no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1723,20 +1841,30 @@ def main() -> int:
     if k0b_mism:
         fail(f"K0b disagrees with its plain version: {k0b_mism}")
 
-    # K0c on the same logits, K7 at the scorer's products
-    k0c = check_k0c(torch, em, za)
-    log(f"[K0c] {k0c['mismatches']}/{za.numel()} bit mismatches vs plain on "
-        f"the card, {k0c['cpu_plain_mismatches']} vs plain on the CPU")
+    # K0c and K7 at the scorer's shapes
+    mark("phase 4: K0c and K7 vs plain")
+    gen_k0c = torch.Generator(device=dev)
+    gen_k0c.manual_seed(40)
+    k0c = check_k0c(torch, em, dev, gen_k0c)
+    for row in k0c["per_shape"]:
+        log(f"[K0c] {row['instance']} za {row['shape']}: "
+            f"{row['mismatches']} bit mismatches vs plain on the card, "
+            f"{row.get('cpu_plain_mismatches', 'not run')} vs plain on the "
+            f"CPU; {row['ms']:.4f} ms (torch.softmax {row['library_ms']:.4f}, "
+            f"bound {row['bound_ms']:.4f}); checked in {row['check_s']:.2f} s")
     if k0c["mismatches"]:
         fail(f"K0c disagrees with its plain version: {k0c['mismatches']}")
+    mark("phase 4: K7 vs plain")
     gen_k7 = torch.Generator(device=dev)
     gen_k7.manual_seed(7)
     k7 = check_k7(torch, om, dev, gen_k7)
     for row in k7["per_shape"]:
-        log(f"[K7] {row['shape']}: {row['mismatches']} bit mismatches vs "
-            f"plain; vs cuBLAS max abs diff {row['cublas_max_abs_diff']:.3g};"
-            f" {row['ms']:.4f} ms (torch.matmul {row['library_ms']:.4f}, "
-            f"bound {row['bound_ms']:.4f})")
+        log(f"[K7] {row['entry']} {row['shape']}: {row['mismatches']} bit "
+            f"mismatches vs plain; {row['ms']:.4f} ms "
+            f"({row['product_tflops']:.2f} TFLOP/s of products; library "
+            f"{row['library_ms']}, bound {row['bound_ms']:.4f}, no-FMA floor "
+            f"{row['nofma_floor_ms']:.4f}); checked in {row['check_s']:.2f} s")
+    log(json.dumps({"k7": k7, "k0c": k0c, "card": card}))
     if k7["mismatches"]:
         fail(f"K7 disagrees with its plain version: {k7['mismatches']}")
 
@@ -1968,7 +2096,8 @@ def main() -> int:
                  "K4": persistent.STREAM_KERNELS}
     exact_sym = {k: t["exact"].symbol for k, t in k1_tables.items()}
     all_kernels = (em.EXACT_FN_KERNEL, em.SAMPLE_KERNEL, em.SOFTMAX_KERNEL,
-                   om.ORDERED_MATMUL_KERNEL,
+                   em.SOFTMAX_BLOCK_KERNEL, om.ORDERED_MATMUL_KERNEL,
+                   om.ORDERED_GATE_KERNEL, om.ORDERED_RES_SKIP_KERNEL,
                    *(k for t in k1_tables.values() for k in t.values()),
                    *fc.FUSED_KERNELS.values())
     for k in all_kernels:
@@ -2269,6 +2398,24 @@ def main() -> int:
     bits_p = bits_p.cpu().numpy()
     parallel_score_ms = (time.perf_counter() - t) * 1e3
     score_launches = {k.symbol: k.launches for k in all_kernels}
+    # one pass on counts of its own: the launches of a scorer pass
+    for k in all_kernels:
+        k.launches = 0
+    seng.begin_stream(MAIN_B)
+    seng.score_device(cond, y_tb)
+    torch.cuda.synchronize()
+    per_pass = {k.symbol: k.launches for k in all_kernels if k.launches}
+    want_pass = {om.ORDERED_GATE_KERNEL.symbol: L,
+                 om.ORDERED_RES_SKIP_KERNEL.symbol: L,
+                 om.ORDERED_MATMUL_KERNEL.symbol: 2,
+                 em.EXACT_FN_KERNEL.symbol: 1, em.SOFTMAX_KERNEL.symbol: 1}
+    log(f"[scoring] launches of one scorer pass: {per_pass}")
+    if per_pass != want_pass:
+        fail(f"a scorer pass launched {per_pass}, not {want_pass}")
+    # its device time by kernel group is taken last (phase 33): once
+    # torch.profiler has started, CUPTI stays attached and slows every
+    # later launch
+    traced_pass = (seng, cond, y_tb)
     bits_diff = float(np.abs(bits_k - bits_p).max())
     window_bound, window_by = bound_ms(
         k1_bytes(cfg, MAIN_B, MAIN_T) + 4 * MAIN_T * MAIN_B * cfg.A,
@@ -2285,7 +2432,7 @@ def main() -> int:
         "bits_per_sample_kernel": float(bits_k.mean()),
         "bits_per_sample_parallel": float(bits_p.mean()),
         "bits_max_abs_diff": bits_diff, "launches": score_launches,
-        "card": card}
+        "launches_per_pass": per_pass, "card": card}
     log(json.dumps({"scoring": scoring_line}))
     log(f"[scoring] scorer vs K2 over {MAIN_B} x {MAIN_T}: p_seq "
         f"{score_cmp['p_bit_mismatches']} bit mismatches, ring "
@@ -2298,11 +2445,12 @@ def main() -> int:
             or score_cmp["echo_mismatches"] or bits_diff > 1e-5):
         fail("the time-parallel scorer and K2 disagree, or the two scoring "
              "functions' bits per sample differ by more than 1e-5")
-    scoring_kernels = (om.ORDERED_MATMUL_KERNEL, em.EXACT_FN_KERNEL,
+    scoring_kernels = (om.ORDERED_MATMUL_KERNEL, om.ORDERED_GATE_KERNEL,
+                       om.ORDERED_RES_SKIP_KERNEL, em.EXACT_FN_KERNEL,
                        em.SOFTMAX_KERNEL, persistent.FORCED_KERNELS["exact"])
     if not all(score_launches[k.symbol] for k in scoring_kernels):
-        fail(f"the scoring path did not launch K7, K0a, K0c and K2: "
-             f"{score_launches}")
+        fail(f"the scoring path did not launch K7 (product, gate and "
+             f"res/skip), K0a, K0c and K2: {score_launches}")
 
     # -- phase 12: score -> feed handoff --------------------------------------
     mark("phase 12: score -> feed handoff")
@@ -3057,7 +3205,8 @@ def main() -> int:
     # SPEC_T, bf16 weights and MANYBLOCK int8 over SPEC_STORE_T
     cond1, sel1 = first[0][:SPEC_T], first[1][:SPEC_T]
     spec_kernels = (fc.FUSED_KERNELS[("injected", "fast")],
-                    om.ORDERED_MATMUL_KERNEL, em.EXACT_FN_KERNEL,
+                    om.ORDERED_MATMUL_KERNEL, om.ORDERED_GATE_KERNEL,
+                    om.ORDERED_RES_SKIP_KERNEL, em.EXACT_FN_KERNEL,
                     em.SOFTMAX_KERNEL, em.SAMPLE_KERNEL)
     spec_runs = {}
     for label, kw, T_s, window, batches in (
@@ -3117,8 +3266,21 @@ def main() -> int:
         f"{fit[1]:.2f}, {fit[2]:.2f}) at the flagship, b=1; the adaptive "
         f"tier's branches over every probe result: {branches}; {card}")
 
-    # -- phase 33: the kernels line -------------------------------------------
-    mark("phase 33: the kernels line")
+    # -- phase 33: the scorer pass traced ------------------------------------
+    mark("phase 33: the scorer pass traced")
+    split = scorer_ab.scorer_split(
+        torch, profiling.trace, *traced_pass, MAIN_B,
+        os.path.join(HERE, "build", "traces", "scorer_trace.json"))
+    del traced_pass
+    log(json.dumps({"scorer_split": split, "card": card}))
+    log(f"[scoring] a scorer pass, {split['total_ms']:.2f} ms of device time "
+        f"({split['method']}): " + ", ".join(
+            f"{g} {v:.2f} ms ({split['shares'][g]:.1%}, "
+            f"{split['launches'].get(g, '-')} launches)"
+            for g, v in sorted(split["groups_ms"].items())))
+
+    # -- phase 34: the kernels line -------------------------------------------
+    mark("phase 34: the kernels line")
     def entry(name, source, replaces, n_launches, mism, err, ms, plain, bnd,
               by, lib, shape, **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -3261,26 +3423,62 @@ def main() -> int:
               feed_ms_p50=f50, feed_ms_p99=f99,
               speculative_launches=spec_n(
                   fc.FUSED_KERNELS[("injected", "fast")])),
-        entry("K0c softmax_p_kernel", csrc + "exact_math_kernels.cu",
+        entry("K0c softmax_p_warp_kernel<A/32>",
+              csrc + "exact_math_kernels.cu",
               "none (XLA in nv_wavenet_tpu/ops/score_parallel.py:169; "
               "softmax_canonical, nv_wavenet_tpu/ops/persistent.py:64)",
               score_launches[em.SOFTMAX_KERNEL.symbol], k0c["mismatches"],
               k0c["max_abs_err"], k0c["ms"], k0c["plain_ms"],
               k0c["bound_ms"], k0c["bound_by"], k0c["library_ms"],
-              f"za [{rows},{A}] f32", launches_on="the scoring phase",
+              "za [%d,%d] f32 (window and block instance: per_shape)"
+              % tuple(K0C_SHAPES[0]), launches_on="the scoring phase",
+              library="torch.softmax",
+              per_shape=k0c["per_shape"],
+              instances={"softmax_p_warp_kernel<NR>": {
+                  "takes": "A a multiple of 32, at most 1024",
+                  "launches": score_launches[em.SOFTMAX_KERNEL.symbol]},
+                  "softmax_p_kernel (block per row)": {
+                  "takes": "every other A",
+                  "launches": score_launches[em.SOFTMAX_BLOCK_KERNEL.symbol],
+                  "held": [r for r in k0c["per_shape"] if r["instance"]
+                           == em.SOFTMAX_BLOCK_KERNEL.symbol]}},
               speculative_launches=spec_n(em.SOFTMAX_KERNEL)),
-        entry("K7 ordered_matmul_kernel", csrc + "ordered_matmul.cu",
-              "none (XLA in nv_wavenet_tpu/ops/score_parallel.py:135-139, "
-              "150-151, 163-168)",
-              score_launches[om.ORDERED_MATMUL_KERNEL.symbol],
-              k7["mismatches"], k7["max_abs_err"], k7["ms"], k7["plain_ms"],
-              k7["bound_ms"], k7["bound_by"], k7["library_ms"],
-              "sum over " + ", ".join(f"[{m},{k}]x[{k},{n}]"
-                                      for m, k, n in K7_SHAPES) + " f32",
-              launches_on="the scoring phase",
-              per_shape=k7["per_shape"],
-              speculative_launches=spec_n(om.ORDERED_MATMUL_KERNEL)),
     ]
+    # K7's three entries: their top-level numbers are the sums over the
+    # scorer's shapes at the window (16 x 8192 rows)
+    for name, sym_k, ent, lib_name in (
+            ("K7 ordered_kernel<..., kProduct> (product)",
+             om.ORDERED_MATMUL_KERNEL, "matmul", "torch.matmul"),
+            ("K7 ordered_kernel<..., kGate> (gate)", om.ORDERED_GATE_KERNEL,
+             "gate", "none: no single torch call computes it"),
+            ("K7 ordered_kernel<..., kResSkip> (res/skip)",
+             om.ORDERED_RES_SKIP_KERNEL, "res_skip",
+             "none: no single torch call computes it")):
+        rows_e = [r for r in k7["per_shape"] if r["entry"] == ent]
+        win = [r for r in rows_e if r["shape"][0] == K7_WINDOW_M]
+        tot = {k: sum(r[k] for r in win) for k in (
+            "ms", "plain_ms", "bound_ms", "nofma_floor_ms")}
+        kernels.append(entry(
+            name, csrc + "ordered_matmul.cu",
+            "none (XLA in nv_wavenet_tpu/ops/score_parallel.py:135-139, "
+            "150-151, 163-168)",
+            score_launches[sym_k.symbol],
+            sum(r["mismatches"] for r in rows_e),
+            max(r["max_abs_err"] for r in rows_e), tot["ms"],
+            tot["plain_ms"], tot["bound_ms"],
+            "+".join(sorted({r["bound_by"] for r in win})),
+            (sum(r["library_ms"] for r in win) if ent == "matmul" else None),
+            "sum over " + ", ".join(
+                f"[{r['shape'][0]},{r['shape'][1]}]x[{r['shape'][1]},"
+                f"{r['shape'][2] * (2 if ent == 'gate' else 1)}]"
+                for r in win) + " f32" + {
+                    "gate": " (two halves, zb, tanh*sigmoid)",
+                    "res_skip": " (the residual and skip adds)",
+                    "matmul": " (out and end: the same shape)"}[ent],
+            launches_on="the scoring phase", library=lib_name,
+            nofma_floor_ms=tot["nofma_floor_ms"],
+            per_shape=rows_e,
+            speculative_launches=spec_n(sym_k)))
     # the fast and bf16 instances, each with its launches on its own path
     src_k1 = "nv_wavenet_tpu/ops/persistent.py:762"
     for prec, kp in (("fast", "kPrecFast"), ("bf16", "kPrecBF16")):

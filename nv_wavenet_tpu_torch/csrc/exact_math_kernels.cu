@@ -7,18 +7,30 @@
 // K0b sample_kernel: the canonical sampler, one block per row of za [N, A]:
 //   max, exp(za - max), fixed-tree prefix sum, count of bins <= sel * sum,
 //   silence fallback.  Replaces tools/probe_exact_math_tpu.py:107.
-// K0c softmax_p_kernel: the canonical softmax, one block per row of
-//   za [N, A]: max, e = exp(za - max), fixed-tree prefix sum, p = e / cum[A-1]
-//   (IEEE division; -prec-div stays on).  No Pallas counterpart: the JAX
-//   time-parallel scorer computes it in XLA (persistent.py:64-71,
-//   softmax_canonical); K2 writes the same p per step, so the scorer's p_seq
-//   equals K2's bit for bit.
+// K0c softmax_p_warp_kernel<A / 32>: the canonical softmax, one warp per row
+//   of za [N, A] for A a multiple of 32 up to 1024: max, e = exp(za - max),
+//   fixed-tree prefix sum, p = e / cum[A-1] (IEEE division; -prec-div stays
+//   on).  No Pallas counterpart: the JAX time-parallel scorer computes it in
+//   XLA (persistent.py:64-71, softmax_canonical); K2 writes the same p per
+//   step, so the scorer's p_seq equals K2's bit for bit.  Any other A takes
+//   the block instance softmax_p_kernel (one block per row, shared memory),
+//   chosen by the wrapper from A.
 //
 // All three are memory-bound streams (a few tens of fp32 ops per element
-// read); the grid-stride loop and one block per row keep every load
-// coalesced.  K0a and K0b exist to hold the device library bit for bit
-// against the plain torch versions; the generation kernel (persistent.cu)
-// inlines the same functions.  K0a and K0c are on the scorer's path.
+// read).  K0a's grid-stride loop and K0b's block per row keep every load
+// coalesced.  The block-per-row form spends a row's ~30 operations an
+// element against 10+ block barriers (block_max, 8 prefix-sum rounds at
+// A = 256), so K0c holds a row in one warp's registers instead: element
+// i = r * 32 + lane in register r of lane `lane` (128-byte coalesced loads
+// and stores), the max by shuffles, and the Hillis-Steele rounds without
+// shared memory or a barrier: an offset k < 32 takes its partner from lane
+// (lane - k) mod 32 by one shuffle a register (register r - 1 for the lanes
+// below k), an offset 32 q adds register r - q of the lane itself.  Every
+// round pairs the same two partial sums as the shared-memory rounds, so p
+// is unchanged to the bit.  K0a and K0b exist to hold the device library
+// bit for bit against the plain torch versions; the generation kernel
+// (persistent.cu) inlines the same functions.  K0a and K0c are on the
+// scorer's path.
 
 #include <cuda_runtime.h>
 
@@ -73,6 +85,61 @@ softmax_p_kernel(const float* __restrict__ za, float* __restrict__ p, int A) {
   for (int i = threadIdx.x; i < A; i += blockDim.x) out[i] = e[i] / total;
 }
 
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarpRowThreads = 256;   // 8 rows a block
+
+// NR = A / 32 registers a lane
+template <int NR>
+__global__ void __launch_bounds__(kWarpRowThreads)
+softmax_p_warp_kernel(const float* __restrict__ za, float* __restrict__ p, int rows) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (kWarpRowThreads / 32) + (threadIdx.x >> 5);
+  if (row >= rows) return;   // the whole warp: its shuffles stay full
+  const float* in = za + (size_t)row * (NR * 32);
+  float e[NR], c[NR];
+  float m = -INFINITY;
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    e[r] = in[r * 32 + lane];
+    m = fmaxf(m, e[r]);
+  }
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, o));   // exact
+#pragma unroll
+  for (int r = 0; r < NR; ++r) c[r] = e[r] = nvw::em_exp(e[r] - m);
+  // round k: c[i] + (i >= k ? c[i - k] : 0), registers from the top down so
+  // that each round reads the previous round's values
+#pragma unroll
+  for (int lg = 0; (1 << lg) < NR * 32; ++lg) {
+    const int k = 1 << lg;
+    if (k < 32) {
+#pragma unroll
+      for (int r = NR - 1; r >= 0; --r) {
+        // lane s sends what lane s + k needs: its register r, or r - 1 to
+        // the lanes that wrap below k
+        const float send = lane < 32 - k ? c[r] : (r > 0 ? c[r - 1] : 0.0f);
+        const float t = __shfl_sync(kFull, send, (lane - k) & 31);
+        c[r] = c[r] + (r > 0 || lane >= k ? t : 0.0f);
+      }
+    } else {
+      const int q = k >> 5;
+#pragma unroll
+      for (int r = NR - 1; r >= 0; --r) c[r] = c[r] + (r >= q ? c[r >= q ? r - q : 0] : 0.0f);
+    }
+  }
+  const float total = __shfl_sync(kFull, c[NR - 1], 31);
+  float* out = p + (size_t)row * (NR * 32);
+#pragma unroll
+  for (int r = 0; r < NR; ++r) out[r * 32 + lane] = e[r] / total;
+}
+
+template <int NR>
+int launch_softmax_warp(const float* za, float* p, int rows, cudaStream_t stream) {
+  const int per_block = kWarpRowThreads / 32;
+  softmax_p_warp_kernel<NR><<<(rows + per_block - 1) / per_block, kWarpRowThreads, 0, stream>>>(
+      za, p, rows);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -99,7 +166,29 @@ int nvw_sample(const float* za, const float* sel, int* y, int rows, int A, int s
   return (int)cudaGetLastError();
 }
 
+// K0c: A a multiple of 32, at most 1024 (anything else: cudaErrorInvalidValue)
 int nvw_softmax_p(const float* za, float* p, int rows, int A, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (A) {
+#define NVW_SOFTMAX_CASE(NR) \
+  case NR * 32:              \
+    return launch_softmax_warp<NR>(za, p, rows, st);
+    NVW_SOFTMAX_CASE(1) NVW_SOFTMAX_CASE(2) NVW_SOFTMAX_CASE(3) NVW_SOFTMAX_CASE(4)
+    NVW_SOFTMAX_CASE(5) NVW_SOFTMAX_CASE(6) NVW_SOFTMAX_CASE(7) NVW_SOFTMAX_CASE(8)
+    NVW_SOFTMAX_CASE(9) NVW_SOFTMAX_CASE(10) NVW_SOFTMAX_CASE(11) NVW_SOFTMAX_CASE(12)
+    NVW_SOFTMAX_CASE(13) NVW_SOFTMAX_CASE(14) NVW_SOFTMAX_CASE(15) NVW_SOFTMAX_CASE(16)
+    NVW_SOFTMAX_CASE(17) NVW_SOFTMAX_CASE(18) NVW_SOFTMAX_CASE(19) NVW_SOFTMAX_CASE(20)
+    NVW_SOFTMAX_CASE(21) NVW_SOFTMAX_CASE(22) NVW_SOFTMAX_CASE(23) NVW_SOFTMAX_CASE(24)
+    NVW_SOFTMAX_CASE(25) NVW_SOFTMAX_CASE(26) NVW_SOFTMAX_CASE(27) NVW_SOFTMAX_CASE(28)
+    NVW_SOFTMAX_CASE(29) NVW_SOFTMAX_CASE(30) NVW_SOFTMAX_CASE(31) NVW_SOFTMAX_CASE(32)
+#undef NVW_SOFTMAX_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K0c's block instance: any A
+int nvw_softmax_p_block(const float* za, float* p, int rows, int A, void* stream) {
   const size_t smem = 3 * (size_t)A * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(

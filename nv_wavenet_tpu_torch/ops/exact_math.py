@@ -219,9 +219,14 @@ EXACT_FN_KERNEL = build.CudaKernel(
 SAMPLE_KERNEL = build.CudaKernel(
     "exact_math_kernels.cu", "nvw_sample",
     [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P])
-# K0c: one block per row: max, exp, fixed-tree cumsum, p = e / sum
+# K0c: one warp per row (A a multiple of 32 up to 1024): max, exp,
+# fixed-tree cumsum, p = e / sum
 SOFTMAX_KERNEL = build.CudaKernel(
     "exact_math_kernels.cu", "nvw_softmax_p",
+    [_P, _P, ctypes.c_int, ctypes.c_int, _P])
+# K0c's block instance, one block per row, for every other A
+SOFTMAX_BLOCK_KERNEL = build.CudaKernel(
+    "exact_math_kernels.cu", "nvw_softmax_p_block",
     [_P, _P, ctypes.c_int, ctypes.c_int, _P])
 
 
@@ -267,17 +272,25 @@ def sample_from_logits(za: torch.Tensor, sel: torch.Tensor,
     return y
 
 
+def softmax_kernel(A: int) -> build.CudaKernel:
+    """K0c's instance for rows of A logits: the warp per row where A is a
+    multiple of 32 up to 1024, the block per row otherwise."""
+    return SOFTMAX_KERNEL if A % 32 == 0 and 0 < A <= 1024 else \
+        SOFTMAX_BLOCK_KERNEL
+
+
 def softmax_canonical(za: torch.Tensor) -> torch.Tensor:
     """Normalized probabilities of za [..., A] float32 logits in the
     canonical order: e = exp(za - max), fixed-tree prefix sum, p = e / sum.
-    CPU tensor: the plain version; CUDA tensor: kernel K0c (one block per
-    row)."""
+    CPU tensor: the plain version; CUDA tensor: kernel K0c, the instance
+    `softmax_kernel(A)`."""
     if _device_kind(za) == "cpu":
         return softmax_canonical_plain(za)
     build.check_tensor(za, "za", torch.float32, za.shape, za.device)
     p = torch.empty_like(za)
-    rows = za.numel() // za.shape[-1] if za.shape[-1] else 0
+    A = za.shape[-1]
+    rows = za.numel() // A if A else 0
     if rows:
-        SOFTMAX_KERNEL(za.data_ptr(), p.data_ptr(), rows, za.shape[-1],
-                       build.current_stream(za.device))
+        softmax_kernel(A)(za.data_ptr(), p.data_ptr(), rows, A,
+                          build.current_stream(za.device))
     return p

@@ -18,9 +18,13 @@ Exactness: the step math is K1's (`csrc/persistent.cu`), term for term:
   x = (res + b_res) + x,  skip = (skip + sk) + b_skip,
   zs = relu(relu(skip) Wzs + bzs),  za = zs Wza + bza,  p = canonical softmax.
 On the card the products run in K1's summation order (kernel K7,
-`ops/ordered_matmul.py`), tanh/sigmoid in the exact-math kernel K0a and the
-softmax in K0c, so p_seq, the ring and y_state equal the forced kernel K2's
-bit for bit; on the CPU the plain versions of the three run.
+`ops/ordered_matmul.py`): a layer's dilated product, its conditioning and
+the gate in one launch of K7's gate entry (`ordered_gate`), its res/skip
+product with the residual and skip adds in one launch of the res/skip
+entry (`ordered_res_skip`), the output stack through `ordered_matmul`; the
+embedding's tanh in the exact-math kernel K0a and the softmax in K0c; so
+p_seq, the ring and y_state equal the forced kernel K2's bit for bit.  On
+the CPU the plain versions of the three run.
 
 compute_dtype=torch.bfloat16 (JAX `ops/score_parallel.py:46, 105-167`) is
 K2's "bf16" precision term for term (`scan_generate.PRECISIONS`): the
@@ -49,7 +53,9 @@ import torch
 from nv_wavenet_tpu_torch.config import WaveNetConfig
 from nv_wavenet_tpu_torch.ops import exact_math as em
 from nv_wavenet_tpu_torch.ops import scan_generate
-from nv_wavenet_tpu_torch.ops.ordered_matmul import ordered_matmul
+from nv_wavenet_tpu_torch.ops.ordered_matmul import (ordered_gate,
+                                                     ordered_matmul,
+                                                     ordered_res_skip)
 from nv_wavenet_tpu_torch.utils import build
 
 
@@ -133,7 +139,7 @@ def make_parallel_scorer(cfg: WaveNetConfig, batch: int,
             x = em.exact_fn("tanh", x)
         x = st(x)
         xt = []
-        skip = torch.zeros((T, B, S), dtype=torch.float32, device=dev)
+        skip = torch.zeros((T * B, S), dtype=torch.float32, device=dev)
         for l in range(L):
             d, off = dils[l], offs[l]
             x_full = torch.cat([_history(ring, off, d, t0), x], 0)
@@ -141,15 +147,16 @@ def make_parallel_scorer(cfg: WaveNetConfig, batch: int,
             if return_xt:
                 xt.append(x)
             dw = params["dil_w"][l]
-            zb = (cond[:, l] if prefold_cond
-                  else params["dil_b"][l] + cond[:, l])
-            z = (_mm(op(x_full[:T]), dw[:R]) + _mm(op(x), dw[R:])).reshape(
-                T, B, 2 * R) + zb
-            h = (em.exact_fn("tanh", z[..., :R].contiguous())
-                 * em.exact_fn("sigmoid", z[..., R:].contiguous()))
-            rs = _mm(op(h), params["rs_w"][l]).reshape(T, B, R + S)
-            x = st((rs[..., :R] + params["rs_b"][l, :R]) + x)
-            skip = (skip + rs[..., R:]) + params["rs_b"][l, R:]
+            # z = (x_{t-d} Wprev + x_t Wcur) + (dil_b + cond), then the gate
+            h = ordered_gate(op(x_full[:T]).reshape(-1, R).contiguous(),
+                             op(x).reshape(-1, R).contiguous(), dw[:R],
+                             dw[R:], cond[:, l],
+                             None if prefold_cond else params["dil_b"][l])
+            # x = st((rs[:R] + rs_b[:R]) + x), skip = (skip + rs[R:]) +
+            # rs_b[R:] with rs = op(h) rs_w
+            x = ordered_res_skip(op(h), params["rs_w"][l], params["rs_b"][l],
+                                 x.reshape(-1, R), skip,
+                                 round_x=prec == "bf16").reshape(T, B, R)
         if return_xt:
             xt.append(x)
         skip = torch.clamp_min(skip, 0.0)

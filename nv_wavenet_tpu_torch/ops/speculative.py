@@ -54,8 +54,9 @@ from nv_wavenet_tpu_torch.ops import exact_math as em
 from nv_wavenet_tpu_torch.ops import fused_chain, score_parallel
 
 # (V0_us, V1_us, E0_us): see the module docstring; NVIDIA H100 80GB HBM3,
-# 700 W, chip_smoke.py phase 32
-DEFAULT_COST = (1745.3, 183.07, 175.39)
+# 700 W, chip_smoke.py phase 32, with the scorer on K7's fused gate and
+# res/skip entries (the verify of a round is one scorer pass)
+DEFAULT_COST = (1189.8, 186.12, 179.27)
 
 BRANCHES = {0: "window", 1: "window/2", 2: "exact", -1: "too short to probe"}
 
