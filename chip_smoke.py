@@ -172,13 +172,17 @@ any failure exits non-zero:
      replayed lockstep without fuse_chain: 0 mismatches
  27. every fast and bf16 instance timed over a 256-step flagship launch (K5:
      a 160-step ragged tick) beside its exact instance (exact, fast, bf16,
-     exact), and its plain version over 8 steps
+     exact; K4 with fp32 stacks beside the exact turns), and its plain
+     version over 8 steps; then the staged K1/K5 against their floors in
+     this call (K1 exact no slower than K4 fp32, the tick within 11.5 ms,
+     fast and bf16 within 1.05x exact), logged
  28. P1 (the FMA-contraction probe, csrc/probes.cu built with -fmad=false
      and with -fmad=true) on the JAX probe's 131,072 inputs: the guarded
      form and the -fmad=false plain form 0 bit mismatches against numpy's
      separate a*b+c; the -fmad=true plain form's mismatches against
      separate and against the fp64 FMA printed (the contraction); each
-     timed beside the plain version and torch.addcmul
+     timed beside the plain version and torch.addcmul, by events over
+     back-to-back calls and by device time (100 launches in a CUDA graph)
  29. P5 (the stage-chain probe) against its plain version on a 4-step chain
      of 3 stages at R=64, B=1 and 16, each precision x W location (L2,
      shared memory) x gate, and the whole batch in one CTA: exact bit for
@@ -326,6 +330,8 @@ LOWP_SERVE_TICKS = 48   # the latency tier's slot handover: SERVE, cut
 # at the flagship (also their plain_ms)
 LOWP_PLAIN_T = 8
 PEAK_BF16_FLOPS = 989e12   # the tensor cores, dense (fast_math's products)
+# P1 by device time: launches captured in one CUDA graph (phase 28)
+P1_GRAPH_LAUNCHES = 100
 # probe P5: held against its plain version on a short chain at the
 # flagship's widths (exact bit for bit, fast within P5_FAST_TOL of the
 # output's largest magnitude), then at the timed shapes (B=16; D=43 with W
@@ -1582,9 +1588,37 @@ def check_p1(torch, pem, dev) -> dict:
             "max_abs_err": float((o - plain).abs().max()),
             "ms": time_ms(torch, lambda f=flags: pem.fma_probe(
                 ta, tb, tc, "plain", f), 50)}
+    # device time: P1_GRAPH_LAUNCHES back-to-back launches captured in a
+    # CUDA graph and replayed, by events, so the host's launch path (ctypes
+    # and the wrapper's checks) is out of the time
+    out["device_ms"] = graph_ms(torch, lambda: pem.fma_probe(
+        ta, tb, tc, "plain", "fmad=false"), P1_GRAPH_LAUNCHES)
+    out["library_device_ms"] = graph_ms(
+        torch, lambda: torch.addcmul(tc, ta, tb), P1_GRAPH_LAUNCHES)
     # three fp32 reads and a write; a multiply and an add per element
     out["bound_ms"], out["bound_by"] = bound_ms(16 * a.size, 2 * a.size)
     return out
+
+
+def graph_ms(torch, fn, n: int) -> float:
+    """Device time of one call of fn: n calls captured in one CUDA graph
+    (after a warm-up call), the graph replayed once untimed and once timed
+    by CUDA events, over n."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def check_p5_held(torch, ps, dev) -> dict:
@@ -2172,6 +2206,17 @@ def main() -> int:
         k1_ops_per_row_step(cfg) * MAIN_B * CHECK_T)
     khz = float(np.mean([r["khz_per_utt"] for r in requests]))
     k1_us = k1_ms / CHECK_T * 1e3
+    # K1/K5's plan at the flagship (ops/persistent.py::staged_plan)
+    sp = persistent.staged_plan(cfg, MAIN_B)
+    staged_plan_line = {
+        "threads": [sp.chain_threads, sp.prev_threads, 32],
+        "chain_slots": [sp.chain_slots, sp.slot_bytes],
+        "prev_slots": [sp.prev_slots, sp.prev_slot_bytes],
+        "copies_per_step": sum(m.chunks * (cfg.num_layers if m.name in (
+            "prev", "cur", "rs") else 1) for m in sp.matrices),
+        "stream_bytes": sp.stream_bytes, "smem_bytes": sp.smem_bytes,
+        "geometry": sp.geometry}
+    log(json.dumps({"k1_staged_plan": staged_plan_line}))
     log(json.dumps({"main_path": {
         "config": "flagship 20L R64 S256 A256 maxD512 fp32", "batch": MAIN_B,
         "samples_per_request": MAIN_T, "requests": requests,
@@ -3077,7 +3122,8 @@ def main() -> int:
                    params, t0_row, cp_chk[:SERVE["tick_t"]].contiguous(),
                    sel_chk[:SERVE["tick_t"]].contiguous(), r_, y_, nvr),
                    fresh_p, reps=2)}
-        for name in ("bf16", "int8"):
+        for name in ("fp32", "bf16", "int8") if pr == "exact" else (
+                "bf16", "int8"):
             g4 = persistent.make_persistent_generator(
                 cfg, MAIN_B, stream_weights=True, **storage_kw(torch, name),
                 **kw)
@@ -3161,8 +3207,24 @@ def main() -> int:
              f"the flagship, or a control reads under LOWP_TV: {lowp_flag}")
     for k in us["exact"]:
         log(f"[lowp time] {k}: " + ", ".join(
-            f"{pr} {us[pr][k]:.2f}" for pr in ("exact", "fast", "bf16"))
+            f"{pr} {us[pr][k]:.2f}" for pr in ("exact", "fast", "bf16")
+            if k in us[pr])
             + " us per step (exact: the mean of the first and last turn)")
+    # the staged K1/K5 against their floors in this call: K1 exact no slower
+    # than K4 fp32, the 160-step tick within 11.5 ms, each fast and bf16
+    # instance within 1.05x its exact one (logged, not held: speed)
+    lt = {pr: {k: float(np.mean(v)) for k, v in row.items()
+               if k != "plain_ms"} for pr, row in lowp_time.items()}
+    floors = {
+        "k1_exact_ms": lt["exact"]["K1"], "k4_fp32_ms": lt["exact"]["K4 fp32"],
+        "k1_exact_le_k4_fp32": lt["exact"]["K1"] <= lt["exact"]["K4 fp32"],
+        "k5_tick_ms": lt["exact"]["K5"],
+        "k5_tick_le_11_5_ms": lt["exact"]["K5"] <= 11.5,
+        "lowp_over_exact": {f"{k} {pr}": lt[pr][k] / lt["exact"][k]
+                            for k in ("K1", "K5") for pr in ("fast", "bf16")}}
+    floors["lowp_le_1_05"] = all(v <= 1.05
+                                 for v in floors["lowp_over_exact"].values())
+    log(json.dumps({"staged_floors": floors, "card": card}))
 
     # -- phase 28: P1, the FMA-contraction probe -----------------------------
     mark("phase 28: P1, the FMA-contraction probe")
@@ -3178,6 +3240,10 @@ def main() -> int:
         fail(f"P1: a form that must not contract did: {p1}")
     if not all(p1["launches"].values()):
         fail(f"P1 did not launch from both builds: {p1['launches']}")
+    log(f"[P1] by device time ({P1_GRAPH_LAUNCHES} launches in a CUDA "
+        f"graph): the plain form {p1['device_ms']:.4f} ms, torch.addcmul "
+        f"{p1['library_device_ms']:.4f} ms; by events over back-to-back "
+        f"calls {p1['fmad=false']['ms']:.4f} / {p1['library_ms']:.4f} ms")
 
     # -- phase 29: P5 against its plain version -------------------------------
     mark("phase 29: P5 against its plain version")
@@ -3316,15 +3382,18 @@ def main() -> int:
               f"za [{rows},{A}] f32, sel [{rows},1]",
               inlined_in="K1, K3, K5", launches_on=spec_on,
               main_path_launches=launches[em.SAMPLE_KERNEL.symbol]),
-        entry("K1 persistent_generate_kernel<false>", csrc + "persistent.cu",
+        entry("K1 staged_generate_kernel<false, kPrecExact>",
+              csrc + "staged_generate.cu",
               "nv_wavenet_tpu/ops/persistent.py:762",
               launches[exact_sym["K1"]],
               plain_mism + k1_mism + h_mism,
               k1_err, k1_ms, k1_plain, k1_bound, k1_by, None,
               f"flagship, B={MAIN_B}, T={CHECK_T} steps per launch; "
               f"plain_ms over {FLAG_PLAIN_T} steps",
-              serving_launches=serve_launches[exact_sym["K1"]]),
-        entry("K5 persistent_generate_kernel<true>", csrc + "persistent.cu",
+              serving_launches=serve_launches[exact_sym["K1"]],
+              plan=staged_plan_line),
+        entry("K5 staged_generate_kernel<true, kPrecExact>",
+              csrc + "staged_generate.cu",
               "nv_wavenet_tpu/ops/persistent.py:762",
               serve_launches[exact_sym["K5"]],
               k5_small_mism + k5_flag_mism + sum(replay_mism), k5_err, k5_ms,
@@ -3335,7 +3404,7 @@ def main() -> int:
               variant="ragged=True (:109-118, 252-256, 302-311, 410-416) "
                       "and rotate_ring_phase (:785)",
               launches_on="the serving phase"),
-        entry("K2 persistent_generate_kernel<false, kSelForced>",
+        entry("K2 persistent_generate_kernel<kSelForced, kPrecExact>",
               csrc + "persistent.cu", "nv_wavenet_tpu/ops/persistent.py:762",
               score_launches[exact_sym["K2"]],
               k2_small["echo_mismatches"] + k2_flag["echo_mismatches"]
@@ -3348,7 +3417,7 @@ def main() -> int:
               variant='mode="forced" (:139-146, 387-400, 692-694)',
               launches_on="the scoring phase",
               window_ms=k2_window_ms),
-        entry("K3 persistent_generate_kernel<false, kSelPrng>",
+        entry("K3 persistent_generate_kernel<kSelPrng, kPrecExact>",
               csrc + "persistent.cu", "nv_wavenet_tpu/ops/persistent.py:762",
               prng_launches[exact_sym["K3"]],
               k3_small["mismatches"] + k3_small["chunk_mismatches"]
@@ -3488,15 +3557,15 @@ def main() -> int:
                    "compute_dtype=jnp.bfloat16 (:550; casts :221-222, "
                    "268-280, 313-347, 367-369)")
         specs = [
-            ("K1", "persistent.cu",
-             f"persistent_generate_kernel<false, kSelInjected, {kp}>",
+            ("K1", "staged_generate.cu",
+             f"staged_generate_kernel<false, {kp}>",
              main_l[k1_tables["K1"][prec].symbol],
              f"the {prec} main path ({MAIN_REQUESTS} requests)",
              lowp_bound(cfg, MAIN_B, CHECK_T, prec),
              f"flagship, B={MAIN_B}, T={CHECK_T} steps per launch",
              lowp_main[prec]["plain_mismatches"]),
-            ("K5", "persistent.cu",
-             f"persistent_generate_kernel<true, kSelInjected, {kp}>",
+            ("K5", "staged_generate.cu",
+             f"staged_generate_kernel<true, {kp}>",
              handover[prec]["launches"][k1_tables["K5"][prec].symbol],
              f"the latency tier's slot handover ({prec}, "
              f"{LOWP_SERVE_TICKS} ticks)",
@@ -3505,7 +3574,7 @@ def main() -> int:
              f"tick ({live} live row-steps)",
              handover[prec]["replay_mismatches"]),
             ("K2", "persistent.cu",
-             f"persistent_generate_kernel<false, kSelForced, {kp}>",
+             f"persistent_generate_kernel<kSelForced, {kp}>",
              main_l[k1_tables["K2"][prec].symbol],
              f"the {prec} forced request ({LOWP_SHORT_T} steps)",
              lowp_bound(cfg, MAIN_B, CHECK_T, prec, mode="forced"),
@@ -3514,7 +3583,7 @@ def main() -> int:
                  bf_score["p_bit_mismatches"]
                  + bf_score["ring_bit_mismatches"] if prec == "bf16" else 0)),
             ("K3", "persistent.cu",
-             f"persistent_generate_kernel<false, kSelPrng, {kp}>",
+             f"persistent_generate_kernel<kSelPrng, {kp}>",
              main_l[k1_tables["K3"][prec].symbol],
              f"the {prec} prng request ({LOWP_SHORT_T} steps)",
              lowp_bound(cfg, MAIN_B, CHECK_T, prec, mode="prng"),
@@ -3576,6 +3645,8 @@ def main() -> int:
             p1["bound_by"], p1["library_ms"],
             f"a*b+c over [{p1['n']}] f32 (the plain form timed)",
             launches_on="the probe (phase 28)", library="torch.addcmul",
+            device_ms=p1["device_ms"] if flags == "fmad=false" else None,
+            library_device_ms=p1["library_device_ms"],
             contracted_vs_separate=r["separate"], vs_fma64=r["fma64"],
             mismatches_are="the guarded form against numpy separate, and "
                            "under -fmad=false the plain form too"))

@@ -173,6 +173,68 @@ __device__ __forceinline__ int block_select_from_cumsum(const float* cum, float 
   return c < n ? c : silence_bin;
 }
 
+// The same reductions with their shared scratch (one slot a warp, 32
+// entries) passed in by the caller, where the forms above keep static
+// arrays of their own, whose offsets follow the order in which a source's
+// kernels first use the helpers.  K2/K3 (persistent.cu) place theirs in
+// one struct; K4, K6 and K0 keep the forms above, so their code stays as
+// it is.
+
+__device__ __forceinline__ float block_max(float v, float* red) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  if ((threadIdx.x & 31) == 0) red[warp] = v;
+  __syncthreads();
+  v = red[0];
+  for (int w = 1; w < nw; ++w) v = fmaxf(v, red[w]);
+  __syncthreads();
+  return v;
+}
+
+__device__ __forceinline__ int block_sum_int(int v, int* red) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  if ((threadIdx.x & 31) == 0) red[warp] = v;
+  __syncthreads();
+  v = 0;
+  for (int w = 0; w < nw; ++w) v += red[w];
+  __syncthreads();
+  return v;
+}
+
+__device__ __forceinline__ int block_argmax(const float* v, int n, float* rv, int* ri) {
+  float best = -INFINITY;
+  int bi = 0x7fffffff;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const float x = v[i];
+    if (x > best || (x == best && i < bi)) { best = x; bi = i; }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, best, o);
+    const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+    if (ov > best || (ov == best && oi < bi)) { best = ov; bi = oi; }
+  }
+  const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  if ((threadIdx.x & 31) == 0) { rv[warp] = best; ri[warp] = bi; }
+  __syncthreads();
+  best = rv[0];
+  bi = ri[0];
+  for (int w = 1; w < nw; ++w) {
+    if (rv[w] > best || (rv[w] == best && ri[w] < bi)) { best = rv[w]; bi = ri[w]; }
+  }
+  __syncthreads();
+  return bi;
+}
+
+__device__ __forceinline__ int block_select_from_cumsum(const float* cum, float sel, int n,
+                                                        int silence_bin, int* red) {
+  const float thr = sel * cum[n - 1];
+  int c = 0;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) c += cum[i] <= thr ? 1 : 0;
+  c = block_sum_int(c, red);
+  return c < n ? c : silence_bin;
+}
+
 #endif  // __CUDACC__
 
 }  // namespace nvw

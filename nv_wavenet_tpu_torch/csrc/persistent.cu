@@ -1,10 +1,12 @@
-// K1: the whole autoregressive WaveNet generation loop in one launch.
+// K2 and K3: the whole autoregressive WaveNet generation loop in one
+// launch, in modes "forced" and "prng", with the weights read from L2.
 //
 // Replaces the TPU kernel nv_wavenet_tpu/ops/persistent.py:762
-// (make_persistent_generator.generate; body _kernel_body :93-431), modes
-// "sample" and "argmax", with the optional last-step activation dump.  The
-// exact-math library (exact_math.cuh) is inlined, as the TPU kernel inlines
-// ops/exact_math.py.
+// (make_persistent_generator.generate; body _kernel_body :93-431) in those
+// modes, with the optional last-step activation dump.  The exact-math
+// library (exact_math.cuh) is inlined, as the TPU kernel inlines
+// ops/exact_math.py.  K1 and K5 (modes "sample" and "argmax", ragged
+// feeds) run staged_generate.cu.
 //
 // Design (the simple one that is right first):
 //   * ONE CTA PER BATCH ROW (grid = B).  Rows never interact, so no
@@ -25,9 +27,10 @@
 //     d come from the caller (sched = [ring_offsets | dilations] of
 //     config.py), so the layout is decided in one place.
 //   * Each thread computes whole output columns with a fixed-order dot
-//     product (k = 0, 1, ...): results are deterministic run to run.  The
-//     two halves of the split dilated GEMM (x_{t-d} Wprev and x_t Wcur) are
-//     separate column tasks, so at R = 64 all 256 threads work on it.
+//     product (k = 0, 1, ...; dot_column_batched): results are
+//     deterministic run to run.  The two halves of the split dilated GEMM
+//     (x_{t-d} Wprev and x_t Wcur) are separate column tasks, so at R = 64
+//     all 256 threads work on it.
 //   * Canonical association: z = (x_{t-d} Wprev + x_t Wcur) + cond_pre
 //     (cond_pre = cond + dil_b, folded by the caller); x = (res + b_res) + x;
 //     skip = (skip + sk) + b_skip; relu after the last layer.
@@ -35,28 +38,8 @@
 // What bounds it: each row's CTA re-reads all weights from L2 every step on
 // one SM (L2 bandwidth and load latency per SM), along a dependent chain of
 // 2L+3 matrix-vector stages, each ending in a __syncthreads; with B CTAs only
-// B of the 132 SMs work.  The card-wide bound (operations at the fp32 rate
-// over all SMs) is far below what this layout can reach.  Splitting a row's
-// layers over a cluster of CTAs, wgmma on batched rows and TMA weight staging
-// are later work.
-//
-// K5: the same kernel with per-row clocks and lengths (the ragged feeds of
-// the serving path), the kRagged instance below.  Replaces the TPU kernel's
-// ragged=True variant (nv_wavenet_tpu/ops/persistent.py:762, per-row
-// validity :109-118, 252-256, 302-311, 410-416), mode "sample" without the
-// dump.  Each CTA reads its own row's absolute clock t0_row[b] and length
-// n_valid_row[b] once, before the step loop, and runs exactly that many
-// steps: a dead row is simply a CTA that has stopped, so its FIFO and
-// y_state stay as they were and its y stays at the zeros the wrapper
-// allocated.  Because each CTA addresses only its own row of the ring by
-// its own absolute clock, the stored ring keeps the absolute convention
-// and the TPU's two per-row phase rotations around the call
-// (rotate_ring_phase, persistent.py:785-820, needed there because one ring
-// phase is shared by the batch) have no counterpart.  It is bounded as K1
-// is, over the live row-steps only.  It is a separate instance with its own
-// entry point so that the lockstep instance (K1) compiles exactly as it did
-// without it: K1's time has moved 1.77x from a change to one loop-carried
-// pair, and the per-row loads stay out of it.
+// B of the 132 SMs work.  staged_generate.cu's design (weights staged by
+// TMA, the prev half off the chain) is the lead for these modes too.
 //
 // K2: the forced-mode instance (kSel = kSelForced).  Replaces the TPU
 // kernel's mode="forced" (nv_wavenet_tpu/ops/persistent.py:762; :139-146,
@@ -64,7 +47,7 @@
 // exact small-integer floats, the chain consumes them, and every step writes
 // the normalised distribution p_seq[j, b, :] = em_exp(za - max) / cum[A-1],
 // exactly as the dump's p.  The extra output is 1 KB per row-step at A=256,
-// written once, so K2 is bounded as K1 is (the per-row latency chain).
+// written once, so K2 is bounded by the per-row latency chain too.
 //
 // K3: the PRNG-mode instance (kSel = kSelPrng).  Replaces the TPU kernel's
 // mode="prng" (prng_uniform_sel, :74-83, 404-405): each step's uniform is
@@ -73,14 +56,13 @@
 // the TPU kernel.  It cannot give the TPU's hardware bits; keyed on the
 // absolute clock and the row, its draws do not depend on chunking, and seed
 // s at t+1 is not seed s+1 at t (the TPU kernel seeds with seed + t).  Every
-// thread computes the ten rounds itself (integer work beside K1's chain), so
+// thread computes the ten rounds itself (integer work beside the chain), so
 // the draw needs no broadcast.  The plain version computes the same words
 // (ops/scan_generate.py::prng_uniform_sel).
 //
-// The selector source is a compile-time parameter, as kRagged is: K1 and K5
-// are the kSelInjected instances and compile exactly as they did before K2
-// and K3 existed (K1's time has moved 1.77x from a change to one
-// loop-carried pair, so no mode becomes a runtime branch inside it).
+// The selector source is a compile-time parameter (K2's time has moved
+// 1.5x with code layout alone, so no mode becomes a runtime branch inside
+// it).
 //
 // The precision is a compile-time parameter too (kPrec, step_common.cuh),
 // the TPU kernel's fast_math (`:553, 589-591`) and compute_dtype (`:550`,
@@ -96,8 +78,7 @@
 // bf16 x bf16 product is exact in fp32, so the low-precision instances sum
 // in K1's order and equal K4's bit for bit.  Each precision is an instance
 // with its own entry point; the exact code stays in `if constexpr`
-// branches, so the kPrecExact instances compile as they did before the
-// other precisions existed.
+// branches.
 //
 // Compiled with -fmad=false (utils/build.py) so the inlined exact math and
 // every a*b+c here round twice, as in the plain torch version.
@@ -139,21 +120,22 @@ struct GenArgs {
   int tanh_embed;
   int silence_bin;
   int mode;
-  const long long* t0_row;   // [B] K5 only: each row's absolute clock
-  const int* n_valid_row;    // [B] K5 only: each row's steps (<= T)
   float* p_seq;              // [T, B, A] K2 only: per-step distributions
   unsigned long long seed;   // K3 only: the Philox key
 };
 
-template <int kSel>
-__device__ __forceinline__ float dot(const float* v, const float* __restrict__ w, int K,
-                                     int stride) {
-  return kSel == kSelInjected ? dot_column(v, w, K, stride) : dot_column_batched(v, w, K, stride);
-}
+// the block helpers' scratch (exact_math.cuh), in one fixed place
+struct BlockScratch {
+  float rv[32];   // block_argmax
+  int ri[32];
+  float max[32];  // block_max
+  int sum[32];    // block_sum_int, through block_select_from_cumsum
+};
 
-template <bool kRagged, int kSel, int kPrec>
+template <int kSel, int kPrec>
 __global__ void __launch_bounds__(kThreads) persistent_generate_kernel(const GenArgs a) {
   extern __shared__ float smem[];
+  __shared__ BlockScratch scratch;
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const int B = a.B, L = a.L, R = a.R, S = a.S, A = a.A;
   const int R2 = 2 * R, RS = R + S;
@@ -172,8 +154,8 @@ __global__ void __launch_bounds__(kThreads) persistent_generate_kernel(const Gen
 
   int y_prev = a.y_state[b];
   int y_cur = a.y_state[B + b];
-  const long long t0 = kRagged ? a.t0_row[b] : a.t0;
-  const int n_valid = kRagged ? a.n_valid_row[b] : a.n_valid;
+  const long long t0 = a.t0;
+  const int n_valid = a.n_valid;
 
   for (int j = 0; j < n_valid; ++j) {
     const long long t = t0 + j;
@@ -218,7 +200,7 @@ __global__ void __launch_bounds__(kThreads) persistent_generate_kernel(const Gen
       const float* W = a.dil_w + (size_t)l * R2 * R2;
       for (int q = tid; q < 2 * R2; q += nt) {
         const int cur = q >= R2;
-        zh[q] = dot<kSel>(cur ? xop : xp, W + (size_t)cur * R * R2 + (q - cur * R2), R, R2);
+        zh[q] = dot_column_batched(cur ? xop : xp, W + (size_t)cur * R * R2 + (q - cur * R2), R, R2);
       }
       __syncthreads();
 
@@ -235,7 +217,7 @@ __global__ void __launch_bounds__(kThreads) persistent_generate_kernel(const Gen
       const float* Wrs = a.rs_w + (size_t)l * R * RS;
       const float* brs = a.rs_b + (size_t)l * RS;
       for (int o = tid; o < RS; o += nt) {
-        const float acc = dot<kSel>(h, Wrs + o, R, RS);
+        const float acc = dot_column_batched(h, Wrs + o, R, RS);
         if (o < R) {
           const float v = (acc + __ldg(brs + o)) + x[o];
           x[o] = stored<kPrec>(v);
@@ -270,7 +252,7 @@ __global__ void __launch_bounds__(kThreads) persistent_generate_kernel(const Gen
 
     // output stack: zs = relu(skip Wzs + bzs); za = zs Wza + bza
     for (int o = tid; o < A; o += nt) {
-      const float v = fmaxf(dot<kSel>(skip, a.out_w + o, S, A) + __ldg(a.out_b + o), 0.0f);
+      const float v = fmaxf(dot_column_batched(skip, a.out_w + o, S, A) + __ldg(a.out_b + o), 0.0f);
       if constexpr (kPrec == kPrecExact) {
         zs[o] = v;
       } else {
@@ -281,18 +263,18 @@ __global__ void __launch_bounds__(kThreads) persistent_generate_kernel(const Gen
     }
     __syncthreads();
     for (int o = tid; o < A; o += nt) {
-      za[o] = dot<kSel>(zs, a.end_w + o, A, A) + __ldg(a.end_b + o);
+      za[o] = dot_column_batched(zs, a.end_w + o, A, A) + __ldg(a.end_b + o);
     }
     __syncthreads();
 
     int y;
     if (a.mode == kModeArgmax && !dump) {
-      y = nvw::block_argmax(za, A);
+      y = nvw::block_argmax(za, A, scratch.rv, scratch.ri);
     } else {
       // canonical softmax pieces: e = exp(za - max), fixed-tree prefix sum
       float mm = -INFINITY;
       for (int i = tid; i < A; i += nt) mm = fmaxf(mm, za[i]);
-      const float zmax = nvw::block_max(mm);
+      const float zmax = nvw::block_max(mm, scratch.max);
       for (int i = tid; i < A; i += nt) c0[i] = nvw::em_exp(za[i] - zmax);
       __syncthreads();
       const float* cum = nvw::block_fixed_tree_cumsum(c0, c1, A);
@@ -312,11 +294,11 @@ __global__ void __launch_bounds__(kThreads) persistent_generate_kernel(const Gen
         for (int i = tid; i < A; i += nt) p[i] = nvw::em_exp(za[i] - zmax) / total;
         y = (int)__ldg(a.sel + (size_t)j * B + b);
       } else if (a.mode == kModeArgmax) {
-        y = nvw::block_argmax(za, A);
+        y = nvw::block_argmax(za, A, scratch.rv, scratch.ri);
       } else {
         const float u = kSel == kSelPrng ? philox_uniform(a.seed, t, b)
                                          : __ldg(a.sel + (size_t)j * B + b);
-        y = nvw::block_select_from_cumsum(cum, u, A, a.silence_bin);
+        y = nvw::block_select_from_cumsum(cum, u, A, a.silence_bin, scratch.sum);
       }
     }
     y_prev = y_cur;
@@ -330,18 +312,17 @@ __global__ void __launch_bounds__(kThreads) persistent_generate_kernel(const Gen
   }
 }
 
-template <bool kRagged, int kSel, int kPrec>
+template <int kSel, int kPrec>
 int launch(const GenArgs& args, void* stream) {
   const size_t smem = (size_t)(7 * args.R + args.S + 4 * args.A +
                                (kPrec == kPrecFast ? args.R : 0)) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err =
-        cudaFuncSetAttribute(persistent_generate_kernel<kRagged, kSel, kPrec>,
+        cudaFuncSetAttribute(persistent_generate_kernel<kSel, kPrec>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  persistent_generate_kernel<kRagged, kSel, kPrec>
-      <<<args.B, kThreads, smem, (cudaStream_t)stream>>>(args);
+  persistent_generate_kernel<kSel, kPrec><<<args.B, kThreads, smem, (cudaStream_t)stream>>>(args);
   return (int)cudaGetLastError();
 }
 
@@ -350,36 +331,6 @@ int launch(const GenArgs& args, void* stream) {
 // One entry point per (instance, precision): the exact one under the name it
 // always had, the others with the suffix _fast or _bf16.  `ring` is the
 // ring's pointer whatever its element type (bf16 for _bf16).
-
-// K1: sel carries uniforms; mode 0 sample, 1 argmax; the dump pointers are
-// all null when off
-#define NVW_GENERATE_ENTRY(name, kPrec)                                                       \
-  int name(const float* embed, const float* dil_w, const float* rs_w, const float* rs_b,      \
-           const float* out_w, const float* out_b, const float* end_w, const float* end_b,    \
-           const float* cond, const float* sel, const int* sched, float* ring, int* y_state,  \
-           int* y, float* d_xt, float* d_skip, float* d_zs, float* d_za, float* d_p,          \
-           long long t0, int n_valid, int B, int L, int R, int S, int A, int tanh_embed,      \
-           int silence_bin, int mode, void* stream) {                                         \
-    const GenArgs args{embed, dil_w, rs_w, rs_b, out_w, out_b, end_w, end_b, cond,           \
-                       sel, sched, ring, y_state, y, d_xt, d_skip, d_zs, d_za, d_p, t0,      \
-                       n_valid, B, L, R, S, A, tanh_embed, silence_bin, mode,                \
-                       nullptr, nullptr, nullptr, 0};                                        \
-    return launch<false, kSelInjected, kPrec>(args, stream);                                  \
-  }
-
-// K5: mode "sample", no dump; t0_row [B] and n_valid_row [B] on the device
-#define NVW_RAGGED_ENTRY(name, kPrec)                                                         \
-  int name(const float* embed, const float* dil_w, const float* rs_w, const float* rs_b,      \
-           const float* out_w, const float* out_b, const float* end_w, const float* end_b,    \
-           const float* cond, const float* sel, const int* sched, float* ring, int* y_state,  \
-           int* y, const long long* t0_row, const int* n_valid_row, int B, int L, int R,      \
-           int S, int A, int tanh_embed, int silence_bin, void* stream) {                     \
-    const GenArgs args{embed, dil_w, rs_w, rs_b, out_w, out_b, end_w, end_b, cond,           \
-                       sel, sched, ring, y_state, y, nullptr, nullptr, nullptr, nullptr,     \
-                       nullptr, 0, 0, B, L, R, S, A, tanh_embed, silence_bin, kModeSample,   \
-                       t0_row, n_valid_row, nullptr, 0};                                     \
-    return launch<true, kSelInjected, kPrec>(args, stream);                                   \
-  }
 
 // K2: sel carries the symbols; p_seq [T, B, A] gets every run step's
 // distribution (the wrapper zeroes it, so steps past n_valid stay 0)
@@ -392,9 +343,9 @@ int launch(const GenArgs& args, void* stream) {
            int tanh_embed, int silence_bin, void* stream) {                                   \
     const GenArgs args{embed, dil_w, rs_w, rs_b, out_w, out_b, end_w, end_b, cond,           \
                        sel, sched, ring, y_state, y, d_xt, d_skip, d_zs, d_za, d_p, t0,      \
-                       n_valid, B, L, R, S, A, tanh_embed, silence_bin, kModeSample,         \
-                       nullptr, nullptr, p_seq, 0};                                          \
-    return launch<false, kSelForced, kPrec>(args, stream);                                    \
+                       n_valid, B, L, R, S, A, tanh_embed, silence_bin, kModeSample, p_seq,  \
+                       0};                                                                   \
+    return launch<kSelForced, kPrec>(args, stream);                                           \
   }
 
 // K3: the selectors come from Philox keyed on `seed`; no sel input
@@ -408,8 +359,8 @@ int launch(const GenArgs& args, void* stream) {
     const GenArgs args{embed, dil_w, rs_w, rs_b, out_w, out_b, end_w, end_b, cond,           \
                        nullptr, sched, ring, y_state, y, d_xt, d_skip, d_zs, d_za, d_p, t0,  \
                        n_valid, B, L, R, S, A, tanh_embed, silence_bin, kModeSample,         \
-                       nullptr, nullptr, nullptr, seed};                                     \
-    return launch<false, kSelPrng, kPrec>(args, stream);                                      \
+                       nullptr, seed};                                                       \
+    return launch<kSelPrng, kPrec>(args, stream);                                             \
   }
 
 // This source is built once per precision (utils/build.py: -DNVW_PREC=0
@@ -424,18 +375,12 @@ extern "C" {
 const char* nvw_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 #if NVW_PREC == 0
-NVW_GENERATE_ENTRY(nvw_persistent_generate, kPrecExact)
-NVW_RAGGED_ENTRY(nvw_persistent_generate_ragged, kPrecExact)
 NVW_FORCED_ENTRY(nvw_persistent_generate_forced, kPrecExact)
 NVW_PRNG_ENTRY(nvw_persistent_generate_prng, kPrecExact)
 #elif NVW_PREC == 1
-NVW_GENERATE_ENTRY(nvw_persistent_generate_fast, kPrecFast)
-NVW_RAGGED_ENTRY(nvw_persistent_generate_ragged_fast, kPrecFast)
 NVW_FORCED_ENTRY(nvw_persistent_generate_forced_fast, kPrecFast)
 NVW_PRNG_ENTRY(nvw_persistent_generate_prng_fast, kPrecFast)
 #elif NVW_PREC == 2
-NVW_GENERATE_ENTRY(nvw_persistent_generate_bf16, kPrecBF16)
-NVW_RAGGED_ENTRY(nvw_persistent_generate_ragged_bf16, kPrecBF16)
 NVW_FORCED_ENTRY(nvw_persistent_generate_forced_bf16, kPrecBF16)
 NVW_PRNG_ENTRY(nvw_persistent_generate_prng_bf16, kPrecBF16)
 #endif

@@ -98,8 +98,8 @@ __device__ __forceinline__ float dot_column(const float* v, const float* __restr
 // loaded before their products, so eight L2 loads are in flight at once.
 // In the K2 instance ptxas interleaved dot_column's loads with the
 // dependent adds, exposing each load's latency alone (295 us per flagship
-// step on an H100 against K1's 183; PERF.md).  K2, K3 and K4 use this form,
-// K1 and K5 keep dot_column, so their code stays as it was.
+// step on an H100 against K1's 183; PERF.md).  K2, K3 and K4 use this form;
+// P5's stage chain (probes.cu) uses dot_column.
 __device__ __forceinline__ float dot_column_batched(const float* v, const float* __restrict__ w,
                                                     int K, int stride) {
   float acc = 0.0f;

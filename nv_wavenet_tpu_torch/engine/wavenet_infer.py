@@ -16,9 +16,14 @@ speculative exact decode: `run_speculative`.
     to the persistent kernel (`ops/persistent.py`): K1 in modes "sample"
     and "argmax", K2 in mode "forced" (the selectors carry the symbols to
     emit), K3 in mode "prng" (selectors drawn on the card from Philox keyed
-    on `sampling_seed` and the absolute clock).  AUTO stays on K1, which
-    keeps nothing resident and so runs any size; the JAX engine's AUTO
-    picks MANYBLOCK from a VMEM budget, which has no counterpart here
+    on `sampling_seed` and the absolute clock).  K1 and K5 (the ragged
+    feeds) are the staged kernel (`csrc/staged_generate.cu`): every weight
+    copied by TMA into shared memory ahead of its use, the dilated prev
+    half computed off the step's chain; at the flagship K1 outruns K4
+    (PERF.md).  AUTO stays on K1, whose plan (`persistent.staged_plan`)
+    holds the flagship, config 4 and every geometry the tests run, and
+    raises before a launch for one it cannot; the JAX engine's AUTO picks
+    MANYBLOCK from a VMEM budget, which has no counterpart here
     (`vmem_budget` is not ported).  MANYBLOCK runs K4 in every mode of
     `run*`, lockstep `feed` and the dumps: K1's step with dil_w and rs_w
     streamed through shared memory (`stream_group_size`, `stream_prefetch`

@@ -1,6 +1,7 @@
 """The persistent generator: the whole generation of a call in one kernel
-launch (K1, K2, K3 and K5, `csrc/persistent.cu`; K4,
-`csrc/stream_generate.cu`), with its plain PyTorch version.
+launch (K1 and K5, `csrc/staged_generate.cu`; K2 and K3,
+`csrc/persistent.cu`; K4, `csrc/stream_generate.cu`), with its plain
+PyTorch version.
 
 The port's counterpart of `nv_wavenet_tpu/ops/persistent.py`
 (`make_persistent_generator`): modes "sample" and "argmax" with the
@@ -53,8 +54,9 @@ Differences from the TPU kernel, all value-preserving:
     clock enters the kernel (one CTA per row addresses only its own row),
     so the stored ring keeps the absolute convention, slot
     offs[l] + (t & (d_l - 1)), in every call;
-  * `prev_prefetch`, `rs_split` and `embed_split` are TPU schedules that give
-    the same values; they are not ported;
+  * `rs_split` and `embed_split` are TPU schedules that give the same
+    values; they are not ported.  `prev_prefetch` is K1/K5's: their prev
+    warps compute x_{t-d} Wprev ahead of the chain (`staged_plan`);
   * `ring` and `y_state` are updated IN PLACE and returned (torch may do so
     where JAX is functional; it saves an 8.4 MB ring copy per call at the
     flagship geometry).
@@ -87,14 +89,15 @@ def _kernels(source: str, symbol: str, argtypes) -> Dict[str, build.CudaKernel]:
             for p in scan_generate.PRECISIONS}
 
 
-# K1: one CTA per batch row, all steps and layers inside one launch
+# K1: one CTA per batch row, all steps and layers inside one launch, every
+# weight staged into shared memory by TMA (`staged_plan`, `staged_stream`)
 PERSISTENT_KERNELS = _kernels(
-    "persistent.cu", "nvw_persistent_generate",
-    [_P] * 19 + [ctypes.c_longlong] + [_I] * 9 + [_P])
+    "staged_generate.cu", "nvw_staged_generate",
+    [_P] * 16 + [ctypes.c_longlong] + [_I] * 9 + [_P, _P])
 # K5: K1's instance with per-row clocks and lengths (ragged feeds)
 RAGGED_KERNELS = _kernels(
-    "persistent.cu", "nvw_persistent_generate_ragged",
-    [_P] * 16 + [_I] * 7 + [_P])
+    "staged_generate.cu", "nvw_staged_generate_ragged",
+    [_P] * 13 + [_I] * 7 + [_P, _P])
 # K2: K1's instance that consumes the symbols in sel and writes p_seq
 FORCED_KERNELS = _kernels(
     "persistent.cu", "nvw_persistent_generate_forced",
@@ -280,6 +283,249 @@ def stream_plan(cfg: WaveNetConfig, batch: int, storage=torch.float32,
                       -(-batch // SMS))
 
 
+STAGED_MAX_THREADS = 512   # chain + prev + producer (kMaxThreads)
+STAGED_MAX_COLUMNS = 4     # columns a thread owns in one product (kMaxNC)
+STAGED_SLOT_BYTES = 32768  # a prev ring slot at most, half a chain slot
+STAGED_CHAIN_SLOTS = 3     # slots of the chain ring (2 where 3 do not fit)
+STAGED_LOOKAHEAD = 4       # layers the prev buffer holds, at most L
+# (R, S, A) of the instances compiled for fixed widths, geometry 1, 2, ...
+# (csrc/staged_generate.cu `fixed_widths`): the flagship's and config 4's.
+# Every other geometry runs the generic instance (geometry 0).
+STAGED_FIXED_WIDTHS = ((64, 256, 256), (128, 256, 256))
+# the stream's matrices, in a layer's order and then the output stack's:
+# (name, K, N) of each as functions of (R, S, A)
+STAGED_MATRICES = (("prev", lambda R, S, A: (R, 2 * R)),
+                   ("cur", lambda R, S, A: (R, 2 * R)),
+                   ("rs", lambda R, S, A: (R, R + S)),
+                   ("out", lambda R, S, A: (S, A)),
+                   ("end", lambda R, S, A: (A, A)))
+
+
+class StagedMatrix(NamedTuple):
+    """One stack in K1/K5's stream, as k-quads [kq, Np, 4]."""
+    name: str
+    K: int
+    N: int
+    Np: int           # columns of the layout: N rounded up to 4
+    kq: int           # quad-rows, ceil(K / 4)
+    row_bytes: int    # one quad-row
+    rows: int         # quad-rows one copy (one ring slot) brings
+    chunks: int       # copies of the whole matrix
+    offset: int       # bytes from the stream's start (layer 0's, per layer)
+
+
+class StagedPlan(NamedTuple):
+    """K1/K5's plan (`staged_plan`)."""
+    storage: torch.dtype      # float32 under "exact", else bfloat16
+    chain_threads: int        # the chain's warps, a multiple of 32
+    prev_threads: int         # the prev warps'
+    threads: int              # chain + prev + one producer warp
+    slot_bytes: int           # one slot of either ring
+    chain_slots: int
+    prev_slots: int
+    lookahead: int            # layers of zp and cond the prev buffer holds
+    prev_slot_bytes: int      # one slot of the prev ring (slot_bytes: chain)
+    matrices: tuple           # StagedMatrix of STAGED_MATRICES
+    layer_bytes: int          # one layer's Wprev, Wcur and rs_w
+    stream_bytes: int         # the whole stream
+    activation_bytes: int     # the floats beside the rings
+    smem_bytes: int           # dynamic shared memory of the launch
+    waves: int                # CTA waves of the batch, one CTA per SM
+    geometry: int             # the instance: 1 + index in STAGED_FIXED_WIDTHS, 0 generic
+
+    def kernel_args(self) -> tuple:
+        """The plan array of the entry points (csrc/staged_generate.cu
+        `launch`)."""
+        eb = self.storage.itemsize
+        head = (self.chain_threads, self.prev_threads, self.slot_bytes,
+                self.chain_slots, self.prev_slots, self.lookahead,
+                self.prev_slot_bytes, eb, self.layer_bytes, self.smem_bytes, self.threads,
+                self.stream_bytes)
+        return head + tuple(v for m in self.matrices
+                            for v in (m.offset, m.row_bytes, m.rows, m.kq)
+                            ) + (self.geometry,)
+
+
+def staged_storage(prec: str = "exact") -> torch.dtype:
+    """The dtype K1/K5 stage their stacks in: bf16 under the low precisions
+    (their weights are bf16 values, `scan_generate.product_view`), else
+    fp32."""
+    return torch.float32 if prec == "exact" else torch.bfloat16
+
+
+def staged_activation_floats(cfg: WaveNetConfig, prec: str,
+                             lookahead: int) -> int:
+    """The floats beside K1/K5's rings, each array rounded up to a whole
+    quad: x (and its rounded copy under "fast"), h, skip, zs, za, the two
+    prefix-sum buffers, the prev warps' operand x_{t-d}, and `lookahead`
+    layers of zp [2R], cond [2R] and the FIFO slot as stored [R]."""
+    c4 = lambda n: -(-n // 4) * 4  # noqa: E731
+    R, S, A = cfg.R, cfg.S, cfg.A
+    return (c4(R) * (2 if prec == "fast" else 1) + c4(R) + c4(S) + 4 * c4(A)
+            + c4(R) + lookahead * (2 * c4(2 * R) + c4(R)))
+
+
+def staged_threads(cfg: WaveNetConfig) -> tuple:
+    """(chain threads, prev threads) of K1/K5.  The prev warps own the 2R
+    columns of x_{t-d} Wprev, at most four a thread; the chain's own R + S
+    res/skip columns and A output columns, the fewest a thread (one at the
+    flagship widths) that fits with them and the producer warp in
+    STAGED_MAX_THREADS, and the R column pairs (i, R + i) of x_t Wcur, at
+    most two a thread."""
+    R, S, A = cfg.R, cfg.S, cfg.A
+    prev = min(128, -(-2 * R // 32) * 32)
+    if 2 * R > STAGED_MAX_COLUMNS * prev:
+        raise ValueError(f"K1/K5 compute x_(t-d) Wprev on {prev} threads, at "
+                         f"most {STAGED_MAX_COLUMNS} of its 2R = {2 * R} "
+                         f"columns each")
+    cols = max(R + S, A)
+    for nc in range(1, STAGED_MAX_COLUMNS + 1):
+        chain = max(-(-cols // (32 * nc)) * 32, -(-R // 64) * 32)
+        if chain + prev + 32 <= STAGED_MAX_THREADS:
+            return chain, prev
+    raise ValueError(f"K1/K5 cannot spread R + S = {R + S} and A = {A} "
+                     f"output columns over {STAGED_MAX_THREADS} threads, "
+                     f"{STAGED_MAX_COLUMNS} a thread")
+
+
+def staged_plan(cfg: WaveNetConfig, batch: int, prec: str = "exact"
+                ) -> StagedPlan:
+    """Decide K1/K5's threads, rings and stream layout for `batch` rows in
+    precision `prec` (`scan_generate.PRECISIONS`).
+
+    The stream holds each stack as k-quads [ceil(K/4), Np, 4] (Np: its
+    columns rounded up to 4, zero-padded; `staged_stream`), fp32 under
+    "exact" and bf16 otherwise: per layer Wprev, Wcur, rs_w, then out_w
+    and end_w.  A copy brings whole quad-rows into one slot of a ring:
+    Wprev into the prev ring (two slots, Wprev whole up to
+    STAGED_SLOT_BYTES), the rest into the chain ring (STAGED_CHAIN_SLOTS
+    slots of what the shared memory leaves, at most 2 STAGED_SLOT_BYTES;
+    two where three do not fit), one producer lane a slot.  On an H100 a
+    step's time grows with its count of copies (PERF.md), so the slots are
+    few and large.  The prev buffer holds min(L, 4) layers.  Widths in
+    STAGED_FIXED_WIDTHS with a full prev buffer run the instance compiled
+    for them (`geometry`), every other geometry the generic one.  Raises
+    ValueError before any launch for a geometry K1/K5 cannot hold: too many
+    columns for the threads (`staged_threads`), an odd R under "bf16" (the
+    bf16 FIFO slot is copied 4 bytes at a time), or rings of two slots
+    that do not fit beside the activations in SMEM_PER_BLOCK."""
+    scan_generate._check_precision(prec)
+    if batch < 1:
+        raise ValueError(f"batch must be >= 1, got {batch}")
+    L, R, S, A = cfg.num_layers, cfg.R, cfg.S, cfg.A
+    if prec == "bf16" and R % 2:
+        raise ValueError(f"K1/K5 in bf16 copy the FIFO slot 4 bytes at a "
+                         f"time: R = {R} must be even")
+    chain, prev = staged_threads(cfg)
+    storage = staged_storage(prec)
+    eb = storage.itemsize
+    lookahead = min(L, STAGED_LOOKAHEAD)
+    act = 4 * staged_activation_floats(cfg, prec, lookahead)
+    shapes = [(name, *f(R, S, A)) for name, f in STAGED_MATRICES]
+    row_bytes = [-(-N // 4) * 4 * 4 * eb for _, _, N in shapes]
+    budget = SMEM_PER_BLOCK - _STATIC_SMEM - act
+
+    def bar_bytes(slots):
+        return -(-8 * 2 * (slots + lookahead) // 16) * 16
+
+    r128 = lambda n: -(-n // 128) * 128  # noqa: E731
+    # a prev slot holds Wprev whole up to STAGED_SLOT_BYTES (one copy a
+    # layer); the chain ring takes the rest in CHAIN_SLOTS slots of at most
+    # twice that, fewer and larger as the shared memory allows
+    kq_r = -(-R // 4)
+    prev_slot = r128(max(row_bytes[0], min(kq_r * row_bytes[0],
+                                           STAGED_SLOT_BYTES)))
+    for chain_slots in (STAGED_CHAIN_SLOTS, 2):
+        room = budget - 2 * prev_slot - bar_bytes(chain_slots + 2)
+        slot = min(room // chain_slots // 128 * 128, 2 * STAGED_SLOT_BYTES)
+        if slot >= max(row_bytes[1:]):
+            break
+    else:
+        raise ValueError(f"K1/K5 need two ring slots of {prev_slot} bytes and "
+                         f"two of {r128(max(row_bytes[1:]))} beside {act} "
+                         f"bytes of activations in {SMEM_PER_BLOCK} bytes of "
+                         f"shared memory")
+    matrices, offset = [], 0
+    for (name, K, N), rb in zip(shapes, row_bytes):
+        kq = -(-K // 4)
+        rows = min(kq, (prev_slot if name == "prev" else slot) // rb)
+        matrices.append(StagedMatrix(name, K, N, rb // (4 * eb), kq, rb, rows,
+                                     -(-kq // rows), offset))
+        offset += kq * rb
+        if name == "rs":
+            layer_bytes = offset
+            offset = L * layer_bytes
+    prev_slots = 2
+    smem = (chain_slots * slot + prev_slots * prev_slot
+            + bar_bytes(chain_slots + prev_slots) + act)
+    fixed = (R, S, A) in STAGED_FIXED_WIDTHS and lookahead == STAGED_LOOKAHEAD
+    return StagedPlan(storage, chain, prev, chain + prev + 32, slot,
+                      chain_slots, prev_slots, lookahead, prev_slot,
+                      tuple(matrices),
+                      layer_bytes, offset, act, smem, -(-batch // SMS),
+                      STAGED_FIXED_WIDTHS.index((R, S, A)) + 1 if fixed else 0)
+
+
+def staged_quads(w: torch.Tensor, dtype) -> torch.Tensor:
+    """A stack w [K, N] (row k feeds every column) as k-quads [ceil(K/4),
+    Np, 4] in `dtype`, zero-padded: element [q, n, u] is w[4q + u, n]."""
+    K, N = w.shape
+    kq, Np = -(-K // 4), -(-N // 4) * 4
+    q = torch.zeros((kq * 4, Np), dtype=torch.float32, device=w.device)
+    q[:K, :N] = w
+    return q.view(kq, 4, Np).permute(0, 2, 1).contiguous().to(dtype)
+
+
+def staged_stacks(params: Dict[str, torch.Tensor], cfg: WaveNetConfig):
+    """The stacks of STAGED_MATRICES as [K, N] tensors: per layer (Wprev,
+    Wcur, rs_w) from dil_w's rows [0, R) and [R, 2R) and rs_w, then
+    (out_w, end_w)."""
+    R = cfg.R
+    layers = [(params["dil_w"][l, :R], params["dil_w"][l, R:],
+               params["rs_w"][l]) for l in range(cfg.num_layers)]
+    return layers, (params["out_w"], params["end_w"])
+
+
+def staged_stream(params: Dict[str, torch.Tensor], cfg: WaveNetConfig,
+                  plan: StagedPlan) -> torch.Tensor:
+    """K1/K5's weight stream in the plan's storage dtype, one flat tensor
+    laid out as `staged_plan` says.  Built once per upload from the values
+    the products take (`scan_generate.product_view`: bf16 values under the
+    low precisions, so storing them as bf16 is exact)."""
+    layers, tail = staged_stacks(params, cfg)
+    parts = [staged_quads(w, plan.storage).reshape(-1)
+             for stacks in layers for w in stacks]
+    parts += [staged_quads(w, plan.storage).reshape(-1) for w in tail]
+    out = torch.cat(parts)
+    assert out.numel() * out.element_size() == plan.stream_bytes
+    return out
+
+
+def staged_columns(cfg: WaveNetConfig, plan: StagedPlan) -> Dict[str, list]:
+    """The columns each thread of K1/K5 owns, by product: {"cur": [(thread,
+    column)], "prev", "rs", "out"}; the kernel computes the same.  Chain
+    thread t owns the column pairs (i, R + i) of x_t Wcur for i = t + k Tc
+    (k < 2) and the columns t + k Tc of res/skip and of both output
+    products (k < 4); prev thread p the columns p + k Tp of x_{t-d} Wprev."""
+    R, S, A = cfg.R, cfg.S, cfg.A
+    Tc, Tp = plan.chain_threads, plan.prev_threads
+    out = {"cur": [], "prev": [], "rs": [], "out": []}
+    for t in range(Tc):
+        for k in range(STAGED_MAX_COLUMNS // 2):
+            if t + k * Tc < R:
+                out["cur"] += [(t, t + k * Tc), (t, R + t + k * Tc)]
+        for k in range(STAGED_MAX_COLUMNS):
+            if t + k * Tc < R + S:
+                out["rs"].append((t, t + k * Tc))
+            if t + k * Tc < A:
+                out["out"].append((t, t + k * Tc))
+    for p in range(Tp):
+        for k in range(STAGED_MAX_COLUMNS):
+            if p + k * Tp < 2 * R:
+                out["prev"].append((p, p + k * Tp))
+    return out
+
+
 def init_ring(cfg: WaveNetConfig, batch: int, device,
               dtype=torch.float32) -> torch.Tensor:
     """Zero FIFO state [ring_size, batch, R]: 'no past activations', as the
@@ -332,11 +578,18 @@ _WEIGHTS = ("embed", "dil_w", "rs_w", "rs_b", "out_w", "out_b", "end_w",
             "end_b")
 
 
+def _plan_array(plan: StagedPlan):
+    """The plan as the host array the staged entry points read."""
+    args = plan.kernel_args()
+    return (ctypes.c_longlong * len(args))(*args)
+
+
 def _launch_kernel(cfg: WaveNetConfig, params: Dict[str, torch.Tensor],
                    sched: torch.Tensor, t0: int, cond_pre: torch.Tensor,
                    sel: torch.Tensor, ring: torch.Tensor,
                    y_state: torch.Tensor, n_valid: int, mode: str, dump: bool,
-                   seed: int, prec: str):
+                   seed: int, prec: str, staged=None):
+    """K1 (modes sample and argmax: `staged` is (plan, stream)), K2 or K3."""
     T, _, B, _ = cond_pre.shape
     dev = cond_pre.device
     y = torch.zeros((T, B), dtype=torch.int32, device=dev)
@@ -360,8 +613,13 @@ def _launch_kernel(cfg: WaveNetConfig, params: Dict[str, torch.Tensor],
             PRNG_KERNELS[prec](*head, *state, *shape,
                                seed & 0xFFFFFFFFFFFFFFFF, stream)
         else:
-            PERSISTENT_KERNELS[prec](*head, sel.data_ptr(), *state, *shape,
-                                     _MODE_IDS[mode], stream)
+            plan, weights = staged
+            plan_arr = _plan_array(plan)
+            PERSISTENT_KERNELS[prec](
+                params["embed"].data_ptr(), weights.data_ptr(),
+                *(params[k].data_ptr() for k in ("rs_b", "out_b", "end_b")),
+                cond_pre.data_ptr(), sel.data_ptr(), *state, *shape,
+                _MODE_IDS[mode], ctypes.addressof(plan_arr), stream)
     out = (y, ring, y_state)
     if dump:
         out += tuple(dumps[k] for k in _DUMP_KEYS)
@@ -412,7 +670,8 @@ def _launch_ragged(cfg: WaveNetConfig, params: Dict[str, torch.Tensor],
                    sched: torch.Tensor, t0_row: torch.Tensor,
                    cond_pre: torch.Tensor, sel: torch.Tensor,
                    ring: torch.Tensor, y_state: torch.Tensor,
-                   n_valid_row: torch.Tensor, prec: str):
+                   n_valid_row: torch.Tensor, prec: str, staged):
+    """K5: `staged` is (plan, stream)."""
     T, _, B, _ = cond_pre.shape
     dev = cond_pre.device
     # zeros, never empty: K5 writes no step past a row's length
@@ -422,13 +681,16 @@ def _launch_ragged(cfg: WaveNetConfig, params: Dict[str, torch.Tensor],
         # nothing queued before it
         t0_dev, nv_dev = (x.pin_memory().to(dev, non_blocking=True)
                           for x in (t0_row, n_valid_row))
+        plan, weights = staged
+        plan_arr = _plan_array(plan)
         RAGGED_KERNELS[prec](
-            *(params[k].data_ptr() for k in _WEIGHTS),
+            params["embed"].data_ptr(), weights.data_ptr(),
+            *(params[k].data_ptr() for k in ("rs_b", "out_b", "end_b")),
             cond_pre.data_ptr(), sel.data_ptr(), sched.data_ptr(),
             ring.data_ptr(), y_state.data_ptr(), y.data_ptr(),
             t0_dev.data_ptr(), nv_dev.data_ptr(), B, cfg.num_layers, cfg.R,
             cfg.S, cfg.A, int(cfg.tanh_embed), cfg.silence_bin,
-            build.current_stream(dev))
+            ctypes.addressof(plan_arr), build.current_stream(dev))
     return y, ring, y_state
 
 
@@ -519,12 +781,22 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
     scheds: Dict[torch.device, torch.Tensor] = {}  # the FIFO layout per card
     stored: Dict[str, tuple] = {}   # the last params object's storage
 
+    # K1/K5 (CUDA, no streaming, modes sample/argmax or ragged): their plan,
+    # made at the first launch (it raises for a geometry they cannot hold;
+    # the plain version runs any), and their stream, made once per upload
+    uses_staged = plan is None and mode in _MODE_IDS
+    staged_plans: Dict[str, StagedPlan] = {}
+
     def storage(params, dev):
-        """(the values the products take, K4's stacks or None), rebuilt
-        when a tensor of params is replaced or changed in place."""
+        """(the values the products take, K4's stacks or None, K1/K5's
+        (plan, stream) or None), rebuilt when a tensor of params is replaced
+        or changed in place."""
+        staged = uses_staged and dev.type == "cuda"
+        if staged and "plan" not in staged_plans:
+            staged_plans["plan"] = staged_plan(cfg, B, prec)
         if (weight_dtype == torch.float32 and not stream_quant
-                and plan is None and prec == "exact"):
-            return params, None
+                and plan is None and prec == "exact" and not staged):
+            return params, None, None
         src = tuple(params[k] for k in params_lib.PARAM_ORDER)
         key = tuple(t._version for t in src)
         old = stored.get("src")
@@ -536,8 +808,13 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
             stacks = (_stream_stacks(params if stream_quant else view,
                                      plan.storage)
                       if plan is not None and dev.type == "cuda" else None)
-            stored.update(src=src, key=key, stacks=stacks, view=view)
-        return stored["view"], stored["stacks"]
+            weights = (staged_stream(view, cfg, staged_plans["plan"])
+                       if staged else None)
+            stored.update(src=src, key=key, stacks=stacks, view=view,
+                          weights=weights)
+        staged = ((staged_plans["plan"], stored["weights"]) if staged
+                  else None)
+        return stored["view"], stored["stacks"], staged
 
     def check(params, cond_pre, sel, ring, y_state):
         dev = cond_pre.device
@@ -573,7 +850,7 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
                         .all()):
                 raise ValueError(f"mode 'forced': sel must hold symbols, "
                                  f"integers in [0, A={A})")
-        view, stacks = storage(params, dev)
+        view, stacks, staged = storage(params, dev)
         if dev.type == "cpu":
             return generate_plain(cfg, view, t0, cond_pre, sel, ring,
                                   y_state, n_valid, mode, dump, int(seed),
@@ -585,7 +862,7 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
                                   prec)
         return _launch_kernel(cfg, view, scheds[dev], t0, cond_pre, sel,
                               ring, y_state, n_valid, mode, dump, int(seed),
-                              prec)
+                              prec, staged)
 
     def generate_ragged(params: Dict[str, torch.Tensor],
                         t0_row: torch.Tensor, cond_pre: torch.Tensor,
@@ -600,11 +877,11 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
         if int(n_valid_row.min()) < 0 or int(n_valid_row.max()) > T:
             raise ValueError(f"n_valid_row {n_valid_row.tolist()} outside "
                              f"[0, T={T}]")
-        view, _ = storage(params, dev)
+        view, _, staged = storage(params, dev)
         if dev.type == "cpu":
             return generate_plain(cfg, view, t0_row, cond_pre, sel, ring,
                                   y_state, n_valid_row, prec=prec)
         return _launch_ragged(cfg, view, scheds[dev], t0_row, cond_pre,
-                              sel, ring, y_state, n_valid_row, prec)
+                              sel, ring, y_state, n_valid_row, prec, staged)
 
     return generate_ragged if ragged else generate

@@ -55,8 +55,9 @@ from nv_wavenet_tpu_torch.ops import fused_chain, score_parallel
 
 # (V0_us, V1_us, E0_us): see the module docstring; NVIDIA H100 80GB HBM3,
 # 700 W, chip_smoke.py phase 32, with the scorer on K7's fused gate and
-# res/skip entries (the verify of a round is one scorer pass)
-DEFAULT_COST = (1189.8, 186.12, 179.27)
+# res/skip entries (the verify of a round is one scorer pass) and E0 the
+# staged K1's step (csrc/staged_generate.cu, its flagship-width instance)
+DEFAULT_COST = (1046.7, 184.94, 53.79)
 
 BRANCHES = {0: "window", 1: "window/2", 2: "exact", -1: "too short to probe"}
 

@@ -12,7 +12,9 @@ line per kernel and batch with the least-squares split of a step into a
 per-layer cost and a fixed cost (embedding, output stack and sampler) -
 for K6 also a cost per layer squared, its chain's product over the earlier
 gates growing with the layer - then the card's name and power limit.  K1
-reads every weight from L2 along each row's chain of dependent loads; K4
+(csrc/staged_generate.cu) copies every weight into shared memory by TMA
+ahead of its products, a ring of a few large slots (from 4 layers up, its
+prev buffer full, the instance compiled for these widths runs); K4
 (stream_weights=True, fp32, bf16 or int8 stacks) copies dil_w and rs_w into
 shared memory ahead of its products; K6 reads its folded weights from L2,
 four columns a load.  All run one CTA per batch row, so the time per step
@@ -32,7 +34,7 @@ from nv_wavenet_tpu_torch.config import WaveNetConfig
 from nv_wavenet_tpu_torch.models import params as params_lib
 from nv_wavenet_tpu_torch.ops import fused_chain, persistent
 
-DEPTHS = (1, 5, 10, 15, 20)
+DEPTHS = (4, 8, 12, 16, 20)
 BATCHES = (1, 16, 64, 132, 264)
 STEPS = 256   # samples per launch: one run_chunks chunk of the main path
 REPS = 3      # timed launches per point, after one warm-up launch

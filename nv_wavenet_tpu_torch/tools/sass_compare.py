@@ -5,17 +5,22 @@ tree's CUDA sources and this one's, on a machine with nvcc and cuobjdump.
 
 OTHER_CSRC_DIR holds the other tree's `nv_wavenet_tpu_torch/csrc/` (for
 example a `git archive` of the parent commit unpacked into a directory that
-.gitignore lists).  Its `persistent.cu`, `stream_generate.cu` and
-`fused_chain.cu` are built with this tree's flags (`utils/build.py`), this
-tree's libraries as the package builds them (every precision's library of
-a source together), and `cuobjdump -sass` of each pair is compared kernel
-instance by kernel instance.  An instance is named
-by its kernel, its template arguments and its precision: the other tree
-may predate the precision parameter (the exact instance then), or carry it
-as K6's old `kFast` flag.  Instruction text is compared with the addresses
-and encodings stripped, so identical code at identical offsets is
-"identical".  Prints one line per instance found in both trees and a JSON
-summary as its last line; exits 0 whatever it finds.
+.gitignore lists).  Those of its `persistent.cu`, `staged_generate.cu`,
+`stream_generate.cu` and `fused_chain.cu` it has are built as this tree's
+are (`utils/build.py`: its flags, one library per precision with
+-DNVW_PREC=0, 1, 2), and `cuobjdump -sass` of each pair is compared kernel
+instance by kernel instance, in every precision.  An instance is named by
+its kernel, its template arguments and its precision: the other tree's K4
+may predate the precision parameter (the exact instance then), its K6
+carry it as the old `kFast` flag, its K2/K3 template a leading kRagged
+flag (false for them), its staged K1/K5 no geometry (the generic one).
+Instruction text is compared with the addresses and encodings stripped, so
+identical code at identical offsets is "identical"; an instance that
+differs is also compared with the kernel parameters' offsets in the
+constant bank (`c[0x0][...]`) masked, and listed under
+"differ_in_param_offsets_only" when that alone tells them apart.  Prints
+one line per instance found in both trees and a JSON summary as its last
+line; exits 0 whatever it finds.
 """
 
 from __future__ import annotations
@@ -30,24 +35,36 @@ import tempfile
 from nv_wavenet_tpu_torch.utils import build
 
 SOURCES = build.PRECISION_SOURCES
-_KERNEL = re.compile(r"(persistent_generate_kernel|stream_generate_kernel|"
-                     r"fused_generate_kernel)I((?:L[bi]\d+E)+)E")
+_KERNEL = re.compile(r"(persistent_generate_kernel|staged_generate_kernel|"
+                     r"stream_generate_kernel|fused_generate_kernel)"
+                     r"I((?:L[bi]\d+E)+)E")
 _ARG = re.compile(r"L[bi](\d+)E")
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
+_PARAM = re.compile(r"c\[0x0\]\[0x[0-9a-f]+\]")
 
 
 def instance_key(mangled: str):
-    """(kernel, leading template arguments, precision) of a mangled kernel
-    name, or None.  K1's and K4's instances gained a trailing precision
-    argument (exact when absent); K6's last argument is its precision (or
-    the older kFast flag: false exact, true fast)."""
+    """(kernel, other template arguments, precision) of a mangled kernel
+    name, or None.  K2/K3's template is <kSel, kPrec>, once <kRagged, kSel,
+    kPrec>: the key keeps a kRagged of 0 for the newer form.  K4's is
+    <kStorage, kSel, kPrec>, once without kPrec (exact).  K6's last
+    argument is its precision (once the kFast flag: false exact, true
+    fast).  The staged K1/K5's is <kRagged, kPrec, kGeo>, once without kGeo
+    (the generic instance, 0)."""
     m = _KERNEL.search(mangled)
     if not m:
         return None
+    kernel = m.group(1)
     args = [int(a) for a in _ARG.findall(m.group(2))]
-    if m.group(1) == "fused_generate_kernel" or len(args) == 3:
-        return m.group(1), tuple(args[:-1]), args[-1]
-    return m.group(1), tuple(args), 0
+    if kernel == "persistent_generate_kernel":
+        if len(args) == 2:
+            args = [0] + args
+        return kernel, tuple(args[:-1]), args[-1]
+    if kernel == "staged_generate_kernel":
+        return kernel, (args[0], args[2] if len(args) == 3 else 0), args[1]
+    if kernel == "fused_generate_kernel" or len(args) == 3:
+        return kernel, tuple(args[:-1]), args[-1]
+    return kernel, tuple(args), 0
 
 
 def sass_functions(cuobjdump: str, lib: str) -> dict:
@@ -68,20 +85,25 @@ def sass_functions(cuobjdump: str, lib: str) -> dict:
 
 
 def build_other(csrc: str, out_dir: str) -> dict:
-    """Build the other tree's sources in parallel: {source: library}."""
+    """Build the other tree's sources in parallel, one library per
+    precision as `utils/build.py` does: {source: [libraries]}."""
     nvcc = build.find_nvcc()
-    procs = {}
+    procs = []
     for src in SOURCES:
-        lib = os.path.join(out_dir, "lib" + os.path.splitext(src)[0] + ".so")
-        procs[src] = (lib, subprocess.Popen(
-            [nvcc, *build.NVCC_FLAGS, "-o", lib, os.path.join(csrc, src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        if not os.path.exists(os.path.join(csrc, src)):
+            continue   # a source the other tree does not have
+        for prec, pid in build.PREC_IDS.items():
+            lib = os.path.join(out_dir, f"lib{os.path.splitext(src)[0]}_{prec}.so")
+            procs.append((src, lib, subprocess.Popen(
+                [nvcc, *build.NVCC_FLAGS, f"-DNVW_PREC={pid}", "-o", lib,
+                 os.path.join(csrc, src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     libs = {}
-    for src, (lib, proc) in procs.items():
+    for src, lib, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {csrc}/{src}:\n{log}")
-        libs[src] = lib
+        libs.setdefault(src, []).append(lib)
     return libs
 
 
@@ -96,9 +118,11 @@ def main(argv=None) -> int:
         other = build_other(os.path.abspath(argv[0]), tmp)
         build.build_all()
         summary = {"compared": 0, "identical": 0, "differ": [],
-                   "only_here": []}
-        for src in SOURCES:
-            old = sass_functions(cuobjdump, other[src])
+                   "differ_in_param_offsets_only": [], "only_here": []}
+        for src in other:
+            old = {}
+            for lib in other[src]:
+                old.update(sass_functions(cuobjdump, lib))
             new = {}
             for u in build.UNITS:
                 if u.partition("@")[0] == src:
@@ -112,11 +136,17 @@ def main(argv=None) -> int:
                 same = old[key] == new[key]
                 summary["compared"] += 1
                 summary["identical"] += same
+                params_only = not same and (
+                    [_PARAM.sub("c[0x0][*]", i) for i in old[key]]
+                    == [_PARAM.sub("c[0x0][*]", i) for i in new[key]])
                 if not same:
                     summary["differ"].append(name)
+                if params_only:
+                    summary["differ_in_param_offsets_only"].append(name)
                 print(f"[sass] {src}: {name}: {len(old[key])} vs "
-                      f"{len(new[key])} instructions, identical {same}",
-                      flush=True)
+                      f"{len(new[key])} instructions, identical {same}"
+                      + (", but for the parameters' offsets" if params_only
+                         else ""), flush=True)
     print(json.dumps({"sass_compare": summary}), flush=True)
     return 0
 

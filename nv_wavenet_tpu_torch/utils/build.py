@@ -39,8 +39,10 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(PKG_DIR), "build",
                           "nv_wavenet_tpu_torch")
 SOURCES = ("exact_math_kernels.cu", "ordered_matmul.cu", "persistent.cu",
-           "stream_generate.cu", "fused_chain.cu", "probes.cu")
-PRECISION_SOURCES = ("persistent.cu", "stream_generate.cu", "fused_chain.cu")
+           "staged_generate.cu", "stream_generate.cu", "fused_chain.cu",
+           "probes.cu")
+PRECISION_SOURCES = ("persistent.cu", "staged_generate.cu",
+                     "stream_generate.cu", "fused_chain.cu")
 # sources also built with contraction allowed, as unit `<source>@fmad`
 FMAD_SOURCES = ("probes.cu",)
 # -DNVW_PREC of each precision (csrc/step_common.cuh kPrec*; the names of
