@@ -15,7 +15,8 @@ slots fed tick by tick through `begin_stream` / `feed(lengths=...)` /
 request in mode "prng"; and the weight-streaming path, the same requests
 through `WaveNetInfer(implementation=Impl.MANYBLOCK)` with fp32, bf16 and
 int8 weight stacks (kernel K4), then K4 at the JAX repo's largest
-configuration (config 4); the latency tier, the same requests through
+configuration (config 4); the geometries the staged kernels cannot hold
+(the generic K1/K5 and the first K4); the latency tier, the same requests through
 `WaveNetInfer(priority="latency")` (the collapsed-chain kernel K6 with
 fast_math); and the two precision knobs, the same requests through
 `WaveNetInfer(compute_dtype=torch.bfloat16)` and `WaveNetInfer(
@@ -29,7 +30,9 @@ any failure exits non-zero:
   2. build: every csrc/*.cu, timed; beside it (nvcc runs in its own
      processes) the plain CPU run of phase 5's horizon case
   3. K0a (elementwise exact exp/tanh/sigmoid) vs plain: 0 bit mismatches on
-     the dense sweep of tests/test_exact_math.py
+     the dense sweep of tests/test_exact_math.py; its device time (100
+     launches in a CUDA graph) at 450,020 floats and at the scorer's
+     embedding [131072, 64], beside torch.exp / tanh / sigmoid
   4. K0b (canonical sampler) vs plain: 0 mismatches on za [4096, 256]; K0c
      (canonical softmax) vs plain at za [4096, 256] and [131072, 256] (the
      warp instance) and [4096, 250] (the block instance): 0 bit
@@ -95,16 +98,18 @@ any failure exits non-zero:
  13. prng at full width: counts set to 0 just before and read just after;
      one request of 16 x 8192 samples through run_chunks(256, mode="prng"),
      its time per step beside K1's
- 14. K4 (weight streaming) vs plain, TEST_CONFIG_MED, B=4, T=19, in each
+ 14. K4 (weight streaming; the staged K4 of csrc/staged_stream_generate.cu
+     wherever its plan holds) vs plain, TEST_CONFIG_MED, B=4, T=19, in each
      storage (fp32, bf16, int8) and mode (sample, argmax with the dump,
      forced, prng): 0 integer mismatches, ring, p_seq and dumps within the
      ladder; a 7-of-8 n_valid call and an 11 + 8 split, with and without
      prefetch: 0 mismatches in y, ring bits and y_state
- 15. K4 at the flagship: the six schedules (stream_group_size 1, 3, 8 x
-     stream_prefetch) identical in each storage; K4 against K1 fed the
-     storage's values over 2048 steps, bit for bit in y, ring and y_state;
-     K4-forced against K2 (p_seq bits) and K4-prng against K3 in fp32;
-     each storage timed over a 256-step launch; then in each storage K4
+ 15. K4 at the flagship (the staged K4's route checked): the six schedules
+     (stream_group_size 1, 3, 8 x stream_prefetch) identical in each
+     storage; K4 against K1 fed the storage's values over 2048 steps, bit
+     for bit in y, ring and y_state; K4-forced against K2 (p_seq bits) and
+     K4-prng against K3 in each storage, K2/K3 fed its values; each
+     storage timed over a 256-step launch; then in each storage K4
      against the plain version on the storage's values over 16 steps
      (timed): y and y_state exact, the ring within the ladder, and
      K4-forced fed the plain samples gives p_seq within the ladder
@@ -113,10 +118,22 @@ any failure exits non-zero:
      WaveNetInfer(implementation=Impl.MANYBLOCK).run_chunks(256) in each
      storage (fp32: every sample equal to the main path's; bf16/int8:
      request 1's first 256 equal to K1 on the storage's values); kHz per
-     utterance, K4's and K1's us per step; K4 must have launched, K1 not
+     utterance, K4's and K1's us per step; the staged K4 must have
+     launched, K1 and the first K4 not
  17. config 4 (40 layers, R=128, S=256, A=256, max_dilation 128, B=64):
-     K4 fp32 against K1 over 1024 steps bit for bit; K4 in each storage and
-     K1 timed over a 256-step launch
+     K4 in each storage against K1 on the storage's values over 1024 steps,
+     and with bf16 and int8 stacks in fast and bf16 over 256, bit for bit;
+     K4 in each storage and K1 timed over a 256-step launch; one MANYBLOCK
+     request of 256 on counts of its own (the staged K4 alone)
+ 17b. the geometries the staged plan rejects (fault F2): A=2048 and R=512
+     (2 layers) in each precision, R=9 in bf16: K1 (sample; argmax with
+     the dump) and K5 (one ragged tick) against their plain versions, each
+     on counts of its own (the route's generic kernel launched once, the
+     staged one not; 0 mismatches in y and y_state in the case's own
+     precision, the others as phase 23); at A=2048 the first K4 in each
+     storage and precision against the generic K1 on the storage's values
+     bit for bit, and a MANYBLOCK request per storage (the first K4
+     launched, the staged K4 not); each kernel timed there
  18. score -> feed under MANYBLOCK int8 (fault R9 of the JAX engine): score
      the first half of a 2048-step flagship window, feed the second: equal
      to one int8 generation, and the scored ring equal to the generated one
@@ -209,8 +226,9 @@ any failure exits non-zero:
  34. the `kernels` JSON line: per kernel its launches on its path (K5: the
      serving phase; K0a, K0c, K7, K2: the scoring phase; K3: the prng
      request; K4: the MANYBLOCK main path; K6: the latency-tier main path;
-     each fast and bf16 instance: its phase 25 or 26 path; P1, P5: the
-     probe phases), its time, the
+     each fast and bf16 instance: its phase 25 or 26 path; the generic
+     K1/K5 and the first K4: phase 17b; P1, P5: the probe phases), its
+     time, the
      plain version's, the least time the card could take for the same work
      (bound_ms) and, where one PyTorch call computes the same function, that
      call's time
@@ -281,6 +299,9 @@ K7_SHAPES = tuple((e, M, K, N) for M in (K7_WINDOW_M, 4096)
                                   ("matmul", 256, 256))
                   ) + (("gate", 1000, 36, 36), ("res_skip", 1000, 36, 73),
                        ("matmul", 1000, 37, 50))
+# K0a's device times: the JAX probe's 450,020 floats and the scorer's
+# embedding tanh over [B T, R] at the window
+K0A_SHAPES = ((450020,), (16 * 8192, 64))
 # K0c: za [rows, A] at the verify and window shapes (the warp instance) and
 # at A = 250 (the block instance)
 K0C_SHAPES = ((4096, 256), (K7_WINDOW_M, 256), (4096, 250))
@@ -296,6 +317,18 @@ K4_FLAG_T = 2048
 CONFIG4 = dict(num_layers=40, R=128, S=256, A=256, max_dilation=128)
 C4_B, C4_T, C4_TIME_T = 64, 1024, 256
 R9_T = 2048
+# the geometries the staged plan rejects (fault F2): (label, config, the
+# precision whose plain version it is held to with 0 mismatches); K1 and
+# K5 there run the generic kernel, and at A = 2048 MANYBLOCK the first K4;
+# B=F2_B rows over F2_T steps, timed over F2_TIME_T
+F2_CASES = (("A=2048", dict(num_layers=2, R=64, S=256, A=2048,
+                            max_dilation=2), "exact"),
+            ("R=512", dict(num_layers=2, R=512, S=256, A=256,
+                           max_dilation=2), "exact"),
+            ("R=9", dict(num_layers=2, R=9, S=16, A=32, max_dilation=2,
+                         silence_bin=16), "bf16"))
+F2_PRECISIONS = ("exact", "fast", "bf16")
+F2_B, F2_T, F2_TIME_T = 4, 16, 64
 K4_SMALL_T = 19   # K4 vs plain at TEST_CONFIG_MED: holds the 11 + 8 split
 # K6 (the collapsed chain): against its plain version at TEST_CONFIG_MED,
 # B=4, over 16 steps (the plain version costs ~1 s per 32 steps), in every
@@ -782,11 +815,17 @@ def storage_view(persistent, params, kw: dict):
 
 
 def plan_dict(torch, persistent, cfg, B: int, name: str) -> dict:
-    """K4's shared-memory plan for a storage (default schedule), as JSON."""
+    """The plan of the K4 a storage runs (`generation_route`: the staged
+    K4's, or the first K4's), as JSON."""
     storage = {"fp32": torch.float32, "bf16": torch.bfloat16,
                "int8": torch.int8}[name]
-    plan = persistent.stream_plan(cfg, B, storage)._asdict()
-    return {**plan, "storage": name}
+    route = persistent.generation_route(cfg, B, stream_weights=True,
+                                        storage=storage)
+    plan = {k: (str(v) if isinstance(v, torch.dtype) else v)
+            for k, v in route.plan._asdict().items()}
+    if "matrices" in plan:
+        plan["matrices"] = [m._asdict() for m in route.plan.matrices]
+    return {**plan, "kernel": route.kernel, "storage": name}
 
 
 def k4_bytes(cfg, B: int, T: int, name: str) -> int:
@@ -892,7 +931,8 @@ def check_k4_flagship(torch, np, persistent, cfg, params, cond, sel,
     stream_prefetch, each as a 300 + 212 split) identical in every storage;
     K4 against K1 fed the storage's values over K4_FLAG_T steps, bit for
     bit in y, the ring and y_state; K4-forced p_seq against K2's and
-    K4-prng against K3 in fp32; each timed over a 256-step launch."""
+    K4-prng against K3's, K2/K3 fed the storage's values, in every
+    storage; each timed over a 256-step launch."""
     T, B = K4_FLAG_T, MAIN_B
     cp_raw, sel = cond[:T], sel[:T].contiguous()
     res = {"schedule_mismatches": 0, "k1_mismatches": 0, "k4_ms": {},
@@ -931,6 +971,8 @@ def check_k4_flagship(torch, np, persistent, cfg, params, cond, sel,
                 + int(not torch.equal(ys, base[2])))
         gen = persistent.make_persistent_generator(cfg, B, stream_weights=True,
                                                    **kw)
+        if gen.route.kernel != "staged_stream":
+            fail(f"K4 {name} at the flagship routed to {gen.route.kernel}")
         out4 = gen(params, 0, cp, sel, *fresh())
         out1 = k1(view, 0, cp, sel, *fresh())
         torch.cuda.synchronize()
@@ -949,33 +991,36 @@ def check_k4_flagship(torch, np, persistent, cfg, params, cond, sel,
             f"schedules (ms per {SCHED_T} steps): " + ", ".join(
                 f"G={g} pf={int(pf)} {res['schedule_ms'][f'{name} G={g} prefetch={pf}']:.2f}"
                 for g, pf in SCHEDULES))
-        if name == "fp32":
-            sym = out1[0].to(torch.float32)
-            cp32 = cp
-    k2 = persistent.make_persistent_generator(cfg, B, mode="forced")
-    k3 = persistent.make_persistent_generator(cfg, B, mode="prng")
-    f4 = persistent.make_persistent_generator(cfg, B, mode="forced",
-                                              stream_weights=True)
-    p4 = persistent.make_persistent_generator(cfg, B, mode="prng",
-                                              stream_weights=True)
-    o2, o4 = k2(params, 0, cp32, sym, *fresh()), f4(params, 0, cp32, sym,
-                                                     *fresh())
-    o3, o5 = (k3(params, 0, cp32, sel, *fresh(), seed=PRNG_SEED),
-              p4(params, 0, cp32, sel, *fresh(), seed=PRNG_SEED))
-    torch.cuda.synchronize()
-    res["forced_mismatches"] = (bit_mismatches(torch, o4[-1], o2[-1])
-                                + bit_mismatches(torch, o4[1], o2[1])
-                                + int((o4[0] != o2[0]).sum())
-                                + int(not torch.equal(o4[2], o2[2])))
-    res["prng_mismatches"] = (int((o5[0] != o3[0]).sum())
-                              + bit_mismatches(torch, o5[1], o3[1])
-                              + int(not torch.equal(o5[2], o3[2])))
-    del o2, o4
+        # K4-forced against K2 and K4-prng against K3, K2/K3 fed the
+        # storage's values, K4-forced K1's samples
+        sym = out1[0].to(torch.float32)
+        k2 = persistent.make_persistent_generator(cfg, B, mode="forced")
+        k3 = persistent.make_persistent_generator(cfg, B, mode="prng")
+        f4 = persistent.make_persistent_generator(cfg, B, mode="forced",
+                                                  stream_weights=True, **kw)
+        p4 = persistent.make_persistent_generator(cfg, B, mode="prng",
+                                                  stream_weights=True, **kw)
+        del out1, out4
+        o2, o4 = k2(view, 0, cp, sym, *fresh()), f4(params, 0, cp, sym,
+                                                      *fresh())
+        torch.cuda.synchronize()
+        fm = (bit_mismatches(torch, o4[-1], o2[-1])
+              + bit_mismatches(torch, o4[1], o2[1])
+              + int((o4[0] != o2[0]).sum())
+              + int(not torch.equal(o4[2], o2[2])))
+        del o2, o4
+        o3, o5 = (k3(view, 0, cp, sel, *fresh(), seed=PRNG_SEED),
+                  p4(params, 0, cp, sel, *fresh(), seed=PRNG_SEED))
+        torch.cuda.synchronize()
+        pm = (int((o5[0] != o3[0]).sum())
+              + bit_mismatches(torch, o5[1], o3[1])
+              + int(not torch.equal(o5[2], o3[2])))
+        res["forced_mismatches"] = res.get("forced_mismatches", 0) + fm
+        res["prng_mismatches"] = res.get("prng_mismatches", 0) + pm
+        log(f"[K4 flagship] {name}: K4-forced vs K2 over {T} steps: {fm} "
+            f"mismatches (p_seq, ring bits, y, y_state); K4-prng vs K3: {pm}")
     log(f"[K4 flagship] schedules G x prefetch in {SCHEDULES}: "
-        f"{res['schedule_mismatches']} mismatches against the first; "
-        f"K4-forced vs K2 over {T} steps: {res['forced_mismatches']} "
-        f"mismatches (p_seq, ring bits, y, y_state); K4-prng vs K3: "
-        f"{res['prng_mismatches']}")
+        f"{res['schedule_mismatches']} mismatches against the first")
     return res
 
 
@@ -1029,54 +1074,285 @@ def check_k4_plain_flagship(torch, persistent, tsg, em, cfg, params, cond,
     return res
 
 
-def check_config4(torch, np, persistent, cfg_lib, params_lib, dev) -> dict:
-    """Config 4 (CONFIG4, B=C4_B): K4 fp32 against K1 over C4_T steps, bit
-    for bit; K4 in every storage and K1 timed over a C4_TIME_T-step
-    launch."""
+def check_config4(torch, np, persistent, tsg, cfg_lib, params_lib,
+                  WaveNetInfer, Impl, dev, all_kernels) -> dict:
+    """Config 4 (CONFIG4, B=C4_B): K4 in every storage against K1 fed the
+    storage's values over C4_T steps, and with bf16 and int8 stacks in fast
+    and bf16 against K1 of that precision over C4_TIME_T, bit for bit in y,
+    the ring and y_state; K4 in every storage and K1 timed over a
+    C4_TIME_T-step launch; one MANYBLOCK request of C4_TIME_T samples (the
+    staged K4 must launch, K1 and the first K4 not)."""
     cfg = cfg_lib.WaveNetConfig(**CONFIG4)
     B, T = C4_B, C4_T
-    params = params_lib.canonical_to_torch(params_lib.to_canonical(
-        params_lib.random_reference_weights(cfg, seed=4), cfg), dev)
+    ref_w = params_lib.random_reference_weights(cfg, seed=4)
+    params = params_lib.canonical_to_torch(params_lib.to_canonical(ref_w,
+                                                                   cfg), dev)
     g = torch.Generator(device=dev)
     g.manual_seed(4)
     cond = torch.rand((T, cfg.num_layers, B, 2 * cfg.R), generator=g,
                       device=dev) - 0.5
     sel = torch.rand((T, B), generator=g, device=dev)
     n = C4_TIME_T
-    cp = (cond + params["dil_b"][None, :, None, :]).contiguous()
-    cond = cond[:n].clone()
+    res = {"mismatches": 0, "ms": {}, "bound": {}, "routes": {},
+           "per_case": {}}
 
-    def fresh():
-        return fresh_state(torch, persistent, cfg, B, dev)
+    def fresh(prec="exact"):
+        return (persistent.init_ring(cfg, B, dev, tsg.ring_dtype(prec)),
+                torch.full((2, B), cfg.silence_bin, dtype=torch.int32,
+                           device=dev))
     k1 = persistent.make_persistent_generator(cfg, B)
-    k4 = persistent.make_persistent_generator(cfg, B, stream_weights=True)
-    out1 = k1(params, 0, cp, sel, *fresh())
-    out4 = k4(params, 0, cp, sel, *fresh())
-    torch.cuda.synchronize()
-    res = {"mismatches": int((out4[0] != out1[0]).sum())
-           + bit_mismatches(torch, out4[1], out1[1])
-           + int(not torch.equal(out4[2], out1[2])), "ms": {}, "bound": {}}
-    del out1, out4
+    for prec in ("exact", "fast", "bf16"):
+        kw = prec_kw(torch, prec)
+        k1p = persistent.make_persistent_generator(cfg, B, **kw)
+        steps = T if prec == "exact" else n
+        for name in STORAGES if prec == "exact" else ("bf16", "int8"):
+            skw = storage_kw(torch, name)
+            view = storage_view(persistent, params, skw)
+            cpv = (cond[:steps] + view["dil_b"][None, :, None, :]
+                   ).contiguous()
+            gen = persistent.make_persistent_generator(
+                cfg, B, stream_weights=True, **skw, **kw)
+            res["routes"][f"{name} {prec}"] = gen.route.kernel
+            out4 = gen(params, 0, cpv, sel[:steps], *fresh(prec))
+            out1 = k1p(view, 0, cpv, sel[:steps], *fresh(prec))
+            torch.cuda.synchronize()
+            mism = (int((out4[0] != out1[0]).sum())
+                    + bit_mismatches(torch, out4[1].float(), out1[1].float())
+                    + int(not torch.equal(out4[2], out1[2])))
+            del out1, out4
+            res["per_case"][f"{name} {prec}"] = mism
+            res["mismatches"] += mism + (gen.route.kernel != "staged_stream")
+            if prec == "exact":
+                cpn = cpv[:n].contiguous()
+                res["ms"][name] = time_launch_ms(torch, np, lambda r, ys: gen(
+                    params, 0, cpn, sel[:n], r, ys), fresh, reps=2)
+                res["bound"][name] = bound_ms(k4_bytes(cfg, B, n, name),
+                                              k4_ops(cfg, B, n, name))
+    cp = (cond[:n] + params["dil_b"][None, :, None, :]).contiguous()
     res["ms"]["K1"] = time_launch_ms(torch, np, lambda r, ys: k1(
-        params, 0, cp[:n], sel[:n], r, ys), fresh, reps=2)
+        params, 0, cp, sel[:n], r, ys), fresh, reps=2)
     res["bound"]["K1"] = bound_ms(k1_bytes(cfg, B, n),
                                   k1_ops_per_row_step(cfg) * B * n)
-    for name in STORAGES:
-        kw = storage_kw(torch, name)
-        view = storage_view(persistent, params, kw)
-        cpv = (cond + view["dil_b"][None, :, None, :]).contiguous()
-        gen = persistent.make_persistent_generator(cfg, B, stream_weights=True,
-                                                   **kw)
-        res["ms"][name] = time_launch_ms(torch, np, lambda r, ys: gen(
-            params, 0, cpv, sel[:n], r, ys), fresh, reps=2)
-        res["bound"][name] = bound_ms(k4_bytes(cfg, B, n, name),
-                                      k4_ops(cfg, B, n, name))
+    # one MANYBLOCK request at config 4 (fp32 stacks), on counts of its own
+    eng = WaveNetInfer(**CONFIG4, max_batch=B, chunk_size=n, device="cuda",
+                       implementation=Impl.MANYBLOCK)
+    eng.set_reference_weights(ref_w)
+    eng.set_inputs(cond[:n], sel[:n])
+    for k in all_kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    eng.run(n, B)
+    torch.cuda.synchronize()
+    res["manyblock_khz_per_utt"] = n / (time.perf_counter() - t) / 1e3
+    res["manyblock_launches"] = {k.symbol: k.launches for k in all_kernels
+                                 if k.launches}
+    want = persistent.STAGED_STREAM_KERNELS["exact"].symbol
+    if set(res["manyblock_launches"]) != {want}:
+        fail(f"the config 4 MANYBLOCK request did not run on the staged K4 "
+             f"alone: {res['manyblock_launches']}")
     res["plan"] = {name: plan_dict(torch, persistent, cfg, B, name)
                    for name in STORAGES}
-    log(f"[config 4] 40L R128 S256 A256 maxD128, B={B}: K4 fp32 vs K1 over "
-        f"{T} steps {res['mismatches']} mismatches (y, ring bits, y_state); "
+    log(f"[config 4] 40L R128 S256 A256 maxD128, B={B}: K4 vs K1 on the "
+        f"storage's values (y, ring bits, y_state; exact over {T} steps, "
+        f"fast/bf16 over {n}): {res['per_case']}; routes {res['routes']}; "
         f"us per step over {n}-step launches: " + ", ".join(
-            f"{k} {v / n * 1e3:.1f}" for k, v in res["ms"].items()))
+            f"{k} {v / n * 1e3:.1f}" for k, v in res["ms"].items())
+        + f"; a MANYBLOCK request {res['manyblock_khz_per_utt']:.3f} kHz per "
+        f"utterance, launches {res['manyblock_launches']}")
+    return res
+
+
+def check_fallbacks(torch, np, persistent, tsg, cfg_lib, params_lib,
+                    WaveNetInfer, Impl, dev, all_kernels) -> dict:
+    """The geometries the staged plan rejects (fault F2 of ROADMAP.md):
+    at each of F2_CASES, in each of its precisions, K1 (sample; argmax with
+    the dump) and K5 (one ragged tick) against their plain versions on the
+    card, each on counts of its own: the route's generic kernel must launch
+    once and the staged one not; y and y_state exact in the case's own
+    precision (the ring within the ladder; the other precisions as
+    lowp_compare).  Then at A = 2048, where the staged K4's plan raises
+    too: the first K4 in every storage and precision against the generic
+    K1 fed the storage's values, bit for bit in y, ring and y_state, and
+    one MANYBLOCK request per storage (the first K4 must launch, the staged
+    K4 not).  Each kernel timed at its case (F2_TIME_T steps, B=F2_B)."""
+    res = {"mismatches": 0, "ring_err": 0.0, "ok": True, "launches": {},
+           "ms": {}, "plain_ms": {}, "bound": {}, "runs": []}
+    B, T = F2_B, F2_T
+    counts = lambda: {k.symbol: k.launches for k in all_kernels}  # noqa: E731
+
+    def zero():
+        for k in all_kernels:
+            k.launches = 0
+    for label, ckw, own in F2_CASES:
+        cfg = cfg_lib.WaveNetConfig(**ckw)
+        params = params_lib.canonical_to_torch(params_lib.to_canonical(
+            params_lib.random_reference_weights(cfg, seed=21), cfg), dev)
+        g = torch.Generator(device=dev)
+        g.manual_seed(21)
+        cond = torch.rand((F2_TIME_T, cfg.num_layers, B, 2 * cfg.R),
+                          generator=g, device=dev) - 0.5
+        sel = torch.rand((F2_TIME_T, B), generator=g, device=dev)
+        cp = (cond + params["dil_b"][None, :, None, :]).contiguous()
+        cpn, seln = cp[:T].contiguous(), sel[:T].contiguous()
+        t0_row = torch.tensor([0, 5, 2, 9], dtype=torch.int64)
+        nv_row = torch.tensor([T, 0, 7, 3], dtype=torch.int32)
+        for prec in F2_PRECISIONS if label != "R=9" else (own,):
+            kw = prec_kw(torch, prec)
+            view = tsg.product_view(params, prec)
+
+            def fresh():
+                return (persistent.init_ring(cfg, B, dev, tsg.ring_dtype(prec)),
+                        torch.full((2, B), cfg.silence_bin, dtype=torch.int32,
+                                   device=dev))
+            for mode, dump, ragged in (("sample", False, False),
+                                       ("argmax", True, False),
+                                       ("sample", False, True)):
+                gen = persistent.make_persistent_generator(
+                    cfg, B, mode=mode, dump=dump, ragged=ragged, **kw)
+                route = gen.route
+                if route.kernel != "generic":
+                    fail(f"F2 {label} {prec}: routed to {route.kernel}")
+                zero()
+                if ragged:
+                    out_k = gen(params, t0_row, cpn, seln, *fresh(), nv_row)
+                else:
+                    out_k = gen(params, 0, cpn, seln, *fresh())
+                torch.cuda.synchronize()
+                n_l = counts()
+                sym = route.cuda_kernel(prec).symbol
+                staged = (persistent.RAGGED_KERNELS if ragged
+                          else persistent.PERSISTENT_KERNELS)[prec].symbol
+                if n_l[sym] != 1 or n_l[staged] or sum(n_l.values()) != 1:
+                    fail(f"F2 {label} {prec}: the route's {sym} did not "
+                         f"launch alone: {n_l}")
+                key = f"{'K5' if ragged else 'K1'} {prec}"
+                res["launches"][key] = res["launches"].get(key, 0) + 1
+                out_p = persistent.generate_plain(
+                    cfg, view, t0_row if ragged else 0, cpn, seln, *fresh(),
+                    nv_row if ragged else T, mode=mode, dump=dump, prec=prec)
+                torch.cuda.synchronize()
+                if prec == own:
+                    mism = (int((out_k[0] != out_p[0]).sum())
+                            + int(not torch.equal(out_k[2], out_p[2])))
+                    ring_err = float((out_k[1].float() - out_p[1].float())
+                                     .abs().max())
+                    ok = rel_close(out_p[1].float().cpu(),
+                                   out_k[1].float().cpu(), 1e-2, 3e-4)
+                else:
+                    r = lowp_compare(torch, np, out_k, out_p, mode, dump)
+                    mism, ring_err, ok = 0, r["ring_err"], r["ok"]
+                res["mismatches"] += mism
+                res["ring_err"] = max(res["ring_err"], ring_err)
+                res["ok"] &= bool(ok)
+                res["runs"].append(f"{label} {prec} {mode}"
+                                   f"{' + dump' if dump else ''}"
+                                   f"{' ragged' if ragged else ''}: {mism}")
+                log(f"[F2] {label} {prec} {'K5 tick' if ragged else mode}"
+                    f"{' + dump' if dump else ''}: route {route.kernel} "
+                    f"({sym} launched once); {mism} mismatches vs plain "
+                    f"(y, y_state), ring max abs err {ring_err:.3g}, ok {ok}")
+                if label == F2_CASES[0][0] and mode == "sample":
+                    # timed at this case, F2_TIME_T steps (K5: the tick)
+                    res["ms"][key] = time_launch_ms(
+                        torch, np, (lambda r_, y_: gen(
+                            params, t0_row, cpn, seln, r_, y_, nv_row))
+                        if ragged else (lambda r_, y_: gen(
+                            params, 0, cp, sel, r_, y_)), fresh, reps=2)
+                    st = fresh()
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    persistent.generate_plain(
+                        cfg, view, t0_row if ragged else 0, cpn, seln, *st,
+                        nv_row if ragged else T, prec=prec)
+                    torch.cuda.synchronize()
+                    res["plain_ms"][key] = (time.perf_counter() - t) * 1e3
+                    live = int(nv_row.sum()) if ragged else None
+                    steps = T if ragged else F2_TIME_T
+                    res["bound"][key] = (
+                        bound_ms(k1_bytes(cfg, B, steps, live)
+                                 + (12 * B if ragged else 0),
+                                 k1_ops_per_row_step(cfg)
+                                 * (live or B * steps))
+                        if prec == "exact" else
+                        lowp_bound(cfg, B, steps, prec, live=live))
+        if label != F2_CASES[0][0]:
+            continue
+        # A = 2048: the first K4 in every storage and precision against the
+        # generic K1 on the storage's values, bit for bit
+        for prec in F2_PRECISIONS:
+            kw = prec_kw(torch, prec)
+
+            def fresh():
+                return (persistent.init_ring(cfg, B, dev, tsg.ring_dtype(prec)),
+                        torch.full((2, B), cfg.silence_bin, dtype=torch.int32,
+                                   device=dev))
+            for name in STORAGES if prec == "exact" else ("bf16", "int8"):
+                skw = storage_kw(torch, name)
+                sview = storage_view(persistent, params, skw)
+                scp = (cond + sview["dil_b"][None, :, None, :]).contiguous()
+                g4 = persistent.make_persistent_generator(
+                    cfg, B, stream_weights=True, **skw, **kw)
+                if g4.route.kernel != "stream":
+                    fail(f"A=2048 MANYBLOCK {name} {prec}: routed to "
+                         f"{g4.route.kernel}")
+                g1 = persistent.make_persistent_generator(cfg, B, **kw)
+                zero()
+                o4 = g4(params, 0, scp, sel, *fresh())
+                torch.cuda.synchronize()
+                n_l = counts()
+                o1 = g1(sview, 0, scp, sel, *fresh())
+                torch.cuda.synchronize()
+                sym = persistent.STREAM_KERNELS[prec].symbol
+                if n_l[sym] != 1 or sum(n_l.values()) != 1:
+                    fail(f"A=2048 MANYBLOCK {name} {prec}: {sym} did not "
+                         f"launch alone: {n_l}")
+                key = f"K4 first {prec}"
+                res["launches"][key] = res["launches"].get(key, 0) + 1
+                mism = (int((o4[0] != o1[0]).sum())
+                        + bit_mismatches(torch, o4[1].float(), o1[1].float())
+                        + int(not torch.equal(o4[2], o1[2])))
+                res["mismatches"] += mism
+                res["runs"].append(f"first K4 {name} {prec} vs generic K1: "
+                                   f"{mism}")
+                log(f"[F2] A=2048 first K4 {name} {prec} vs the generic K1 "
+                    f"on the storage's values over {F2_TIME_T} steps: {mism} "
+                    f"mismatches (y, ring bits, y_state)")
+                if name == ("fp32" if prec == "exact" else "bf16"):
+                    res["ms"][key] = time_launch_ms(torch, np, lambda r_, y_: g4(
+                        params, 0, scp, sel, r_, y_), fresh, reps=2)
+                    st = fresh()
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    persistent.generate_plain(cfg, tsg.product_view(sview, prec),
+                                              0, cpn, seln, *st, T, prec=prec)
+                    torch.cuda.synchronize()
+                    res["plain_ms"][key] = (time.perf_counter() - t) * 1e3
+                    res["bound"][key] = (
+                        bound_ms(k4_bytes(cfg, B, F2_TIME_T, name),
+                                 k4_ops(cfg, B, F2_TIME_T, name))
+                        if prec == "exact" else
+                        lowp_bound(cfg, B, F2_TIME_T, prec, storage=name))
+        # one MANYBLOCK request per storage through the engine
+        ref_w = params_lib.random_reference_weights(cfg, seed=21)
+        for name in STORAGES:
+            eng = WaveNetInfer(**ckw, max_batch=B, device="cuda",
+                               implementation=Impl.MANYBLOCK,
+                               **storage_kw(torch, name, engine=True))
+            eng.set_reference_weights(ref_w)
+            eng.set_inputs(cond[:T], sel[:T])
+            zero()
+            y = eng.run(T, B)
+            torch.cuda.synchronize()
+            n_l = counts()
+            sym = persistent.STREAM_KERNELS["exact"].symbol
+            if (not n_l[sym] or n_l[persistent.STAGED_STREAM_KERNELS[
+                    "exact"].symbol] or y.shape != (B, T)):
+                fail(f"the A=2048 MANYBLOCK request ({name}) did not run on "
+                     f"the first K4 alone: {n_l}")
+            res["launches"]["K4 first exact"] += n_l[sym]
+            log(f"[F2] A=2048 MANYBLOCK {name} request of {B} x {T}: the "
+                f"first K4 launched {n_l[sym]} time(s), the staged K4 none")
     return res
 
 
@@ -1856,6 +2132,23 @@ def main() -> int:
             f"the card, {cpu_mism} vs plain on the CPU")
     if k0a["mismatches"]:
         fail(f"K0a disagrees with its plain version: {k0a['mismatches']}")
+    # device time (K0A_GRAPH launches captured in one CUDA graph) at the JAX
+    # probe's 450,020 floats and at the scorer's embedding [131072, 64],
+    # beside torch's call of the same function, before any profiler session
+    k0a["device_ms"], k0a["torch_device_ms"] = {}, {}
+    for shape in K0A_SHAPES:
+        xs = torch.rand(shape, generator=torch.Generator(device=dev)
+                        .manual_seed(3), device=dev) * 16 - 8
+        label = "x".join(map(str, shape))
+        for name in ("exp", "tanh", "sigmoid"):
+            k0a["device_ms"][f"{name} {label}"] = scorer_ab.graph_ms(
+                torch, lambda: em.exact_fn(name, xs))
+            k0a["torch_device_ms"][f"{name} {label}"] = scorer_ab.graph_ms(
+                torch, lambda: getattr(torch, name)(xs))
+        del xs
+    log("[K0a] device ms (a CUDA graph of 100 launches) kernel / torch: "
+        + ", ".join(f"{k} {v:.5f} / {k0a['torch_device_ms'][k]:.5f}"
+                    for k, v in k0a["device_ms"].items()))
 
     # -- phase 4: K0b vs plain ------------------------------------------------
     mark("phase 4: K0b vs plain")
@@ -2127,7 +2420,10 @@ def main() -> int:
                  "K5": persistent.RAGGED_KERNELS,
                  "K2": persistent.FORCED_KERNELS,
                  "K3": persistent.PRNG_KERNELS,
-                 "K4": persistent.STREAM_KERNELS}
+                 "K4": persistent.STAGED_STREAM_KERNELS,
+                 "K4 first": persistent.STREAM_KERNELS,
+                 "K1 generic": persistent.GENERIC_KERNELS,
+                 "K5 generic": persistent.GENERIC_RAGGED_KERNELS}
     exact_sym = {k: t["exact"].symbol for k, t in k1_tables.items()}
     all_kernels = (em.EXACT_FN_KERNEL, em.SAMPLE_KERNEL, em.SOFTMAX_KERNEL,
                    em.SOFTMAX_BLOCK_KERNEL, om.ORDERED_MATMUL_KERNEL,
@@ -2652,15 +2948,29 @@ def main() -> int:
         "samples_per_request": MAIN_T, "storages": manyblock,
         "launches": mb_launches, "card": card}}))
     stream_sym = exact_sym["K4"]
-    if (not mb_launches[stream_sym]
-            or mb_launches[exact_sym["K1"]]):
-        fail(f"the MANYBLOCK path did not run on K4 alone: {mb_launches}")
+    if (not mb_launches[stream_sym] or mb_launches[exact_sym["K1"]]
+            or mb_launches[exact_sym["K4 first"]]):
+        fail(f"the MANYBLOCK path did not run on the staged K4 alone: "
+             f"{mb_launches}")
 
     # -- phase 17: config 4 ---------------------------------------------------
     mark("phase 17: config 4")
-    c4 = check_config4(torch, np, persistent, cfg_lib, params_lib, dev)
+    c4 = check_config4(torch, np, persistent, tsg, cfg_lib, params_lib,
+                       WaveNetInfer, Impl, dev, all_kernels)
     if c4["mismatches"]:
         fail("K4 disagrees with K1 at config 4")
+
+    # -- phase 17b: the geometries the staged plan rejects (F2) ---------------
+    mark("phase 17b: the geometries the staged plan rejects (F2)")
+    f2 = check_fallbacks(torch, np, persistent, tsg, cfg_lib, params_lib,
+                         WaveNetInfer, Impl, dev, all_kernels)
+    log(json.dumps({"f2": {k: f2[k] for k in ("mismatches", "ring_err", "ok",
+                                              "launches", "ms", "plain_ms",
+                                              "bound", "runs")},
+                    "card": card}))
+    if f2["mismatches"] or not f2["ok"]:
+        fail(f"the generic K1/K5 or the first K4 disagree at the F2 "
+             f"geometries: {f2['runs']}")
 
     # -- phase 18: score -> feed under MANYBLOCK int8 (fault R9) --------------
     mark("phase 18: score -> feed under MANYBLOCK int8 (fault R9)")
@@ -2993,9 +3303,10 @@ def main() -> int:
         mbl = {k.symbol: k.launches for k in all_kernels}
         del meng
         if (not mbl[k1_tables["K4"][prec].symbol]
-                or mbl[k1_tables["K1"][prec].symbol]):
-            fail(f"the {prec} MANYBLOCK request did not run on K4-{prec} "
-                 f"alone: {mbl}")
+                or mbl[k1_tables["K1"][prec].symbol]
+                or mbl[k1_tables["K4 first"][prec].symbol]):
+            fail(f"the {prec} MANYBLOCK request did not run on the staged "
+                 f"K4-{prec} alone: {mbl}")
         lowp_main[prec] = {
             "requests": reqs,
             "khz_per_utt": float(np.mean([q["khz_per_utt"] for q in reqs])),
@@ -3372,6 +3683,8 @@ def main() -> int:
               "+".join(sorted(k0a_by)), k0a_lib,
               f"exp+tanh+sigmoid over [{x.numel()}] f32",
               also_replaces="tools/probe_exact_math_tpu.py:135",
+              device_ms=k0a["device_ms"],
+              library_device_ms=k0a["torch_device_ms"],
               inlined_in="K1, K2, K3, K5", launches_on="the scoring phase",
               main_path_launches=launches[em.EXACT_FN_KERNEL.symbol],
               speculative_launches=spec_n(em.EXACT_FN_KERNEL)),
@@ -3427,7 +3740,8 @@ def main() -> int:
               f"plain_ms over {FLAG_PLAIN_T} steps",
               variant='mode="prng", prng_uniform_sel (:74-83, 404-405)',
               launches_on="the prng request"),
-        entry("K4 stream_generate_kernel", csrc + "stream_generate.cu",
+        entry("K4 staged_stream_kernel<kStorage, kPrecExact, kGeo>",
+              csrc + "staged_stream_generate.cu",
               "nv_wavenet_tpu/ops/persistent.py:762",
               mb_launches[stream_sym],
               k4_small["mismatches"] + k4_flag["schedule_mismatches"]
@@ -3446,11 +3760,9 @@ def main() -> int:
                       "(:723-725)",
               launches_on="the MANYBLOCK main path (3 storages x "
                           f"{MAIN_REQUESTS} requests)",
-              instances=[f"stream_generate_kernel<{st}, {sl}>"
+              instances=[f"staged_stream_kernel<{st}, kPrecExact, {g}>"
                          for st in ("kStorageF32", "kStorageBF16",
-                                    "kStorageI8")
-                         for sl in ("kSelInjected", "kSelForced",
-                                    "kSelPrng")],
+                                    "kStorageI8") for g in (0, 1, 2)],
               storages={n: {"ms": k4_flag["k4_ms"][n],
                             "us_per_step": k4_flag["k4_ms"][n] / CHECK_T
                             * 1e3,
@@ -3463,7 +3775,9 @@ def main() -> int:
               schedule_ms=k4_flag["schedule_ms"],
               config4={"batch": C4_B, "steps": C4_TIME_T,
                        "ms": c4["ms"], "bound": c4["bound"],
-                       "plan": c4["plan"]}),
+                       "plan": c4["plan"], "vs_k1": c4["per_case"],
+                       "manyblock_khz_per_utt": c4["manyblock_khz_per_utt"],
+                       "manyblock_launches": c4["manyblock_launches"]}),
         entry("K6 fused_generate_kernel<kSel, kFast>", csrc + "fused_chain.cu",
               "nv_wavenet_tpu/ops/fused_chain.py:414", k6_launches,
               k6_small["y_mismatches"] + k6_small["split_mismatches"]
@@ -3588,8 +3902,8 @@ def main() -> int:
              f"the {prec} prng request ({LOWP_SHORT_T} steps)",
              lowp_bound(cfg, MAIN_B, CHECK_T, prec, mode="prng"),
              f"flagship, B={MAIN_B}, T={CHECK_T} steps per launch", 0),
-            ("K4", "stream_generate.cu",
-             f"stream_generate_kernel<kStorageBF16|kStorageI8, kSel, {kp}>",
+            ("K4", "staged_stream_generate.cu",
+             f"staged_stream_kernel<kStorageBF16|kStorageI8, {kp}, kGeo>",
              lowp_main[prec]["manyblock_launches"][
                  k1_tables["K4"][prec].symbol],
              f"one {prec} MANYBLOCK request",
@@ -3633,6 +3947,38 @@ def main() -> int:
                     "int8_bound": lowp_bound(cfg, MAIN_B, CHECK_T, prec,
                                              storage="int8")}
                    if k == "K4" else {})))
+    # the kernels of the geometries the staged plan rejects (phase 17b):
+    # the generic K1/K5 and the first K4, each precision, launched there
+    a_cfg = ", ".join(f"{k}={v}" for k, v in F2_CASES[0][1].items())
+    for prec in F2_PRECISIONS:
+        kp = {"exact": "kPrecExact", "fast": "kPrecFast",
+              "bf16": "kPrecBF16"}[prec]
+        for k, inst, shape in (
+                ("K1", f"generic_generate_kernel<false, {kp}>",
+                 f"{a_cfg}, B={F2_B}, T={F2_TIME_T} steps"),
+                ("K5", f"generic_generate_kernel<true, {kp}>",
+                 f"{a_cfg}, B={F2_B}, a {F2_T}-step ragged tick"),
+                ("K4 first", f"stream_generate_kernel<kStorage, kSel, {kp}>",
+                 f"{a_cfg}, B={F2_B}, T={F2_TIME_T} steps, "
+                 f"{'fp32' if prec == 'exact' else 'bf16'} stacks")):
+            key = f"{k} {prec}"
+            n_l = f2["launches"].get(key, 0)
+            if not n_l:
+                fail(f"{key} did not launch on the F2 path")
+            kernels.append(entry(
+                f"{k if k != 'K4 first' else 'K4-first'}"
+                f"{'-generic' if k != 'K4 first' else ''}"
+                f"{'' if prec == 'exact' else '-' + prec} {inst}",
+                csrc + ("stream_generate.cu" if k == "K4 first"
+                        else "generic_generate.cu"),
+                "nv_wavenet_tpu/ops/persistent.py:762", n_l,
+                f2["mismatches"], f2["ring_err"], f2["ms"][key],
+                f2["plain_ms"][key], *f2["bound"][key], None,
+                f"{shape}; plain_ms over {F2_T} steps",
+                launches_on="the geometries the staged plan rejects "
+                            "(phase 17b: " + ", ".join(
+                                c[0] for c in F2_CASES) + ")",
+                library="none: no single torch call computes it"))
     # the probes: P1 from both builds, P5 in each precision and W location
     for flags in pem.FMA_PROBE_KERNELS:
         r = p1[flags]

@@ -1,9 +1,12 @@
 // Standalone launches of the exact-math device library (exact_math.cuh).
 //
-// K0a exact_fn_kernel: elementwise canonical exp / tanh / sigmoid over a flat
-//   fp32 tensor.  Replaces the TPU probe kernels of
+// K0a exact_fn_kernel<kFn>: elementwise canonical exp / tanh / sigmoid over
+//   a flat fp32 tensor.  Replaces the TPU probe kernels of
 //   tools/probe_exact_math_tpu.py:90 (exact exp/tanh/sigmoid) and :135
-//   (2^k from exponent bits, which em_exp builds the same way).
+//   (2^k from exponent bits, which em_exp builds the same way).  One
+//   instance per function (no per-element branch on it), 16-byte loads and
+//   stores of four elements a thread with a scalar tail, and a grid of a
+//   few blocks an SM striding over the tensor.
 // K0b sample_kernel: the canonical sampler, one block per row of za [N, A]:
 //   max, exp(za - max), fixed-tree prefix sum, count of bins <= sel * sum,
 //   silence fallback.  Replaces tools/probe_exact_math_tpu.py:107.
@@ -17,8 +20,9 @@
 //   chosen by the wrapper from A.
 //
 // All three are memory-bound streams (a few tens of fp32 ops per element
-// read).  K0a's grid-stride loop and K0b's block per row keep every load
-// coalesced.  The block-per-row form spends a row's ~30 operations an
+// read; K0a's tanh and sigmoid up to ~50, still under the card's ~80
+// operations a byte).  K0a's grid-stride loop of float4s and K0b's block
+// per row keep every load coalesced.  The block-per-row form spends a row's ~30 operations an
 // element against 10+ block barriers (block_max, 8 prefix-sum rounds at
 // A = 256), so K0c holds a row in one warp's registers instead: element
 // i = r * 32 + lane in register r of lane `lane` (128-byte coalesced loads
@@ -33,6 +37,7 @@
 // scorer's path.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "exact_math.cuh"
 
@@ -40,13 +45,59 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__global__ void __launch_bounds__(kThreads)
-exact_fn_kernel(const float* __restrict__ x, float* __restrict__ y, long long n, int fn) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    const float v = x[i];
-    y[i] = fn == 0 ? nvw::em_exp(v) : (fn == 1 ? nvw::em_tanh(v) : nvw::em_sigmoid(v));
+// K0a's functions (the entry point's fn)
+constexpr int kExp = 0, kTanh = 1, kSigmoid = 2;
+
+template <int kFn>
+__device__ __forceinline__ float exact_fn(float v) {
+  if constexpr (kFn == kExp) {
+    return nvw::em_exp(v);
+  } else if constexpr (kFn == kTanh) {
+    return nvw::em_tanh(v);
+  } else {
+    return nvw::em_sigmoid(v);
   }
+}
+
+// y = fn(x) over n elements: n4 float4s from x4 / y4 (16-byte aligned, or
+// n4 = 0), then the elements [4 n4, n) one at a time
+template <int kFn>
+__global__ void __launch_bounds__(kThreads)
+exact_fn_kernel(const float* __restrict__ x, float* __restrict__ y, long long n, long long n4) {
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  float4* y4 = reinterpret_cast<float4*>(y);
+  auto fn4 = [](const float4 v) {
+    return make_float4(exact_fn<kFn>(v.x), exact_fn<kFn>(v.y), exact_fn<kFn>(v.z),
+                       exact_fn<kFn>(v.w));
+  };
+  long long i = first;
+  // two float4s in flight a thread
+  for (; i + stride < n4; i += 2 * stride) {
+    const float4 a = x4[i], b = x4[i + stride];
+    y4[i] = fn4(a);
+    y4[i + stride] = fn4(b);
+  }
+  if (i < n4) y4[i] = fn4(x4[i]);
+  for (long long k = 4 * n4 + first; k < n; k += stride) y[k] = exact_fn<kFn>(x[k]);
+}
+
+template <int kFn>
+int launch_exact_fn(const float* x, float* y, long long n, cudaStream_t stream) {
+  // float4s where both pointers are 16-byte aligned; a grid of
+  // kFnBlocksPerSM blocks an SM at most, each thread striding on
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int kFnBlocksPerSM = 8;   // 2048 threads an SM
+  const long long n4 = (((uintptr_t)x | (uintptr_t)y) & 15) ? 0 : n / 4;
+  const long long work = n4 + (n - 4 * n4);
+  long long blocks = (work + kThreads - 1) / kThreads;
+  if (blocks > (long long)sms * kFnBlocksPerSM) blocks = (long long)sms * kFnBlocksPerSM;
+  exact_fn_kernel<kFn><<<(unsigned)blocks, kThreads, 0, stream>>>(x, y, n, n4);
+  return (int)cudaGetLastError();
 }
 
 // dynamic shared memory: 2 * A floats (e and the prefix-sum ping-pong buffer)
@@ -148,10 +199,11 @@ const char* nvw_error_string(int err) { return cudaGetErrorString((cudaError_t)e
 
 // fn: 0 exp, 1 tanh, 2 sigmoid
 int nvw_exact_fn(const float* x, float* y, long long n, int fn, void* stream) {
-  long long blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > 132 * 32) blocks = 132 * 32;
-  exact_fn_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(x, y, n, fn);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (fn == kExp) return launch_exact_fn<kExp>(x, y, n, s);
+  if (fn == kTanh) return launch_exact_fn<kTanh>(x, y, n, s);
+  if (fn == kSigmoid) return launch_exact_fn<kSigmoid>(x, y, n, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 int nvw_sample(const float* za, const float* sel, int* y, int rows, int A, int silence_bin,

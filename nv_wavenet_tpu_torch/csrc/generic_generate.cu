@@ -1,0 +1,320 @@
+// K1 and K5 for the geometries the staged kernel (staged_generate.cu) cannot
+// hold: fault F2 of ROADMAP.md.  ops/persistent.py::generation_route sends a
+// call here where ops/persistent.py::staged_plan raises: more output columns
+// than its threads take (A = 2048 at R = 64), more than 4 prev columns a
+// thread (R = 512), or an odd R under bf16 (its FIFO copy takes 4 bytes).
+//
+// Replaces the TPU kernel nv_wavenet_tpu/ops/persistent.py:762
+// (make_persistent_generator.generate; body _kernel_body :93-431) in modes
+// "sample" and "argmax" with the optional last-step dump (K1) and with
+// ragged=True (:109-118, 252-256, 302-311, 410-416), per-row clocks and
+// lengths (K5), at any width the reference generates.
+//
+// It is the first K1/K5 design (persistent.cu at commit 14b57bc, its
+// kSelInjected and kRagged branches), in a source of its own so that K2/K3
+// (persistent.cu) and the staged K1/K5 compile as they did:
+//   * ONE CTA PER BATCH ROW (grid = B), 256 threads, the whole call in one
+//     launch; steps past n_valid (a row's length under K5) never run.
+//   * The activations in (7R + S + 4A) floats of shared memory (R more under
+//     fast for the rounded copy of x), so no width limit beyond that.
+//   * Every product's columns looped over the 256 threads, each column a
+//     fixed-order dot product (dot_column: k = 0, 1, ..., K-1 from 0.0f, one
+//     rounded FMUL and FADD per term), the weights read from L2 every step.
+//   * The FIFO in device memory, [ring_size, B, R], each CTA its own row;
+//     the bf16 ring read and written one element at a time, so any R.
+//   * The precisions (kPrec, step_common.cuh) round where the staged K1's
+//     do, so the two equal each other and the plain version bit for bit.
+//
+// What bounds it: each row's CTA re-reads every weight from L2 every step
+// on one SM, along a dependent chain of 2L + 3 products with a
+// __syncthreads each (185 us a flagship step on an H100, PERF.md).
+// It serves only the geometries the staged plan rejects.
+//
+// Compiled with -fmad=false (utils/build.py), once per precision.
+
+#include <cuda_runtime.h>
+
+#include "exact_math.cuh"
+#include "step_common.cuh"
+
+namespace {
+
+using namespace nvw;
+
+constexpr int kThreads = 256;
+
+struct GenArgs {
+  const float* embed;   // [2A, R]
+  const float* dil_w;   // [L, 2R, 2R]
+  const float* rs_w;    // [L, R, R+S]
+  const float* rs_b;    // [L, R+S]
+  const float* out_w;   // [S, A]
+  const float* out_b;   // [A]
+  const float* end_w;   // [A, A]
+  const float* end_b;   // [A]
+  const float* cond;    // [T, L, B, 2R], dil_b already added
+  const float* sel;     // [T, B]
+  const int* sched;     // [2, L]: ring_offsets, then dilations
+  float* ring;          // [ring_size, B, R], updated in place (bf16 under kPrecBF16)
+  int* y_state;         // [2, B] (y_prev, y_cur), updated in place
+  int* y;               // [T, B]
+  float* d_xt;          // [L, B, R]  } last-step dump, all null when off
+  float* d_skip;        // [L, B, S]  }
+  float* d_zs;          // [B, A]     }
+  float* d_za;          // [B, A]     }
+  float* d_p;           // [B, A]     }
+  long long t0;         // absolute index of the call's first step
+  int n_valid;          // steps to run (<= T)
+  int B, L, R, S, A;
+  int tanh_embed;
+  int silence_bin;
+  int mode;
+  const long long* t0_row;   // [B] K5 only: each row's absolute clock
+  const int* n_valid_row;    // [B] K5 only: each row's steps (<= T)
+};
+
+template <bool kRagged, int kPrec>
+__global__ void __launch_bounds__(kThreads) generic_generate_kernel(const GenArgs a) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  const int B = a.B, L = a.L, R = a.R, S = a.S, A = a.A;
+  const int R2 = 2 * R, RS = R + S;
+  float* x = smem;         // [R]   layer input / residual stream
+  float* xp = x + R;       // [R]   x_{t-d} read from the FIFO
+  float* zh = xp + R;      // [4R]  dilated GEMM halves: [x_{t-d} Wprev | x_t Wcur]
+  float* h = zh + 2 * R2;  // [R]   gate
+  float* skip = h + R;     // [S]
+  float* zs = skip + S;    // [A]
+  float* za = zs + A;      // [A]
+  float* c0 = za + A;      // [A]   prefix-sum ping-pong buffers
+  float* c1 = c0 + A;      // [A]
+  // [R] x as the operand of x_t Wcur: a rounded copy under kPrecFast (x
+  // stays fp32 for the residual adds); x itself otherwise
+  float* xop = kPrec == kPrecFast ? c1 + A : x;
+
+  int y_prev = a.y_state[b];
+  int y_cur = a.y_state[B + b];
+  const long long t0 = kRagged ? a.t0_row[b] : a.t0;
+  const int n_valid = kRagged ? a.n_valid_row[b] : a.n_valid;
+
+  for (int j = 0; j < n_valid; ++j) {
+    const long long t = t0 + j;
+    const bool dump = a.d_xt != nullptr && j == n_valid - 1;
+
+    // embedding: fl(embed_prev[y_prev] + embed_cur[y_cur]), then exact tanh
+    for (int i = tid; i < R; i += nt) {
+      const float v = __ldg(a.embed + (size_t)y_prev * R + i) +
+                      __ldg(a.embed + (size_t)(A + y_cur) * R + i);
+      if constexpr (kPrec == kPrecExact) {
+        x[i] = a.tanh_embed ? nvw::em_tanh(v) : v;
+      } else {
+        const float e = a.tanh_embed ? nvw::em_tanh(v) : v;
+        x[i] = stored<kPrec>(e);
+        xop[i] = operand<kPrec>(e);
+      }
+    }
+    for (int i = tid; i < S; i += nt) skip[i] = 0.0f;
+    __syncthreads();
+
+    for (int l = 0; l < L; ++l) {
+      // FIFO: read x_{t-d} and write x_t in the same slot (same thread per
+      // element, so the read always precedes the write)
+      const int offset = __ldg(a.sched + l), d = __ldg(a.sched + L + l);
+      if constexpr (kPrec == kPrecExact) {
+        float* slot = a.ring + ((size_t)(offset + (int)(t & (d - 1))) * B + b) * R;
+        for (int i = tid; i < R; i += nt) {
+          xp[i] = slot[i];
+          slot[i] = x[i];
+        }
+      } else {
+        const size_t slot = ((size_t)(offset + (int)(t & (d - 1))) * B + b) * R;
+        for (int i = tid; i < R; i += nt) {
+          xp[i] = operand<kPrec>(ring_get<kPrec>(a.ring, slot + i));
+          ring_put<kPrec>(a.ring, slot + i, x[i]);
+        }
+      }
+      __syncthreads();
+
+      // split dilated GEMM: task q < 2R is column q of x_{t-d} Wprev (rows
+      // [0, R) of dil_w), task q >= 2R column q - 2R of x_t Wcur (rows [R, 2R))
+      const float* W = a.dil_w + (size_t)l * R2 * R2;
+      for (int q = tid; q < 2 * R2; q += nt) {
+        const int cur = q >= R2;
+        zh[q] = dot_column(cur ? xop : xp, W + (size_t)cur * R * R2 + (q - cur * R2), R, R2);
+      }
+      __syncthreads();
+
+      // z = (zp + zc) + cond_pre; gate h = tanh(z[:R]) * sigmoid(z[R:])
+      const float* cond = a.cond + (((size_t)j * L + l) * B + b) * R2;
+      for (int i = tid; i < R; i += nt) {
+        const float zt = (zh[i] + zh[R2 + i]) + __ldg(cond + i);
+        const float zg = (zh[R + i] + zh[R2 + R + i]) + __ldg(cond + R + i);
+        h[i] = operand<kPrec>(nvw::em_tanh(zt) * nvw::em_sigmoid(zg));
+      }
+      __syncthreads();
+
+      // fused residual + skip GEMM: [R | S] output columns
+      const float* Wrs = a.rs_w + (size_t)l * R * RS;
+      const float* brs = a.rs_b + (size_t)l * RS;
+      for (int o = tid; o < RS; o += nt) {
+        const float acc = dot_column(h, Wrs + o, R, RS);
+        if (o < R) {
+          const float v = (acc + __ldg(brs + o)) + x[o];
+          x[o] = stored<kPrec>(v);
+          if constexpr (kPrec == kPrecFast) xop[o] = operand<kPrec>(v);
+        } else {
+          skip[o - R] = (skip[o - R] + acc) + __ldg(brs + o);
+        }
+      }
+      __syncthreads();
+
+      if (dump) {
+        for (int i = tid; i < R; i += nt) a.d_xt[((size_t)l * B + b) * R + i] = x[i];
+        for (int i = tid; i < S; i += nt) a.d_skip[((size_t)l * B + b) * S + i] = skip[i];
+      }
+    }
+
+    if constexpr (kPrec == kPrecExact) {
+      for (int i = tid; i < S; i += nt) skip[i] = fmaxf(skip[i], 0.0f);
+      __syncthreads();
+      if (dump) {
+        for (int i = tid; i < S; i += nt) a.d_skip[((size_t)(L - 1) * B + b) * S + i] = skip[i];
+      }
+    } else {
+      // the dump takes relu(skip) in fp32, the product its rounded copy
+      for (int i = tid; i < S; i += nt) {
+        const float s = fmaxf(skip[i], 0.0f);
+        if (dump) a.d_skip[((size_t)(L - 1) * B + b) * S + i] = s;
+        skip[i] = operand<kPrec>(s);
+      }
+      __syncthreads();
+    }
+
+    // output stack: zs = relu(skip Wzs + bzs); za = zs Wza + bza
+    for (int o = tid; o < A; o += nt) {
+      const float v = fmaxf(dot_column(skip, a.out_w + o, S, A) + __ldg(a.out_b + o), 0.0f);
+      if constexpr (kPrec == kPrecExact) {
+        zs[o] = v;
+      } else {
+        // the dump takes zs in fp32, the product its rounded copy
+        zs[o] = operand<kPrec>(v);
+        if (dump) a.d_zs[(size_t)b * A + o] = v;
+      }
+    }
+    __syncthreads();
+    for (int o = tid; o < A; o += nt) {
+      za[o] = dot_column(zs, a.end_w + o, A, A) + __ldg(a.end_b + o);
+    }
+    __syncthreads();
+
+    int y;
+    if (a.mode == kModeArgmax && !dump) {
+      y = nvw::block_argmax(za, A);
+    } else {
+      // canonical softmax pieces: e = exp(za - max), fixed-tree prefix sum
+      float mm = -INFINITY;
+      for (int i = tid; i < A; i += nt) mm = fmaxf(mm, za[i]);
+      const float zmax = nvw::block_max(mm);
+      for (int i = tid; i < A; i += nt) c0[i] = nvw::em_exp(za[i] - zmax);
+      __syncthreads();
+      const float* cum = nvw::block_fixed_tree_cumsum(c0, c1, A);
+      if (dump) {
+        // p = e / sum: a tolerance-governed output (sampling never divides)
+        const float total = cum[A - 1];
+        for (int i = tid; i < A; i += nt) {
+          if constexpr (kPrec == kPrecExact) a.d_zs[(size_t)b * A + i] = zs[i];
+          a.d_za[(size_t)b * A + i] = za[i];
+          a.d_p[(size_t)b * A + i] = nvw::em_exp(za[i] - zmax) / total;
+        }
+      }
+      if (a.mode == kModeArgmax) {
+        y = nvw::block_argmax(za, A);
+      } else {
+        y = nvw::block_select_from_cumsum(cum, __ldg(a.sel + (size_t)j * B + b), A,
+                                          a.silence_bin);
+      }
+    }
+    y_prev = y_cur;
+    y_cur = y;
+    if (tid == 0) a.y[(size_t)j * B + b] = y;
+    __syncthreads();   // shared activations are rewritten by the next step
+  }
+  if (tid == 0) {
+    a.y_state[b] = y_prev;
+    a.y_state[B + b] = y_cur;
+  }
+}
+
+template <bool kRagged, int kPrec>
+int launch(const GenArgs& args, void* stream) {
+  const size_t smem = (size_t)(7 * args.R + args.S + 4 * args.A +
+                               (kPrec == kPrecFast ? args.R : 0)) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(generic_generate_kernel<kRagged, kPrec>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  generic_generate_kernel<kRagged, kPrec><<<args.B, kThreads, smem, (cudaStream_t)stream>>>(args);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// One entry point per (instance, precision), the low precisions with the
+// suffix _fast or _bf16.  `ring` is the ring's pointer whatever its element
+// type (bf16 for _bf16).
+
+// K1 (generic): sel carries uniforms; mode 0 sample, 1 argmax; the dump
+// pointers are all null when off
+#define NVW_GENERATE_ENTRY(name, kPrec)                                                       \
+  int name(const float* embed, const float* dil_w, const float* rs_w, const float* rs_b,      \
+           const float* out_w, const float* out_b, const float* end_w, const float* end_b,    \
+           const float* cond, const float* sel, const int* sched, float* ring, int* y_state,  \
+           int* y, float* d_xt, float* d_skip, float* d_zs, float* d_za, float* d_p,          \
+           long long t0, int n_valid, int B, int L, int R, int S, int A, int tanh_embed,      \
+           int silence_bin, int mode, void* stream) {                                         \
+    const GenArgs args{embed, dil_w, rs_w, rs_b, out_w, out_b, end_w, end_b, cond,           \
+                       sel, sched, ring, y_state, y, d_xt, d_skip, d_zs, d_za, d_p, t0,      \
+                       n_valid, B, L, R, S, A, tanh_embed, silence_bin, mode, nullptr,       \
+                       nullptr};                                                             \
+    return launch<false, kPrec>(args, stream);                                                \
+  }
+
+// K5 (generic): mode "sample", no dump; t0_row [B] and n_valid_row [B] on the device
+#define NVW_RAGGED_ENTRY(name, kPrec)                                                         \
+  int name(const float* embed, const float* dil_w, const float* rs_w, const float* rs_b,      \
+           const float* out_w, const float* out_b, const float* end_w, const float* end_b,    \
+           const float* cond, const float* sel, const int* sched, float* ring, int* y_state,  \
+           int* y, const long long* t0_row, const int* n_valid_row, int B, int L, int R,      \
+           int S, int A, int tanh_embed, int silence_bin, void* stream) {                     \
+    const GenArgs args{embed, dil_w, rs_w, rs_b, out_w, out_b, end_w, end_b, cond,           \
+                       sel, sched, ring, y_state, y, nullptr, nullptr, nullptr, nullptr,     \
+                       nullptr, 0, 0, B, L, R, S, A, tanh_embed, silence_bin, kModeSample,   \
+                       t0_row, n_valid_row};                                                 \
+    return launch<true, kPrec>(args, stream);                                                 \
+  }
+
+// This source is built once per precision (utils/build.py: -DNVW_PREC=0
+// exact, 1 fast, 2 bf16), each library holding that precision's entry
+// points, so the instances compile in parallel.
+#ifndef NVW_PREC
+#define NVW_PREC 0
+#endif
+
+extern "C" {
+
+const char* nvw_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+#if NVW_PREC == 0
+NVW_GENERATE_ENTRY(nvw_generic_generate, kPrecExact)
+NVW_RAGGED_ENTRY(nvw_generic_generate_ragged, kPrecExact)
+#elif NVW_PREC == 1
+NVW_GENERATE_ENTRY(nvw_generic_generate_fast, kPrecFast)
+NVW_RAGGED_ENTRY(nvw_generic_generate_ragged_fast, kPrecFast)
+#elif NVW_PREC == 2
+NVW_GENERATE_ENTRY(nvw_generic_generate_bf16, kPrecBF16)
+NVW_RAGGED_ENTRY(nvw_generic_generate_ragged_bf16, kPrecBF16)
+#endif
+
+}  // extern "C"

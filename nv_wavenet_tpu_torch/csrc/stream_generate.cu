@@ -1,5 +1,8 @@
-// K4: K1 with the two large per-layer weight stacks streamed through shared
-// memory (weight streaming, the engine's Impl.MANYBLOCK).
+// The first K4: K1 with the two large per-layer weight stacks streamed
+// through shared memory (weight streaming, the engine's Impl.MANYBLOCK).
+// Since the staged K4 (staged_stream_generate.cu) it runs only where that
+// kernel's plan cannot hold the geometry (ops/persistent.py::
+// generation_route: A = 2048, for example).
 //
 // Replaces the TPU kernel nv_wavenet_tpu/ops/persistent.py:762 with
 // stream_weights=True: dil_w and rs_w stay in device memory and are copied

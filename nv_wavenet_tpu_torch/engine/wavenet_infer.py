@@ -19,16 +19,22 @@ speculative exact decode: `run_speculative`.
     on `sampling_seed` and the absolute clock).  K1 and K5 (the ragged
     feeds) are the staged kernel (`csrc/staged_generate.cu`): every weight
     copied by TMA into shared memory ahead of its use, the dilated prev
-    half computed off the step's chain; at the flagship K1 outruns K4
-    (PERF.md).  AUTO stays on K1, whose plan (`persistent.staged_plan`)
-    holds the flagship, config 4 and every geometry the tests run, and
-    raises before a launch for one it cannot; the JAX engine's AUTO picks
-    MANYBLOCK from a VMEM budget, which has no counterpart here
-    (`vmem_budget` is not ported).  MANYBLOCK runs K4 in every mode of
-    `run*`, lockstep `feed` and the dumps: K1's step with dil_w and rs_w
-    streamed through shared memory (`stream_group_size`, `stream_prefetch`
-    schedule the copies and change no value).  Ragged or desynced feeds
-    need K5 and raise under MANYBLOCK, as in the JAX engine.
+    half computed off the step's chain.  AUTO stays on K1, whose plan
+    (`persistent.staged_plan`) holds the flagship, config 4 and every
+    geometry the tests run; the JAX engine's AUTO picks MANYBLOCK from a
+    VMEM budget, which has no counterpart here (`vmem_budget` is not
+    ported).  MANYBLOCK runs K4 in every mode of `run*`, lockstep `feed`
+    and the dumps: K1's staged step on a stream that holds dil_w and rs_w
+    in the storage's own bytes (`csrc/staged_stream_generate.cu`).
+    `persistent.generation_route` names the kernel before any launch: a
+    geometry the staged plan cannot hold (A = 2048, R = 512, an odd R in
+    bf16) runs the generic K1/K5 (`csrc/generic_generate.cu`) or, under
+    MANYBLOCK, the first K4 (`csrc/stream_generate.cu`, whose copy
+    schedule `stream_group_size` and `stream_prefetch` set; they change no
+    value and schedule nothing on the staged K4), with a note printed once
+    at construction; a geometry neither K4 holds raises there.  Ragged or
+    desynced feeds need K5 and raise under MANYBLOCK, as in the JAX
+    engine.
   * Weight storage: `weight_dtype=torch.bfloat16` stores all nine
     parameters as bf16; `stream_quant="int8"` stores dil_w and rs_w as int8
     with per-column scales, and takes effect under MANYBLOCK only, as in
@@ -99,6 +105,13 @@ from nv_wavenet_tpu_torch.models import params as params_lib
 from nv_wavenet_tpu_torch.ops import (fused_chain, persistent,
                                       scan_generate, score_parallel,
                                       speculative)
+
+
+# what a fallback route runs (`persistent.generation_route`)
+_ROUTE_NOTES = {"generic": "K1/K5 run the generic kernel "
+                           "(csrc/generic_generate.cu)",
+                "stream": "MANYBLOCK runs the first K4 "
+                          "(csrc/stream_generate.cu)"}
 
 
 class Impl(enum.Enum):
@@ -245,12 +258,19 @@ class WaveNetInfer:
         self._stream = implementation == Impl.MANYBLOCK
         self._quant = stream_quant == "int8" and self._stream
         persistent.check_storage(weight_dtype, stream_quant == "int8")
-        if self._stream:   # a geometry K4 cannot run raises here
-            for prec in {self._precision(False), self._precision(True)}:
-                persistent.stream_plan(
-                    self.cfg, max_batch, persistent.stream_storage(
-                        weight_dtype, self._quant, prec),
-                    stream_group_size, prec)
+        # the kernels of K1's step this geometry runs, named before any
+        # launch (`persistent.generation_route`): where the staged plan
+        # cannot hold it, K1/K5 run the generic kernel and K4 the first K4,
+        # with a note printed once; a geometry neither K4 holds raises here
+        for prec in sorted({self._precision(False), self._precision(True)}):
+            route = persistent.generation_route(
+                self.cfg, max_batch, prec, stream_weights=self._stream,
+                storage=persistent.stream_storage(weight_dtype, self._quant,
+                                                  prec),
+                stream_group_size=stream_group_size)
+            if route.note is not None:
+                print(f"note: {_ROUTE_NOTES[route.kernel]} in precision "
+                      f"{prec!r} ({route.note})", flush=True)
         # a geometry K6 cannot run sends fuse_chain's dispatches to the
         # other kernels, fast_math intact (the JAX engine's VMEM fallback)
         self._fuse_fits = self.fuse_chain

@@ -1,7 +1,10 @@
 """The persistent generator: the whole generation of a call in one kernel
-launch (K1 and K5, `csrc/staged_generate.cu`; K2 and K3,
-`csrc/persistent.cu`; K4, `csrc/stream_generate.cu`), with its plain
-PyTorch version.
+launch (K1 and K5, `csrc/staged_generate.cu`, or where their plan cannot
+hold the geometry `csrc/generic_generate.cu`; K2 and K3,
+`csrc/persistent.cu`; K4, `csrc/staged_stream_generate.cu`, or where its
+plan cannot hold the geometry `csrc/stream_generate.cu`), with its plain
+PyTorch version.  `generation_route` names the kernel a call runs, before
+any launch.
 
 The port's counterpart of `nv_wavenet_tpu/ops/persistent.py`
 (`make_persistent_generator`): modes "sample" and "argmax" with the
@@ -26,17 +29,25 @@ Weight storage and streaming (K4, the engine's `Impl.MANYBLOCK`):
     stores dil_w and rs_w as int8 with one fp32 scale per (layer, output
     column) (`quantize_stream_weights`); the value of a weight is the one
     rounded product q * s (`dequantize_stream_params`).
-  * `stream_weights=True` launches K4: K1's step, with dil_w and rs_w
+  * `stream_weights=True` launches K4: K1's staged step (`staged_plan`
+    with the storage's dtype) on a stream that holds dil_w and rs_w in the
+    storage's own bytes (fp32, bf16, or int8 q with its scales applied in
+    the kernel, one rounded product q * s a weight) and out_w and end_w as
+    the value view holds them.  Every output column still sums k = 0, 1,
+    ..., K-1 from 0, so K4 equals K1 fed `value_view` bit for bit.  Where
+    that plan cannot hold the geometry, the first K4 runs: dil_w and rs_w
     copied into a ring of shared-memory stages by bulk asynchronous copies
     (1D TMA), each stage a block of `StreamPlan.rows_per_stage` whole rows
-    of one matrix.  Every output column still sums k = 0, 1, ..., K-1 from
-    0 across the stages, so K4 equals K1 fed `value_view` bit for bit.
-  * `stream_group_size` G: on the TPU one copy brings G layers, double
-    buffered, so the copies run one group ahead.  A Hopper block may use
-    227 KB of shared memory, less than two fp32 flagship layers (288 KB),
-    so here G sets how far ahead the copies run: the ring holds G layers of
-    stages (G * stages-per-layer + 1 slots), clamped to the shared memory;
-    `stream_plan` reports the clamp.  `stream_prefetch=True` lets the
+    of one matrix, the same sums.
+  * `stream_group_size` G and `stream_prefetch` schedule the first K4's
+    copies only; on the staged K4 they schedule nothing (its ring always
+    runs on across layers and steps) and are checked all the same.  On the
+    TPU one copy brings G layers, double buffered, so the copies run one
+    group ahead.  A Hopper block may use 227 KB of shared memory, less than
+    two fp32 flagship layers (288 KB), so in the first K4 G sets how far
+    ahead the copies run: the ring holds G layers of stages (G *
+    stages-per-layer + 1 slots), clamped to the shared memory;
+    `stream_plan` reports the clamp.  `stream_prefetch=True` lets its
     copies run on past the end of a step, so the next step's first stages
     load under this step's last layers, output stack and sampler;
     otherwise each step starts with an empty ring.  Neither changes a
@@ -106,7 +117,22 @@ FORCED_KERNELS = _kernels(
 PRNG_KERNELS = _kernels(
     "persistent.cu", "nvw_persistent_generate_prng",
     [_P] * 18 + [ctypes.c_longlong] + [_I] * 8 + [ctypes.c_ulonglong, _P])
-# K4: K1 with dil_w and rs_w streamed through shared memory, every mode
+# K1 and K5 where the staged plan cannot hold the geometry (fault F2 of
+# ROADMAP.md): every product's columns looped over 256 threads, the weights
+# read from L2 (the K1/K5 of commit 14b57bc)
+GENERIC_KERNELS = _kernels(
+    "generic_generate.cu", "nvw_generic_generate",
+    [_P] * 19 + [ctypes.c_longlong] + [_I] * 9 + [_P])
+GENERIC_RAGGED_KERNELS = _kernels(
+    "generic_generate.cu", "nvw_generic_generate_ragged",
+    [_P] * 16 + [_I] * 7 + [_P])
+# K4: K1's staged step on a stream in the storage's own bytes, every mode
+STAGED_STREAM_KERNELS = _kernels(
+    "staged_stream_generate.cu", "nvw_staged_stream_generate",
+    [_P] * 19 + [ctypes.c_longlong, ctypes.c_ulonglong] + [_I] * 10
+    + [_P, _P])
+# K4 where the staged plan cannot hold the geometry: dil_w and rs_w
+# streamed through a ring of row blocks, every mode
 STREAM_KERNELS = _kernels(
     "stream_generate.cu", "nvw_stream_generate",
     [_P] * 22 + [ctypes.c_longlong, ctypes.c_ulonglong] + [_I] * 15 + [_P])
@@ -117,7 +143,7 @@ _STORAGE_IDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # the shared memory one H100 block may use, and the H100's SMs
 SMEM_PER_BLOCK = 232448
 SMS = 132
-STREAM_MAX_COLUMNS = 1024  # output columns of one product: kMaxTasks * kThreads
+STREAM_MAX_COLUMNS = 1024  # the first K4's output columns a product: kMaxTasks * kThreads
 _STATIC_SMEM = 1024       # the block helpers' static shared memory, rounded up
 
 
@@ -189,7 +215,7 @@ def value_view(params: Dict[str, torch.Tensor],
 
 
 class StreamPlan(NamedTuple):
-    """K4's shared-memory plan (`stream_plan`)."""
+    """The first K4's shared-memory plan (`stream_plan`)."""
     storage: torch.dtype      # the stacks' dtype in device memory
     rows_per_stage: int       # weight rows one stage (one copy) brings
     stage_bytes: int          # one ring slot
@@ -213,10 +239,10 @@ def stream_storage(weight_dtype=torch.float32, stream_quant: bool = False,
 
 
 def activation_smem_bytes(cfg: WaveNetConfig, prec: str = "exact") -> int:
-    """The shared memory one step's activations take in a CTA: K1's whole
-    dynamic shared memory, and what K4 keeps beside its stages ((7R + S +
-    4A) floats, R more under "fast" for the rounded copy of x; the launch
-    in csrc/persistent.cu computes the same)."""
+    """The shared memory one step's activations take in a CTA of K2/K3 or
+    the first K4, beside its stages ((7R + S + 4A) floats, R more under
+    "fast" for the rounded copy of x; the launches in csrc/persistent.cu
+    and csrc/stream_generate.cu compute the same)."""
     return (7 * cfg.R + cfg.S + 4 * cfg.A
             + (cfg.R if prec == "fast" else 0)) * 4
 
@@ -224,10 +250,12 @@ def activation_smem_bytes(cfg: WaveNetConfig, prec: str = "exact") -> int:
 def stream_plan(cfg: WaveNetConfig, batch: int, storage=torch.float32,
                 stream_group_size: int = 8, prec: str = "exact"
                 ) -> StreamPlan:
-    """Decide K4's stages for `batch` rows with the stacks stored as
-    `storage` (torch.float32, torch.bfloat16 or torch.int8; `stream_storage`)
-    in precision `prec` (`scan_generate.PRECISIONS`; "fast" keeps a rounded
-    copy of x beside the activations, R more floats).
+    """Decide the first K4's stages (csrc/stream_generate.cu, the fallback
+    where `staged_plan` cannot hold the geometry) for `batch` rows with the
+    stacks stored as `storage` (torch.float32, torch.bfloat16 or
+    torch.int8; `stream_storage`) in precision `prec`
+    (`scan_generate.PRECISIONS`; "fast" keeps a rounded copy of x beside
+    the activations, R more floats).
 
     A stage is one block of `rows_per_stage` whole rows: for dil_w those
     rows of Wprev and of Wcur, for rs_w those rows of [R, R+S]; a layer
@@ -239,7 +267,7 @@ def stream_plan(cfg: WaveNetConfig, batch: int, storage=torch.float32,
     many as fit beside the step's activations ((7R + S + 4A) floats, as K1)
     and the stages' barriers.  One CTA runs one batch row and, with this
     much shared memory, has its SM alone: a batch of more than 132 rows
-    runs in waves.  Raises ValueError for a geometry K4 cannot run: more
+    runs in waves.  Raises ValueError for a geometry it cannot run: more
     than 1024 output columns in a product (4R or R+S), rows that are not
     whole 16-byte units (the unit of a bulk copy), or fewer than two stages
     of one row."""
@@ -315,8 +343,8 @@ class StagedMatrix(NamedTuple):
 
 
 class StagedPlan(NamedTuple):
-    """K1/K5's plan (`staged_plan`)."""
-    storage: torch.dtype      # float32 under "exact", else bfloat16
+    """K1/K5's and K4's plan (`staged_plan`)."""
+    storage: torch.dtype      # Wprev, Wcur, rs_w (K1: fp32 in exact, else bf16)
     chain_threads: int        # the chain's warps, a multiple of 32
     prev_threads: int         # the prev warps'
     threads: int              # chain + prev + one producer warp
@@ -332,6 +360,7 @@ class StagedPlan(NamedTuple):
     smem_bytes: int           # dynamic shared memory of the launch
     waves: int                # CTA waves of the batch, one CTA per SM
     geometry: int             # the instance: 1 + index in STAGED_FIXED_WIDTHS, 0 generic
+    out_storage: torch.dtype  # out_w and end_w (`staged_out_storage`)
 
     def kernel_args(self) -> tuple:
         """The plan array of the entry points (csrc/staged_generate.cu
@@ -351,6 +380,17 @@ def staged_storage(prec: str = "exact") -> torch.dtype:
     (their weights are bf16 values, `scan_generate.product_view`), else
     fp32."""
     return torch.float32 if prec == "exact" else torch.bfloat16
+
+
+def staged_out_storage(storage: torch.dtype, prec: str = "exact"
+                       ) -> torch.dtype:
+    """The dtype of out_w and end_w in a stream whose layer stacks are
+    `storage`: the same, but fp32 (exact) or bf16 beside int8 stacks, since
+    int8 quantises dil_w and rs_w only and the output stack keeps the value
+    view's values."""
+    if storage == torch.int8:
+        return staged_storage(prec)
+    return storage
 
 
 def staged_activation_floats(cfg: WaveNetConfig, prec: str,
@@ -388,15 +428,21 @@ def staged_threads(cfg: WaveNetConfig) -> tuple:
                      f"{STAGED_MAX_COLUMNS} a thread")
 
 
-def staged_plan(cfg: WaveNetConfig, batch: int, prec: str = "exact"
-                ) -> StagedPlan:
+def staged_plan(cfg: WaveNetConfig, batch: int, prec: str = "exact",
+                storage: torch.dtype | None = None) -> StagedPlan:
     """Decide K1/K5's threads, rings and stream layout for `batch` rows in
-    precision `prec` (`scan_generate.PRECISIONS`).
+    precision `prec` (`scan_generate.PRECISIONS`), or K4's with its layer
+    stacks stored as `storage` (torch.float32, torch.bfloat16 or
+    torch.int8; `stream_storage`).
 
     The stream holds each stack as k-quads [ceil(K/4), Np, 4] (Np: its
-    columns rounded up to 4, zero-padded; `staged_stream`), fp32 under
-    "exact" and bf16 otherwise: per layer Wprev, Wcur, rs_w, then out_w
-    and end_w.  A copy brings whole quad-rows into one slot of a ring:
+    columns rounded up to 4, zero-padded; `staged_stream`): per layer
+    Wprev, Wcur, rs_w in `storage` (K1/K5: fp32 under "exact" and bf16
+    otherwise, `staged_storage`), then out_w and end_w in
+    `staged_out_storage`.  A quad-row's bytes follow its dtype, so an int8
+    stream brings a quarter of the fp32 stream's layer bytes in as many
+    quad-rows, and a slot holds four times the int8 quad-rows.  A copy
+    brings whole quad-rows into one slot of a ring:
     Wprev into the prev ring (two slots, Wprev whole up to
     STAGED_SLOT_BYTES), the rest into the chain ring (STAGED_CHAIN_SLOTS
     slots of what the shared memory leaves, at most 2 STAGED_SLOT_BYTES;
@@ -412,17 +458,24 @@ def staged_plan(cfg: WaveNetConfig, batch: int, prec: str = "exact"
     scan_generate._check_precision(prec)
     if batch < 1:
         raise ValueError(f"batch must be >= 1, got {batch}")
+    if storage is None:
+        storage = staged_storage(prec)
+    elif storage not in _STORAGE_IDS or (prec != "exact"
+                                         and storage == torch.float32):
+        raise ValueError(f"the staged K4 stores its stacks as fp32 (exact "
+                         f"only), bf16 or int8, got {storage} in {prec!r}")
     L, R, S, A = cfg.num_layers, cfg.R, cfg.S, cfg.A
     if prec == "bf16" and R % 2:
         raise ValueError(f"K1/K5 in bf16 copy the FIFO slot 4 bytes at a "
                          f"time: R = {R} must be even")
     chain, prev = staged_threads(cfg)
-    storage = staged_storage(prec)
-    eb = storage.itemsize
+    out_storage = staged_out_storage(storage, prec)
     lookahead = min(L, STAGED_LOOKAHEAD)
     act = 4 * staged_activation_floats(cfg, prec, lookahead)
     shapes = [(name, *f(R, S, A)) for name, f in STAGED_MATRICES]
-    row_bytes = [-(-N // 4) * 4 * 4 * eb for _, _, N in shapes]
+    row_bytes = [-(-N // 4) * 4 * 4
+                 * (out_storage if name in ("out", "end") else storage).itemsize
+                 for name, _, N in shapes]
     budget = SMEM_PER_BLOCK - _STATIC_SMEM - act
 
     def bar_bytes(slots):
@@ -449,7 +502,7 @@ def staged_plan(cfg: WaveNetConfig, batch: int, prec: str = "exact"
     for (name, K, N), rb in zip(shapes, row_bytes):
         kq = -(-K // 4)
         rows = min(kq, (prev_slot if name == "prev" else slot) // rb)
-        matrices.append(StagedMatrix(name, K, N, rb // (4 * eb), kq, rb, rows,
+        matrices.append(StagedMatrix(name, K, N, -(-N // 4) * 4, kq, rb, rows,
                                      -(-kq // rows), offset))
         offset += kq * rb
         if name == "rs":
@@ -463,7 +516,8 @@ def staged_plan(cfg: WaveNetConfig, batch: int, prec: str = "exact"
                       chain_slots, prev_slots, lookahead, prev_slot,
                       tuple(matrices),
                       layer_bytes, offset, act, smem, -(-batch // SMS),
-                      STAGED_FIXED_WIDTHS.index((R, S, A)) + 1 if fixed else 0)
+                      STAGED_FIXED_WIDTHS.index((R, S, A)) + 1 if fixed else 0,
+                      out_storage)
 
 
 def staged_quads(w: torch.Tensor, dtype) -> torch.Tensor:
@@ -488,16 +542,23 @@ def staged_stacks(params: Dict[str, torch.Tensor], cfg: WaveNetConfig):
 
 def staged_stream(params: Dict[str, torch.Tensor], cfg: WaveNetConfig,
                   plan: StagedPlan) -> torch.Tensor:
-    """K1/K5's weight stream in the plan's storage dtype, one flat tensor
-    laid out as `staged_plan` says.  Built once per upload from the values
-    the products take (`scan_generate.product_view`: bf16 values under the
-    low precisions, so storing them as bf16 is exact)."""
+    """The weight stream of K1/K5 or K4, one flat tensor laid out as
+    `staged_plan` says: the layer stacks in `plan.storage`, out_w and end_w
+    in `plan.out_storage`; in that dtype where the two agree, else as bytes
+    (uint8).  Built once per upload from the values the products take
+    (`scan_generate.product_view`: bf16 values under the low precisions, so
+    storing them as bf16 is exact), or for int8 stacks from params whose
+    dil_w and rs_w are the integers q (`quantize_stream_weights`)."""
     layers, tail = staged_stacks(params, cfg)
     parts = [staged_quads(w, plan.storage).reshape(-1)
              for stacks in layers for w in stacks]
-    parts += [staged_quads(w, plan.storage).reshape(-1) for w in tail]
+    parts += [staged_quads(w, plan.out_storage).reshape(-1) for w in tail]
+    if plan.storage != plan.out_storage:
+        parts = [p.view(torch.uint8) for p in parts]
     out = torch.cat(parts)
-    assert out.numel() * out.element_size() == plan.stream_bytes
+    if out.numel() * out.element_size() != plan.stream_bytes:
+        raise ValueError(f"the stream holds {out.numel() * out.element_size()}"
+                         f" bytes, the plan {plan.stream_bytes}")
     return out
 
 
@@ -524,6 +585,60 @@ def staged_columns(cfg: WaveNetConfig, plan: StagedPlan) -> Dict[str, list]:
             if p + k * Tp < 2 * R:
                 out["prev"].append((p, p + k * Tp))
     return out
+
+
+class Route(NamedTuple):
+    """The kernel one call of a generator runs (`generation_route`)."""
+    kernel: str       # "staged", "generic", "forced", "prng", "staged_stream" or "stream"
+    ragged: bool
+    plan: object      # StagedPlan ("staged", "staged_stream"), StreamPlan ("stream") or None
+    note: str | None  # why the staged plan was not taken, for a fallback
+
+    def cuda_kernel(self, prec: str = "exact") -> build.CudaKernel:
+        """The entry point (and launch count) this route launches in
+        precision `prec`."""
+        table = {"staged": RAGGED_KERNELS if self.ragged
+                 else PERSISTENT_KERNELS,
+                 "generic": GENERIC_RAGGED_KERNELS if self.ragged
+                 else GENERIC_KERNELS,
+                 "forced": FORCED_KERNELS, "prng": PRNG_KERNELS,
+                 "staged_stream": STAGED_STREAM_KERNELS,
+                 "stream": STREAM_KERNELS}[self.kernel]
+        return table[prec]
+
+
+def generation_route(cfg: WaveNetConfig, batch: int, prec: str = "exact",
+                     mode: str = "sample", ragged: bool = False,
+                     stream_weights: bool = False,
+                     storage: torch.dtype = torch.float32,
+                     stream_group_size: int = 8) -> Route:
+    """Name the kernel a generator's call runs on the card, before any
+    launch and without a card:
+
+      * stream_weights (K4, every mode): the staged K4 where `staged_plan`
+        holds the geometry with the stacks stored as `storage`
+        (`stream_storage`), else the first K4 (`stream_plan`, which raises
+        for a geometry it cannot hold either: the call raises as before);
+      * mode "forced" (K2) or "prng" (K3);
+      * modes "sample" and "argmax", lockstep (K1) or ragged (K5): the
+        staged kernel where `staged_plan` holds the geometry, else the
+        generic one (`csrc/generic_generate.cu`, no width limit).
+
+    A fallback carries the staged plan's error as its `note`."""
+    if stream_weights:
+        stream_group(cfg.num_layers, stream_group_size)   # checked always
+        try:
+            return Route("staged_stream", False,
+                         staged_plan(cfg, batch, prec, storage), None)
+        except ValueError as err:
+            return Route("stream", False, stream_plan(
+                cfg, batch, storage, stream_group_size, prec), str(err))
+    if mode in ("forced", "prng"):
+        return Route(mode, False, None, None)
+    try:
+        return Route("staged", ragged, staged_plan(cfg, batch, prec), None)
+    except ValueError as err:
+        return Route("generic", ragged, None, str(err))
 
 
 def init_ring(cfg: WaveNetConfig, batch: int, device,
@@ -589,7 +704,8 @@ def _launch_kernel(cfg: WaveNetConfig, params: Dict[str, torch.Tensor],
                    sel: torch.Tensor, ring: torch.Tensor,
                    y_state: torch.Tensor, n_valid: int, mode: str, dump: bool,
                    seed: int, prec: str, staged=None):
-    """K1 (modes sample and argmax: `staged` is (plan, stream)), K2 or K3."""
+    """K1 (modes sample and argmax: `staged` is (plan, stream), or None for
+    the generic instance), K2 or K3."""
     T, _, B, _ = cond_pre.shape
     dev = cond_pre.device
     y = torch.zeros((T, B), dtype=torch.int32, device=dev)
@@ -612,6 +728,9 @@ def _launch_kernel(cfg: WaveNetConfig, params: Dict[str, torch.Tensor],
         elif mode == "prng":
             PRNG_KERNELS[prec](*head, *state, *shape,
                                seed & 0xFFFFFFFFFFFFFFFF, stream)
+        elif staged is None:
+            GENERIC_KERNELS[prec](*head, sel.data_ptr(), *state, *shape,
+                                  _MODE_IDS[mode], stream)
         else:
             plan, weights = staged
             plan_arr = _plan_array(plan)
@@ -634,8 +753,9 @@ def _launch_stream(cfg: WaveNetConfig, plan: StreamPlan, prefetch: bool,
                    sel: torch.Tensor, ring: torch.Tensor,
                    y_state: torch.Tensor, n_valid: int, mode: str, dump: bool,
                    seed: int, prec: str):
-    """K4: `params` gives the fp32 values of the small tensors, `stacks`
-    the stored (dil_w, rs_w, dil_s, rs_s); outputs as `_launch_kernel`."""
+    """The first K4: `params` gives the fp32 values of the small tensors,
+    `stacks` the stored (dil_w, rs_w, dil_s, rs_s); outputs as
+    `_launch_kernel`."""
     T, _, B, _ = cond_pre.shape
     dev = cond_pre.device
     y = torch.zeros((T, B), dtype=torch.int32, device=dev)
@@ -666,12 +786,48 @@ def _launch_stream(cfg: WaveNetConfig, plan: StreamPlan, prefetch: bool,
     return (y, ring, y_state, *outs)
 
 
+def _launch_staged_stream(cfg: WaveNetConfig, plan: StagedPlan,
+                          params: Dict[str, torch.Tensor], stored: tuple,
+                          sched: torch.Tensor, t0: int, cond_pre: torch.Tensor,
+                          sel: torch.Tensor, ring: torch.Tensor,
+                          y_state: torch.Tensor, n_valid: int, mode: str,
+                          dump: bool, seed: int, prec: str):
+    """The staged K4: `params` gives the fp32 values of the small tensors,
+    `stored` the stream and the int8 scales (dil_s, rs_s; None otherwise);
+    outputs as `_launch_kernel`."""
+    T, _, B, _ = cond_pre.shape
+    dev = cond_pre.device
+    y = torch.zeros((T, B), dtype=torch.int32, device=dev)
+    dumps = _empty_dumps(cfg, B, dev) if dump else None
+    p_seq = (torch.zeros((T, B, cfg.A), dtype=torch.float32, device=dev)
+             if mode == "forced" else None)
+    outs = ([dumps[k] for k in _DUMP_KEYS] if dump else []) + (
+        [p_seq] if mode == "forced" else [])
+    weights, dil_s, rs_s = stored
+    if n_valid:
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        plan_arr = _plan_array(plan)
+        STAGED_STREAM_KERNELS[prec](
+            params["embed"].data_ptr(), weights.data_ptr(), ptr(dil_s),
+            ptr(rs_s), *(params[k].data_ptr() for k in ("rs_b", "out_b",
+                                                          "end_b")),
+            cond_pre.data_ptr(), sel.data_ptr(), sched.data_ptr(),
+            ring.data_ptr(), y_state.data_ptr(), y.data_ptr(),
+            *(ptr(dumps[k]) if dump else None for k in _DUMP_KEYS),
+            ptr(p_seq), t0, seed & 0xFFFFFFFFFFFFFFFF, n_valid, B,
+            cfg.num_layers, cfg.R, cfg.S, cfg.A, int(cfg.tanh_embed),
+            cfg.silence_bin, _STREAM_MODE_IDS[mode],
+            _STORAGE_IDS[plan.storage], ctypes.addressof(plan_arr),
+            build.current_stream(dev))
+    return (y, ring, y_state, *outs)
+
+
 def _launch_ragged(cfg: WaveNetConfig, params: Dict[str, torch.Tensor],
                    sched: torch.Tensor, t0_row: torch.Tensor,
                    cond_pre: torch.Tensor, sel: torch.Tensor,
                    ring: torch.Tensor, y_state: torch.Tensor,
                    n_valid_row: torch.Tensor, prec: str, staged):
-    """K5: `staged` is (plan, stream)."""
+    """K5: `staged` is (plan, stream), or None for the generic instance."""
     T, _, B, _ = cond_pre.shape
     dev = cond_pre.device
     # zeros, never empty: K5 writes no step past a row's length
@@ -681,6 +837,15 @@ def _launch_ragged(cfg: WaveNetConfig, params: Dict[str, torch.Tensor],
         # nothing queued before it
         t0_dev, nv_dev = (x.pin_memory().to(dev, non_blocking=True)
                           for x in (t0_row, n_valid_row))
+        if staged is None:
+            GENERIC_RAGGED_KERNELS[prec](
+                *(params[k].data_ptr() for k in _WEIGHTS),
+                cond_pre.data_ptr(), sel.data_ptr(), sched.data_ptr(),
+                ring.data_ptr(), y_state.data_ptr(), y.data_ptr(),
+                t0_dev.data_ptr(), nv_dev.data_ptr(), B, cfg.num_layers,
+                cfg.R, cfg.S, cfg.A, int(cfg.tanh_embed), cfg.silence_bin,
+                build.current_stream(dev))
+            return y, ring, y_state
         plan, weights = staged
         plan_arr = _plan_array(plan)
         RAGGED_KERNELS[prec](
@@ -695,7 +860,7 @@ def _launch_ragged(cfg: WaveNetConfig, params: Dict[str, torch.Tensor],
 
 
 def _stream_stacks(params: Dict[str, torch.Tensor], storage) -> tuple:
-    """K4's stored stacks (dil_w, rs_w, dil_s, rs_s) in `storage`
+    """The first K4's stored stacks (dil_w, rs_w, dil_s, rs_s) in `storage`
     (`stream_storage`): int8 with their scales, bf16, or the fp32 tensors
     themselves (no scales)."""
     if storage == torch.int8:
@@ -744,16 +909,19 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
     place), plus xt [L,B,R], skip [L,B,S], zs, za, p [B,A] of the last run
     step when dump=True, plus p_seq [T, B, A] float32 (zero past n_valid)
     in mode "forced": the JAX order.  All tensors on one device: CPU runs
-    the plain loop, CUDA launches K1 (K2, K3, K5), or K4 in every mode with
-    stream_weights=True.
+    the plain loop, CUDA launches the kernel `generation_route` names (K1,
+    K2, K3, K5, or K4 in every mode with stream_weights=True; a geometry
+    the staged plan cannot hold runs the generic K1/K5 or the first K4).
+    The route is made here and kept on the generator as `.route`.
 
     Storage (see the module docstring): params stay the canonical fp32
     tensors; weight_dtype=torch.bfloat16 and stream_quant (int8 stacks, only
     with stream_weights, as in the JAX package) make every path compute
     with `value_view(params)`, and K4 holds the stored form on the card
     (bf16 stacks, or int8 stacks and their scales), both built once per
-    params object.  stream_group_size and stream_prefetch schedule K4's
-    copies (`stream_plan`) and change no value.  ragged=True never streams.
+    params object.  stream_group_size and stream_prefetch schedule the
+    first K4's copies (`stream_plan`) and change no value; the staged K4
+    runs one schedule whatever they say.  ragged=True never streams.
 
     Precision (`scan_generate.precision(compute_dtype, fast_math)`): under
     fast_math or compute_dtype=torch.bfloat16 every path computes with
@@ -774,29 +942,41 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
                          "variant")
     L, R, A = cfg.num_layers, cfg.R, cfg.A
     B = batch
-    plan = (stream_plan(cfg, B, stream_storage(weight_dtype, stream_quant,
-                                               prec),
-                        stream_group_size, prec) if stream_weights else None)
+    route = generation_route(
+        cfg, B, prec, mode, ragged, stream_weights,
+        stream_storage(weight_dtype, stream_quant, prec), stream_group_size)
+    plan = route.plan
     shapes = params_lib.canonical_shapes(L, R, cfg.S, A)
     scheds: Dict[torch.device, torch.Tensor] = {}  # the FIFO layout per card
     stored: Dict[str, tuple] = {}   # the last params object's storage
 
-    # K1/K5 (CUDA, no streaming, modes sample/argmax or ragged): their plan,
-    # made at the first launch (it raises for a geometry they cannot hold;
-    # the plain version runs any), and their stream, made once per upload
-    uses_staged = plan is None and mode in _MODE_IDS
-    staged_plans: Dict[str, StagedPlan] = {}
+    def build_stored(params, view):
+        """What the route's kernel reads besides the view: K1/K5's (plan,
+        stream), the staged K4's (stream, dil_s, rs_s) or the first K4's
+        stacks (dil_w, rs_w, dil_s, rs_s); None for the others."""
+        if route.kernel == "staged":
+            return plan, staged_stream(view, cfg, plan)
+        if route.kernel == "staged_stream":
+            if plan.storage == torch.int8:
+                # int8 quantises the canonical params; K4 rounds q * s
+                qd, sd, qr, sr = quantize_stream_weights(params)
+                return (staged_stream({**view, "dil_w": qd, "rs_w": qr}, cfg,
+                                      plan), sd, sr)
+            return staged_stream(view, cfg, plan), None, None
+        if route.kernel == "stream":
+            return _stream_stacks(params if stream_quant else view,
+                                  plan.storage)
+        return None
 
     def storage(params, dev):
-        """(the values the products take, K4's stacks or None, K1/K5's
-        (plan, stream) or None), rebuilt when a tensor of params is replaced
-        or changed in place."""
-        staged = uses_staged and dev.type == "cuda"
-        if staged and "plan" not in staged_plans:
-            staged_plans["plan"] = staged_plan(cfg, B, prec)
+        """(the values the products take, what `build_stored` makes on a
+        card or None), rebuilt when a tensor of params is replaced or
+        changed in place."""
+        on_card = dev.type == "cuda" and route.kernel in (
+            "staged", "staged_stream", "stream")
         if (weight_dtype == torch.float32 and not stream_quant
-                and plan is None and prec == "exact" and not staged):
-            return params, None, None
+                and prec == "exact" and not on_card):
+            return params, None
         src = tuple(params[k] for k in params_lib.PARAM_ORDER)
         key = tuple(t._version for t in src)
         old = stored.get("src")
@@ -804,17 +984,10 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
                 or any(a is not b for a, b in zip(old, src))):
             view = scan_generate.product_view(
                 value_view(params, weight_dtype, stream_quant), prec)
-            # int8 quantises the canonical params; K4 rounds q * s itself
-            stacks = (_stream_stacks(params if stream_quant else view,
-                                     plan.storage)
-                      if plan is not None and dev.type == "cuda" else None)
-            weights = (staged_stream(view, cfg, staged_plans["plan"])
-                       if staged else None)
-            stored.update(src=src, key=key, stacks=stacks, view=view,
-                          weights=weights)
-        staged = ((staged_plans["plan"], stored["weights"]) if staged
-                  else None)
-        return stored["view"], stored["stacks"], staged
+            stored.update(src=src, key=key, view=view,
+                          built=build_stored(params, view) if on_card
+                          else None)
+        return stored["view"], stored["built"]
 
     def check(params, cond_pre, sel, ring, y_state):
         dev = cond_pre.device
@@ -850,19 +1023,23 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
                         .all()):
                 raise ValueError(f"mode 'forced': sel must hold symbols, "
                                  f"integers in [0, A={A})")
-        view, stacks, staged = storage(params, dev)
+        view, built = storage(params, dev)
         if dev.type == "cpu":
             return generate_plain(cfg, view, t0, cond_pre, sel, ring,
                                   y_state, n_valid, mode, dump, int(seed),
                                   prec)
-        if plan is not None:
-            return _launch_stream(cfg, plan, stream_prefetch, view, stacks,
+        if route.kernel == "staged_stream":
+            return _launch_staged_stream(cfg, plan, view, built, scheds[dev],
+                                         t0, cond_pre, sel, ring, y_state,
+                                         n_valid, mode, dump, int(seed), prec)
+        if route.kernel == "stream":
+            return _launch_stream(cfg, plan, stream_prefetch, view, built,
                                   scheds[dev], t0, cond_pre, sel, ring,
                                   y_state, n_valid, mode, dump, int(seed),
                                   prec)
         return _launch_kernel(cfg, view, scheds[dev], t0, cond_pre, sel,
                               ring, y_state, n_valid, mode, dump, int(seed),
-                              prec, staged)
+                              prec, built)
 
     def generate_ragged(params: Dict[str, torch.Tensor],
                         t0_row: torch.Tensor, cond_pre: torch.Tensor,
@@ -877,11 +1054,13 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
         if int(n_valid_row.min()) < 0 or int(n_valid_row.max()) > T:
             raise ValueError(f"n_valid_row {n_valid_row.tolist()} outside "
                              f"[0, T={T}]")
-        view, _, staged = storage(params, dev)
+        view, built = storage(params, dev)
         if dev.type == "cpu":
             return generate_plain(cfg, view, t0_row, cond_pre, sel, ring,
                                   y_state, n_valid_row, prec=prec)
         return _launch_ragged(cfg, view, scheds[dev], t0_row, cond_pre,
-                              sel, ring, y_state, n_valid_row, prec, staged)
+                              sel, ring, y_state, n_valid_row, prec, built)
 
-    return generate_ragged if ragged else generate
+    out = generate_ragged if ragged else generate
+    out.route = route
+    return out

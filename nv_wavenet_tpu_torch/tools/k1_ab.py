@@ -1,5 +1,5 @@
-"""Time the generation kernels K1 and K5 of this checkout and another's in
-turns, on the card.
+"""Time the generation kernels K1, K5 and K4 of this checkout and another's
+in turns, on the card.
 
     python3 -m nv_wavenet_tpu_torch.tools.k1_ab OTHER_ROOT
 
@@ -17,8 +17,12 @@ A=256, max_dilation 512, B=16, random weights from seed 1):
 - K2 (mode "forced", symbols drawn on the card) and K3 (mode "prng"), one
   256-step launch each, in each precision: kernels both trees hold, their
   p_seq (K2) and y (K3) hashed;
-- K4 with fp32 stacks, one 256-step launch: the same kernel in both trees,
-  the yardstick of the call.
+- K4 (stream_weights=True), one 256-step launch in each storage (fp32,
+  bf16 and int8 stacks) in exact, and with bf16 and int8 stacks in fast
+  and bf16;
+- config 4 (40 layers, R=128, S=256, A=256, max_dilation 128, B=64,
+  random weights from seed 4): K1 and K4 in each storage, one 256-step
+  launch each, exact.
 
 Each time is the mean of REPS launches by CUDA events after a warm-up.
 Inputs are drawn on the card from fixed seeds, so both trees see the same
@@ -39,6 +43,7 @@ import sys
 import time
 
 B, T, TICK = 16, 256, 160
+C4_B = 64
 REPS = 3
 TURNS = ("other", "this", "this", "other")
 PRECISIONS = ("exact", "fast", "bf16")
@@ -131,10 +136,55 @@ def one_turn(root: str) -> dict:
                 (f"K3 {prec}", lambda st: k3(params, 0, cond_pre, sel, *st,
                                              seed=7))):
             res["ms"][name], res["hashes"][name] = timed(fn, prec)
-    k4 = persistent.make_persistent_generator(cfg, B, stream_weights=True)
-    res["ms"]["K4 fp32"], res["hashes"]["K4 fp32"] = timed(
-        lambda st: k4(params, 0, cond_pre, sel, *st), "exact")
+    storages = {"fp32": {}, "bf16": {"weight_dtype": torch.bfloat16},
+                "int8": {"stream_quant": True}}
+    for prec in PRECISIONS:
+        for name, skw in storages.items():
+            if prec != "exact" and name == "fp32":
+                continue   # the low precisions stream bf16 or int8 stacks
+            k4 = persistent.make_persistent_generator(
+                cfg, B, stream_weights=True, **skw, **kw[prec])
+            key = f"K4 {name}" + ("" if prec == "exact" else f" {prec}")
+            res["ms"][key], res["hashes"][key] = timed(
+                lambda st: k4(params, 0, cond_pre, sel, *st), prec)
     res["k5_live_row_steps"] = int(lens.sum())
+
+    # config 4, B=64: K1 and K4 in each storage
+    c4 = cfg_lib.WaveNetConfig(num_layers=40, R=128, S=256, A=256,
+                               max_dilation=128)
+    c4_params = params_lib.canonical_to_torch(params_lib.to_canonical(
+        params_lib.random_reference_weights(c4, seed=4), c4), dev)
+    g.manual_seed(402)
+    c4_cond = (torch.rand((T, c4.num_layers, C4_B, 2 * c4.R), generator=g,
+                          device=dev) - 0.5
+               + c4_params["dil_b"][None, :, None, :]).contiguous()
+    c4_sel = torch.rand((T, C4_B), generator=g, device=dev)
+
+    def c4_timed(gen):
+        def fn(st):
+            return gen(c4_params, 0, c4_cond, c4_sel, *st)
+        state = (persistent.init_ring(c4, C4_B, dev),
+                 torch.full((2, C4_B), c4.silence_bin, dtype=torch.int32,
+                            device=dev))
+        out = fn(state)
+        torch.cuda.synchronize()
+        first = digest(out[0], *state)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(REPS):
+            fn(state)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / REPS, first
+
+    res["ms"]["config 4 K1"], res["hashes"]["config 4 K1"] = c4_timed(
+        persistent.make_persistent_generator(c4, C4_B))
+    for name, skw in storages.items():
+        key = f"config 4 K4 {name}"
+        res["ms"][key], res["hashes"][key] = c4_timed(
+            persistent.make_persistent_generator(c4, C4_B,
+                                                 stream_weights=True, **skw))
     return res
 
 

@@ -5,15 +5,20 @@ tree's CUDA sources and this one's, on a machine with nvcc and cuobjdump.
 
 OTHER_CSRC_DIR holds the other tree's `nv_wavenet_tpu_torch/csrc/` (for
 example a `git archive` of the parent commit unpacked into a directory that
-.gitignore lists).  Those of its `persistent.cu`, `staged_generate.cu`,
-`stream_generate.cu` and `fused_chain.cu` it has are built as this tree's
+.gitignore lists).  Those of its generation sources (`persistent.cu`,
+`staged_generate.cu`, `generic_generate.cu`, `staged_stream_generate.cu`,
+`stream_generate.cu`, `fused_chain.cu`) it has are built as this tree's
 are (`utils/build.py`: its flags, one library per precision with
--DNVW_PREC=0, 1, 2), and `cuobjdump -sass` of each pair is compared kernel
-instance by kernel instance, in every precision.  An instance is named by
-its kernel, its template arguments and its precision: the other tree's K4
-may predate the precision parameter (the exact instance then), its K6
-carry it as the old `kFast` flag, its K2/K3 template a leading kRagged
-flag (false for them), its staged K1/K5 no geometry (the generic one).
+-DNVW_PREC=0, 1, 2), and `cuobjdump -sass` of every instance is compared
+with this tree's instance of the same key, in every precision, whichever
+source holds it.  An instance is named by its kernel, its template
+arguments and its precision: the other tree's K4 may predate the precision
+parameter (the exact instance then), its K6 carry it as the old `kFast`
+flag, its K2/K3 template a leading kRagged flag (false for them), its
+staged K1/K5 no geometry (the generic one); an injected-selector instance
+of `persistent_generate_kernel` (the K1/K5 of commit 14b57bc) is keyed as
+the generic K1/K5 of `generic_generate.cu`, so a tree of that time holds
+the restored kernel against its original.
 Instruction text is compared with the addresses and encodings stripped, so
 identical code at identical offsets is "identical"; an instance that
 differs is also compared with the kernel parameters' offsets in the
@@ -36,6 +41,7 @@ from nv_wavenet_tpu_torch.utils import build
 
 SOURCES = build.PRECISION_SOURCES
 _KERNEL = re.compile(r"(persistent_generate_kernel|staged_generate_kernel|"
+                     r"generic_generate_kernel|staged_stream_kernel|"
                      r"stream_generate_kernel|fused_generate_kernel)"
                      r"I((?:L[bi]\d+E)+)E")
 _ARG = re.compile(r"L[bi](\d+)E")
@@ -50,7 +56,10 @@ def instance_key(mangled: str):
     <kStorage, kSel, kPrec>, once without kPrec (exact).  K6's last
     argument is its precision (once the kFast flag: false exact, true
     fast).  The staged K1/K5's is <kRagged, kPrec, kGeo>, once without kGeo
-    (the generic instance, 0)."""
+    (the generic instance, 0).  The generic K1/K5's is <kRagged, kPrec>,
+    once <kRagged, kSelInjected, kPrec> of persistent_generate_kernel (the
+    K1/K5 of commit 14b57bc).
+    The staged K4's is <kStorage, kPrec, kGeo>."""
     m = _KERNEL.search(mangled)
     if not m:
         return None
@@ -59,7 +68,13 @@ def instance_key(mangled: str):
     if kernel == "persistent_generate_kernel":
         if len(args) == 2:
             args = [0] + args
+        if args[1] == 0:   # kSelInjected: the former K1/K5
+            return "generic_generate_kernel", (args[0],), args[2]
         return kernel, tuple(args[:-1]), args[-1]
+    if kernel == "generic_generate_kernel":
+        return kernel, (args[0],), args[1]
+    if kernel == "staged_stream_kernel":
+        return kernel, (args[0], args[2]), args[1]
     if kernel == "staged_generate_kernel":
         return kernel, (args[0], args[2] if len(args) == 3 else 0), args[1]
     if kernel == "fused_generate_kernel" or len(args) == 3:
@@ -119,34 +134,32 @@ def main(argv=None) -> int:
         build.build_all()
         summary = {"compared": 0, "identical": 0, "differ": [],
                    "differ_in_param_offsets_only": [], "only_here": []}
-        for src in other:
-            old = {}
-            for lib in other[src]:
+        old, new = {}, {}
+        for libs in other.values():
+            for lib in libs:
                 old.update(sass_functions(cuobjdump, lib))
-            new = {}
-            for u in build.UNITS:
-                if u.partition("@")[0] == src:
-                    new.update(sass_functions(cuobjdump,
-                                              build.library_path(u)))
-            for key in sorted(new):
-                name = f"{key[0]}<{', '.join(map(str, key[1]))}> prec {key[2]}"
-                if key not in old:
-                    summary["only_here"].append(name)
-                    continue
-                same = old[key] == new[key]
-                summary["compared"] += 1
-                summary["identical"] += same
-                params_only = not same and (
-                    [_PARAM.sub("c[0x0][*]", i) for i in old[key]]
-                    == [_PARAM.sub("c[0x0][*]", i) for i in new[key]])
-                if not same:
-                    summary["differ"].append(name)
-                if params_only:
-                    summary["differ_in_param_offsets_only"].append(name)
-                print(f"[sass] {src}: {name}: {len(old[key])} vs "
-                      f"{len(new[key])} instructions, identical {same}"
-                      + (", but for the parameters' offsets" if params_only
-                         else ""), flush=True)
+        for u in build.UNITS:
+            if u.partition("@")[0] in SOURCES:
+                new.update(sass_functions(cuobjdump, build.library_path(u)))
+        for key in sorted(new):
+            name = f"{key[0]}<{', '.join(map(str, key[1]))}> prec {key[2]}"
+            if key not in old:
+                summary["only_here"].append(name)
+                continue
+            same = old[key] == new[key]
+            summary["compared"] += 1
+            summary["identical"] += same
+            params_only = not same and (
+                [_PARAM.sub("c[0x0][*]", i) for i in old[key]]
+                == [_PARAM.sub("c[0x0][*]", i) for i in new[key]])
+            if not same:
+                summary["differ"].append(name)
+            if params_only:
+                summary["differ_in_param_offsets_only"].append(name)
+            print(f"[sass] {name}: {len(old[key])} vs {len(new[key])} "
+                  f"instructions, identical {same}"
+                  + (", but for the parameters' offsets" if params_only
+                     else ""), flush=True)
     print(json.dumps({"sass_compare": summary}), flush=True)
     return 0
 

@@ -14,6 +14,10 @@ tree's `build/`, and times, through entry points both trees have:
   (the flagship's 16 x 8192 window) and 4096 (a verify);
 - K0c, `ops.exact_math.softmax_canonical`, at za [4096, 256] and
   [131072, 256];
+- K0a, `ops.exact_math.exact_fn`, exp, tanh and sigmoid over 450,020
+  floats (the JAX probe's count) and over the scorer's embedding [131072,
+  64], by device time (GRAPH_LAUNCHES launches captured in one CUDA graph,
+  before any profiler session), beside torch.exp / tanh / sigmoid;
 - one scorer pass, `WaveNetInfer.score_device`, at the flagship over the
   16 x 8192 window from silence: its time by CUDA events and its device
   time by kernel group (`scorer_split`).
@@ -40,6 +44,9 @@ WINDOW_M, VERIFY_M = 16 * 8192, 4096
 PRODUCTS = tuple((M, K, N) for M in (WINDOW_M, VERIFY_M)
                  for K, N in ((64, 128), (64, 320), (256, 256)))
 SOFTMAX_ROWS = (VERIFY_M, WINDOW_M)
+K0A_SHAPES = ((450020,), (WINDOW_M, 64))
+K0A_FNS = ("exp", "tanh", "sigmoid")
+GRAPH_LAUNCHES = 100
 SCORER_B, SCORER_T = 16, 8192
 TURNS = ("other", "this", "this", "other")
 # profiler sessions tried before giving up: the first sessions of a process
@@ -62,6 +69,30 @@ def time_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(torch, fn, n: int = GRAPH_LAUNCHES) -> float:
+    """Device time of one call of fn: n calls captured in one CUDA graph,
+    replayed once after a warm-up replay, by CUDA events over n."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def device_ms(torch, fn, reps: int = 5) -> float:
@@ -164,12 +195,25 @@ def one_turn(root: str) -> dict:
     from nv_wavenet_tpu_torch.utils import profiling
     dev = torch.device("cuda")
     out = {"root": root, "card": profiling.card(), "products": [],
-           "softmax": [], "hashes": {}}
+           "softmax": [], "k0a": [], "hashes": {}}
 
     def gen(seed: int):
         g = torch.Generator(device=dev)
         g.manual_seed(seed)
         return g
+
+    # K0a first: graph replays before any profiler session attaches CUPTI
+    for i, shape in enumerate(K0A_SHAPES):
+        x = torch.rand(shape, generator=gen(400 + i), device=dev) * 16 - 8
+        for name in K0A_FNS:
+            label = f"exact_fn {name} {'x'.join(map(str, shape))}"
+            out["hashes"][label] = digest(em.exact_fn(name, x))
+            out["k0a"].append({
+                "fn": name, "shape": list(shape),
+                "device_ms": graph_ms(
+                    torch, functools.partial(em.exact_fn, name, x)),
+                "torch_device_ms": graph_ms(
+                    torch, functools.partial(getattr(torch, name), x))})
 
     for i, (M, K, N) in enumerate(PRODUCTS):
         g = gen(100 + i)
@@ -260,6 +304,12 @@ def main(argv) -> int:
         "softmax_device_ms": {str(s["shape"]): [
             r["softmax"][i]["device_ms"] for r in turns]
             for i, s in enumerate(turns[0]["softmax"])},
+        "k0a_device_ms": {f"{k['fn']} {k['shape']}": [
+            r["k0a"][i]["device_ms"] for r in turns]
+            for i, k in enumerate(turns[0]["k0a"])},
+        "k0a_torch_device_ms": {f"{k['fn']} {k['shape']}": [
+            r["k0a"][i]["torch_device_ms"] for r in turns]
+            for i, k in enumerate(turns[0]["k0a"])},
         "scorer_ms": [r["scorer_ms"] for r in turns],
         "scorer_device_ms": [r["scorer_split"]["total_ms"] for r in turns],
         "outputs_that_differ": differ}

@@ -39,9 +39,11 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(PKG_DIR), "build",
                           "nv_wavenet_tpu_torch")
 SOURCES = ("exact_math_kernels.cu", "ordered_matmul.cu", "persistent.cu",
-           "staged_generate.cu", "stream_generate.cu", "fused_chain.cu",
+           "staged_generate.cu", "generic_generate.cu",
+           "staged_stream_generate.cu", "stream_generate.cu", "fused_chain.cu",
            "probes.cu")
 PRECISION_SOURCES = ("persistent.cu", "staged_generate.cu",
+                     "generic_generate.cu", "staged_stream_generate.cu",
                      "stream_generate.cu", "fused_chain.cu")
 # sources also built with contraction allowed, as unit `<source>@fmad`
 FMAD_SOURCES = ("probes.cu",)
