@@ -81,8 +81,12 @@ any failure exits non-zero:
      migration and one that began at the full reset and ran through the
      partial reset; then K5 on one 160-step ragged tick of the scenario,
      timed, and on a 16-step tick against the plain version (0 mismatches)
- 10. K2 and K3 at the flagship: vs plain over 16 steps of request 1 (K2
-     forcing its samples), each timed over a 256-step launch
+ 10. K2 and K3 at the flagship (the staged step: the staged K4 on K1's own
+     stream, ops/persistent.py::generation_route): vs plain over 16 steps
+     of request 1 (K2 forcing its samples), each timed over a 256-step
+     launch; then in each precision against csrc/persistent.cu's K2 and K3
+     (named by route=) over 2048 steps, bit for bit in y, p_seq, ring and
+     y_state, each launching its kernel alone, both timed
  11. scoring at full width: counts set to 0 just before and read just
      after; request 1's window (16 x 8192 samples) scored from silence by
      `WaveNetInfer.score` (the time-parallel scorer: K7's gate, res/skip
@@ -90,14 +94,16 @@ any failure exits non-zero:
      symbols: p_seq, the final ring and y_state bit-equal; both timed;
      `scoring.score_teacher_forced_kernel` (K2) and
      `score_teacher_forced_parallel` on the same audio, bits per sample
-     within 1e-5; then one scorer pass on counts of its own (L gate, L
+     within 1e-5; K2 must launch on the staged step, csrc/persistent.cu
+     not; then one scorer pass on counts of its own (L gate, L
      res/skip, 2 product, 1 K0a, 1 K0c launches); it is traced in phase 33
  12. handoff: request 1 fed in two halves equals its run; then the first
      half scored and the second fed: 0 mismatches, and the half-window
      p_seq equals the full window's first half bit for bit
  13. prng at full width: counts set to 0 just before and read just after;
      one request of 16 x 8192 samples through run_chunks(256, mode="prng"),
-     its time per step beside K1's
+     its time per step beside K1's; K3 on the staged step must launch,
+     csrc/persistent.cu's not
  14. K4 (weight streaming; the staged K4 of csrc/staged_stream_generate.cu
      wherever its plan holds) vs plain, TEST_CONFIG_MED, B=4, T=19, in each
      storage (fp32, bf16, int8) and mode (sample, argmax with the dump,
@@ -130,10 +136,14 @@ any failure exits non-zero:
      the dump) and K5 (one ragged tick) against their plain versions, each
      on counts of its own (the route's generic kernel launched once, the
      staged one not; 0 mismatches in y and y_state in the case's own
-     precision, the others as phase 23); at A=2048 the first K4 in each
-     storage and precision against the generic K1 on the storage's values
-     bit for bit, and a MANYBLOCK request per storage (the first K4
-     launched, the staged K4 not); each kernel timed there
+     precision, the others as phase 23); at each of them (fault F3 at
+     R=512 and R=9: the first K4's general instance) the first K4 in each
+     storage and precision the case runs, mode sample against the generic
+     K1 and modes forced and prng against csrc/persistent.cu's K2 and K3
+     (their route there), all on the storage's values, bit for bit (y,
+     ring, y_state, p_seq), each launching alone; a MANYBLOCK request per
+     storage at A=2048 and R=512 (the first K4 launched, the staged K4
+     not); each kernel timed at A=2048
  18. score -> feed under MANYBLOCK int8 (fault R9 of the JAX engine): score
      the first half of a 2048-step flagship window, feed the second: equal
      to one int8 generation, and the scored ring equal to the generated one
@@ -144,7 +154,9 @@ any failure exits non-zero:
      1e-5, sampled symbols >= 99% equal (mismatches printed), the ring
      within the xt ladder and y_state equal on the rows whose samples
      agree; a 7 + 9 split equal to one call (y, ring bits, y_state);
-     pack_gates on and off equal in y
+     pack_gates on and off equal in y.  K6 is the cluster K6
+     (csrc/fused_chain.cu) wherever ops/fused_chain.py::fused_route names
+     it: here and in phases 20-22, 26, 27 and 31-32
  20. the TV contract on the card: the hot case of
      tests/test_low_precision.py (6L, R=32, S=128, A=256, B=8, T=256), K6
      forced on K1's samples against K2: fp32 max TV and max |dp| < 5e-4;
@@ -154,15 +166,30 @@ any failure exits non-zero:
      0.20, TV > 0
  21. K6 at the flagship, B=16: forced on request 1's first 256 samples
      against K2 (max TV < 5e-4); timed over a 256-step launch in fp32 and
-     fast_math, pack_gates on and off, beside K1; fast_math against the
-     plain version over 16 steps (timed)
+     fast_math, pack_gates on and off, beside K1 and beside the first K6
+     (named by route=); fast_math against the plain version over 16 steps
+     (timed)
+ 21b. the cluster K6's one-row groups (plan.rows = 1): B=3 at
+     TEST_CONFIG_MED and the speculative draft's b=1 at the flagship, T=16,
+     each mode in each precision against its plain version (forced p_seq
+     within 1e-5, sampled >= 99%), each call launching its cluster K6
+     instance alone; then the kernel against fused_chain.cluster_model, the
+     plain model of its sums that the CPU tests hold, at TEST_CONFIG_MED,
+     B=4 (two-row groups) and B=3, T=8, every mode and precision: y, ring
+     bits, y_state and p_seq bits equal
  22. the latency-tier main path: counts set to 0 just before and read just
      after; the main path's 3 requests through
      WaveNetInfer(priority="latency").run_chunks(256), kHz per utterance
-     beside K1's and K4's; K6 must have launched, K1 not; a dump run on the
+     beside K1's and K4's; the cluster K6 must have launched, K1 and the
+     first K6 not; a dump run on the
      same engine equal to a default engine's bit for bit (y, p); 16
      lockstep feeds of 160 samples through it, per-feed wall time p50/p99,
      equal to request 1's samples
+ 22b. the first K6 (csrc/fused_chain_first.cu) at a geometry only it runs
+     (6 layers, R=40: the cluster plan needs R a multiple of 16), B=4,
+     T=16: the route names it with the cluster plan's error; each mode in
+     each precision against its plain version (forced p_seq within 1e-5,
+     sampled >= 99%), each call launching the first K6 alone; timed
  23. the fast and bf16 instances vs plain, TEST_CONFIG_MED, B=4, T=8: K1
      (sample; argmax with the dump), K2 (forced), K3 (prng), K5 (a ragged
      call), K4 in each storage and mode, K6-bf16 in each mode: sampled
@@ -176,15 +203,18 @@ any failure exits non-zero:
      (p_seq, ring bits, y_state); a bf16 score -> feed handoff over 1024
  25. the main path in bf16 and in fast: counts set to 0 just before and
      read just after; the main path's 3 requests, a prng and a forced
-     request of 1024 (K1, K3 and K2 of that precision must launch, exact K1
-     not), kHz per utterance beside K1-exact's; request 1's first 8 samples
+     request of 1024 (K1 of that precision must launch, exact K1 not; the
+     prng and the forced request on the staged step of that precision, on
+     counts of their own, csrc/persistent.cu not), kHz per utterance
+     beside K1-exact's; request 1's first 8 samples
      against the plain version (>= 99% equal); one MANYBLOCK request of
      each precision on its own counts (K4 of that precision must launch)
      equal to that precision's request 1
  26. the latency tier's slot handover: SERVE's scenario cut to 48 ticks
      through WaveNetInfer(priority="latency"), fast and with
      compute_dtype=torch.bfloat16; counts set to 0 just before and read
-     just after: K5 of that precision and K6 must launch, exact K5 not;
+     just after: K5 of that precision and K6 must launch, exact K5 and the
+     first K6 not;
      per-feed p50/p99; the utterances begun at the partial reset or later,
      replayed lockstep without fuse_chain: 0 mismatches
  27. every fast and bf16 instance timed over a 256-step flagship launch (K5:
@@ -216,7 +246,7 @@ any failure exits non-zero:
      per utterance beside run()'s; the same for bf16 weights and
      MANYBLOCK int8 over 512 samples at window 128
  32. the speculative cost fit at b=1: a round's time at windows 64, 128 and
-     256, least squares V0 + V1 K, E0 run()'s time per step (K1), the
+     256 (the mean of 3 runs after a warm-up), least squares V0 + V1 K, E0 run()'s time per step (K1), the
      adaptive branch over every probe result (speculative.DEFAULT_COST)
  33. the scorer pass of phase 11 traced with torch.profiler: its device
      time by kernel group (K7's gate, res/skip and product entries, K0a,
@@ -224,10 +254,12 @@ any failure exits non-zero:
      build/traces/.  It comes last: once the profiler has started, CUPTI
      stays attached and slows every later launch
  34. the `kernels` JSON line: per kernel its launches on its path (K5: the
-     serving phase; K0a, K0c, K7, K2: the scoring phase; K3: the prng
-     request; K4: the MANYBLOCK main path; K6: the latency-tier main path;
-     each fast and bf16 instance: its phase 25 or 26 path; the generic
-     K1/K5 and the first K4: phase 17b; P1, P5: the probe phases), its
+     serving phase; K0a, K0c, K7, K2 (the staged step): the scoring phase;
+     K3 (the staged step): the prng request; K4: the MANYBLOCK main path;
+     K6: the latency-tier main path; each fast and bf16 instance: its
+     phase 25 or 26 path; the generic K1/K5, the first K4 and
+     csrc/persistent.cu's K2/K3: phase 17b; the first K6: phase 22b; P1,
+     P5: the probe phases), its
      time, the
      plain version's, the least time the card could take for the same work
      (bound_ms) and, where one PyTorch call computes the same function, that
@@ -328,6 +360,13 @@ F2_CASES = (("A=2048", dict(num_layers=2, R=64, S=256, A=2048,
             ("R=9", dict(num_layers=2, R=9, S=16, A=32, max_dilation=2,
                          silence_bin=16), "bf16"))
 F2_PRECISIONS = ("exact", "fast", "bf16")
+# K2 and K3 on the staged step (generation_route) against csrc/persistent.cu's
+# K2 and K3 at the flagship, bit for bit, over K2K3_T steps in each precision
+K2K3_T = 2048
+# the first K6 alone: a geometry the cluster plan rejects (R not a multiple
+# of 16) and the first K6 runs, B=FIRST_K6_B over FIRST_K6_T steps
+FIRST_K6_CFG = dict(num_layers=6, R=40, S=128, A=256, max_dilation=8)
+FIRST_K6_B, FIRST_K6_T = 4, 16
 F2_B, F2_T, F2_TIME_T = 4, 16, 64
 K4_SMALL_T = 19   # K4 vs plain at TEST_CONFIG_MED: holds the 11 + 8 split
 # K6 (the collapsed chain): against its plain version at TEST_CONFIG_MED,
@@ -335,6 +374,13 @@ K4_SMALL_T = 19   # K4 vs plain at TEST_CONFIG_MED: holds the 11 + 8 split
 # mode x {fp32, fast_math} unpacked and two packed variants (mode, fast_math,
 # pack_gates); a 7 + 9 split
 K6_SMALL_B, K6_SMALL_T, K6_SPLIT = 4, 16, 7
+# the cluster K6's one-row groups: an odd B at TEST_CONFIG_MED and the
+# speculative draft's b=1 at the flagship, against the plain version over
+# K6_ODD_T steps; and the kernel against fused_chain.cluster_model bit for
+# bit at TEST_CONFIG_MED, B = K6_SMALL_B (two-row groups) and K6_ODD_B (one
+# row), over K6_MODEL_T steps (the model sums term by term on the CPU,
+# ~0.15-0.2 s a step there)
+K6_ODD_B, K6_ODD_T, K6_MODEL_T = 3, 16, 8
 K6_VARIANTS = tuple((m, f, False) for m in ("sample", "argmax", "prng", "forced")
                     for f in (False, True)) + (("sample", False, True),
                                                ("forced", True, True))
@@ -391,6 +437,9 @@ P5_INSTANCES = (("exact", "l2", "exact + gate (K1's stage)"),
 SPEC_T, SPEC_WINDOW = 2048, 256
 SPEC_STORE_T, SPEC_STORE_WINDOW = 512, 128
 SPEC_FIT_WINDOWS = (64, 128, 256)
+# runs a window of the fit, after a warm-up: one run's line moved V0 by
+# ~300 us between calls on one tree (PERF.md)
+SPEC_FIT_REPS = 3
 # the same with a draft made wrong on purpose (rs_w + SPEC_PERT_OFFSET in its
 # fold, as tests/test_torch_speculative.py's garbage draft): b=1 and b=16,
 # SPEC_PERT_T samples, not a multiple of SPEC_PERT_WINDOW, so rounds commit
@@ -1276,11 +1325,13 @@ def check_fallbacks(torch, np, persistent, tsg, cfg_lib, params_lib,
                                  * (live or B * steps))
                         if prec == "exact" else
                         lowp_bound(cfg, B, steps, prec, live=live))
-        if label != F2_CASES[0][0]:
-            continue
-        # A = 2048: the first K4 in every storage and precision against the
-        # generic K1 on the storage's values, bit for bit
-        for prec in F2_PRECISIONS:
+        # the first K4 (the staged K4's plan raises at every F2 geometry; at
+        # R = 512 and R = 9 in bf16 its general instance, fault F3) in every
+        # storage and precision the case runs: mode sample against the
+        # generic K1, forced and prng against csrc/persistent.cu's K2 and K3
+        # (their route there), all fed the storage's values, bit for bit
+        precs = F2_PRECISIONS if label != "R=9" else (own,)
+        for prec in precs:
             kw = prec_kw(torch, prec)
 
             def fresh():
@@ -1291,49 +1342,104 @@ def check_fallbacks(torch, np, persistent, tsg, cfg_lib, params_lib,
                 skw = storage_kw(torch, name)
                 sview = storage_view(persistent, params, skw)
                 scp = (cond + sview["dil_b"][None, :, None, :]).contiguous()
-                g4 = persistent.make_persistent_generator(
-                    cfg, B, stream_weights=True, **skw, **kw)
-                if g4.route.kernel != "stream":
-                    fail(f"A=2048 MANYBLOCK {name} {prec}: routed to "
-                         f"{g4.route.kernel}")
-                g1 = persistent.make_persistent_generator(cfg, B, **kw)
-                zero()
-                o4 = g4(params, 0, scp, sel, *fresh())
-                torch.cuda.synchronize()
-                n_l = counts()
-                o1 = g1(sview, 0, scp, sel, *fresh())
-                torch.cuda.synchronize()
-                sym = persistent.STREAM_KERNELS[prec].symbol
-                if n_l[sym] != 1 or sum(n_l.values()) != 1:
-                    fail(f"A=2048 MANYBLOCK {name} {prec}: {sym} did not "
-                         f"launch alone: {n_l}")
-                key = f"K4 first {prec}"
-                res["launches"][key] = res["launches"].get(key, 0) + 1
-                mism = (int((o4[0] != o1[0]).sum())
-                        + bit_mismatches(torch, o4[1].float(), o1[1].float())
-                        + int(not torch.equal(o4[2], o1[2])))
-                res["mismatches"] += mism
-                res["runs"].append(f"first K4 {name} {prec} vs generic K1: "
-                                   f"{mism}")
-                log(f"[F2] A=2048 first K4 {name} {prec} vs the generic K1 "
-                    f"on the storage's values over {F2_TIME_T} steps: {mism} "
-                    f"mismatches (y, ring bits, y_state)")
-                if name == ("fp32" if prec == "exact" else "bf16"):
-                    res["ms"][key] = time_launch_ms(torch, np, lambda r_, y_: g4(
-                        params, 0, scp, sel, r_, y_), fresh, reps=2)
-                    st = fresh()
+                sym_in = torch.randint(0, cfg.A, (F2_TIME_T, B), generator=g,
+                                       device=dev).to(torch.float32)
+                for mode in ("sample", "forced", "prng"):
+                    s_in = sym_in if mode == "forced" else sel
+                    g4 = persistent.make_persistent_generator(
+                        cfg, B, mode=mode, stream_weights=True, **skw, **kw)
+                    if g4.route.kernel != "stream" or (
+                            label != "A=2048") != g4.route.plan.general:
+                        fail(f"{label} MANYBLOCK {name} {prec} {mode}: routed "
+                             f"to {g4.route.kernel}")
+                    g1 = persistent.make_persistent_generator(cfg, B,
+                                                              mode=mode, **kw)
+                    want1 = {"sample": "generic", "forced": "forced",
+                             "prng": "prng"}[mode]
+                    if g1.route.kernel != want1:
+                        fail(f"{label} {prec} {mode}: routed to "
+                             f"{g1.route.kernel}, not {want1}")
+                    zero()
+                    o4 = g4(params, 0, scp, s_in, *fresh(), seed=PRNG_SEED)
                     torch.cuda.synchronize()
-                    t = time.perf_counter()
-                    persistent.generate_plain(cfg, tsg.product_view(sview, prec),
-                                              0, cpn, seln, *st, T, prec=prec)
+                    n_l = counts()
+                    zero()
+                    o1 = g1(sview, 0, scp, s_in, *fresh(), seed=PRNG_SEED)
                     torch.cuda.synchronize()
-                    res["plain_ms"][key] = (time.perf_counter() - t) * 1e3
-                    res["bound"][key] = (
-                        bound_ms(k4_bytes(cfg, B, F2_TIME_T, name),
-                                 k4_ops(cfg, B, F2_TIME_T, name))
-                        if prec == "exact" else
-                        lowp_bound(cfg, B, F2_TIME_T, prec, storage=name))
-        # one MANYBLOCK request per storage through the engine
+                    n_1 = counts()
+                    sym = persistent.STREAM_KERNELS[prec].symbol
+                    sym1 = g1.route.cuda_kernel(prec).symbol
+                    if (n_l[sym] != 1 or sum(n_l.values()) != 1
+                            or n_1[sym1] != 1 or sum(n_1.values()) != 1):
+                        fail(f"{label} MANYBLOCK {name} {prec} {mode}: {sym} "
+                             f"and {sym1} did not each launch alone: {n_l}, "
+                             f"{n_1}")
+                    key = f"K4 first {prec}"
+                    res["launches"][key] = res["launches"].get(key, 0) + 1
+                    if mode != "sample":
+                        k1 = f"{'K2' if mode == 'forced' else 'K3'} first {prec}"
+                        res["launches"][k1] = res["launches"].get(k1, 0) + 1
+                    mism = (int((o4[0] != o1[0]).sum())
+                            + bit_mismatches(torch, o4[1].float(),
+                                             o1[1].float())
+                            + int(not torch.equal(o4[2], o1[2])))
+                    if mode == "forced":
+                        mism += bit_mismatches(torch, o4[3], o1[3])
+                    res["mismatches"] += mism
+                    res["runs"].append(f"first K4 {label} {name} {prec} "
+                                       f"{mode} vs {want1}: {mism}")
+                    log(f"[F2] {label} first K4 {name} {prec} {mode} vs "
+                        f"{g1.route.kernel} on the storage's values over "
+                        f"{F2_TIME_T} steps: {mism} mismatches (y, ring bits, "
+                        f"y_state{', p_seq bits' if mode == 'forced' else ''})")
+                    if (label == F2_CASES[0][0] and mode == "sample"
+                            and name == ("fp32" if prec == "exact"
+                                         else "bf16")):
+                        res["ms"][key] = time_launch_ms(
+                            torch, np, lambda r_, y_: g4(
+                                params, 0, scp, sel, r_, y_), fresh, reps=2)
+                        st = fresh()
+                        torch.cuda.synchronize()
+                        t = time.perf_counter()
+                        persistent.generate_plain(
+                            cfg, tsg.product_view(sview, prec), 0, cpn, seln,
+                            *st, T, prec=prec)
+                        torch.cuda.synchronize()
+                        res["plain_ms"][key] = (time.perf_counter() - t) * 1e3
+                        res["bound"][key] = (
+                            bound_ms(k4_bytes(cfg, B, F2_TIME_T, name),
+                                     k4_ops(cfg, B, F2_TIME_T, name))
+                            if prec == "exact" else
+                            lowp_bound(cfg, B, F2_TIME_T, prec, storage=name))
+                    if (label == F2_CASES[0][0] and mode != "sample"
+                            and name == ("fp32" if prec == "exact"
+                                         else "bf16")):
+                        # persistent.cu's K2 / K3 timed at their fallback
+                        k1 = f"{'K2' if mode == 'forced' else 'K3'} first {prec}"
+                        res["ms"][k1] = time_launch_ms(
+                            torch, np, lambda r_, y_: g1(
+                                sview, 0, scp, s_in, r_, y_, seed=PRNG_SEED),
+                            fresh, reps=2)
+                        st = fresh()
+                        torch.cuda.synchronize()
+                        t = time.perf_counter()
+                        persistent.generate_plain(
+                            cfg, tsg.product_view(sview, prec), 0, cpn,
+                            s_in[:T].contiguous(), *st, T,
+                            mode="forced" if mode == "forced" else "sample",
+                            prec=prec)
+                        torch.cuda.synchronize()
+                        res["plain_ms"][k1] = (time.perf_counter() - t) * 1e3
+                        ops = k1_ops_per_row_step(cfg) * B * F2_TIME_T
+                        res["bound"][k1] = (
+                            bound_ms(k1_bytes(cfg, B, F2_TIME_T), ops)
+                            if prec == "exact" else
+                            lowp_bound(cfg, B, F2_TIME_T, prec))
+        # one MANYBLOCK request per storage through the engine (fault F3:
+        # at R = 512 the engine raised at construction); R = 9's case has a
+        # silence bin of its own, which the engine does not take
+        if label == "R=9":
+            continue
         ref_w = params_lib.random_reference_weights(cfg, seed=21)
         for name in STORAGES:
             eng = WaveNetInfer(**ckw, max_batch=B, device="cuda",
@@ -1345,14 +1451,291 @@ def check_fallbacks(torch, np, persistent, tsg, cfg_lib, params_lib,
             y = eng.run(T, B)
             torch.cuda.synchronize()
             n_l = counts()
-            sym = persistent.STREAM_KERNELS["exact"].symbol
+            eprec = "exact"
+            sym = persistent.STREAM_KERNELS[eprec].symbol
             if (not n_l[sym] or n_l[persistent.STAGED_STREAM_KERNELS[
-                    "exact"].symbol] or y.shape != (B, T)):
-                fail(f"the A=2048 MANYBLOCK request ({name}) did not run on "
+                    eprec].symbol] or y.shape != (B, T)):
+                fail(f"the {label} MANYBLOCK request ({name}) did not run on "
                      f"the first K4 alone: {n_l}")
-            res["launches"]["K4 first exact"] += n_l[sym]
-            log(f"[F2] A=2048 MANYBLOCK {name} request of {B} x {T}: the "
+            res["launches"][f"K4 first {eprec}"] += n_l[sym]
+            log(f"[F2] {label} MANYBLOCK {name} request of {B} x {T}: the "
                 f"first K4 launched {n_l[sym]} time(s), the staged K4 none")
+    return res
+
+
+def check_k2k3_routes(torch, np, persistent, tsg, cfg, params, cond, sel,
+                      sym, dev, all_kernels) -> dict:
+    """K2 and K3 without stream_weights run the staged K4 on K1's own stream
+    (`generation_route`): at the flagship, over K2K3_T steps in each
+    precision, the routed K2 (forced on request 1's samples) and K3 (prng)
+    against csrc/persistent.cu's K2 and K3 (named by route=), bit for bit
+    in y, p_seq, ring and y_state, each launching its kernel alone; both
+    timed over a CHECK_T-step launch."""
+    B = sel.shape[1]
+    res = {"mismatches": 0, "ms": {}, "first_ms": {}, "runs": []}
+    cp = (cond[:K2K3_T] + params["dil_b"][None, :, None, :]).contiguous()
+    counts = lambda: {k.symbol: k.launches for k in all_kernels}  # noqa: E731
+    for prec in F2_PRECISIONS:
+        kw = prec_kw(torch, prec)
+
+        def fresh():
+            return (persistent.init_ring(cfg, B, dev, tsg.ring_dtype(prec)),
+                    torch.full((2, B), cfg.silence_bin, dtype=torch.int32,
+                               device=dev))
+        for mode, s_in in (("forced", sym[:K2K3_T].contiguous()),
+                           ("prng", sel[:K2K3_T].contiguous())):
+            new = persistent.make_persistent_generator(cfg, B, mode=mode,
+                                                       **kw)
+            old = persistent.make_persistent_generator(
+                cfg, B, mode=mode, route=persistent.Route(
+                    mode, False, None, "held against the staged step"), **kw)
+            if new.route.kernel != "staged_stream":
+                fail(f"{mode} {prec} is routed to {new.route.kernel}")
+            outs, launched = [], []
+            for gen in (new, old):
+                for k in all_kernels:
+                    k.launches = 0
+                outs.append(gen(params, 0, cp, s_in, *fresh(), seed=PRNG_SEED))
+                torch.cuda.synchronize()
+                launched.append({k: v for k, v in counts().items() if v})
+            want = [{g.route.cuda_kernel(prec).symbol: 1} for g in (new, old)]
+            if launched != want:
+                fail(f"{mode} {prec}: launched {launched}, not {want}")
+            a, b = outs
+            mism = (int((a[0] != b[0]).sum())
+                    + bit_mismatches(torch, a[1].float(), b[1].float())
+                    + int(not torch.equal(a[2], b[2])))
+            if mode == "forced":
+                mism += bit_mismatches(torch, a[3], b[3])
+            key = f"{'K2' if mode == 'forced' else 'K3'} {prec}"
+            res["mismatches"] += mism
+            res["ms"][key] = time_launch_ms(torch, np, lambda r, ys: new(
+                params, 0, cp[:CHECK_T], s_in[:CHECK_T].contiguous(), r, ys,
+                seed=PRNG_SEED), fresh)
+            res["first_ms"][key] = time_launch_ms(torch, np, lambda r, ys: old(
+                params, 0, cp[:CHECK_T], s_in[:CHECK_T].contiguous(), r, ys,
+                seed=PRNG_SEED), fresh)
+            res["runs"].append(f"{key}: {mism}")
+            log(f"[K2/K3 route] {key}: the staged step vs csrc/persistent.cu "
+                f"over {K2K3_T} flagship steps: {mism} mismatches (y, ring "
+                f"bits, y_state{', p_seq bits' if mode == 'forced' else ''}); "
+                f"{res['ms'][key]:.3f} vs {res['first_ms'][key]:.3f} ms per "
+                f"{CHECK_T}-step launch")
+    return res
+
+
+def check_first_k6(torch, np, fc, persistent, tsg, cfg_lib, params_lib, dev,
+                   all_kernels) -> dict:
+    """The first K6 (csrc/fused_chain_first.cu) at FIRST_K6_CFG, a geometry
+    the cluster plan rejects (R not a multiple of 16): the route names it
+    with the cluster plan's error; in each mode and precision against its
+    plain version (forced p_seq within 1e-5, sampled symbols >= 99% equal),
+    each call on counts of its own (the first K6 launched once, the
+    cluster K6 not); timed over a FIRST_K6_T-step launch in each
+    precision."""
+    cfg = cfg_lib.WaveNetConfig(**FIRST_K6_CFG)
+    B, T = FIRST_K6_B, FIRST_K6_T
+    params = params_lib.canonical_to_torch(params_lib.to_canonical(
+        params_lib.random_reference_weights(cfg, seed=23), cfg), dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(23)
+    cond = (torch.rand((T, cfg.num_layers, B, 2 * cfg.R), generator=g,
+                       device=dev) - 0.5)
+    sel = torch.rand((T, B), generator=g, device=dev)
+    res = {"ok": True, "mismatches": 0, "p_err": 0.0, "launches": {},
+           "ms": {}, "plain_ms": {}, "bound": {}}
+    for prec in F2_PRECISIONS:
+        kw = prec_kw(torch, prec)
+        fast = prec != "exact"
+        w = fc.prepare_weights(params, cfg, False, **kw)
+
+        def fresh():
+            return (persistent.init_ring(cfg, B, dev, tsg.ring_dtype(prec)),
+                    torch.full((2, B), cfg.silence_bin, dtype=torch.int32,
+                               device=dev))
+        sym = None
+        for mode in ("sample", "argmax", "prng", "forced"):
+            gen = fc.make_fused_generator(cfg, B, mode, **kw)
+            if gen.route.kernel != "first" or "16" not in gen.route.note:
+                fail(f"the first K6's geometry is routed to {gen.route}")
+            s_in = sym if mode == "forced" else sel
+            for k in all_kernels:
+                k.launches = 0
+            out_k = gen(w, 0, cond, s_in, *fresh(), seed=PRNG_SEED)
+            torch.cuda.synchronize()
+            n_l = {k.symbol: k.launches for k in all_kernels if k.launches}
+            want = {gen.route.cuda_kernel(mode, prec).symbol: 1}
+            if n_l != want:
+                fail(f"the first K6 {mode} {prec} launched {n_l}, not {want}")
+            res["launches"][prec] = res["launches"].get(prec, 0) + 1
+            t = time.perf_counter()
+            out_p = fc.generate_fused_plain(
+                cfg, w, 0, cond, s_in, *fresh(), T, mode, PRNG_SEED,
+                prec == "fast", False,
+                torch.bfloat16 if prec == "bf16" else torch.float32)
+            torch.cuda.synchronize()
+            if mode == "sample":
+                sym = out_p[0].to(torch.float32)
+                res["plain_ms"][prec] = (time.perf_counter() - t) * 1e3
+            mism = int((out_k[0] != out_p[0]).sum())
+            p_err = (float((out_k[3] - out_p[3]).abs().max())
+                     if mode == "forced" else 0.0)
+            ok = (mism == 0 and p_err < 1e-5 if mode == "forced"
+                  else mism <= 0.01 * T * B)
+            res["mismatches"] += mism
+            res["p_err"] = max(res["p_err"], p_err)
+            res["ok"] &= ok
+            log(f"[K6 first] {mode} {prec} at R={cfg.R}: {mism}/{T * B} y "
+                f"mismatches vs plain, p_seq err {p_err:.3g}; ok {ok}")
+        gen = fc.make_fused_generator(cfg, B, **kw)
+        res["ms"][prec] = time_launch_ms(torch, np, lambda r, ys: gen(
+            w, 0, cond, sel, r, ys), fresh, reps=2)
+        res["bound"][prec] = k6_bound(cfg, B, T, fast,
+                                      ring_bytes=2 if prec == "bf16" else 4)
+    log(f"[K6 first] timed over {T}-step launches at B={B}: "
+        + ", ".join(f"{p} {v:.3f} ms" for p, v in res["ms"].items()))
+    return res
+
+
+def k6_inputs(torch, np, cfg, B: int, T: int, seed: int, dev):
+    """Raw cond [T, L, B, 2R] in [-0.5, 0.5) and sel [T, B], from `seed`."""
+    rng = np.random.RandomState(seed)
+    cond = rng.uniform(-0.5, 0.5, (T, cfg.num_layers, B, 2 * cfg.R))
+    sel = rng.uniform(0, 1, (T, B))
+    return (torch.from_numpy(cond.astype(np.float32)).to(dev),
+            torch.from_numpy(sel.astype(np.float32)).to(dev))
+
+
+def same_bits(torch, a, b) -> bool:
+    """Two float tensors of one dtype (fp32 or bf16) equal bit for bit."""
+    bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return torch.equal(a.cpu().contiguous().view(bits),
+                       b.cpu().contiguous().view(bits))
+
+
+def check_k6_one_row(torch, np, fc, persistent, tsg, cases, all_kernels
+                     ) -> dict:
+    """The cluster K6 where its plan forms one-row groups (plan.rows = 1):
+    each (label, cfg, params, B) of `cases` over K6_ODD_T steps from fresh
+    state, in every mode and precision, against its plain version on the
+    same prepared weights (raw cond): forced p_seq within 1e-5 and its
+    symbols equal, sampled symbols >= 99% equal; each call on counts of
+    its own launching the cluster K6's instance alone."""
+    T = K6_ODD_T
+    res = {"ok": True, "mismatches": 0, "row_steps": 0, "p_err": 0.0,
+           "runs": 0}
+    for label, cfg, params, B in cases:
+        dev = next(iter(params.values())).device
+        cond, sel = k6_inputs(torch, np, cfg, B, T, 1021 + B, dev)
+        for prec in F2_PRECISIONS:
+            kw = prec_kw(torch, prec)
+            w = fc.prepare_weights(params, cfg, False, **kw)
+            sym = None
+            for mode in ("sample", "argmax", "prng", "forced"):
+                gen = fc.make_fused_generator(cfg, B, mode, **kw)
+                if gen.route.kernel != "cluster" or gen.route.plan.rows != 1:
+                    fail(f"K6 {label} B={B} is not on one-row cluster "
+                         f"groups: {gen.route}")
+                s_in = sym if mode == "forced" else sel
+
+                def fresh():
+                    return (persistent.init_ring(cfg, B, dev,
+                                                 tsg.ring_dtype(prec)),
+                            torch.full((2, B), cfg.silence_bin,
+                                       dtype=torch.int32, device=dev))
+                for k in all_kernels:
+                    k.launches = 0
+                out_k = gen(w, 0, cond, s_in, *fresh(), seed=PRNG_SEED)
+                torch.cuda.synchronize()
+                n_l = {k.symbol: k.launches for k in all_kernels
+                       if k.launches}
+                want = {gen.route.cuda_kernel(mode, prec).symbol: 1}
+                if n_l != want:
+                    fail(f"K6 {label} B={B} {mode} {prec} launched {n_l}, "
+                         f"not {want}")
+                out_p = fc.generate_fused_plain(
+                    cfg, w, 0, cond, s_in, *fresh(), T, mode, PRNG_SEED,
+                    prec == "fast", False,
+                    torch.bfloat16 if prec == "bf16" else torch.float32)
+                torch.cuda.synchronize()
+                if mode == "sample":
+                    sym = out_p[0].to(torch.float32)
+                mism = int((out_k[0] != out_p[0]).sum())
+                p_err = (float((out_k[3] - out_p[3]).abs().max())
+                         if mode == "forced" else 0.0)
+                ok = (mism == 0 and p_err < 1e-5 if mode == "forced"
+                      else mism <= 0.01 * T * B)
+                res["mismatches"] += mism
+                res["row_steps"] += T * B
+                res["p_err"] = max(res["p_err"], p_err)
+                res["runs"] += 1
+                res["ok"] &= ok
+                log(f"[K6 one-row] {label} B={B} {mode} {prec}: {mism}/"
+                    f"{T * B} y mismatches vs plain, p_seq err {p_err:.3g};"
+                    f" ok {ok}")
+    return res
+
+
+def check_k6_model(torch, np, fc, persistent, tsg, cfg, params, batches,
+                   all_kernels) -> dict:
+    """The cluster K6 against `fused_chain.cluster_model`, the plain model
+    of its sums that the CPU tests hold to the plain K6, the JAX kernel and
+    the TV contract: at each B of `batches` (two-row and one-row groups),
+    over K6_MODEL_T steps from fresh state, in every mode and precision,
+    the kernel on the card and the model on the CPU from the same prepared
+    weights, inputs and state; y, the ring's bits, y_state and p_seq's bits
+    must be equal."""
+    T = K6_MODEL_T
+    dev = next(iter(params.values())).device
+    cpu = torch.device("cpu")
+    res = {"ok": True, "runs": 0, "unequal": [], "model_s": 0.0}
+    for B in batches:
+        cond, sel = k6_inputs(torch, np, cfg, B, T, 1031 + B, dev)
+        for prec in F2_PRECISIONS:
+            kw = prec_kw(torch, prec)
+            w = fc.prepare_weights(params, cfg, False, **kw)
+            w_cpu = tuple(x.cpu() for x in w)
+            plan = fc.cluster_plan(cfg, B, prec)
+            stream = fc.cluster_stream(w_cpu, cfg, plan)
+            sym = None
+            for mode in ("sample", "argmax", "prng", "forced"):
+                gen = fc.make_fused_generator(cfg, B, mode, **kw)
+                if gen.route.kernel != "cluster" or gen.route.plan != plan:
+                    fail(f"K6 at B={B} {prec} is routed to {gen.route}")
+                s_in = sym if mode == "forced" else sel
+
+                def fresh(d):
+                    return (persistent.init_ring(cfg, B, d,
+                                                 tsg.ring_dtype(prec)),
+                            torch.full((2, B), cfg.silence_bin,
+                                       dtype=torch.int32, device=d))
+                for k in all_kernels:
+                    k.launches = 0
+                out_k = gen(w, 0, cond, s_in, *fresh(dev), seed=PRNG_SEED)
+                torch.cuda.synchronize()
+                if not gen.route.cuda_kernel(mode, prec).launches:
+                    fail(f"K6 at B={B} {mode} {prec} did not launch")
+                t = time.perf_counter()
+                out_m = fc.cluster_model(cfg, plan, stream, w_cpu, 0,
+                                         cond.cpu(), s_in.cpu(),
+                                         *fresh(cpu), T, mode, PRNG_SEED,
+                                         prec)
+                res["model_s"] += time.perf_counter() - t
+                if mode == "sample":
+                    sym = out_k[0].to(torch.float32)
+                equal = {"y": torch.equal(out_k[0].cpu(), out_m[0]),
+                         "ring": same_bits(torch, out_k[1], out_m[1]),
+                         "y_state": torch.equal(out_k[2].cpu(), out_m[2])}
+                if mode == "forced":
+                    equal["p_seq"] = same_bits(torch, out_k[3], out_m[3])
+                bad = [k for k, v in equal.items() if not v]
+                if bad:
+                    res["unequal"].append(f"B={B} {mode} {prec}: {bad}")
+                res["ok"] &= not bad
+                res["runs"] += 1
+                log(f"[K6 model] B={B} (rows {plan.rows}) {mode} {prec}: "
+                    f"kernel vs cluster_model over {T} steps, unequal: "
+                    f"{bad or 'none'}")
     return res
 
 
@@ -2429,7 +2812,7 @@ def main() -> int:
                    em.SOFTMAX_BLOCK_KERNEL, om.ORDERED_MATMUL_KERNEL,
                    om.ORDERED_GATE_KERNEL, om.ORDERED_RES_SKIP_KERNEL,
                    *(k for t in k1_tables.values() for k in t.values()),
-                   *fc.FUSED_KERNELS.values())
+                   *fc.FUSED_KERNELS.values(), *fc.FIRST_FUSED_KERNELS.values())
     for k in all_kernels:
         k.launches = 0
     requests, main_ys = [], []
@@ -2685,6 +3068,13 @@ def main() -> int:
     if (k2_flag["echo_mismatches"] or k2_flag["p_err"] > 1e-6
             or not k2_flag["state_equal"] or k3_flag["mismatches"]):
         fail("K2 or K3 disagrees with its plain version at the flagship")
+    # K2 and K3 run the staged step: bit for bit against csrc/persistent.cu's
+    k2k3 = check_k2k3_routes(torch, np, persistent, tsg, cfg, params, cond,
+                             sel, sym_main, dev, all_kernels)
+    log(json.dumps({"k2k3_routes": {**k2k3, "steps": K2K3_T,
+                                    "card": card}}))
+    if k2k3["mismatches"]:
+        fail(f"the staged K2/K3 differ from csrc/persistent.cu's: {k2k3}")
 
     # -- phase 11: scoring at full width --------------------------------------
     mark("phase 11: scoring at full width")
@@ -2788,10 +3178,13 @@ def main() -> int:
              "functions' bits per sample differ by more than 1e-5")
     scoring_kernels = (om.ORDERED_MATMUL_KERNEL, om.ORDERED_GATE_KERNEL,
                        om.ORDERED_RES_SKIP_KERNEL, em.EXACT_FN_KERNEL,
-                       em.SOFTMAX_KERNEL, persistent.FORCED_KERNELS["exact"])
-    if not all(score_launches[k.symbol] for k in scoring_kernels):
+                       em.SOFTMAX_KERNEL,
+                       persistent.STAGED_STREAM_KERNELS["exact"])
+    if (not all(score_launches[k.symbol] for k in scoring_kernels)
+            or score_launches[exact_sym["K2"]]):
         fail(f"the scoring path did not launch K7 (product, gate and "
-             f"res/skip), K0a, K0c and K2: {score_launches}")
+             f"res/skip), K0a, K0c and K2 on the staged step (not "
+             f"csrc/persistent.cu): {score_launches}")
 
     # -- phase 12: score -> feed handoff --------------------------------------
     mark("phase 12: score -> feed handoff")
@@ -2844,9 +3237,10 @@ def main() -> int:
         f"{requests[0]['seconds'] / MAIN_T * 1e6:.2f}); K3 "
         f"{k3_ms / CHECK_T * 1e3:.2f} us per step on the card, K1 "
         f"{k1_us:.2f}; output well-formed {prng_ok}")
-    if not prng_ok or not prng_launches[exact_sym["K3"]]:
-        fail(f"the prng request did not launch K3 or is malformed: "
-             f"{prng_launches}")
+    if (not prng_ok or not prng_launches[exact_sym["K4"]]
+            or prng_launches[exact_sym["K3"]]):
+        fail(f"the prng request did not launch K3 on the staged step (and "
+             f"not csrc/persistent.cu) or is malformed: {prng_launches}")
 
     # -- phase 14: K4 vs plain, small config ----------------------------------
     mark("phase 14: K4 vs plain, small config")
@@ -3027,12 +3421,20 @@ def main() -> int:
                                                   sym_chk, *fresh())[3])
     k6_flag_tv = float(tv(np, p_k2, p_k6).max())
     del p_k2, p_k6
-    k6_ms, k6_bounds = {}, {}
+    k6_ms, k6_first_ms, k6_bounds = {}, {}, {}
     for (f, p), w in k6w.items():
         gen6 = fc.make_fused_generator(cfg, MAIN_B, fast_math=f,
                                        prefold_cond=True, pack_gates=p)
+        if gen6.route.kernel != "cluster":
+            fail(f"K6 at the flagship is routed to {gen6.route.kernel}")
+        first6 = fc.make_fused_generator(
+            cfg, MAIN_B, fast_math=f, prefold_cond=True, pack_gates=p,
+            route=fc.FusedRoute("first", fc.fused_plan(cfg, p),
+                                "timed beside the cluster K6"))
         name = f"{'fast_math' if f else 'fp32'} pack={p}"
         k6_ms[name] = time_launch_ms(torch, np, lambda r, ys: gen6(
+            w, 0, cp_chk, sel_chk, r, ys), fresh)
+        k6_first_ms[name] = time_launch_ms(torch, np, lambda r, ys: first6(
             w, 0, cp_chk, sel_chk, r, ys), fresh)
         k6_bounds[name] = k6_bound(cfg, MAIN_B, CHECK_T, f)
     n = FLAG_PLAIN_T
@@ -3053,19 +3455,41 @@ def main() -> int:
     k6_flag = {"forced_max_tv": k6_flag_tv,
                "plain_mismatches": int((~same).sum()),
                "ring_err": float((ring_k - ring_p)[:, same.all(0)].abs().max()),
-               "plain_ms": k6_plain, "ms": k6_ms,
+               "plain_ms": k6_plain, "ms": k6_ms, "first_ms": k6_first_ms,
                "us_per_step": {k: v / CHECK_T * 1e3 for k, v in k6_ms.items()},
-               "bound": k6_bounds}
+               "first_us_per_step": {k: v / CHECK_T * 1e3
+                                     for k, v in k6_first_ms.items()},
+               "bound": k6_bounds, "plan": {
+                   k: str(v) if k == "storage" else v for k, v in
+                   fc.cluster_plan(cfg, MAIN_B)._asdict().items()}}
     log(f"[K6 flagship] forced on request 1's first {CHECK_T} samples vs K2: "
         f"max TV {k6_flag_tv:.3g} (limit 5e-4); us per step of a {CHECK_T}"
-        f"-step launch: " + ", ".join(f"{k} {v:.2f}" for k, v
-                                      in k6_flag["us_per_step"].items())
+        f"-step launch: " + ", ".join(
+            f"{k} {v:.2f} (first K6 {k6_flag['first_us_per_step'][k]:.2f})"
+            for k, v in k6_flag["us_per_step"].items())
         + f" (K1 {k1_us:.2f}); fast_math vs plain over {n} steps: "
         f"{k6_flag['plain_mismatches']}/{n * MAIN_B} mismatches, ring max "
         f"abs err {k6_flag['ring_err']:.3g}, plain {k6_plain:.1f} ms")
     if k6_flag_tv >= 5e-4 or k6_flag["plain_mismatches"] > 0.01 * n * MAIN_B:
         fail(f"K6 disagrees with K2 or its plain version at the flagship: "
              f"{k6_flag}")
+
+    # -- phase 21b: the cluster K6's one-row groups and its model ------------
+    mark("phase 21b: the cluster K6's one-row groups and its model")
+    k6_one_row = check_k6_one_row(
+        torch, np, fc, persistent, tsg,
+        (("TEST_CONFIG_MED", mcfg, m_params, K6_ODD_B),
+         ("flagship", cfg, params, 1)), all_kernels)
+    if not k6_one_row["ok"]:
+        fail(f"the cluster K6's one-row groups disagree with the plain "
+             f"version: {k6_one_row}")
+    k6_model = check_k6_model(torch, np, fc, persistent, tsg, mcfg, m_params,
+                              (K6_SMALL_B, K6_ODD_B), all_kernels)
+    log(f"[K6 model] {k6_model['runs']} runs, {len(k6_model['unequal'])} "
+        f"unequal; the model took {k6_model['model_s']:.1f} s on the CPU")
+    if not k6_model["ok"]:
+        fail(f"the cluster K6 is not its model bit for bit: "
+             f"{k6_model['unequal']}")
 
     # -- phase 22: the latency-tier main path ---------------------------------
     mark("phase 22: the latency-tier main path")
@@ -3099,8 +3523,10 @@ def main() -> int:
         lat_y1 = y if r == 0 else lat_y1
     lat_launches = {k.symbol: k.launches for k in all_kernels}
     k6_launches = sum(k.launches for k in fc.FUSED_KERNELS.values())
-    if not k6_launches or lat_launches[exact_sym["K1"]]:
-        fail(f"the latency tier did not run on K6 alone: {lat_launches}")
+    if (not k6_launches or lat_launches[exact_sym["K1"]]
+            or any(k.launches for k in fc.FIRST_FUSED_KERNELS.values())):
+        fail(f"the latency tier did not run on the cluster K6 alone: "
+             f"{lat_launches}")
     # a dump run on the same engine is the exact kernel's: bit-equal to a
     # default engine's dump run in y and p
     leng.set_inputs(cond, sel)
@@ -3147,6 +3573,13 @@ def main() -> int:
         fail("the latency tier's dump run is not the exact kernel's, or its "
              "feeds differ from its run")
 
+
+    # -- phase 22b: the first K6 alone -----------------------------------------
+    mark("phase 22b: the first K6 where the cluster plan raises")
+    first_k6 = check_first_k6(torch, np, fc, persistent, tsg, cfg_lib,
+                              params_lib, dev, all_kernels)
+    if not first_k6["ok"]:
+        fail(f"the first K6 disagrees with its plain version: {first_k6}")
 
     # -- phase 23: fast and bf16 against their plain versions, small config --
     mark("phase 23: fast and bf16 vs plain, small config")
@@ -3260,21 +3693,30 @@ def main() -> int:
                 fail(f"{prec} request {r + 1}: malformed output")
             reqs.append({"seconds": dt, "khz_per_utt": MAIN_T / dt / 1e3})
             y1 = y if r == 0 else y1
+        lw = {k.symbol: k.launches for k in all_kernels}
         n = LOWP_SHORT_T
         peng2.sampling_seed = PRNG_SEED
         peng2.set_inputs(cond[:n], sel[:n])
+        for k in all_kernels:
+            k.launches = 0
         y_prng = peng2.run_chunks(MAIN_CHUNK, lambda yc, off, n_: None, n,
                                   MAIN_B, mode="prng")
+        lw_prng = {k.symbol: k.launches for k in all_kernels}
         peng2.set_inputs(cond[:n], torch.from_numpy(np.ascontiguousarray(
             y1[:, :n].T, np.float32)).to(dev))
+        for k in all_kernels:
+            k.launches = 0
         y_forced = peng2.run_chunks(MAIN_CHUNK, lambda yc, off, n_: None, n,
                                     MAIN_B, mode="forced")
-        lw = {k.symbol: k.launches for k in all_kernels}
-        need = [k1_tables[k][prec] for k in ("K1", "K2", "K3")]
-        if (not all(lw[k.symbol] for k in need)
-                or lw[exact_sym["K1"]]):
-            fail(f"the {prec} main path did not run on K1/K2/K3-{prec} "
-                 f"alone: {lw}")
+        lw_forced = {k.symbol: k.launches for k in all_kernels}
+        staged = k1_tables["K4"][prec].symbol
+        if (not lw[k1_tables["K1"][prec].symbol] or lw[exact_sym["K1"]]
+                or not lw_prng[staged] or not lw_forced[staged]
+                or lw_prng[k1_tables["K3"][prec].symbol]
+                or lw_forced[k1_tables["K2"][prec].symbol]):
+            fail(f"the {prec} main path did not run on K1-{prec} and its "
+                 f"forced and prng requests on the staged step (not "
+                 f"csrc/persistent.cu): {lw}, {lw_prng}, {lw_forced}")
         # request 1's first LOWP_PLAIN_T samples against the plain version
         # of this precision (timed: the plain_ms of K1-{prec})
         cpp = (first[0][:LOWP_PLAIN_T] + params["dil_b"][None, :, None, :]
@@ -3311,6 +3753,7 @@ def main() -> int:
             "requests": reqs,
             "khz_per_utt": float(np.mean([q["khz_per_utt"] for q in reqs])),
             "khz_per_utt_exact": khz, "launches": lw,
+            "prng_launches": lw_prng, "forced_launches": lw_forced,
             "forced_echo_mismatches": int((y_forced != y1[:, :n]).sum()),
             "prng_well_formed": bool(y_prng.shape == (MAIN_B, n)
                                      and int(y_prng.min()) >= 0
@@ -3393,6 +3836,7 @@ def main() -> int:
             f"lockstep: {h['replay_mismatches']} mismatches")
         if (not hl[k1_tables["K5"][prec].symbol]
                 or not hl[fc.FUSED_KERNELS[("injected", prec)].symbol]
+                or any(hl[k.symbol] for k in fc.FIRST_FUSED_KERNELS.values())
                 or hl[exact_sym["K5"]]
                 or h["replay_mismatches"] or not h["migrated_rows"]):
             fail(f"the {prec} slot handover did not run on K5-{prec} and K6, "
@@ -3617,16 +4061,23 @@ def main() -> int:
 
     # -- phase 32: the speculative cost fit -----------------------------------
     mark("phase 32: the speculative cost fit")
-    # b=1: a round's time against the window, least squares V0 + V1 K; E0
+    # b=1: a round's time against the window (the mean of SPEC_FIT_REPS
+    # runs after a warm-up), least squares V0 + V1 K; E0
     # the exact kernel's time per step (run(), K1, at b=1)
     fit_rows = []
     for K in SPEC_FIT_WINDOWS:
-        torch.cuda.synchronize()
-        t = time.perf_counter()
         fit_eng.run_speculative(SPEC_T, 1, window=K, adaptive=False)
-        dt = time.perf_counter() - t
+        runs = []
+        for _ in range(SPEC_FIT_REPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fit_eng.run_speculative(SPEC_T, 1, window=K, adaptive=False)
+            runs.append(time.perf_counter() - t)
+        dt = float(np.mean(runs))
         fit_rows.append({"window": K, "rounds": fit_eng.spec_rounds,
                          "round_us": dt / fit_eng.spec_rounds * 1e6,
+                         "runs_round_us": [x / fit_eng.spec_rounds * 1e6
+                                           for x in runs],
                          "us_per_sample": dt / SPEC_T * 1e6})
     V1, V0 = np.polyfit([r["window"] for r in fit_rows],
                         [r["round_us"] for r in fit_rows], 1)
@@ -3717,9 +4168,11 @@ def main() -> int:
               variant="ragged=True (:109-118, 252-256, 302-311, 410-416) "
                       "and rotate_ring_phase (:785)",
               launches_on="the serving phase"),
-        entry("K2 persistent_generate_kernel<kSelForced, kPrecExact>",
-              csrc + "persistent.cu", "nv_wavenet_tpu/ops/persistent.py:762",
-              score_launches[exact_sym["K2"]],
+        entry("K2 staged_stream_kernel<kStorageF32, kPrecExact, 1> (mode "
+              "forced, on K1's stream)",
+              csrc + "staged_stream_generate.cu",
+              "nv_wavenet_tpu/ops/persistent.py:762",
+              score_launches[exact_sym["K4"]],
               k2_small["echo_mismatches"] + k2_flag["echo_mismatches"]
               + score_cmp["p_bit_mismatches"]
               + score_cmp["ring_bit_mismatches"],
@@ -3729,17 +4182,26 @@ def main() -> int:
               f"plain_ms over {FLAG_PLAIN_T} steps",
               variant='mode="forced" (:139-146, 387-400, 692-694)',
               launches_on="the scoring phase",
-              window_ms=k2_window_ms),
-        entry("K3 persistent_generate_kernel<kSelPrng, kPrecExact>",
-              csrc + "persistent.cu", "nv_wavenet_tpu/ops/persistent.py:762",
-              prng_launches[exact_sym["K3"]],
+              window_ms=k2_window_ms,
+              first_ms=k2k3["first_ms"]["K2 exact"],
+              vs_first_mismatches=k2k3["mismatches"],
+              first="persistent_generate_kernel<kSelForced, kPrecExact> "
+                    "(csrc/persistent.cu), where staged_plan raises: K2-first"),
+        entry("K3 staged_stream_kernel<kStorageF32, kPrecExact, 1> (mode "
+              "prng, on K1's stream)",
+              csrc + "staged_stream_generate.cu",
+              "nv_wavenet_tpu/ops/persistent.py:762",
+              prng_launches[exact_sym["K4"]],
               k3_small["mismatches"] + k3_small["chunk_mismatches"]
               + k3_flag["mismatches"], 0.0, k3_ms, k3_flag["plain_ms"],
               k3_bound, k3_by, None,
               f"flagship, B={MAIN_B}, T={CHECK_T} steps per launch; "
               f"plain_ms over {FLAG_PLAIN_T} steps",
               variant='mode="prng", prng_uniform_sel (:74-83, 404-405)',
-              launches_on="the prng request"),
+              launches_on="the prng request",
+              first_ms=k2k3["first_ms"]["K3 exact"],
+              first="persistent_generate_kernel<kSelPrng, kPrecExact> "
+                    "(csrc/persistent.cu), where staged_plan raises: K3-first"),
         entry("K4 staged_stream_kernel<kStorage, kPrecExact, kGeo>",
               csrc + "staged_stream_generate.cu",
               "nv_wavenet_tpu/ops/persistent.py:762",
@@ -3778,7 +4240,7 @@ def main() -> int:
                        "plan": c4["plan"], "vs_k1": c4["per_case"],
                        "manyblock_khz_per_utt": c4["manyblock_khz_per_utt"],
                        "manyblock_launches": c4["manyblock_launches"]}),
-        entry("K6 fused_generate_kernel<kSel, kFast>", csrc + "fused_chain.cu",
+        entry("K6 cluster_chain_kernel<kSel, kPrecFast>", csrc + "fused_chain.cu",
               "nv_wavenet_tpu/ops/fused_chain.py:414", k6_launches,
               k6_small["y_mismatches"] + k6_small["split_mismatches"]
               + k6_small["pack_mismatches"] + dump_mism + feed_mism
@@ -3794,13 +4256,16 @@ def main() -> int:
               library="none: no single torch call computes it",
               mismatches_are="sampled symbols against the plain version "
                              "(K6 is TV-governed: >= 99% agreement)",
-              instances=[f"fused_generate_kernel<{sl}, {pr}>"
+              instances=[f"cluster_chain_kernel<{sl}, {pr}>"
                          for sl in ("kSelInjected", "kSelForced", "kSelPrng")
                          for pr in ("kPrecExact", "kPrecFast")],
               variants={k: {"ms": v, "us_per_step": v / CHECK_T * 1e3,
+                            "first_ms": k6_first_ms[k],
                             "bound_ms": k6_bounds[k][0],
                             "bound_by": k6_bounds[k][1]}
                         for k, v in k6_ms.items()},
+              first_ms=k6_first_ms["fast_math pack=False"],
+              plan=k6_flag["plan"],
               k1_ms=k1_ms, tv={"flagship_forced_max": k6_flag_tv, **k6_tv},
               khz_per_utt=latency["khz_per_utt"],
               feed_ms_p50=f50, feed_ms_p99=f99,
@@ -3827,6 +4292,24 @@ def main() -> int:
                            == em.SOFTMAX_BLOCK_KERNEL.symbol]}},
               speculative_launches=spec_n(em.SOFTMAX_KERNEL)),
     ]
+    # the first K6, where the cluster plan raises (phase 22b)
+    f6 = ", ".join(f"{k}={v}" for k, v in FIRST_K6_CFG.items())
+    for prec in F2_PRECISIONS:
+        kp = {"exact": "kPrecExact", "fast": "kPrecFast",
+              "bf16": "kPrecBF16"}[prec]
+        kernels.append(entry(
+            f"K6-first{'' if prec == 'exact' else '-' + prec} "
+            f"fused_generate_kernel<kSel, {kp}>",
+            csrc + "fused_chain_first.cu",
+            "nv_wavenet_tpu/ops/fused_chain.py:414",
+            first_k6["launches"][prec], first_k6["mismatches"],
+            first_k6["p_err"], first_k6["ms"][prec],
+            first_k6["plain_ms"][prec], *first_k6["bound"][prec], None,
+            f"{f6}, B={FIRST_K6_B}, T={FIRST_K6_T} steps",
+            launches_on="the geometries the cluster plan rejects (phase "
+                        "22b: R not a multiple of 16)",
+            library="none: no single torch call computes it",
+            **({"flagship_ms": k6_first_ms} if prec == "exact" else {})))
     # K7's three entries: their top-level numbers are the sums over the
     # scorer's shapes at the window (16 x 8192 rows)
     for name, sym_k, ent, lib_name in (
@@ -3887,18 +4370,20 @@ def main() -> int:
              f"flagship, B={MAIN_B}, one {SERVE['tick_t']}-step ragged "
              f"tick ({live} live row-steps)",
              handover[prec]["replay_mismatches"]),
-            ("K2", "persistent.cu",
-             f"persistent_generate_kernel<kSelForced, {kp}>",
-             main_l[k1_tables["K2"][prec].symbol],
+            ("K2", "staged_stream_generate.cu",
+             f"staged_stream_kernel<kStorageBF16, {kp}, 1> (mode forced, "
+             f"on K1's stream)",
+             lowp_main[prec]["forced_launches"][k1_tables["K4"][prec].symbol],
              f"the {prec} forced request ({LOWP_SHORT_T} steps)",
              lowp_bound(cfg, MAIN_B, CHECK_T, prec, mode="forced"),
              f"flagship, B={MAIN_B}, T={CHECK_T} steps per launch",
              lowp_main[prec]["forced_echo_mismatches"] + (
                  bf_score["p_bit_mismatches"]
                  + bf_score["ring_bit_mismatches"] if prec == "bf16" else 0)),
-            ("K3", "persistent.cu",
-             f"persistent_generate_kernel<kSelPrng, {kp}>",
-             main_l[k1_tables["K3"][prec].symbol],
+            ("K3", "staged_stream_generate.cu",
+             f"staged_stream_kernel<kStorageBF16, {kp}, 1> (mode prng, on "
+             f"K1's stream)",
+             lowp_main[prec]["prng_launches"][k1_tables["K4"][prec].symbol],
              f"the {prec} prng request ({LOWP_SHORT_T} steps)",
              lowp_bound(cfg, MAIN_B, CHECK_T, prec, mode="prng"),
              f"flagship, B={MAIN_B}, T={CHECK_T} steps per launch", 0),
@@ -3914,7 +4399,7 @@ def main() -> int:
              + lowp_main[prec]["manyblock_vs_k1_mismatches"])]
         if prec == "bf16":
             specs.append((
-                "K6", "fused_chain.cu", "fused_generate_kernel<kSel, kPrecBF16>",
+                "K6", "fused_chain.cu", "cluster_chain_kernel<kSel, kPrecBF16>",
                 handover[prec]["launches"][
                     fc.FUSED_KERNELS[("injected", prec)].symbol],
                 "the latency tier's slot handover (bf16, lockstep ticks)",
@@ -3958,19 +4443,25 @@ def main() -> int:
                  f"{a_cfg}, B={F2_B}, T={F2_TIME_T} steps"),
                 ("K5", f"generic_generate_kernel<true, {kp}>",
                  f"{a_cfg}, B={F2_B}, a {F2_T}-step ragged tick"),
-                ("K4 first", f"stream_generate_kernel<kStorage, kSel, {kp}>",
+                ("K4 first", f"stream_generate_kernel<kStorage, kSel, {kp}, "
+                 f"false>",
                  f"{a_cfg}, B={F2_B}, T={F2_TIME_T} steps, "
-                 f"{'fp32' if prec == 'exact' else 'bf16'} stacks")):
+                 f"{'fp32' if prec == 'exact' else 'bf16'} stacks"),
+                ("K2 first", f"persistent_generate_kernel<kSelForced, {kp}>",
+                 f"{a_cfg}, B={F2_B}, T={F2_TIME_T} steps"),
+                ("K3 first", f"persistent_generate_kernel<kSelPrng, {kp}>",
+                 f"{a_cfg}, B={F2_B}, T={F2_TIME_T} steps")):
             key = f"{k} {prec}"
             n_l = f2["launches"].get(key, 0)
             if not n_l:
                 fail(f"{key} did not launch on the F2 path")
             kernels.append(entry(
-                f"{k if k != 'K4 first' else 'K4-first'}"
-                f"{'-generic' if k != 'K4 first' else ''}"
+                f"{k.replace(' ', '-') if 'first' in k else k + '-generic'}"
                 f"{'' if prec == 'exact' else '-' + prec} {inst}",
-                csrc + ("stream_generate.cu" if k == "K4 first"
-                        else "generic_generate.cu"),
+                csrc + {"K4 first": "stream_generate.cu",
+                        "K2 first": "persistent.cu",
+                        "K3 first": "persistent.cu"}.get(
+                            k, "generic_generate.cu"),
                 "nv_wavenet_tpu/ops/persistent.py:762", n_l,
                 f2["mismatches"], f2["ring_err"], f2["ms"][key],
                 f2["plain_ms"][key], *f2["bound"][key], None,

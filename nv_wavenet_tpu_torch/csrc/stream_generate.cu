@@ -108,6 +108,8 @@ constexpr int kModePrng = 3;
 constexpr int kStorageF32 = 0;
 constexpr int kStorageBF16 = 1;
 constexpr int kStorageI8 = 2;
+// the general instances' kSel: the selector source is read at run time
+constexpr int kSelRuntime = -1;
 
 struct StreamArgs {
   const float* embed;   // [2A, R]
@@ -143,6 +145,11 @@ struct StreamArgs {
   int stages;           // ring slots
   int stage_bytes;      // one slot, a multiple of 128
   int prefetch;         // copies may run into the next step
+  // the general instances only (kGeneral): the stored rows' strides in
+  // elements (2R and R+S padded to whole 16-byte units) and the selector
+  // source (kSel*), a run-time argument there
+  int ldd, ldr;
+  int sel_src;
 };
 
 // ---- mbarriers and bulk copies (sm_90 PTX) --------------------------------
@@ -224,21 +231,24 @@ struct Storage<kStorageI8> {
 // Copy the c-th stage of a step into the slot `dst` with barrier `bar`.
 // Called by one thread, after a barrier that every reader of the slot's
 // previous stage has passed.
-template <typename TW>
+// Stored rows are 2R (dil_w) and R+S (rs_w) elements long, or in the
+// general instances a.ldd and a.ldr: those padded to whole 16-byte units.
+template <typename TW, bool kGeneral>
 __device__ __forceinline__ void issue_stage(const StreamArgs& a, unsigned char* dst,
                                             uint64_t* bar, int c, int per_layer) {
   const int R = a.R, R2 = 2 * R, RS = R + a.S, kc = a.rows, nd = R / kc;
+  const int ldd = kGeneral ? a.ldd : R2, ldr = kGeneral ? a.ldr : RS;
   const int l = c / per_layer, s = c % per_layer;
   if (s < nd) {
     // rows [s kc, s kc + kc) of Wprev, then the same rows of Wcur
-    const TW* W = (const TW*)a.dil_w + (size_t)l * R2 * R2;
-    const uint32_t half = (uint32_t)(kc * R2 * sizeof(TW));
+    const TW* W = (const TW*)a.dil_w + (size_t)l * R2 * ldd;
+    const uint32_t half = (uint32_t)(kc * ldd * sizeof(TW));
     bar_expect(bar, 2 * half);
-    bulk_copy(dst, W + (size_t)s * kc * R2, half, bar);
-    bulk_copy(dst + half, W + (size_t)(R + s * kc) * R2, half, bar);
+    bulk_copy(dst, W + (size_t)s * kc * ldd, half, bar);
+    bulk_copy(dst + half, W + (size_t)(R + s * kc) * ldd, half, bar);
   } else {
-    const TW* W = (const TW*)a.rs_w + (size_t)l * R * RS + (size_t)(s - nd) * kc * RS;
-    const uint32_t bytes = (uint32_t)(kc * RS * sizeof(TW));
+    const TW* W = (const TW*)a.rs_w + (size_t)l * R * ldr + (size_t)(s - nd) * kc * ldr;
+    const uint32_t bytes = (uint32_t)(kc * ldr * sizeof(TW));
     bar_expect(bar, bytes);
     bulk_copy(dst, W, bytes, bar);
   }
@@ -303,10 +313,20 @@ __device__ __forceinline__ void add_stage_n(float (&acc)[kMaxTasks], const int (
   else if (n == 4) add_stage<kStorage, kPrec, 4>(acc, voff, woff, s, kc, ld);
 }
 
+// The general instances (kGeneral, kSel = kSelRuntime) take the geometries
+// the others cannot: more than kMaxTasks * kThreads output columns in a
+// product (4R or R+S), stored rows padded to whole 16-byte units (a.ldd,
+// a.ldr), R past kThreads.  Each product's columns loop over the threads
+// in passes of kMaxTasks * kThreads, and a column's running sum waits in
+// shared memory (zh, max(4R, R+S) floats) between stages: each column still
+// sums k = 0, 1, ..., K-1 from 0.0f in order.  The pad is never read.  The
+// FIFO read and the conditioning are loaded in the layer, not a layer
+// ahead.  Every other instance compiles as before (if constexpr).
+//
 // One CTA per SM (its shared memory allows no second): ptxas may give each
 // thread up to 255 registers, where it otherwise held some instances to 128
 // and spilled.
-template <int kStorage, int kSel, int kPrec>
+template <int kStorage, int kSel, int kPrec, bool kGeneral>
 __global__ void __launch_bounds__(kThreads, 1) stream_generate_kernel(const StreamArgs a) {
   using TW = typename Storage<kStorage>::T;
   constexpr bool kQuant = kStorage == kStorageI8;
@@ -314,12 +334,13 @@ __global__ void __launch_bounds__(kThreads, 1) stream_generate_kernel(const Stre
   const int B = a.B, L = a.L, R = a.R, S = a.S, A = a.A;
   const int R2 = 2 * R, RS = R + S, kc = a.rows, nd = R / kc, per_layer = 2 * nd;
   const int P = a.stages;
+  const int sel_src = kGeneral ? a.sel_src : kSel;
   unsigned char* slots = smem;                                   // [P][stage_bytes]
   uint64_t* full = (uint64_t*)(smem + (size_t)P * a.stage_bytes);  // [P]
   float* x = (float*)(smem + (size_t)P * a.stage_bytes + ((8 * P + 15) & ~15));
   float* xp = x + R;       // [R]   x_{t-d} read from the FIFO
   float* zh = xp + R;      // [4R]  dilated GEMM halves: [x_{t-d} Wprev | x_t Wcur]
-  float* h = zh + 2 * R2;  // [R]   gate
+  float* h = zh + (kGeneral ? max(2 * R2, RS) : 2 * R2);  // [R]   gate
   float* skip = h + R;     // [S]
   float* zs = skip + S;    // [A]
   float* za = zs + A;      // [A]
@@ -355,7 +376,7 @@ __global__ void __launch_bounds__(kThreads, 1) stream_generate_kernel(const Stre
     if (tid == kThreads - 1) {
       const long long until = min(g + P, limit);
       for (; issued < until; ++issued) {
-        issue_stage<TW>(a, slots + (size_t)islot * a.stage_bytes, full + islot, ipos,
+        issue_stage<TW, kGeneral>(a, slots + (size_t)islot * a.stage_bytes, full + islot, ipos,
                         per_layer);
         islot = islot + 1 == P ? 0 : islot + 1;
         ipos = ipos + 1 == per_step ? 0 : ipos + 1;
@@ -380,6 +401,7 @@ __global__ void __launch_bounds__(kThreads, 1) stream_generate_kernel(const Stre
   // written at t by this thread).
   float xp_next = 0.0f, ct_next = 0.0f, cg_next = 0.0f;
   auto fetch = [&](int jj, int ll) {
+    if constexpr (kGeneral) return;
     if (tid < R) {
       const int off = __ldg(a.sched + ll), d = __ldg(a.sched + L + ll);
       if constexpr (kPrec == kPrecExact) {
@@ -393,7 +415,7 @@ __global__ void __launch_bounds__(kThreads, 1) stream_generate_kernel(const Stre
       cg_next = __ldg(c + R + tid);
     }
   };
-  fetch(0, 0);
+  if constexpr (!kGeneral) fetch(0, 0);
 
   for (int j = 0; j < n_valid; ++j) {
     const long long t = t0 + j;
@@ -431,7 +453,13 @@ __global__ void __launch_bounds__(kThreads, 1) stream_generate_kernel(const Stre
       // then fetch the next layer's
       const int offset = __ldg(a.sched + l), d = __ldg(a.sched + L + l);
       const float ct = ct_next, cg = cg_next;
-      if constexpr (kPrec == kPrecExact) {
+      if constexpr (kGeneral) {
+        for (int i = tid; i < R; i += nt) {
+          const size_t e = ((size_t)(offset + (int)(t & (d - 1))) * B + b) * R + i;
+          xp[i] = operand<kPrec>(ring_get<kPrec>(a.ring, e));
+          ring_put<kPrec>(a.ring, e, x[i]);
+        }
+      } else if constexpr (kPrec == kPrecExact) {
         float* slot = a.ring + ((size_t)(offset + (int)(t & (d - 1))) * B + b) * R;
         if (tid < R) {
           xp[tid] = xp_next;
@@ -444,10 +472,12 @@ __global__ void __launch_bounds__(kThreads, 1) stream_generate_kernel(const Stre
                           x[tid]);
         }
       }
-      if (l + 1 < L) {
-        fetch(j, l + 1);
-      } else if (j + 1 < n_valid) {
-        fetch(j + 1, 0);
+      if constexpr (!kGeneral) {
+        if (l + 1 < L) {
+          fetch(j, l + 1);
+        } else if (j + 1 < n_valid) {
+          fetch(j + 1, 0);
+        }
       }
       __syncthreads();
 
@@ -461,6 +491,42 @@ __global__ void __launch_bounds__(kThreads, 1) stream_generate_kernel(const Stre
       const int h_off = (int)(h - (const float*)smem);
       float acc[kMaxTasks];
       int voff[kMaxTasks], woff[kMaxTasks];
+      if constexpr (kGeneral) {
+        // passes of kMaxTasks * kThreads columns, each column's sum carried
+        // in zh across the stages
+        for (int ch = 0; ch < nd; ++ch) {
+          if (ch) __syncthreads();
+          const TW* W = acquire(limit);
+          const int w0 = (int)(W - (const TW*)smem);
+          for (int base = 0; base < 2 * R2; base += kMaxTasks * kThreads) {
+            const int n = max(0, (2 * R2 - base - tid + kThreads - 1) / kThreads);
+            float s[kMaxTasks];
+#pragma unroll
+            for (int i = 0; i < kMaxTasks; ++i) {
+              const int q = base + tid + i * kThreads, cur = q >= R2, col = q - cur * R2;
+              voff[i] = (cur ? xop_off : xp_off) + ch * kc;
+              woff[i] = w0 + cur * kc * a.ldd + col;
+              s[i] = kQuant && q < 2 * R2 ? __ldg(a.dil_s + (size_t)l * R2 + col) : 1.0f;
+              acc[i] = ch == 0 || q >= 2 * R2 ? 0.0f : zh[q];
+            }
+            add_stage_n<kStorage, kPrec>(acc, voff, woff, s, min(n, kMaxTasks), kc, a.ldd);
+#pragma unroll
+            for (int i = 0; i < kMaxTasks; ++i) {
+              const int q = base + tid + i * kThreads;
+              if (q < 2 * R2) zh[q] = acc[i];
+            }
+          }
+          release();
+        }
+        __syncthreads();
+        const float* c = a.cond + (((size_t)j * L + l) * B + b) * R2;
+        for (int i = tid; i < R; i += nt) {
+          const float zt = (zh[i] + zh[R2 + i]) + __ldg(c + i);
+          const float zg = (zh[R + i] + zh[R2 + R + i]) + __ldg(c + R + i);
+          h[i] = operand<kPrec>(nvw::em_tanh(zt) * nvw::em_sigmoid(zg));
+        }
+        __syncthreads();
+      } else {
 #pragma unroll
       for (int i = 0; i < kMaxTasks; ++i) acc[i] = 0.0f;
       for (int ch = 0; ch < nd; ++ch) {
@@ -490,8 +556,52 @@ __global__ void __launch_bounds__(kThreads, 1) stream_generate_kernel(const Stre
         h[tid] = operand<kPrec>(nvw::em_tanh(zt) * nvw::em_sigmoid(zg));
       }
       __syncthreads();
+      }
 
       // fused residual + skip GEMM: [R | S] output columns
+      if constexpr (kGeneral) {
+        for (int ch = 0; ch < nd; ++ch) {
+          if (ch) __syncthreads();
+          const TW* W = acquire(limit);
+          const int w0 = (int)(W - (const TW*)smem);
+          for (int base = 0; base < RS; base += kMaxTasks * kThreads) {
+            const int n = max(0, (RS - base - tid + kThreads - 1) / kThreads);
+            float s[kMaxTasks];
+#pragma unroll
+            for (int i = 0; i < kMaxTasks; ++i) {
+              const int o = base + tid + i * kThreads;
+              voff[i] = h_off + ch * kc;
+              woff[i] = w0 + o;
+              s[i] = kQuant && o < RS ? __ldg(a.rs_s + (size_t)l * RS + o) : 1.0f;
+              acc[i] = ch == 0 || o >= RS ? 0.0f : zh[o];
+            }
+            add_stage_n<kStorage, kPrec>(acc, voff, woff, s, min(n, kMaxTasks), kc, a.ldr);
+#pragma unroll
+            for (int i = 0; i < kMaxTasks; ++i) {
+              const int o = base + tid + i * kThreads;
+              if (o < RS) zh[o] = acc[i];
+            }
+          }
+          release();
+        }
+        // each thread finishes the columns it summed (o = tid + k kThreads)
+        for (int o = tid; o < RS; o += nt) {
+          const float v = zh[o], bias = __ldg(a.rs_b + (size_t)l * RS + o);
+          if (o < R) {
+            const float xv = (v + bias) + x[o];
+            x[o] = stored<kPrec>(xv);
+            if constexpr (kPrec == kPrecFast) xop[o] = operand<kPrec>(xv);
+          } else {
+            skip[o - R] = (skip[o - R] + v) + bias;
+          }
+        }
+        __syncthreads();
+        if (dump) {
+          for (int i = tid; i < R; i += nt) a.d_xt[((size_t)l * B + b) * R + i] = x[i];
+          for (int i = tid; i < S; i += nt) a.d_skip[((size_t)l * B + b) * S + i] = skip[i];
+        }
+        continue;
+      }
       const int n_rs = (RS - tid + kThreads - 1) / kThreads;
 #pragma unroll
       for (int i = 0; i < kMaxTasks; ++i) acc[i] = 0.0f;
@@ -579,7 +689,7 @@ __global__ void __launch_bounds__(kThreads, 1) stream_generate_kernel(const Stre
           a.d_p[(size_t)b * A + i] = nvw::em_exp(za[i] - zmax) / total;
         }
       }
-      if (kSel == kSelForced) {
+      if (sel_src == kSelForced) {
         const float total = cum[A - 1];
         float* p = a.p_seq + ((size_t)j * B + b) * A;
         for (int i = tid; i < A; i += nt) p[i] = nvw::em_exp(za[i] - zmax) / total;
@@ -587,7 +697,7 @@ __global__ void __launch_bounds__(kThreads, 1) stream_generate_kernel(const Stre
       } else if (a.mode == kModeArgmax) {
         y = nvw::block_argmax(za, A);
       } else {
-        const float u = kSel == kSelPrng ? philox_uniform(a.seed, t, b)
+        const float u = sel_src == kSelPrng ? philox_uniform(a.seed, t, b)
                                          : __ldg(a.sel + (size_t)j * B + b);
         y = nvw::block_select_from_cumsum(cum, u, A, a.silence_bin);
       }
@@ -603,9 +713,9 @@ __global__ void __launch_bounds__(kThreads, 1) stream_generate_kernel(const Stre
   }
 }
 
-template <int kStorage, int kSel, int kPrec>
+template <int kStorage, int kSel, int kPrec, bool kGeneral = false>
 int launch(const StreamArgs& args, int smem, void* stream) {
-  auto kernel = stream_generate_kernel<kStorage, kSel, kPrec>;
+  auto kernel = stream_generate_kernel<kStorage, kSel, kPrec, kGeneral>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -615,6 +725,7 @@ int launch(const StreamArgs& args, int smem, void* stream) {
 
 template <int kStorage, int kPrec>
 int launch_mode(const StreamArgs& args, int mode, int smem, void* stream) {
+  if (args.ldd) return launch<kStorage, kSelRuntime, kPrec, true>(args, smem, stream);
   if (mode == kModeForced) return launch<kStorage, kSelForced, kPrec>(args, smem, stream);
   if (mode == kModePrng) return launch<kStorage, kSelPrng, kPrec>(args, smem, stream);
   return launch<kStorage, kSelInjected, kPrec>(args, smem, stream);
@@ -623,7 +734,9 @@ int launch_mode(const StreamArgs& args, int mode, int smem, void* stream) {
 // The entry points' arguments.  mode: 0 sample, 1 argmax (sel: uniforms), 2
 // forced (sel: symbols, p_seq written), 3 prng (sel not read); storage: 0
 // fp32, 1 bf16, 2 int8 (with dil_s, rs_s); rows/stages/stage_bytes/
-// prefetch/smem_bytes from the plan
+// prefetch/smem_bytes from the plan; ldd/ldr: 0, or the stored rows'
+// strides in elements for a general instance (ops/persistent.py
+// stream_plan)
 #define NVW_STREAM_PARAMS                                                                     \
   const float *embed, const void *dil_w, const void *rs_w, const float *dil_s,                \
       const float *rs_s, const float *rs_b, const float *out_w, const float *out_b,           \
@@ -632,22 +745,29 @@ int launch_mode(const StreamArgs& args, int mode, int smem, void* stream) {
       float *d_zs, float *d_za, float *d_p, float *p_seq, long long t0,                       \
       unsigned long long seed, int n_valid, int B, int L, int R, int S, int A, int tanh_embed, \
       int silence_bin, int mode, int storage, int rows, int stages, int stage_bytes,          \
-      int prefetch, int smem_bytes, void *stream
+      int prefetch, int smem_bytes, int ldd, int ldr, void *stream
 
 template <int kPrec>
 int stream_generate(NVW_STREAM_PARAMS) {
   // the low precisions take the stacks as bf16 (fp32 stacks rounded to bf16
   // hold the same operands) or int8
   const int lowest = kPrec == kPrecExact ? kStorageF32 : kStorageBF16;
+  const int eb = storage == kStorageF32 ? 4 : storage == kStorageBF16 ? 2 : 1;
+  // a general instance takes rows padded to 16 bytes and any column count
+  const bool general = ldd != 0;
   if (mode < kModeSample || mode > kModePrng || storage < lowest ||
       storage > kStorageI8 || rows < 1 || R % rows || stages < 2 || stage_bytes % 128 ||
-      4 * R > kMaxTasks * kThreads || R + S > kMaxTasks * kThreads)
+      (general ? ldd < 2 * R || ldr < R + S || ldd * eb % 16 || ldr * eb % 16
+               : 4 * R > kMaxTasks * kThreads || R + S > kMaxTasks * kThreads))
     return (int)cudaErrorInvalidValue;
+  const int sel_src = mode == kModeForced ? kSelForced : mode == kModePrng ? kSelPrng
+                                                                           : kSelInjected;
   const StreamArgs args{embed, dil_w, rs_w, dil_s, rs_s, rs_b, out_w, out_b, end_w,
                         end_b, cond, sel, sched, ring, y_state, y, d_xt, d_skip, d_zs,
                         d_za, d_p, p_seq, t0, seed, n_valid, B, L, R, S, A, tanh_embed,
                         silence_bin, mode == kModeArgmax ? kModeArgmax : kModeSample, rows,
-                        stages, stage_bytes, prefetch};
+                        stages, stage_bytes, prefetch, general ? ldd : 0, general ? ldr : 0,
+                        general ? sel_src : 0};
   if (storage == kStorageBF16)
     return launch_mode<kStorageBF16, kPrec>(args, mode, smem_bytes, stream);
   if (storage == kStorageI8) return launch_mode<kStorageI8, kPrec>(args, mode, smem_bytes, stream);
@@ -666,7 +786,8 @@ int stream_generate(NVW_STREAM_PARAMS) {
                                   end_w, end_b, cond, sel, sched, ring, y_state, y, d_xt,    \
                                   d_skip, d_zs, d_za, d_p, p_seq, t0, seed, n_valid, B, L,   \
                                   R, S, A, tanh_embed, silence_bin, mode, storage, rows,     \
-                                  stages, stage_bytes, prefetch, smem_bytes, stream);        \
+                                  stages, stage_bytes, prefetch, smem_bytes, ldd, ldr,       \
+                                  stream);                                                   \
   }
 
 // This source is built once per precision (utils/build.py: -DNVW_PREC=0

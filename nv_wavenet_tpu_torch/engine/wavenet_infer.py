@@ -19,7 +19,10 @@ speculative exact decode: `run_speculative`.
     on `sampling_seed` and the absolute clock).  K1 and K5 (the ragged
     feeds) are the staged kernel (`csrc/staged_generate.cu`): every weight
     copied by TMA into shared memory ahead of its use, the dilated prev
-    half computed off the step's chain.  AUTO stays on K1, whose plan
+    half computed off the step's chain.  K2 and K3 run the same staged
+    step (`csrc/staged_stream_generate.cu` on K1's own stream, one copy of
+    the weights for all of them), or `csrc/persistent.cu` where the staged
+    plan raises.  AUTO stays on K1, whose plan
     (`persistent.staged_plan`) holds the flagship, config 4 and every
     geometry the tests run; the JAX engine's AUTO picks MANYBLOCK from a
     VMEM budget, which has no counterpart here (`vmem_budget` is not
@@ -306,6 +309,9 @@ class WaveNetInfer:
         # scorers by batch
         self._gens: Dict[tuple, Callable] = {}
         self._scorers: Dict[int, Callable] = {}
+        # the generators' weight storage on the card, shared by what it
+        # holds: K1/K5 and the staged K2/K3 read one stream
+        self._stored: Dict[tuple, dict] = {}
         # per-row absolute clocks of the open stream [batch] (None: no
         # stream)
         self._stream_t_row: Optional[np.ndarray] = None
@@ -315,6 +321,7 @@ class WaveNetInfer:
     # ------------------------------------------------------------------
 
     def _invalidate(self):
+        self._stored.clear()
         self._params = None
         self._values = None
         self._fused_prep = None
@@ -607,7 +614,8 @@ class WaveNetInfer:
                     stream_group_size=self.stream_group_size,
                     stream_prefetch=self.stream_prefetch,
                     stream_quant=self._quant, ragged=ragged,
-                    compute_dtype=self.compute_dtype, fast_math=fast))
+                    compute_dtype=self.compute_dtype, fast_math=fast,
+                    shared=self._stored))
         return (self._gens[key],
                 self._fused_weights() if fused else self._device_params())
 

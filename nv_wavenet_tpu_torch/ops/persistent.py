@@ -1,10 +1,11 @@
 """The persistent generator: the whole generation of a call in one kernel
 launch (K1 and K5, `csrc/staged_generate.cu`, or where their plan cannot
-hold the geometry `csrc/generic_generate.cu`; K2 and K3,
-`csrc/persistent.cu`; K4, `csrc/staged_stream_generate.cu`, or where its
-plan cannot hold the geometry `csrc/stream_generate.cu`), with its plain
-PyTorch version.  `generation_route` names the kernel a call runs, before
-any launch.
+hold the geometry `csrc/generic_generate.cu`; K2 and K3, K1's staged step
+in `csrc/staged_stream_generate.cu` on K1's own stream, or where the
+staged plan cannot hold the geometry `csrc/persistent.cu`; K4,
+`csrc/staged_stream_generate.cu`, or where its plan cannot hold the
+geometry `csrc/stream_generate.cu`), with its plain PyTorch version.
+`generation_route` names the kernel a call runs, before any launch.
 
 The port's counterpart of `nv_wavenet_tpu/ops/persistent.py`
 (`make_persistent_generator`): modes "sample" and "argmax" with the
@@ -135,7 +136,7 @@ STAGED_STREAM_KERNELS = _kernels(
 # streamed through a ring of row blocks, every mode
 STREAM_KERNELS = _kernels(
     "stream_generate.cu", "nvw_stream_generate",
-    [_P] * 22 + [ctypes.c_longlong, ctypes.c_ulonglong] + [_I] * 15 + [_P])
+    [_P] * 22 + [ctypes.c_longlong, ctypes.c_ulonglong] + [_I] * 17 + [_P])
 _STREAM_MODE_IDS = {"sample": 0, "argmax": 1, "forced": 2, "prng": 3}
 # the stacks' storage dtypes in K4 (csrc/stream_generate.cu kStorage*)
 _STORAGE_IDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -143,7 +144,7 @@ _STORAGE_IDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # the shared memory one H100 block may use, and the H100's SMs
 SMEM_PER_BLOCK = 232448
 SMS = 132
-STREAM_MAX_COLUMNS = 1024  # the first K4's output columns a product: kMaxTasks * kThreads
+STREAM_MAX_COLUMNS = 1024  # the first K4's output columns a product in one pass: kMaxTasks * kThreads
 _STATIC_SMEM = 1024       # the block helpers' static shared memory, rounded up
 
 
@@ -225,6 +226,9 @@ class StreamPlan(NamedTuple):
     lookahead_layers: float   # what the ring holds: (stages - 1) / per layer
     clamped: bool             # the shared memory cut the lookahead
     waves: int                # CTA waves of the batch, one CTA per SM
+    general: bool             # the general instance (columns looped, rows padded)
+    dil_stride: int           # elements of a stored dil_w row: 2R padded to 16 bytes
+    rs_stride: int            # elements of a stored rs_w row: R+S padded to 16 bytes
 
 
 def stream_storage(weight_dtype=torch.float32, stream_quant: bool = False,
@@ -238,13 +242,22 @@ def stream_storage(weight_dtype=torch.float32, stream_quant: bool = False,
     return torch.bfloat16 if prec != "exact" else weight_dtype
 
 
-def activation_smem_bytes(cfg: WaveNetConfig, prec: str = "exact") -> int:
+def activation_smem_bytes(cfg: WaveNetConfig, prec: str = "exact",
+                          general: bool = False) -> int:
     """The shared memory one step's activations take in a CTA of K2/K3 or
     the first K4, beside its stages ((7R + S + 4A) floats, R more under
-    "fast" for the rounded copy of x; the launches in csrc/persistent.cu
-    and csrc/stream_generate.cu compute the same)."""
-    return (7 * cfg.R + cfg.S + 4 * cfg.A
-            + (cfg.R if prec == "fast" else 0)) * 4
+    "fast" for the rounded copy of x; the first K4's general instance holds
+    max(4R, R+S) floats of products where the others hold 4R; the launches
+    in csrc/persistent.cu and csrc/stream_generate.cu compute the same)."""
+    R = cfg.R
+    zh = max(4 * R, R + cfg.S) if general else 4 * R
+    return (3 * R + zh + cfg.S + 4 * cfg.A
+            + (R if prec == "fast" else 0)) * 4
+
+
+def _padded(n: int, eb: int) -> int:
+    """n elements of eb bytes padded to whole 16-byte units."""
+    return -(-n * eb // 16) * 16 // eb
 
 
 def stream_plan(cfg: WaveNetConfig, batch: int, storage=torch.float32,
@@ -270,7 +283,13 @@ def stream_plan(cfg: WaveNetConfig, batch: int, storage=torch.float32,
     runs in waves.  Raises ValueError for a geometry it cannot run: more
     than 1024 output columns in a product (4R or R+S), rows that are not
     whole 16-byte units (the unit of a bulk copy), or fewer than two stages
-    of one row."""
+    of one row.
+
+    The general instance (`general`) takes what the others cannot: more
+    than STREAM_MAX_COLUMNS output columns in a product (4R or R+S; its
+    columns loop over the threads, each still summed in k order), or
+    stored rows that are not whole 16-byte units (dil_stride and rs_stride
+    pad them with zeros that no sum reads; `_stream_stacks`)."""
     if storage not in _STORAGE_IDS:
         raise ValueError(f"K4 stores its stacks as {list(_STORAGE_IDS)}, "
                          f"got {storage}")
@@ -281,19 +300,14 @@ def stream_plan(cfg: WaveNetConfig, batch: int, storage=torch.float32,
         raise ValueError(f"batch must be >= 1, got {batch}")
     L, R, S = cfg.num_layers, cfg.R, cfg.S
     eb = torch.empty((), dtype=storage).element_size()
-    if max(4 * R, R + S) > STREAM_MAX_COLUMNS:
-        raise ValueError(f"K4 computes at most {STREAM_MAX_COLUMNS} output "
-                         f"columns per product; 4R = {4 * R} and R+S = "
-                         f"{R + S}")
-    for name, n in (("dil_w", 2 * R), ("rs_w", R + S)):
-        if n * eb % 16:
-            raise ValueError(f"K4 copies whole 16-byte units: a row of "
-                             f"{name} is {n * eb} bytes in {storage}")
-    act = -(-activation_smem_bytes(cfg, prec) // 16) * 16
+    ldd, ldr = _padded(2 * R, eb), _padded(R + S, eb)
+    general = (max(4 * R, R + S) > STREAM_MAX_COLUMNS
+               or (ldd, ldr) != (2 * R, R + S))
+    act = -(-activation_smem_bytes(cfg, prec, general) // 16) * 16
     budget = SMEM_PER_BLOCK - _STATIC_SMEM - act - 8
     rows = R & -R
     while True:
-        stage = -(-max(2 * rows * 2 * R, rows * (R + S)) * eb // 128) * 128
+        stage = -(-max(2 * rows * ldd, rows * ldr) * eb // 128) * 128
         fit = budget // (stage + 8)
         if fit >= 2 or rows == 1:
             break
@@ -308,7 +322,7 @@ def stream_plan(cfg: WaveNetConfig, batch: int, storage=torch.float32,
     smem = stages * stage + -(-8 * stages // 16) * 16 + act
     return StreamPlan(storage, rows, stage, stages, smem, G,
                       (stages - 1) / per_layer, stages < G * per_layer + 1,
-                      -(-batch // SMS))
+                      -(-batch // SMS), general, ldd, ldr)
 
 
 STAGED_MAX_THREADS = 512   # chain + prev + producer (kMaxThreads)
@@ -619,7 +633,10 @@ def generation_route(cfg: WaveNetConfig, batch: int, prec: str = "exact",
         holds the geometry with the stacks stored as `storage`
         (`stream_storage`), else the first K4 (`stream_plan`, which raises
         for a geometry it cannot hold either: the call raises as before);
-      * mode "forced" (K2) or "prng" (K3);
+      * mode "forced" (K2) or "prng" (K3): the staged K4 on K1's own stream
+        (the precision's storage, `staged_storage`: its plan is K1's, and
+        it equals `csrc/persistent.cu`'s K2/K3 bit for bit) where
+        `staged_plan` holds the geometry, else `csrc/persistent.cu`;
       * modes "sample" and "argmax", lockstep (K1) or ragged (K5): the
         staged kernel where `staged_plan` holds the geometry, else the
         generic one (`csrc/generic_generate.cu`, no width limit).
@@ -634,7 +651,11 @@ def generation_route(cfg: WaveNetConfig, batch: int, prec: str = "exact",
             return Route("stream", False, stream_plan(
                 cfg, batch, storage, stream_group_size, prec), str(err))
     if mode in ("forced", "prng"):
-        return Route(mode, False, None, None)
+        try:
+            return Route("staged_stream", False, staged_plan(
+                cfg, batch, prec, staged_storage(prec)), None)
+        except ValueError as err:
+            return Route(mode, False, None, str(err))
     try:
         return Route("staged", ragged, staged_plan(cfg, batch, prec), None)
     except ValueError as err:
@@ -782,6 +803,8 @@ def _launch_stream(cfg: WaveNetConfig, plan: StreamPlan, prefetch: bool,
             cfg.silence_bin, _STREAM_MODE_IDS[mode],
             _STORAGE_IDS[plan.storage], plan.rows_per_stage, plan.stages,
             plan.stage_bytes, int(prefetch), plan.smem_bytes,
+            plan.dil_stride if plan.general else 0,
+            plan.rs_stride if plan.general else 0,
             build.current_stream(dev))
     return (y, ring, y_state, *outs)
 
@@ -859,15 +882,21 @@ def _launch_ragged(cfg: WaveNetConfig, params: Dict[str, torch.Tensor],
     return y, ring, y_state
 
 
-def _stream_stacks(params: Dict[str, torch.Tensor], storage) -> tuple:
-    """The first K4's stored stacks (dil_w, rs_w, dil_s, rs_s) in `storage`
-    (`stream_storage`): int8 with their scales, bf16, or the fp32 tensors
-    themselves (no scales)."""
-    if storage == torch.int8:
+def _stream_stacks(params: Dict[str, torch.Tensor], plan: StreamPlan
+                   ) -> tuple:
+    """The first K4's stored stacks (dil_w, rs_w, dil_s, rs_s) in
+    `plan.storage` (`stream_storage`): int8 with their scales, bf16, or the
+    fp32 tensors themselves (no scales); rows padded with zeros to
+    `plan.dil_stride` and `plan.rs_stride` elements."""
+    if plan.storage == torch.int8:
         qd, sd, qr, sr = quantize_stream_weights(params)
-        return qd, qr, sd, sr
-    return (params["dil_w"].to(storage).contiguous(),
-            params["rs_w"].to(storage).contiguous(), None, None)
+    else:
+        qd, qr = (params[k].to(plan.storage) for k in ("dil_w", "rs_w"))
+        sd = sr = None
+
+    def pad(w, n):
+        return torch.nn.functional.pad(w, (0, n - w.shape[-1])).contiguous()
+    return pad(qd, plan.dil_stride), pad(qr, plan.rs_stride), sd, sr
 
 
 def make_persistent_generator(cfg: WaveNetConfig, batch: int,
@@ -879,7 +908,9 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
                               stream_quant: bool = False,
                               ragged: bool = False,
                               compute_dtype=torch.float32,
-                              fast_math: bool = False):
+                              fast_math: bool = False,
+                              shared: Dict | None = None,
+                              route: Route | None = None):
     """Build `generate(params, t0, cond_pre, sel, ring, y_state, n_valid=None,
     seed=0)` (K1, K2, K3), or with ragged=True `generate(params, t0_row,
     cond_pre, sel, ring, y_state, n_valid_row)` (K5).
@@ -930,6 +961,17 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
     (`stream_storage`; int8 stays int8).  compute_dtype=torch.bfloat16
     stores x rounded and takes the ring as bf16 (`init_ring(dtype=
     scan_generate.ring_dtype(...))`); a ring of another dtype raises.
+
+    shared: a dict that several generators of one caller (the engine) pass
+    alike.  Their storage is kept there by what it holds, so generators
+    whose kernels read the same stream (K1/K5 and the staged K2/K3, on K1's
+    stream in the precision's storage) hold one copy of the weights.
+
+    route: the `Route` to run in place of `generation_route`'s, for a check
+    that holds two kernels of one mode against each other (for example
+    Route("forced", False, None, note), `csrc/persistent.cu`'s K2, against
+    the staged step); it must be one `generation_route` can name for this
+    mode and storage.
     """
     if mode not in scan_generate.MODES:
         raise ValueError(f"unknown mode {mode!r}")
@@ -942,20 +984,33 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
                          "variant")
     L, R, A = cfg.num_layers, cfg.R, cfg.A
     B = batch
-    route = generation_route(
-        cfg, B, prec, mode, ragged, stream_weights,
-        stream_storage(weight_dtype, stream_quant, prec), stream_group_size)
+    if route is None:
+        route = generation_route(
+            cfg, B, prec, mode, ragged, stream_weights,
+            stream_storage(weight_dtype, stream_quant, prec),
+            stream_group_size)
+    elif route.kernel != ("forced" if mode == "forced" else "prng") or (
+            mode not in ("forced", "prng") or stream_weights):
+        raise ValueError(f"route {route.kernel!r} cannot run mode {mode!r} "
+                         f"here; only csrc/persistent.cu's K2/K3 may be named")
     plan = route.plan
     shapes = params_lib.canonical_shapes(L, R, cfg.S, A)
     scheds: Dict[torch.device, torch.Tensor] = {}  # the FIFO layout per card
-    stored: Dict[str, tuple] = {}   # the last params object's storage
+    # the last params object's storage, under a key that names what it
+    # holds: one stream for every staged route on the same layout
+    layout = ((plan.matrices, plan.storage, plan.out_storage)
+              if route.kernel in ("staged", "staged_stream")
+              else (route.kernel, plan))
+    slot = (weight_dtype, stream_quant, prec, layout)
+    stored: Dict[str, tuple] = ({} if shared is None
+                                else shared.setdefault(slot, {}))
 
     def build_stored(params, view):
-        """What the route's kernel reads besides the view: K1/K5's (plan,
-        stream), the staged K4's (stream, dil_s, rs_s) or the first K4's
-        stacks (dil_w, rs_w, dil_s, rs_s); None for the others."""
+        """What the route's kernel reads besides the view: the staged
+        kernels' (stream, dil_s, rs_s), the first K4's stacks (dil_w, rs_w,
+        dil_s, rs_s); None for the others."""
         if route.kernel == "staged":
-            return plan, staged_stream(view, cfg, plan)
+            return staged_stream(view, cfg, plan), None, None
         if route.kernel == "staged_stream":
             if plan.storage == torch.int8:
                 # int8 quantises the canonical params; K4 rounds q * s
@@ -964,8 +1019,7 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
                                       plan), sd, sr)
             return staged_stream(view, cfg, plan), None, None
         if route.kernel == "stream":
-            return _stream_stacks(params if stream_quant else view,
-                                  plan.storage)
+            return _stream_stacks(params if stream_quant else view, plan)
         return None
 
     def storage(params, dev):
@@ -1039,7 +1093,7 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
                                   prec)
         return _launch_kernel(cfg, view, scheds[dev], t0, cond_pre, sel,
                               ring, y_state, n_valid, mode, dump, int(seed),
-                              prec, built)
+                              prec, None if built is None else (plan, built[0]))
 
     def generate_ragged(params: Dict[str, torch.Tensor],
                         t0_row: torch.Tensor, cond_pre: torch.Tensor,
@@ -1059,7 +1113,8 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
             return generate_plain(cfg, view, t0_row, cond_pre, sel, ring,
                                   y_state, n_valid_row, prec=prec)
         return _launch_ragged(cfg, view, scheds[dev], t0_row, cond_pre,
-                              sel, ring, y_state, n_valid_row, prec, built)
+                              sel, ring, y_state, n_valid_row, prec,
+                              None if built is None else (plan, built[0]))
 
     out = generate_ragged if ragged else generate
     out.route = route

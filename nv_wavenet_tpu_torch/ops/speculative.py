@@ -55,9 +55,12 @@ from nv_wavenet_tpu_torch.ops import fused_chain, score_parallel
 
 # (V0_us, V1_us, E0_us): see the module docstring; NVIDIA H100 80GB HBM3,
 # 700 W, chip_smoke.py phase 32, with the scorer on K7's fused gate and
-# res/skip entries (the verify of a round is one scorer pass) and E0 the
-# staged K1's step (csrc/staged_generate.cu, its flagship-width instance)
-DEFAULT_COST = (1046.7, 184.94, 53.79)
+# res/skip entries (the verify of a round is one scorer pass, with the
+# commit and the read-back V0), V1 the cluster K6's drafted step
+# (csrc/fused_chain.cu, b=1, fast_math) and E0 the staged K1's step
+# (csrc/staged_generate.cu, its flagship-width instance); each window's
+# round the mean of three runs (a single run's fit moved V0 by ~300 us)
+DEFAULT_COST = (1138.2, 83.59, 53.13)
 
 BRANCHES = {0: "window", 1: "window/2", 2: "exact", -1: "too short to probe"}
 

@@ -7,7 +7,7 @@ OTHER_CSRC_DIR holds the other tree's `nv_wavenet_tpu_torch/csrc/` (for
 example a `git archive` of the parent commit unpacked into a directory that
 .gitignore lists).  Those of its generation sources (`persistent.cu`,
 `staged_generate.cu`, `generic_generate.cu`, `staged_stream_generate.cu`,
-`stream_generate.cu`, `fused_chain.cu`) it has are built as this tree's
+`stream_generate.cu`, `fused_chain.cu`, `fused_chain_first.cu`) it has are built as this tree's
 are (`utils/build.py`: its flags, one library per precision with
 -DNVW_PREC=0, 1, 2), and `cuobjdump -sass` of every instance is compared
 with this tree's instance of the same key, in every precision, whichever
@@ -18,7 +18,11 @@ flag, its K2/K3 template a leading kRagged flag (false for them), its
 staged K1/K5 no geometry (the generic one); an injected-selector instance
 of `persistent_generate_kernel` (the K1/K5 of commit 14b57bc) is keyed as
 the generic K1/K5 of `generic_generate.cu`, so a tree of that time holds
-the restored kernel against its original.
+the restored kernel against its original.  The first K6 keeps its kernel's
+name in `fused_chain_first.cu`, so it is held against an older tree's
+`fused_chain.cu`; the first K4's general instances (a fourth template
+argument, true) are keyed apart from its others, which keep their old
+keys; the cluster K6 (`cluster_chain_kernel`) is new.
 Instruction text is compared with the addresses and encodings stripped, so
 identical code at identical offsets is "identical"; an instance that
 differs is also compared with the kernel parameters' offsets in the
@@ -42,9 +46,10 @@ from nv_wavenet_tpu_torch.utils import build
 SOURCES = build.PRECISION_SOURCES
 _KERNEL = re.compile(r"(persistent_generate_kernel|staged_generate_kernel|"
                      r"generic_generate_kernel|staged_stream_kernel|"
-                     r"stream_generate_kernel|fused_generate_kernel)"
-                     r"I((?:L[bi]\d+E)+)E")
-_ARG = re.compile(r"L[bi](\d+)E")
+                     r"stream_generate_kernel|fused_generate_kernel|"
+                     r"cluster_chain_kernel)"
+                     r"I((?:L[bi]n?\d+E)+)E")
+_ARG = re.compile(r"L[bi](n?\d+)E")
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
 _PARAM = re.compile(r"c\[0x0\]\[0x[0-9a-f]+\]")
 
@@ -64,7 +69,7 @@ def instance_key(mangled: str):
     if not m:
         return None
     kernel = m.group(1)
-    args = [int(a) for a in _ARG.findall(m.group(2))]
+    args = [int(a.replace("n", "-")) for a in _ARG.findall(m.group(2))]
     if kernel == "persistent_generate_kernel":
         if len(args) == 2:
             args = [0] + args
@@ -75,9 +80,13 @@ def instance_key(mangled: str):
         return kernel, (args[0],), args[1]
     if kernel == "staged_stream_kernel":
         return kernel, (args[0], args[2]), args[1]
+    if kernel == "stream_generate_kernel" and len(args) == 4:
+        # <kStorage, kSel, kPrec, kGeneral>: the general instances apart
+        return kernel, tuple(args[:2]) + ((1,) if args[3] else ()), args[2]
     if kernel == "staged_generate_kernel":
         return kernel, (args[0], args[2] if len(args) == 3 else 0), args[1]
-    if kernel == "fused_generate_kernel" or len(args) == 3:
+    if kernel in ("fused_generate_kernel", "cluster_chain_kernel") or len(
+            args) == 3:
         return kernel, tuple(args[:-1]), args[-1]
     return kernel, tuple(args), 0
 

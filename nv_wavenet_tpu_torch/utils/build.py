@@ -41,10 +41,11 @@ BUILD_ROOT = os.path.join(os.path.dirname(PKG_DIR), "build",
 SOURCES = ("exact_math_kernels.cu", "ordered_matmul.cu", "persistent.cu",
            "staged_generate.cu", "generic_generate.cu",
            "staged_stream_generate.cu", "stream_generate.cu", "fused_chain.cu",
-           "probes.cu")
+           "fused_chain_first.cu", "probes.cu")
 PRECISION_SOURCES = ("persistent.cu", "staged_generate.cu",
                      "generic_generate.cu", "staged_stream_generate.cu",
-                     "stream_generate.cu", "fused_chain.cu")
+                     "stream_generate.cu", "fused_chain.cu",
+                     "fused_chain_first.cu")
 # sources also built with contraction allowed, as unit `<source>@fmad`
 FMAD_SOURCES = ("probes.cu",)
 # -DNVW_PREC of each precision (csrc/step_common.cuh kPrec*; the names of

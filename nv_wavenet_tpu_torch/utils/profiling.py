@@ -97,8 +97,9 @@ class StepCost:
     def fused_latency_floor_khz(self, cfg: WaveNetConfig,
                                 stage_ns: float = STAGE_NS,
                                 pack_gates: bool = False) -> float:
-        """The latency floor of K6's collapsed chain (`ops/fused_chain.py`):
-        embed, w0, L gated stages, skip, Zs, Za = L+5 stages, where layer
+        """The latency floor of the first K6's collapsed chain
+        (`ops/fused_chain.py`, one CTA a row): embed, w0, L gated stages,
+        skip, Zs, Za = L+5 stages, where layer
         l's stage also contracts over its l * P earlier gate outputs
         (P = R packed, else max(R, 128)).  K6 splits a product's terms over
         `fused_chain._splits(2R)` thread sets, so a thread sums
@@ -165,11 +166,14 @@ def memory_report(cfg: WaveNetConfig, batch: int, chunk: int,
     except ValueError as err:
         lines.append(f"  K4  cannot run: {err}")
     try:
-        fplan = fused_chain.fused_plan(cfg)
+        route = fused_chain.fused_route(cfg, batch)
         folded = sum(4 * torch.Size(s).numel()
                      for s in fused_chain.folded_shapes(cfg).values())
-        row("K6", fplan.smem_bytes, folded + ring + cond,
-            f" (folded weights {folded / mb:.2f} MB)")
+        note = (f" (folded weights {folded / mb:.2f} MB; a cluster of "
+                f"{route.plan.cluster} CTAs a group of {route.plan.rows} "
+                f"row(s))" if route.kernel == "cluster" else
+                f" (folded weights {folded / mb:.2f} MB; the first K6)")
+        row("K6", route.plan.smem_bytes, folded + ring + cond, note)
     except ValueError as err:
         lines.append(f"  K6  cannot run: {err}")
     return "\n".join(lines)

@@ -61,6 +61,8 @@ def test_every_kernel_is_in_a_unit_of_its_precision():
                                                prec) in build.UNITS
     for (_, prec), kernel in fused_chain.FUSED_KERNELS.items():
         assert kernel.source == build.unit("fused_chain.cu", prec)
+    for (_, prec), kernel in fused_chain.FIRST_FUSED_KERNELS.items():
+        assert kernel.source == build.unit("fused_chain_first.cu", prec)
     with pytest.raises(ValueError, match="precision"):
         build.unit("ordered_matmul.cu", "bf16")
 

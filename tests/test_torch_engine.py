@@ -136,8 +136,12 @@ def test_unported_paths_raise():
         eng = WaveNetInfer(num_layers=2, max_dilation=2, R=32, S=128, A=256,
                            implementation=Impl.MANYBLOCK, device="cpu", **kw)
         assert eng.implementation == Impl.MANYBLOCK
-    with pytest.raises(ValueError, match="output columns"):
-        WaveNetInfer(num_layers=2, max_dilation=2, R=512, S=128, A=256,
+    # R = 512 constructs since fault F3's repair (the first K4's general
+    # instance); A = 16384 leaves no K4 two stages of shared memory
+    WaveNetInfer(num_layers=2, max_dilation=2, R=512, S=128, A=256,
+                 implementation=Impl.MANYBLOCK, device="cpu")
+    with pytest.raises(ValueError, match="two stages"):
+        WaveNetInfer(num_layers=2, max_dilation=2, R=32, S=128, A=16384,
                      implementation=Impl.MANYBLOCK, device="cpu")
     cfg = WaveNetConfig(num_layers=2, R=32, S=128, A=256, max_dilation=2)
     ref_w, cond, sel = make_case(cfg, 1, 4, seed=2)

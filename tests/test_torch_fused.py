@@ -23,6 +23,13 @@ S=128, A=256, max_dilation 8; B=8, T=64; trained-scale weights, p_max
     routing, its fast_math dispatches off K6 against the plain "fast"
     generator and its fallback where K6 cannot run: exact (same
     computation in the same order).
+The cluster K6 (csrc/fused_chain.cu, a card-only kernel): its plan and route
+for the flagship, config 4 and every geometry these tests use, the first
+K6 where the cluster plan raises, its stream's column slices, and its plain
+model of the sums (`fused_chain.cluster_model`), held to the plain K6 and
+the JAX interpret kernel (forced p within 2e-5, symbols >= 99%), to the TV
+contract, and to itself across a split and pack_gates bit for bit; a
+stream with one G block zeroed must break the fp32 TV bound.
 The JAX interpret-mode runs are made once, in the module fixture."""
 
 import numpy as np
@@ -404,3 +411,251 @@ def test_unknown_priority_raises():
     with pytest.raises(ValueError, match="priority"):
         WaveNetInfer(num_layers=2, max_dilation=2, R=32, S=128, A=256,
                      device="cpu", priority="throughput")
+
+
+# ----------------------------------------------------------------------
+# the cluster K6 (csrc/fused_chain.cu): its plan, route, stream and a plain
+# model of its sums, in its order (`fused_chain.cluster_model`)
+# ----------------------------------------------------------------------
+
+TM = 16   # steps of the model's runs: it sums term by term
+
+
+def model_run(c, mode="sample", sel=None, state=None, t0=0, n=TM, pack=False,
+              stream=None, **kw):
+    """The cluster K6's model on the CPU over raw cond, steps [t0, t0+n)."""
+    prec = tsg.precision(kw.get("compute_dtype", torch.float32),
+                         kw.get("fast_math", False))
+    w = tfc.prepare_weights(c["tp"], PCFG, False, pack_gates=pack, **kw)
+    plan = tfc.cluster_plan(PCFG, B, prec)
+    if stream is None:
+        stream = tfc.cluster_stream(w, PCFG, plan, pack)
+    s_in = c["sel"] if sel is None else sel
+    state = fresh() if state is None else state
+    sl = slice(t0, t0 + n)
+    return tfc.cluster_model(PCFG, plan, stream, w, t0,
+                             torch.from_numpy(c["cond"][sl]),
+                             torch.from_numpy(np.ascontiguousarray(s_in[sl])),
+                             *state, n, mode, PRNG_SEED, prec)
+
+
+def test_cluster_model_matches_plain_and_jax_interpret_kernel(case):
+    """The model's reassociation against the plain K6 and the JAX fused
+    kernel in interpret mode: forced p within 2e-5 of both and max TV <
+    5e-4 against the fp32 exact path (the fp32 fused contract); sampled
+    and argmax symbols >= 99% equal to the JAX kernel's."""
+    torch.set_num_threads(1)
+    sym = case["forced"].astype(np.float32)
+    out = model_run(case, "forced", sel=sym)
+    p = forced_probs(out)
+    plain = port_fused(case, "forced", sel=sym, n=TM)
+    assert np.abs(out[3].numpy() - plain[3].numpy()).max() < 2e-5
+    assert np.abs(out[3].numpy()
+                  - case["jax"]["forced"][3][:TM]).max() < 2e-5
+    t = tv(case["p32"][:TM], p)
+    assert t.max() < 5e-4, f"max TV {t.max():.2e}"
+    assert np.array_equal(out[0].numpy(), case["forced"][:TM])
+    for mode in ("sample", "argmax"):
+        y = model_run(case, mode)[0].numpy()
+        agree = float(np.mean(y == case["jax"][mode][0][:TM]))
+        assert agree >= 0.99, f"{mode}: agreement {agree:.4f}"
+
+
+@pytest.mark.parametrize("kw,bounds", [
+    (dict(fast_math=True), (0.025, 0.10, 0.20)),
+    (dict(compute_dtype=torch.bfloat16), (0.025, 0.10, 0.20)),
+], ids=["fast_math", "bf16"])
+def test_cluster_model_low_precisions_meet_the_tv_contract(case, kw, bounds):
+    """fast_math and compute_dtype=bf16 in the model: forced p within 2e-5
+    of the plain K6 of the same precision, the TV bounds against fp32."""
+    torch.set_num_threads(1)
+    sym = case["forced"].astype(np.float32)
+    state = (tper.init_ring(PCFG, B, "cpu", tsg.ring_dtype(
+        tsg.precision(kw.get("compute_dtype", torch.float32),
+                      kw.get("fast_math", False)))),
+             torch.full((2, B), PCFG.silence_bin, dtype=torch.int32))
+    state2 = (state[0].clone(), state[1].clone())
+    out = model_run(case, "forced", sel=sym, state=state, **kw)
+    plain = port_fused(case, "forced", sel=sym, n=TM, state=state2, **kw)
+    assert np.abs(out[3].numpy() - plain[3].numpy()).max() < 2e-5
+    t = tv(case["p32"][:TM], forced_probs(out))
+    mean_b, p99_b, max_b = bounds
+    assert t.mean() < mean_b and t.max() < max_b
+    assert np.percentile(t, 99) < p99_b
+
+
+def test_cluster_model_split_and_pack_gates_are_bit_equal(case):
+    """A 7 + 9 split equals one call bit for bit (y, ring, y_state), and
+    pack_gates on equals off (the stream holds only the real rows)."""
+    torch.set_num_threads(1)
+    one, two, packed = fresh(), fresh(), fresh()
+    y = model_run(case, state=one, fast_math=True)[0]
+    ys = [model_run(case, state=two, n=7, fast_math=True)[0],
+          model_run(case, state=two, t0=7, n=TM - 7, fast_math=True)[0]]
+    assert torch.equal(torch.cat(ys), y)
+    assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
+    yp = model_run(case, state=packed, pack=True, fast_math=True)[0]
+    assert torch.equal(yp, y) and torch.equal(packed[0], one[0])
+    w = tfc.prepare_weights(case["tp"], PCFG, False)
+    wp = tfc.prepare_weights(case["tp"], PCFG, False, pack_gates=True)
+    plan = tfc.cluster_plan(PCFG, B)
+    assert torch.equal(tfc.cluster_stream(w, PCFG, plan),
+                       tfc.cluster_stream(wp, PCFG, plan, True))
+
+
+@pytest.mark.parametrize("block", ["g_0_2", "g_1_2"])
+def test_cluster_model_that_drops_a_g_term_fails(case, block):
+    """Mutation check of the model test: zeroing one h_j G_{j,m} term's
+    slice in the stream (G_{0,2}, off the chain; G_{1,2}, on it) breaks the
+    fp32 TV contract against the exact path."""
+    torch.set_num_threads(1)
+    w = tfc.prepare_weights(case["tp"], PCFG, False)
+    plan = tfc.cluster_plan(PCFG, B)
+    stream = tfc.cluster_stream(w, PCFG, plan).clone()
+    m = {"g_0_2": 3, "g_1_2": 4}[block]   # OFF_0's first block; CRIT_2
+    o = sum(K * W for K, W in plan.matrices[:m])
+    K, W = plan.matrices[m]
+    stream[:, o:o + K * W].view(tfc.CLUSTER, K, W)[:, :, :plan.widths[0]] = 0
+    sym = case["forced"].astype(np.float32)
+    t = tv(case["p32"][:TM], forced_probs(model_run(case, "forced", sel=sym,
+                                                    stream=stream)))
+    assert t.max() > 5e-4
+
+
+# the geometries the cluster K6 runs: (config, batch, rows a group)
+CLUSTER_GEOMETRIES = [
+    (dict(num_layers=20, R=64, S=256, A=256, max_dilation=512), 16, 2),
+    (dict(num_layers=20, R=64, S=256, A=256, max_dilation=512), 1, 1),
+    (dict(num_layers=40, R=128, S=256, A=256, max_dilation=128), 64, 2),
+    (dict(num_layers=20, R=64, S=128, A=256, max_dilation=8), 4, 2),
+    (dict(num_layers=6, R=32, S=128, A=256, max_dilation=8), 8, 2),
+    (dict(num_layers=2, R=32, S=128, A=256, max_dilation=2), 3, 1),
+]
+
+
+@pytest.mark.parametrize("prec", tsg.PRECISIONS)
+@pytest.mark.parametrize("g,batch,rows", CLUSTER_GEOMETRIES)
+def test_cluster_plan_and_route(g, batch, rows, prec):
+    """The cluster plan holds the flagship (B = 16 and 1), config 4, and
+    every geometry the K6 tests use; its ring, widths and stream sizes are
+    the kernel's (csrc/fused_chain.cu check), and the route names it."""
+    from nv_wavenet_tpu_torch.config import WaveNetConfig
+    cfg = WaveNetConfig(**g)
+    plan = tfc.cluster_plan(cfg, batch, prec)
+    L, R, S, A = cfg.num_layers, cfg.R, cfg.S, cfg.A
+    eb = 4   # the stream is fp32 in every precision
+    assert (plan.cluster, plan.rows, plan.groups) == (8, rows, batch // rows)
+    assert plan.widths == (R // 4, S // 8, -(-R // 32) * 4, A // 8)
+    assert len(plan.matrices) == 2 * L + 3
+    assert plan.step_bytes == sum(K * W for K, W in plan.matrices) * eb
+    assert plan.chunks == sum(-(-K // p) for (K, _), p in
+                              zip(plan.matrices, plan.piece_rows))
+    for (K, W), p in zip(plan.matrices, plan.piece_rows):
+        assert W % 4 == 0 and K % 4 == 0 and p % 4 == 0 or p == K
+        assert 4 <= p and p * W * eb <= plan.slot_bytes
+    assert plan.slot_bytes % 128 == 0 and plan.slots >= (3 if rows > 1 else 2)
+    assert plan.smem_bytes + tper._STATIC_SMEM <= tper.SMEM_PER_BLOCK
+    route = tfc.fused_route(cfg, batch, prec)
+    assert route.kernel == "cluster" and route.note is None
+    assert route.plan == plan
+    for mode in tsg.MODES:
+        assert route.cuda_kernel(mode, prec) is tfc.FUSED_KERNELS[
+            (tfc._SEL[mode], prec)]
+    assert tfc.make_fused_generator(
+        cfg, batch, **PREC_KW[prec]).route.kernel == "cluster"
+
+
+PREC_KW = {"exact": {}, "fast": dict(fast_math=True),
+           "bf16": dict(compute_dtype=torch.bfloat16)}
+
+
+def test_route_takes_the_first_k6_where_the_cluster_plan_raises():
+    """R a multiple of 8 but not of 16, S or A not of 32: the first K6,
+    with the cluster plan's error as the note; K6_REJECTS stay rejected by
+    both."""
+    from nv_wavenet_tpu_torch.config import WaveNetConfig
+    for g, why in ((dict(num_layers=2, R=40, S=128, A=256), "R = 40"),
+                   (dict(num_layers=3, R=32, S=136, A=256), "S = 136"),
+                   (dict(num_layers=3, R=32, S=128, A=200), "A = 200")):
+        cfg = WaveNetConfig(**g, max_dilation=2)
+        with pytest.raises(ValueError, match=why):
+            tfc.cluster_plan(cfg, 2)
+        for prec in tsg.PRECISIONS:
+            route = tfc.fused_route(cfg, 2, prec)
+            assert route.kernel == "first" and why in route.note
+            assert route.plan == tfc.fused_plan(cfg)
+            assert route.cuda_kernel("forced", prec) is \
+                tfc.FIRST_FUSED_KERNELS[("forced", prec)]
+            gen = tfc.make_fused_generator(cfg, 2, **PREC_KW[prec])
+            assert gen.route.kernel == "first"
+    for g in K6_REJECTS.values():
+        cfg = WaveNetConfig(**g)
+        for prec in tsg.PRECISIONS:
+            with pytest.raises(ValueError):
+                tfc.fused_route(cfg, 1, prec)
+
+
+def test_cluster_stream_holds_each_ctas_columns_of_the_fold(case):
+    """CTA c's slice of every matrix is the fold's columns the kernel
+    assigns it: u_l's pairs (i, R + i), i in [c R/8, (c+1) R/8), S/8 of
+    Wskip, R/8 of Wres (zero-padded), A/8 of out_w and end_w."""
+    w = tfc.prepare_weights(case["tp"], PCFG, False)
+    plan = tfc.cluster_plan(PCFG, B, "fast")
+    wf = tfc.prepare_weights(case["tp"], PCFG, False, fast_math=True)
+    stream = tfc.cluster_stream(wf, PCFG, plan)
+    assert stream.dtype == torch.float32 and stream.shape[0] == 8
+    assert torch.equal(stream, torch.cat([m.reshape(8, -1) for m in
+                                          tfc.cluster_slices(wf, PCFG)], 1))
+    slices = tfc.cluster_slices(w, PCFG)
+    L, R, S, A = PCFG.num_layers, PCFG.R, PCFG.S, PCFG.A
+    h = R // 8
+    wu, ws, wr, wa = tfc.cluster_widths(PCFG)
+    (_, wprev, wres, _, g_pack, wcur_cat, wskip_cat, _, _, out_w, _, end_w,
+     _) = w
+    P = tfc._row_stride(R)
+    for c in range(8):
+        cu = list(range(c * h, (c + 1) * h)) + list(range(R + c * h,
+                                                          R + (c + 1) * h))
+        assert torch.equal(slices[0][c][:, :wu], wprev[0][:, cu])
+        assert torch.equal(slices[1][c][:, wu:2 * wu],
+                           wcur_cat[:, 2 * R + torch.tensor(cu)])
+        g12 = g_pack[P * 2:P * 2 + R]   # block (j=1, l=2)
+        assert torch.equal(slices[4][c], g12[:, cu])
+        off0 = slices[3][c]             # [G_{0,2} .. G_{0,L-1} | skip | res]
+        g03 = g_pack[P * 3:P * 3 + R]   # block (j=0, l=3)
+        assert torch.equal(off0[:, wu:2 * wu], g03[:, cu])
+        tail = off0[:, (L - 2) * wu:]
+        assert torch.equal(tail[:, :ws], wskip_cat[:R, c * ws:(c + 1) * ws])
+        assert torch.equal(tail[:, ws:ws + h], wres[0][:, c * h:(c + 1) * h])
+        assert not tail[:, ws + h:].any()
+        assert torch.equal(slices[-2][c], out_w[:, c * wa:(c + 1) * wa])
+        assert torch.equal(slices[-1][c], end_w[:, c * wa:(c + 1) * wa])
+    assert wr == -(-h // 4) * 4
+
+
+def test_cluster_model_fma_rounds_once():
+    """The model's FMA (`fused_chain._fma`) is a * b + c rounded once to
+    fp32, as __fmaf_rn, also where the fp64 sum lands on a midpoint of two
+    fp32 values (c = 1, a * b within 2^-53 of 2^-24): held to the exact sum
+    (fractions) rounded to nearest, ties to even."""
+    from fractions import Fraction
+    rng = np.random.RandomState(5)
+    a = (1 + rng.randint(0, 1 << 23, 4000) / 2.0 ** 23).astype(np.float32)
+    b = (2.0 ** -24 / a.astype(np.float64)).astype(np.float32)
+    c = np.ones_like(a)
+    got = tfc._fma(*(torch.from_numpy(x) for x in (a, b, c))).numpy()
+
+    def round_once(x: Fraction) -> np.float32:
+        f = np.float32(float(x))
+        cands = [np.nextafter(f, np.float32(-np.inf)), f,
+                 np.nextafter(f, np.float32(np.inf))]
+        return min(cands, key=lambda v: (abs(Fraction(float(v)) - x),
+                                         int(np.float32(v).view(np.int32))
+                                         & 1))
+    want = np.array([round_once(Fraction(float(x)) * Fraction(float(y))
+                                + Fraction(float(z)))
+                     for x, y, z in zip(a, b, c)], np.float32)
+    s = a.astype(np.float64) * b.astype(np.float64) + 1.0
+    ties = int(np.sum(s == 1 + 2.0 ** -24))
+    assert ties >= 50    # the double-rounding cases were reached
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))

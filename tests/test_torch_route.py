@@ -6,8 +6,12 @@
 * The route names the generic K1/K5 where the staged plan raises (fault F2
   of ROADMAP.md: A = 2048, R = 512, an odd R under bf16), the staged K1/K5
   at every geometry of `PLAN_CONFIGS`, the staged K4 wherever its plan
-  holds the storage, and the first K4 at A = 2048; a geometry neither K4
-  holds raises.  The engine notes a fallback once.
+  holds the storage, and the first K4 at A = 2048 and, its general
+  instance, at R = 512 and an odd R in bf16 (fault F3: MANYBLOCK engines
+  there equal the JAX K4 and the bf16 engine); modes forced and prng take
+  the staged K4 on K1's own stream wherever the staged plan holds, else
+  csrc/persistent.cu, and the engine holds one copy of that stream.  The
+  engine notes a fallback once.
 * The staged K4's plan sizes its slots by the storage's bytes, fits the
   block, and its fixed-width instances carry the plan's numbers; the
   thread-to-column map is a bijection in every storage.
@@ -40,6 +44,7 @@ from nv_wavenet_tpu_torch.ops import persistent as tper
 from nv_wavenet_tpu_torch.ops import scan_generate as tsg
 from nv_wavenet_tpu_torch.utils import build as tbuild
 
+from nv_wavenet_tpu.config import WaveNetConfig as JaxConfig
 from tests.test_golden_vs_scan import make_case
 from tests.test_streaming_kernel import CONFIGS as STREAM_CONFIGS, run_stream
 from tests.test_torch_persistent import port_cfg
@@ -67,6 +72,11 @@ MODEL_CFG = tcfg.WaveNetConfig(num_layers=3, R=12, S=20, A=32,
                                max_dilation=2, silence_bin=16)
 
 
+def jax_config(cfg):
+    return JaxConfig(num_layers=cfg.num_layers, R=cfg.R, S=cfg.S, A=cfg.A,
+                     max_dilation=cfg.max_dilation, tanh_embed=cfg.tanh_embed)
+
+
 # ----------------------------------------------------------------------
 # the route
 # ----------------------------------------------------------------------
@@ -86,10 +96,13 @@ def test_route_takes_the_generic_kernel_where_the_staged_plan_raises(
         assert kernel is table[prec]
         assert kernel.source == tbuild.unit("generic_generate.cu", prec)
     assert tper.generation_route(cfg, 4, prec, "argmax").kernel == "generic"
-    # modes forced and prng stay on K2 and K3, which have no width limit
+    # modes forced and prng stay on csrc/persistent.cu's K2 and K3, which
+    # have no width limit, with the staged plan's error as the note
     for mode in ("forced", "prng"):
         route = tper.generation_route(cfg, 4, prec, mode)
-        assert route.kernel == mode and route.note is None
+        assert route.kernel == mode and why in route.note
+        assert route.cuda_kernel(prec) is {
+            "forced": tper.FORCED_KERNELS, "prng": tper.PRNG_KERNELS}[mode][prec]
 
 
 @pytest.mark.parametrize("prec", tsg.PRECISIONS)
@@ -112,6 +125,23 @@ def test_route_takes_the_staged_kernels_where_their_plans_hold(cfg, batch,
         assert route.cuda_kernel(prec) is tper.STAGED_STREAM_KERNELS[prec]
 
 
+@pytest.mark.parametrize("prec", tsg.PRECISIONS)
+@pytest.mark.parametrize("cfg,batch", PLAN_CONFIGS)
+def test_forced_and_prng_take_the_staged_step_where_its_plan_holds(
+        cfg, batch, prec):
+    """K2 and K3 without stream_weights: the staged K4 on K1's own stream,
+    the precision's storage (fp32 exact, bf16 otherwise), with K1's plan."""
+    k1 = tper.staged_plan(cfg, batch, prec)
+    for mode in ("forced", "prng"):
+        route = tper.generation_route(cfg, batch, prec, mode)
+        assert route.kernel == "staged_stream" and route.note is None
+        assert route.plan == k1
+        assert route.plan.storage == tper.staged_storage(prec)
+        assert route.cuda_kernel(prec) is tper.STAGED_STREAM_KERNELS[prec]
+        assert route.cuda_kernel(prec) is not {
+            "forced": tper.FORCED_KERNELS, "prng": tper.PRNG_KERNELS}[mode][prec]
+
+
 def test_route_takes_the_first_k4_where_the_staged_plan_raises():
     cfg = F2_CASES[0][0]   # A = 2048: the first K4's plan holds it
     for name, storage in STORAGES.items():
@@ -120,19 +150,131 @@ def test_route_takes_the_first_k4_where_the_staged_plan_raises():
         assert route.kernel == "stream" and "output columns" in route.note
         assert route.plan == tper.stream_plan(cfg, 16, storage)
         assert route.cuda_kernel() is tper.STREAM_KERNELS["exact"]
-    # R = 512: neither K4 holds it, and the route raises the first K4's
-    # error (F3 of ROADMAP.md); the staged K1/K5 fall to the generic kernel
-    with pytest.raises(ValueError, match="1024 output columns"):
-        tper.generation_route(F2_CASES[1][0], 2, stream_weights=True)
-    with pytest.raises(ValueError, match="16-byte"):
-        tper.generation_route(F2_CASES[2][0], 2, "bf16", stream_weights=True,
-                              storage=torch.bfloat16)
+    # R = 512, and R = 9 in bf16 (fault F3 of ROADMAP.md, closed): the first
+    # K4's general instance, with the staged plan's error as the note
+    route = tper.generation_route(F2_CASES[1][0], 2, stream_weights=True)
+    assert route.kernel == "stream" and "Wprev" in route.note
+    assert route.plan.general
+    route = tper.generation_route(F2_CASES[2][0], 2, "bf16",
+                                  stream_weights=True, storage=torch.bfloat16)
+    assert route.kernel == "stream" and "even" in route.note
+    assert route.plan.general
     # an odd R in exact: the staged K4 holds it
     assert tper.generation_route(F2_CASES[2][0], 2, stream_weights=True,
                                  storage=torch.int8).kernel == "staged_stream"
     with pytest.raises(ValueError, match="stream_group_size"):
         tper.generation_route(tcfg.FLAGSHIP_CONFIG, 16, stream_weights=True,
                               stream_group_size=0)
+
+
+# the F3 geometries (ROADMAP.md): R = 512 in every storage and precision the
+# JAX package runs there, R = 9 in bf16 with bf16 and int8 stacks
+F3_CASES = [(1, "exact", "fp32"), (1, "exact", "bf16"), (1, "exact", "int8"),
+            (1, "fast", "bf16"), (1, "fast", "int8"), (1, "bf16", "bf16"),
+            (1, "bf16", "int8"), (2, "bf16", "bf16"), (2, "bf16", "int8")]
+
+
+@pytest.mark.parametrize("case,prec,name", F3_CASES)
+def test_route_takes_the_first_k4_at_the_f3_geometries(case, prec, name):
+    """F3: the first K4's plan holds R = 512 (4R past STREAM_MAX_COLUMNS:
+    its columns loop) and an odd R in bf16 (rows padded to 16 bytes), and
+    the route names it with the staged plan's error as its note."""
+    cfg, _, why = F2_CASES[case]
+    storage = STORAGES[name]
+    with pytest.raises(ValueError, match=why):
+        tper.staged_plan(cfg, 2, prec, storage)
+    plan = tper.stream_plan(cfg, 2, storage, prec=prec)
+    R, S = cfg.R, cfg.S
+    eb = storage.itemsize
+    assert plan.general
+    assert plan.dil_stride >= 2 * R and plan.dil_stride * eb % 16 == 0
+    assert plan.rs_stride >= R + S and plan.rs_stride * eb % 16 == 0
+    assert plan.dil_stride * eb - 2 * R * eb < 16
+    assert plan.rs_stride * eb - (R + S) * eb < 16
+    assert plan.stage_bytes >= plan.rows_per_stage * max(
+        2 * plan.dil_stride, plan.rs_stride) * eb
+    assert plan.smem_bytes + tper._STATIC_SMEM <= BLOCK
+    assert plan.smem_bytes >= (plan.stages * plan.stage_bytes
+                               + tper.activation_smem_bytes(cfg, prec, True))
+    for mode in tsg.MODES:
+        route = tper.generation_route(cfg, 2, prec, mode, stream_weights=True,
+                                      storage=storage)
+        assert route.kernel == "stream" and why in route.note
+        assert route.plan == plan
+        assert route.cuda_kernel(prec) is tper.STREAM_KERNELS[prec]
+
+
+def test_first_k4_stacks_pad_rows_with_zeros():
+    """The general instance's stored rows: the storage's values, then zeros
+    up to the stride (read by no sum)."""
+    cfg = F2_CASES[2][0]   # R = 9, S = 16: rows of 18 and 25 elements
+    params = _params(cfg, seed=4)
+    for name in ("bf16", "int8"):
+        plan = tper.stream_plan(cfg, 2, STORAGES[name], prec="bf16")
+        view = tsg.product_view(params, "bf16")
+        dil, rs, sd, sr = tper._stream_stacks(
+            params if name == "int8" else view, plan)
+        assert dil.shape == (2, 18, plan.dil_stride) and dil.is_contiguous()
+        assert rs.shape == (2, 9, plan.rs_stride) and rs.is_contiguous()
+        assert not dil[..., 18:].any() and not rs[..., 25:].any()
+        if name == "int8":
+            qd, sd2, qr, sr2 = tper.quantize_stream_weights(params)
+            assert torch.equal(dil[..., :18], qd) and torch.equal(sd, sd2)
+            assert torch.equal(rs[..., :25], qr) and torch.equal(sr, sr2)
+        else:
+            assert torch.equal(dil[..., :18].float(), view["dil_w"])
+            assert torch.equal(rs[..., :25].float(), view["rs_w"])
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+def test_f3_manyblock_engine_at_r512_equals_the_jax_k4(quant):
+    """F3: WaveNetInfer(implementation=Impl.MANYBLOCK) constructs at R = 512
+    and generates what the JAX package's K4 (stream_weights=True, in
+    interpret mode) generates: 0 integer mismatches."""
+    cfg = F2_CASES[1][0]
+    jcfg = jax_config(cfg)
+    B, T = 1, 4
+    ref_w, cond, sel = make_case(jcfg, B, T, seed=31)
+    params_np = params_lib.to_canonical(ref_w, jcfg)
+    y_j, _, ys_j = run_stream(jcfg, {k: jnp.asarray(v)
+                                     for k, v in params_np.items()},
+                              cond, sel, B, T, stream_quant=quant)
+    eng = WaveNetInfer(num_layers=2, max_dilation=2, R=512, S=256, A=256,
+                       max_batch=B, chunk_size=T, device="cpu",
+                       implementation=Impl.MANYBLOCK,
+                       stream_quant="int8" if quant else None)
+    assert eng._generator(B, "sample")[0].route.kernel == "stream"
+    eng.set_reference_weights(ref_w)
+    eng.set_inputs(cond, sel)
+    y = eng.run(T, B)
+    assert int((y != y_j).sum()) == 0
+    assert np.array_equal(eng.export_state()["y_state"], np.asarray(ys_j))
+
+
+def test_f3_manyblock_engine_at_odd_r_in_bf16_equals_the_bf16_engine():
+    """F3: MANYBLOCK at R = 9 under compute_dtype=torch.bfloat16 with bf16
+    stacks constructs, and generates what the port's default bf16 engine
+    fed the same (bf16-rounded) values generates: 0 integer mismatches."""
+    kw = dict(num_layers=2, max_dilation=2, R=9, S=16, A=256, max_batch=2,
+              chunk_size=4, device="cpu", compute_dtype=torch.bfloat16)
+    cfg = tcfg.WaveNetConfig(num_layers=2, R=9, S=16, A=256, max_dilation=2)
+    T = 9
+    ref_w = tparams.random_reference_weights(cfg, seed=12)
+    rounded = {k: torch.from_numpy(np.asarray(v, np.float32)).to(
+        torch.bfloat16).float().numpy() for k, v in ref_w.items()}
+    rng = np.random.RandomState(8)
+    cond = rng.uniform(-0.5, 0.5, (T, 2, 2, 18)).astype(np.float32)
+    sel = rng.uniform(0, 1, (T, 2)).astype(np.float32)
+    many = WaveNetInfer(**kw, implementation=Impl.MANYBLOCK,
+                        weight_dtype=torch.bfloat16)
+    assert many._generator(2, "sample")[0].route.kernel == "stream"
+    ref = WaveNetInfer(**kw)
+    ys = []
+    for eng, w in ((many, ref_w), (ref, rounded)):
+        eng.set_reference_weights(w)
+        eng.set_inputs(cond, sel)
+        ys.append(eng.run(T, 2))
+    assert int((ys[0] != ys[1]).sum()) == 0
 
 
 def test_generator_carries_its_route_and_runs_the_plain_version_on_cpu():
@@ -468,3 +610,28 @@ def test_exact_fn_on_offset_views_matches_numpy(name):
     want = getattr(jem, f"{name}_np")(x)
     got = em.exact_fn(name, torch.from_numpy(x)[3:]).numpy()
     assert np.array_equal(got.view(np.int32), want[3:].view(np.int32))
+
+
+def test_engine_holds_one_copy_of_the_weights_for_k1_k2_and_k3():
+    """The engine's generators share their storage by what it holds: K1 and
+    the staged K2/K3 read one stream, so their storage is one entry (here,
+    on the CPU, the fast precision's rounded view: the same tensors)."""
+    cfg = tcfg.WaveNetConfig(num_layers=2, R=16, S=32, A=256, max_dilation=2)
+    B, T = 2, 3
+    eng = WaveNetInfer(num_layers=2, max_dilation=2, R=16, S=32, A=256,
+                       max_batch=B, device="cpu", fast_math=True)
+    eng.set_reference_weights(tparams.random_reference_weights(cfg, seed=2))
+    rng = np.random.RandomState(1)
+    cond = rng.uniform(-0.5, 0.5, (T, 2, B, 32)).astype(np.float32)
+    eng.set_inputs(cond, rng.uniform(0, 1, (T, B)).astype(np.float32))
+    y = eng.run(T, B)
+    eng.run(T, B, mode="prng")
+    eng.set_inputs(cond, y.T.astype(np.float32))
+    eng.run(T, B, mode="forced")
+    routes = {k[1]: g[0].route.kernel if isinstance(g, tuple) else
+              g.route.kernel for k, g in eng._gens.items()}
+    assert routes == {"sample": "staged", "prng": "staged_stream",
+                      "forced": "staged_stream"}
+    assert len(eng._stored) == 1
+    (entry,) = eng._stored.values()
+    assert entry["view"]["dil_w"].dtype == torch.float32
