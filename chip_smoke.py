@@ -224,19 +224,28 @@ any failure exits non-zero:
      this call (K1 exact no slower than K4 fp32, the tick within 11.5 ms,
      fast and bf16 within 1.05x exact), logged
  28. P1 (the FMA-contraction probe, csrc/probes.cu built with -fmad=false
-     and with -fmad=true) on the JAX probe's 131,072 inputs: the guarded
-     form and the -fmad=false plain form 0 bit mismatches against numpy's
-     separate a*b+c; the -fmad=true plain form's mismatches against
-     separate and against the fp64 FMA printed (the contraction); each
-     timed beside the plain version and torch.addcmul, by events over
-     back-to-back calls and by device time (100 launches in a CUDA graph)
+     and with -fmad=true; 16-byte vectors) on the JAX probe's 131,072
+     inputs: the guarded form and the -fmad=false plain form 0 bit
+     mismatches against numpy's separate a*b+c; the -fmad=true plain form's
+     mismatches against separate and against the fp64 FMA printed (the
+     contraction); an offset view (the scalar path) and 2^24 elements 0 bits
+     against the plain version; each timed beside the plain version and
+     torch.addcmul, by events over back-to-back calls and by device time
+     (100 launches in a CUDA graph), at both shapes; the wrapper's host path
+     per call (checks, allocation, stream lookup, the ctypes call)
  29. P5 (the stage-chain probe) against its plain version on a 4-step chain
-     of 3 stages at R=64, B=1 and 16, each precision x W location (L2,
-     shared memory) x gate, and the whole batch in one CTA: exact bit for
-     bit, fast within 1e-3
+     of 3 stages at R=64, B=1 and 16, each precision x W layout (L2, shared
+     memory, the TMA stream, the cluster of 8 CTAs) x gate, one row and the
+     whole batch a CTA or cluster; each compiled instance of the stream and
+     the cluster (rows a thread 1, 2, 4; R=64 and R=32; two groups) on the
+     same chain; and one step at the timed shapes (B=16, D=43): exact bit
+     for bit, fast within 1e-5; each call on counts set to 0 just before
+     it, its layout's kernel launching alone
  30. P5 timed: the JAX probe's variants and the card's own (rows per CTA,
-     W in shared memory) with T cut to 1024, ns per stage; the exact stage
-     at B=16 with W in L2 is utils/profiling.STAGE_NS
+     the four W layouts) with T cut to 1024, ns per
+     stage, and the clusters the card holds at once; the least exact
+     stage at B=16, D=43 over the layouts is utils/profiling.STAGE_NS,
+     logged with latency_floor_khz() beside K1's kHz per utterance of phase 7
  31. speculative decode at the flagship: request 1's first 2048 samples at
      b=1 and b=16 through WaveNetInfer.run_speculative, fixed and
      adaptive (window 256), each on counts set to 0 just before it and
@@ -409,8 +418,10 @@ LOWP_SERVE_TICKS = 48   # the latency tier's slot handover: SERVE, cut
 # at the flagship (also their plain_ms)
 LOWP_PLAIN_T = 8
 PEAK_BF16_FLOPS = 989e12   # the tensor cores, dense (fast_math's products)
-# P1 by device time: launches captured in one CUDA graph (phase 28)
+# P1 by device time: launches captured in one CUDA graph (phase 28); the
+# wrapper's host path per call over P1_HOST_CALLS calls
 P1_GRAPH_LAUNCHES = 100
+P1_HOST_CALLS = 1000
 # probe P5: held against its plain version on a short chain at the
 # flagship's widths (exact bit for bit, fast within P5_FAST_TOL of the
 # output's largest magnitude), then at the timed shapes (B=16; D=43 with W
@@ -429,7 +440,17 @@ P5_TIME_T = 1024
 P5_INSTANCES = (("exact", "l2", "exact + gate (K1's stage)"),
                 ("exact", "smem", "exact + gate, W in shared memory (D=6)"),
                 ("fast", "l2", "fast + gate (the TPU probe's DEFAULT)"),
-                ("fast", "smem", "fast + gate, W in shared memory (D=6)"))
+                ("fast", "smem", "fast + gate, W in shared memory (D=6)"),
+                ("exact", "stream", "stream: exact + gate"),
+                ("fast", "stream", "stream: fast + gate"),
+                ("exact", "cluster", "cluster: exact + gate, 2 rows a cluster"),
+                ("fast", "cluster", "cluster: fast + gate, 2 rows a cluster"))
+# the W locations phase 29 holds at the short chain: (weights, rows a CTA
+# or cluster: 1 or "B", the whole batch), the first design's and the
+# Hopper layouts'; then the Hopper layouts' every instance at
+# probe_stage.instance_shapes()
+P5_HELD_LAYOUTS = (("l2", 1), ("smem", 1), ("l2", "B"), ("stream", 1),
+                   ("stream", "B"), ("cluster", 1), ("cluster", "B"))
 # speculative decode at the flagship: request 1's first SPEC_T samples at
 # b=1 and b=16, fixed and adaptive at SPEC_WINDOW; bf16 weights and
 # MANYBLOCK int8 over SPEC_STORE_T at SPEC_STORE_WINDOW (so the adaptive
@@ -2222,8 +2243,10 @@ def check_p1(torch, pem, dev) -> dict:
     """P1 from both builds on the JAX probe's inputs: bit mismatches
     against numpy's separate a*b+c and the fp64 FMA (`fma_report`, its
     launches counted), each build's plain form against the plain version
-    on the card, and the times of the plain forms, the plain version and
-    torch.addcmul."""
+    on the card, an offset view (the scalar path) against it, and the times
+    of the plain forms, the plain version and torch.addcmul; then the plain
+    form at pem.N_LARGE elements (held against the plain version, timed
+    beside torch.addcmul) and the wrapper's host path per call."""
     a, b, c = pem.probe_inputs()[:3]
     for k in pem.FMA_PROBE_KERNELS.values():
         k.launches = 0
@@ -2247,6 +2270,10 @@ def check_p1(torch, pem, dev) -> dict:
             "max_abs_err": float((o - plain).abs().max()),
             "ms": time_ms(torch, lambda f=flags: pem.fma_probe(
                 ta, tb, tc, "plain", f), 50)}
+    # an offset view: no 16-byte alignment, the scalar loop alone
+    out["offset_view_bits"] = bit_mismatches(
+        torch, pem.fma_probe(ta[1:], tb[1:], tc[1:]),
+        pem.fma_plain(ta[1:], tb[1:], tc[1:]))
     # device time: P1_GRAPH_LAUNCHES back-to-back launches captured in a
     # CUDA graph and replayed, by events, so the host's launch path (ctypes
     # and the wrapper's checks) is out of the time
@@ -2256,6 +2283,28 @@ def check_p1(torch, pem, dev) -> dict:
         torch, lambda: torch.addcmul(tc, ta, tb), P1_GRAPH_LAUNCHES)
     # three fp32 reads and a write; a multiply and an add per element
     out["bound_ms"], out["bound_by"] = bound_ms(16 * a.size, 2 * a.size)
+    out["host_path_us"] = pem.host_path_us(ta, tb, tc, P1_HOST_CALLS)
+    # where bytes decide: N_LARGE elements made on the card from a seed
+    n = pem.N_LARGE
+    gen = torch.Generator(device=dev).manual_seed(0)
+    la, lb, lc = (torch.rand(n, generator=gen, device=dev) * 4 - 2
+                  for _ in range(3))
+    kern = pem.FMA_PROBE_KERNELS["fmad=false"]
+    kern.launches = 0
+    lo = pem.fma_probe(la, lb, lc)
+    large = {"n": n, "launches": kern.launches}
+    lplain = pem.fma_plain(la, lb, lc)
+    large.update({
+        "vs_plain_bits": bit_mismatches(torch, lo, lplain),
+        "max_abs_err": float((lo - lplain).abs().max()),
+        "plain_ms": time_ms(torch, lambda: pem.fma_plain(la, lb, lc), 10),
+        "device_ms": graph_ms(torch, lambda: pem.fma_probe(la, lb, lc),
+                              P1_GRAPH_LAUNCHES),
+        "library_device_ms": graph_ms(
+            torch, lambda: torch.addcmul(lc, la, lb), P1_GRAPH_LAUNCHES)})
+    large["bound_ms"], large["bound_by"] = bound_ms(16 * n, 2 * n)
+    large["of_bound"] = large["bound_ms"] / large["device_ms"]
+    out["large"] = large
     return out
 
 
@@ -2282,21 +2331,39 @@ def graph_ms(torch, fn, n: int) -> float:
 
 def check_p5_held(torch, ps, dev) -> dict:
     """P5 against chain_plain on a P5_HELD_T-step chain of P5_HELD_D stages
-    at R=64, B in P5_HELD_B: each precision x W location x gate, and the
-    whole batch in one CTA; then over P5_TIMED_HELD_T steps at the timed
-    shapes.  Exact bit for bit, fast within P5_FAST_TOL of max |plain|
-    (`fast_max_rel_err`).  Also each precision's plain run timed at B=16
-    with the gate."""
+    at R=64, B in P5_HELD_B: each precision x W layout (P5_HELD_LAYOUTS) x
+    gate; the same chain at each shape of `ps.instance_shapes()`, so every
+    compiled instance of the stream and the cluster is held; then over
+    P5_TIMED_HELD_T steps at the timed shapes.  Exact bit for bit, fast within P5_FAST_TOL of max |plain|
+    (`fast_max_rel_err`).  Every call runs on P5's counters set to 0 just
+    before it and must launch its layout's own kernel once, and no other
+    (`launch_faults`).  Also each precision's plain run timed at B=16 with
+    the gate."""
     T, D = P5_HELD_T, P5_HELD_D
     res = {"cases": 0, "exact_bit_mismatches": 0, "exact_max_abs_err": 0.0,
-           "fast_max_abs_err": 0.0, "fast_max_rel_err": 0.0, "plain_ms": {}}
+           "fast_max_abs_err": 0.0, "fast_max_rel_err": 0.0, "plain_ms": {},
+           "launch_faults": [], "by_layout": {}}
+    counters = {(weights, prec): k for weights, ks in ps.LAYOUT_KERNELS.items()
+                for prec, k in ks.items()}
 
-    def held(prec, out, ref):
+    def held(prec, weights, make, ref, where):
+        for k in counters.values():
+            k.launches = 0
+        out = make()
+        launched = {k.symbol: k.launches for k in set(counters.values())
+                    if k.launches}
+        if launched != {counters[(weights, prec)].symbol: 1}:
+            res["launch_faults"].append({where: launched})
         err = float((out - ref).abs().max())
         rel = err / float(ref.abs().max())
         bits = bit_mismatches(torch, out, ref)
         res["cases"] += 1
         res[f"{prec}_max_abs_err"] = max(res[f"{prec}_max_abs_err"], err)
+        lay = res["by_layout"].setdefault(f"{weights} {prec}", {
+            "cases": 0, "bit_mismatches": 0, "max_rel_err": 0.0})
+        lay["cases"] += 1
+        lay["bit_mismatches"] += bits
+        lay["max_rel_err"] = max(lay["max_rel_err"], rel)
         if prec == "exact":
             res["exact_bit_mismatches"] += bits
         else:
@@ -2313,25 +2380,43 @@ def check_p5_held(torch, ps, dev) -> dict:
                 torch.cuda.synchronize()
                 if B == 16 and gate:
                     res["plain_ms"][prec] = (time.perf_counter() - t) * 1e3
-                for rows, weights in ((1, "l2"), (1, "smem"), (B, "l2")):
-                    held(prec, ps.make_chain(B, ps.R_DEFAULT, D, T, prec,
-                                             gate, 1, rows, weights)(w, x),
-                         ref)
+                for weights, rows in P5_HELD_LAYOUTS:
+                    rows = B if rows == "B" else rows
+                    held(prec, weights, lambda: ps.make_chain(
+                        B, ps.R_DEFAULT, D, T, prec, gate, 1, rows,
+                        weights)(w, x), ref,
+                        f"B={B} {prec} gate={gate} {weights} rows={rows}")
+    # every instance: rows a worker 1, 2, 4 at R=64 (unrolled) and R=32,
+    # two groups, two CTAs or clusters
+    res["instances"] = {}
+    for (weights, np_, R), sh in ps.instance_shapes().items():
+        w, x = ps.chain_inputs(sh["B"], R, D, sh["groups"], dev)
+        for prec in ps.PRECISIONS:
+            for gate in (True, False):
+                ref = ps.chain_plain(w, x, T, gate, prec)
+                key = (f"{weights} NP={np_} R={R} B={sh['B']} rows="
+                       f"{sh['rows']} groups={sh['groups']} {prec} "
+                       f"gate={gate}")
+                res["instances"][key] = held(
+                    prec, weights, lambda: ps.make_chain(
+                        sh["B"], R, D, T, prec, gate, sh["groups"],
+                        sh["rows"], weights)(w, x), ref, key)
     # the timed shapes, on the inputs `measure` times them on (B=16, gate
-    # on): W in L2 at D=43 (one CTA per row and the whole batch in one), W
-    # in shared memory at SMEM_D
+    # on): D=43 in L2, the stream and the cluster (one row a CTA or cluster
+    # and the whole batch in one), W in shared memory at SMEM_D
     res["timed_shapes"] = {}
-    for D, where in ((ps.D_DEFAULT, ("l2",)), (ps.SMEM_D, ("smem",))):
+    for D, where in ((ps.D_DEFAULT, ("l2", "stream", "cluster")),
+                     (ps.SMEM_D, ("smem",))):
         w, x = ps.chain_inputs(ps.B_DEFAULT, ps.R_DEFAULT, D, 1, dev)
         for prec in ps.PRECISIONS:
             ref = ps.chain_plain(w, x, P5_TIMED_HELD_T, True, prec)
-            for rows in (1, ps.B_DEFAULT):
+            for rows in (1, 2, ps.B_DEFAULT):
                 for weights in where:
-                    res["timed_shapes"][f"{prec} D={D} {weights} rows="
-                                        f"{rows}"] = held(
-                        prec, ps.make_chain(ps.B_DEFAULT, ps.R_DEFAULT, D,
-                                            P5_TIMED_HELD_T, prec, True, 1,
-                                            rows, weights)(w, x), ref)
+                    key = f"{prec} D={D} {weights} rows={rows}"
+                    res["timed_shapes"][key] = held(
+                        prec, weights, lambda: ps.make_chain(
+                            ps.B_DEFAULT, ps.R_DEFAULT, D, P5_TIMED_HELD_T,
+                            prec, True, 1, rows, weights)(w, x), ref, key)
     return res
 
 
@@ -3995,10 +4080,20 @@ def main() -> int:
         fail(f"P1: a form that must not contract did: {p1}")
     if not all(p1["launches"].values()):
         fail(f"P1 did not launch from both builds: {p1['launches']}")
+    large = p1["large"]
+    if p1["offset_view_bits"] or large["vs_plain_bits"] or large["launches"] != 1:
+        fail(f"P1 disagrees with its plain version on an offset view or at "
+             f"{large['n']} elements: {p1['offset_view_bits']}, {large}")
     log(f"[P1] by device time ({P1_GRAPH_LAUNCHES} launches in a CUDA "
-        f"graph): the plain form {p1['device_ms']:.4f} ms, torch.addcmul "
-        f"{p1['library_device_ms']:.4f} ms; by events over back-to-back "
-        f"calls {p1['fmad=false']['ms']:.4f} / {p1['library_ms']:.4f} ms")
+        f"graph): the plain form {p1['device_ms']:.5f} ms, torch.addcmul "
+        f"{p1['library_device_ms']:.5f} ms; by events over back-to-back "
+        f"calls {p1['fmad=false']['ms']:.4f} / {p1['library_ms']:.4f} ms; "
+        f"at {large['n']} elements {large['device_ms']:.5f} ms against "
+        f"torch.addcmul's {large['library_device_ms']:.5f} (bound "
+        f"{large['bound_ms']:.5f}, {large['of_bound']:.1%} of it); {card}")
+    log(f"[P1] host path per call (us, {P1_HOST_CALLS} calls): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in p1["host_path_us"].items()
+                    if k != "calls"))
 
     # -- phase 29: P5 against its plain version -------------------------------
     mark("phase 29: P5 against its plain version")
@@ -4007,18 +4102,61 @@ def main() -> int:
     if (p5_held["exact_bit_mismatches"]
             or p5_held["fast_max_rel_err"] > P5_FAST_TOL):
         fail(f"P5 disagrees with its plain version: {p5_held}")
+    if p5_held["launch_faults"]:
+        fail(f"P5: a call did not launch its layout's kernel alone: "
+             f"{p5_held['launch_faults']}")
+    log("[P5] held against chain_plain: " + ", ".join(
+        f"{k} {v['cases']} cases, {v['bit_mismatches']} bits, rel "
+        f"{v['max_rel_err']:.2e}" for k, v in p5_held["by_layout"].items()))
 
     # -- phase 30: P5 timed, the per-stage floor ------------------------------
     mark("phase 30: P5 timed, the per-stage floor")
-    for k in ps.STAGE_CHAIN_KERNELS.values():
+    p5_kernels = {(weights, prec): k for weights, ks in ps.LAYOUT_KERNELS.items()
+                  for prec, k in ks.items()}
+    for k in p5_kernels.values():
         k.launches = 0
     p5_ns = {label: ps.measure(label, T=P5_TIME_T, iters=2, **kw)
              for label, kw in ps.VARIANTS}
-    p5_launches = {p: k.launches for p, k in ps.STAGE_CHAIN_KERNELS.items()}
+    # the first design's l2 and smem share a counter
+    p5_launches = {f"{w} {p}": k.launches for (w, p), k in p5_kernels.items()}
+    # clusters the card holds at once: B / rows beyond it run in waves
+    p5_waves = {}
+    for label, kw in ps.VARIANTS:
+        if kw.get("weights") == "cluster":
+            B_v, rows_v = kw.get("B", ps.B_DEFAULT), kw.get("rows", 1)
+            fit = ps.max_active_clusters(
+                B_v, ps.R_DEFAULT, kw.get("D", ps.D_DEFAULT), 1, rows_v,
+                kw.get("precision", "exact"), kw.get("gate", True))
+            p5_waves[label] = {"clusters": B_v // rows_v,
+                               "max_active_clusters": fit}
+    floor_label, floor_ns = ps.stage_floor(p5_ns)
+    flagship = cfg_lib.FLAGSHIP_CONFIG
+    cost = profiling.step_cost(flagship)
+    # this run's numbers only (the kernels line): the floors from its stage
+    p5_floor = {
+        "stage_ns_layout": floor_label, "stage_ns": floor_ns,
+        "latency_floor_khz": cost.latency_floor_khz(floor_ns),
+        "fused_latency_floor_khz": cost.fused_latency_floor_khz(flagship,
+                                                                floor_ns),
+        "k1_khz_per_utt": khz, "k1_us_per_step": k1_us,
+        "k1_us_per_critical_stage": k1_us / cost.critical_path_matmuls}
+    # the committed STAGE_NS and the floor the cost model reads from it
+    committed = {"stage_ns": profiling.STAGE_NS,
+                 "latency_floor_khz": cost.latency_floor_khz()}
     log(json.dumps({"p5_ns_per_stage": p5_ns, "steps": P5_TIME_T,
-                    "launches": p5_launches, "card": card}))
-    log(f"[P5] the exact stage at B=16, W in L2 (profiling.STAGE_NS): "
-        f"{p5_ns[P5_INSTANCES[0][2]]:.1f} ns; {card}")
+                    "launches": p5_launches, "cluster_waves": p5_waves,
+                    "floor": p5_floor, "committed": committed,
+                    "card": card}))
+    if not all(n for n in p5_launches.values()):
+        fail(f"P5: a layout's kernel never launched in the sweep: "
+             f"{p5_launches}")
+    log(f"[P5] profiling.STAGE_NS, the least exact stage at B=16, D=43: "
+        f"{floor_ns:.1f} ns ({floor_label}; committed {profiling.STAGE_NS}); "
+        f"latency_floor_khz() {committed['latency_floor_khz']:.2f} kHz "
+        f"(this run's stage: {p5_floor['latency_floor_khz']:.2f}) "
+        f"against K1's {khz:.2f} kHz per utterance in phase 7 "
+        f"({p5_floor['k1_us_per_critical_stage']:.3f} us a critical stage); "
+        f"{card}")
 
     # -- phase 31: speculative decode at the flagship -------------------------
     mark("phase 31: speculative decode at the flagship")
@@ -4470,7 +4608,8 @@ def main() -> int:
                             "(phase 17b: " + ", ".join(
                                 c[0] for c in F2_CASES) + ")",
                 library="none: no single torch call computes it"))
-    # the probes: P1 from both builds, P5 in each precision and W location
+    # the probes: P1 from both builds at the probe's shape and at N_LARGE,
+    # P5 in each precision and W layout
     for flags in pem.FMA_PROBE_KERNELS:
         r = p1[flags]
         kernels.append(entry(
@@ -4486,26 +4625,53 @@ def main() -> int:
             library_device_ms=p1["library_device_ms"],
             contracted_vs_separate=r["separate"], vs_fma64=r["fma64"],
             mismatches_are="the guarded form against numpy separate, and "
-                           "under -fmad=false the plain form too"))
+                           "under -fmad=false the plain form too",
+            host_path_us=p1["host_path_us"] if flags == "fmad=false"
+            else None))
+    large = p1["large"]
+    kernels.append(entry(
+        f"P1 fma_probe_kernel (-fmad=false), {large['n']} elements",
+        csrc + "probes.cu", "tools/probe_exact_math_tpu.py:69",
+        large["launches"], large["vs_plain_bits"], large["max_abs_err"],
+        large["device_ms"], large["plain_ms"], large["bound_ms"],
+        large["bound_by"], large["library_device_ms"],
+        f"a*b+c over [{large['n']}] f32, the plain form; ms and library_ms "
+        f"by device time ({P1_GRAPH_LAUNCHES} launches in a CUDA graph)",
+        launches_on="the probe (phase 28)", library="torch.addcmul",
+        of_bound=large["of_bound"],
+        mismatches_are="the plain form against the plain version"))
     for prec, weights, label in P5_INSTANCES:
         kw = dict(ps.VARIANTS)[label]
         D_t = kw.get("D", ps.D_DEFAULT)
         ms = p5_ns[label] * P5_TIME_T * D_t / 1e6
+        lay = p5_held["by_layout"][f"{weights} {prec}"]
+        where = {"l2": "W read from L2 inside the chain, one CTA per row",
+                 "smem": "W in shared memory (plain loads), one CTA per row",
+                 "stream": "W streamed by TMA through a ring, one CTA per "
+                           "row",
+                 "cluster": "W resident across a cluster of 8 CTAs per 2 "
+                            "rows (one wave), x by st.async"}[weights]
         kernels.append(entry(
-            f"P5 stage_chain_kernel {prec}, W in {weights}",
+            f"P5 {'stage_chain_kernel' if weights in ('l2', 'smem') else 'stage_' + weights + '_kernel'}"
+            f" {prec}, W {weights}",
             csrc + "probes.cu", "tools/probe_stage.py:65",
-            p5_launches[prec],
-            p5_held["exact_bit_mismatches"] if prec == "exact" else 0,
+            p5_launches[f"{weights} {prec}"],
+            lay["bit_mismatches"] if prec == "exact" else 0,
             p5_held[f"{prec}_max_abs_err"], ms, p5_held["plain_ms"][prec],
             *p5_bound(ps, ps.B_DEFAULT, D_t, P5_TIME_T, prec), None,
             f"B={ps.B_DEFAULT}, R={ps.R_DEFAULT}, D={D_t}, T={P5_TIME_T}, "
-            f"gate on, one CTA per row; plain_ms over T={P5_HELD_T}, "
-            f"D={P5_HELD_D} at B=16",
-            ns_per_stage=p5_ns[label], launches_on="the P5 sweep (phase 30)",
-            max_rel_err=p5_held["fast_max_rel_err"] if prec == "fast"
-            else 0.0,
+            f"gate on, {where}; plain_ms over T={P5_HELD_T}, D={P5_HELD_D} "
+            f"at B=16",
+            ns_per_stage=p5_ns[label], launches_on="the P5 sweep (phase 30; "
+            "the first design's l2 and smem share a counter)",
+            max_rel_err=lay["max_rel_err"],
+            mismatches_are="exact: bits against the plain version; fast: "
+                           "none beyond P5_FAST_TOL (bits_differing)",
+            bits_differing=lay["bit_mismatches"],
             library="none: no single torch call computes it",
-            sweep_ns_per_stage=p5_ns if label == P5_INSTANCES[0][2] else None))
+            waves=p5_waves.get(label),
+            sweep_ns_per_stage=p5_ns if label == P5_INSTANCES[0][2] else None,
+            floor=p5_floor if label == P5_INSTANCES[0][2] else None))
     print(json.dumps({"kernels": kernels}), flush=True)
     mark("done")
     print(card, flush=True)

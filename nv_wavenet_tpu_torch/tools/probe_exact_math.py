@@ -12,7 +12,9 @@ The port's counterpart of `tools/probe_exact_math_tpu.py`, on its inputs
     to fp32.  The guarded form and the -fmad=false build must show none
     against separate; the plain form built with -fmad=true shows the
     contraction that `utils/build.py`'s -fmad=false prevents in every other
-    kernel of the port;
+    kernel of the port.  P1 moves 16-byte vectors where every pointer is
+    16-byte aligned (`vector_count`); it is also timed at N_LARGE elements,
+    where bytes decide, and its host path per call (`host_path_us`);
   * K0a (exact exp, tanh, sigmoid) over the probe's x sweep and K0b (the
     canonical sampler) over za [4096, 256], sel [4096, 1]: mismatches
     against the plain versions.
@@ -26,6 +28,8 @@ and power limit.
 from __future__ import annotations
 
 import ctypes
+import functools
+import time
 
 import numpy as np
 import torch
@@ -35,8 +39,11 @@ from nv_wavenet_tpu_torch.utils import build
 from nv_wavenet_tpu_torch.utils.profiling import card
 
 N = 131072
+N_LARGE = 1 << 24          # 268 MB of traffic: a shape where bytes decide
 _P = ctypes.c_void_p
-_ARGTYPES = [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P]
+_LL = ctypes.c_longlong
+# a, b, c, o, n, n4, the SM count, guarded, stream
+_ARGTYPES = [_P, _P, _P, _P, _LL, _LL, ctypes.c_int, ctypes.c_int, _P]
 # P1 from each build of csrc/probes.cu
 FMA_PROBE_KERNELS = {
     "fmad=false": build.CudaKernel("probes.cu", "nvw_fma_probe", _ARGTYPES),
@@ -52,6 +59,36 @@ def fma_plain(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
     return a * b + c
 
 
+def vector_count(n: int, *tensors: torch.Tensor) -> int:
+    """The float4s of P1's vector loop: n // 4 where every tensor's first
+    element is 16-byte aligned, else 0 (an offset view takes the scalar
+    loop alone)."""
+    return 0 if any(t.data_ptr() % 16 for t in tensors) else n // 4
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device `index`, asked once: P1's grid cap."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check_operands(a, b, c):
+    dev = a.device
+    for name, t in (("a", a), ("b", b), ("c", c)):
+        build.check_tensor(t, name, torch.float32, a.shape, dev)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+
+
+def _launch(a, b, c, o, form: str, flags: str) -> None:
+    FMA_PROBE_KERNELS[flags](a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                             o.data_ptr(), a.numel(),
+                             vector_count(a.numel(), a, b, c, o),
+                             sm_count(a.device.index),
+                             int(form == "guarded"),
+                             build.current_stream(a.device))
+
+
 def fma_probe(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
               form: str = "plain", flags: str = "fmad=false") -> torch.Tensor:
     """o = a*b + c over float32 [n] tensors: P1 (`form` "plain" or
@@ -60,20 +97,46 @@ def fma_probe(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     if form not in FORMS or flags not in FMA_PROBE_KERNELS:
         raise ValueError(f"form {form!r} / flags {flags!r}: expected one of "
                          f"{FORMS} / {tuple(FMA_PROBE_KERNELS)}")
-    dev = a.device
-    for name, t in (("a", a), ("b", b), ("c", c)):
-        build.check_tensor(t, name, torch.float32, a.shape, dev)
-    if dev.type == "cpu":
+    _check_operands(a, b, c)
+    if a.device.type == "cpu":
         return fma_plain(a, b, c)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
     o = torch.empty_like(a)
     if a.numel():
-        FMA_PROBE_KERNELS[flags](a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                                 o.data_ptr(), a.numel(),
-                                 int(form == "guarded"),
-                                 build.current_stream(dev))
+        _launch(a, b, c, o, form, flags)
     return o
+
+
+def host_path_us(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                 calls: int = 1000) -> dict:
+    """The host's time per call of the wrapper on CUDA tensors, by
+    time.perf_counter over `calls` calls each: `fma_probe` whole, its
+    checks alone (`_check_operands`), the output's allocation, the lookup
+    of torch's current stream, the vector count and the cached SM count
+    alone, and the ctypes call with what it passes (vector count, pointers,
+    the SM count, the stream, the launch).  The launches are queued, not
+    waited for."""
+    o = torch.empty_like(a)
+
+    def per_call(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        dt = (time.perf_counter() - t) / calls * 1e6
+        torch.cuda.synchronize()
+        return dt
+
+    return {"wrapper": per_call(lambda: fma_probe(a, b, c)),
+            "checks": per_call(lambda: _check_operands(a, b, c)),
+            "allocation": per_call(lambda: torch.empty_like(a)),
+            "stream_lookup": per_call(lambda: build.current_stream(a.device)),
+            "vector_count": per_call(
+                lambda: vector_count(a.numel(), a, b, c, o)),
+            "sm_count": per_call(lambda: sm_count(a.device.index)),
+            "ctypes_call": per_call(
+                lambda: _launch(a, b, c, o, "plain", "fmad=false")),
+            "calls": calls}
 
 
 def probe_inputs():

@@ -13,7 +13,7 @@
 
 Every constant here is the H100's, never the TPU's: the peaks from NVIDIA's
 data sheet for the H100 SXM, `STAGE_NS` measured by probe P5
-(`tools/probe_stage.py`) on the card named beside it.  The JAX package's
+(`tools/probe_stage.py`, its fastest layout) on the card named beside it.  The JAX package's
 `stage_ns=200` and its 128-lane K-tile model are TPU v5e figures.
 """
 
@@ -33,10 +33,13 @@ from nv_wavenet_tpu_torch.ops import fused_chain, persistent
 PEAK_FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 L2_BYTES = 50 * 1024 * 1024
-# ns per dependent stage, x -> x W [16, 64] @ [64, 128] -> gate, probe P5
-# exact, W in L2, B=16, one CTA per row (K1's stage); NVIDIA H100 80GB HBM3
-# at 700 W (chip_smoke.py phase 30, T=1024)
-STAGE_NS = 3241.4
+# ns per dependent stage, x -> x W [16, 64] @ [64, 128] -> gate: probe P5
+# exact, B=16, D=43, the least over its layouts (tools/probe_stage.py
+# floor_labels): layout "stream", W_d staged by TMA through a ring, one CTA
+# per row (K1's layout); NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py
+# phase 30, T=1024, W laid out before the timed launches; the first design,
+# W read from L2 inside the chain, took 3226.2 in the same run)
+STAGE_NS = 447.0
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 TRACE_PATH = os.path.join(_REPO, "build", "traces", "trace.json")
@@ -90,8 +93,9 @@ class StepCost:
         """The binding bound of this workload: a sample is a chain of
         `critical_path_matmuls` dependent products (embed, L x (dilated,
         residual), Zs, Za), each at least one stage of probe P5 (default:
-        the exact stage measured on the H100).  Batch does not move it: one
-        CTA runs each row."""
+        STAGE_NS, the exact stage in the "stream" layout, W staged by TMA
+        into one CTA per row as K1 stages its weights, measured on the
+        H100).  Batch does not move it: one CTA runs each row."""
         return 1e6 / (self.critical_path_matmuls * stage_ns)
 
     def fused_latency_floor_khz(self, cfg: WaveNetConfig,
