@@ -22,8 +22,11 @@ fast_math); and the two precision knobs, the same requests through
 `WaveNetInfer(compute_dtype=torch.bfloat16)` and `WaveNetInfer(
 fast_math=True)` (the fast and bf16 instances of K1-K6), with the latency
 tier's slot handover; the two probes (P1, the FMA contraction; P5, the
-per-stage latency floor); and speculative exact decode through
-`WaveNetInfer.run_speculative` with its H100 cost fit.  Phases, in order;
+per-stage latency floor); speculative exact decode through
+`WaveNetInfer.run_speculative` with its H100 cost fit; and training at
+configs/config.json's width through the training CLI, with the trained
+model's teacher-forced p on the card and `tools/inference.py` on its
+checkpoint.  Phases, in order;
 any failure exits non-zero:
 
   1. device: card name and power limit (nvidia-smi), torch.version.cuda, nvcc
@@ -33,7 +36,11 @@ any failure exits non-zero:
      the dense sweep of tests/test_exact_math.py; its device time (100
      launches in a CUDA graph) at 450,020 floats and at the scorer's
      embedding [131072, 64], beside torch.exp / tanh / sigmoid
-  4. K0b (canonical sampler) vs plain: 0 mismatches on za [4096, 256]; K0c
+  4. K0b (canonical sampler) vs plain: 0 mismatches at za [4096, 256],
+     [4096, 1024] and speculative decode's [256, 256] (the warp instance)
+     and [4096, 250] (the block instance), rows at sel 1.0 among them, timed
+     by events and device time, and the block instance (the earlier
+     design) against the warp instance in turns at [4096, 256]; K0c
      (canonical softmax) vs plain at za [4096, 256] and [131072, 256] (the
      warp instance) and [4096, 250] (the block instance): 0 bit
      mismatches, timed beside torch.softmax; K7 (the scorer's fixed-order
@@ -257,6 +264,21 @@ any failure exits non-zero:
  32. the speculative cost fit at b=1: a round's time at windows 64, 128 and
      256 (the mean of 3 runs after a warm-up), least squares V0 + V1 K, E0 run()'s time per step (K1), the
      adaptive branch over every probe result (speculative.DEFAULT_COST)
+ 32b. the training path at configs/config.json's full width (16 layers,
+     R=64, S=256, A=256, max_dilation 128, batch 4 of 16,000 samples,
+     synthetic clips): 20 steps through the training CLI in "highest" (every
+     loss finite, the mean of the last 5 below the first 5's), the
+     checkpoint loaded back bit for bit, the trained model exported to a
+     WaveNetInfer on the card and the first batch's first 4096 samples
+     scored teacher forced by score_device (the scorer, on counts set to 0
+     just before it: K7 and K0c must launch) and by K2: p within 1e-3 of
+     the softmax of the training logits, and the two equal bit for bit;
+     tools/inference.py on the checkpoint for one mel of 1 s (a wav of the
+     mel's length, not silent, K1 launching on counts set to 0 just before
+     it); 5 steps timed in "highest" and in "default" (TF32): ms a step
+     split into forward, backward and optimizer, audio samples a second,
+     peak memory above what earlier phases hold; the TF32 flags as before
+     the phase
  33. the scorer pass of phase 11 traced with torch.profiler: its device
      time by kernel group (K7's gate, res/skip and product entries, K0a,
      K0c, torch's own kernels) and their shares; its Chrome trace under
@@ -346,6 +368,20 @@ K0A_SHAPES = ((450020,), (16 * 8192, 64))
 # K0c: za [rows, A] at the verify and window shapes (the warp instance) and
 # at A = 250 (the block instance)
 K0C_SHAPES = ((4096, 256), (K7_WINDOW_M, 256), (4096, 250))
+# K0b: za [rows, A] at the timed shape (the warp instance), A = 250 (the
+# block instance), A = 1024 (the widest warp instance) and speculative
+# decode's select_window at b=1, [SPEC_WINDOW, 256]; each with rows at sel
+# 1.0 (the silence fallback), sel 0, tied logits and -inf logits
+K0B_SHAPES = ((4096, 256), (4096, 250), (4096, 1024), (256, 256))
+K0B_TURNS = 2   # rounds of (old, new, new, old) at the first shape
+# the training path (phase 32b): configs/config.json's model (the reference's
+# pytorch/config.json), TRAIN_STEPS steps through the training CLI, the
+# train <-> infer hold over TRAIN_SCORE_T teacher-forced steps within the
+# contract's p tolerance (tests/test_engine.py:57-64), TRAIN_TIMED steps
+# timed in each precision
+TRAIN_CONFIG = os.path.join("configs", "config.json")
+TRAIN_STEPS, TRAIN_SCORE_T, TRAIN_TIMED = 20, 4096, 5
+TRAIN_P_TOL = 1e-3
 PRNG_SEED = 3   # the sampling_seed of the prng request
 # K4 (weight streaming): its storages, the schedules held to one another,
 # the flagship window held to K1/K2/K3, config 4 of the JAX repo's
@@ -796,6 +832,323 @@ def k7_outputs(f, entry: str, args, kw) -> tuple:
         return (f(*args, **kw),)
     a = (*args[:4], args[4].clone())
     return f(*a, **kw), a[4]
+
+
+def k0b_bound(rows: int, A: int):
+    """za and sel read and y written once; max, subtract, exp, the
+    fixed-tree prefix sum (one add a round), the threshold's multiply and
+    the compare and count an element."""
+    return bound_ms(rows * (4 * A + 4 + 4),
+                    rows * A * (2 + EXP_OPS + (A - 1).bit_length() + 2))
+
+
+def k0b_inputs(np, rows: int, A: int, seed: int):
+    """za [rows, A] uniform in [-8, 8) and sel [rows, 1] uniform in [0, 1),
+    from a seed, with 8 rows each at sel 1.0, at sel 0, of tied logits and
+    with every other logit -inf."""
+    rng = np.random.RandomState(seed)
+    za = rng.uniform(-8, 8, (rows, A)).astype(np.float32)
+    sel = rng.uniform(0, 1, (rows, 1)).astype(np.float32)
+    sel[:8] = 1.0
+    sel[8:16] = 0.0
+    za[16:24] = 0.5
+    za[24:32, ::2] = -np.inf
+    return za, sel
+
+
+def check_k0b(torch, np, em, scorer_ab, build, dev) -> dict:
+    """K0b's instances against the plain version at K0B_SHAPES (mismatches
+    on the card, and on the CPU), timed by events and by device time (a
+    CUDA graph) beside the plain version; the sel = 1.0 rows' mismatches
+    and how many took the silence bin (all of them unless the fixed tree
+    rounds a partial sum above cum[A-1]) are kept apart.  Then the block instance (the kernel before the warp per
+    row) and the warp instance in turns at the first shape, old / new /
+    new / old, K0B_TURNS times.  "per_shape" rows, and the first shape's
+    numbers at the top."""
+    out = {"mismatches": 0, "cpu_plain_mismatches": 0, "per_shape": []}
+    for i, (rows, A) in enumerate(K0B_SHAPES):
+        t_shape = time.perf_counter()
+        za_np, sel_np = k0b_inputs(np, rows, A, 40 + i)
+        za, sel = torch.from_numpy(za_np).to(dev), torch.from_numpy(
+            sel_np).to(dev)
+        inst = em.sample_kernel(A)
+        before = inst.launches
+        yk = em.sample_from_logits(za, sel, 128)
+        yp = em.sample_from_logits_plain(za, sel, 128)
+        torch.cuda.synchronize()
+        y_cpu = em.sample_from_logits_plain(za.cpu(), sel.cpu(), 128)
+        row = {"shape": [rows, A], "instance": inst.symbol,
+               "launched": inst.launches - before,
+               "mismatches": int((yk != yp).sum()),
+               "cpu_plain_mismatches": int((yk.cpu() != y_cpu).sum()),
+               "sel1_rows_mismatches": int((yk[:8] != yp[:8]).sum()),
+               "sel1_rows_silent": int((yk[:8] == 128).sum()),
+               "ms": time_ms(torch, lambda: em.sample_from_logits(
+                   za, sel, 128), 50),
+               "device_ms": scorer_ab.graph_ms(
+                   torch, lambda: em.sample_from_logits(za, sel, 128)),
+               "plain_ms": time_ms(torch, lambda: em.sample_from_logits_plain(
+                   za, sel, 128), 5)}
+        row["bound_ms"], row["bound_by"] = k0b_bound(rows, A)
+        row["check_s"] = time.perf_counter() - t_shape
+        out["mismatches"] += row["mismatches"]
+        out["cpu_plain_mismatches"] += row["cpu_plain_mismatches"]
+        if row["launched"] != 1:
+            fail(f"K0b at {row['shape']}: {row['launched']} launches of "
+                 f"{inst.symbol}")
+        out["per_shape"].append(row)
+        if i == 0:
+            turn_in = (za, sel, torch.empty(rows, dtype=torch.int32,
+                                            device=dev), rows, A)
+    first = out["per_shape"][0]
+    for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+              "instance"):
+        out[k] = first[k]
+    za, sel, y, rows, A = turn_in
+
+    def launch(kernel):
+        return lambda: kernel(za.data_ptr(), sel.data_ptr(), y.data_ptr(),
+                              rows, A, 128, build.current_stream(dev))
+    turns = {"old (block)": {"device_ms": [], "ms": []},
+             "new (warp)": {"device_ms": [], "ms": []}}
+    for _ in range(K0B_TURNS):
+        for label, kernel in (("old (block)", em.SAMPLE_BLOCK_KERNEL),
+                              ("new (warp)", em.SAMPLE_KERNEL),
+                              ("new (warp)", em.SAMPLE_KERNEL),
+                              ("old (block)", em.SAMPLE_BLOCK_KERNEL)):
+            turns[label]["device_ms"].append(scorer_ab.graph_ms(
+                torch, launch(kernel)))
+            turns[label]["ms"].append(time_ms(torch, launch(kernel), 50))
+    out["turns"] = {"shape": [rows, A], **turns}
+    return out
+
+
+def train_timed_steps(torch, trainer, precision_scope, state, mel, audio,
+                      n: int) -> dict:
+    """n steps of trainer.train_step's body on one batch after a warm-up
+    step, each cut by CUDA events into forward (with the loss), backward
+    and optimizer; ms a step (their sum) and audio samples a second over
+    the batch, the losses, and the peak memory over the n steps above what
+    was allocated before them (earlier phases keep tensors alive)."""
+    trainer.train_step(state, mel, audio)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    parts, losses = [], []
+    for _ in range(n):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        with precision_scope(state.module.precision):
+            ev[0].record()
+            state.optimizer.zero_grad(set_to_none=True)
+            loss = trainer.cross_entropy_loss(state.model(mel, audio), audio)
+            ev[1].record()
+            loss.backward()
+            ev[2].record()
+            state.optimizer.step()
+            ev[3].record()
+        torch.cuda.synchronize()
+        parts.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+        losses.append(float(loss.detach()))
+    fwd, bwd, opt = (sum(p[i] for p in parts) / n for i in range(3))
+    step_ms = fwd + bwd + opt
+    return {"steps": n, "ms_per_step": step_ms, "forward_ms": fwd,
+            "backward_ms": bwd, "optimizer_ms": opt,
+            "audio_samples_per_s": audio.numel() / (step_ms / 1e3),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated() - base,
+            "losses": losses}
+
+
+def check_training(torch, np, all_kernels, persistent, params_lib, om, em,
+                   dev, card) -> dict:
+    """The training path at configs/config.json's full width (phase 32b):
+    TRAIN_STEPS steps through the training CLI in "highest", a checkpoint
+    saved and loaded, the trained model's teacher-forced p on the card
+    (the scorer through score_device, and K2) against the softmax of its
+    training logits, tools/inference.py on the checkpoint, and steps timed
+    in "highest" and "default" (TF32)."""
+    from nv_wavenet_tpu_torch.engine.wavenet_infer import WaveNetInfer
+    from nv_wavenet_tpu_torch.models import wavenet as wavenet_lib
+    from nv_wavenet_tpu_torch.tools import inference
+    from nv_wavenet_tpu_torch.train import cli, trainer
+    from nv_wavenet_tpu_torch.train.data import (Mel2Samp,
+                                                 data_config_from_json,
+                                                 mel_spectrogram,
+                                                 synthetic_clips)
+
+    out = {"card": card}
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    work = os.path.join(HERE, "build", "train_smoke")
+    os.makedirs(work, exist_ok=True)
+    with open(os.path.join(HERE, TRAIN_CONFIG)) as f:
+        cfg_json = json.load(f)
+    train_c = cfg_json["train_config"]
+    cfg_json["train_config"] = dict(
+        train_c, output_directory=os.path.join(work, "ckpt"),
+        num_iters=TRAIN_STEPS, iters_per_checkpoint=TRAIN_STEPS,
+        checkpoint_path="", with_tensorboard=True)
+    config = os.path.join(work, "config.json")
+    with open(config, "w") as f:
+        json.dump(cfg_json, f)
+    out["config"] = {k: cfg_json[k] for k in ("wavenet_config",
+                                              "train_config")}
+
+    # 1. the CLI: TRAIN_STEPS steps in "highest", a checkpoint at the end
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    state, losses = cli.main(["-c", config])
+    torch.cuda.synchronize()
+    out["cli_s"] = time.perf_counter() - t
+    out["cli_peak_memory_bytes"] = torch.cuda.max_memory_allocated() - base
+    out["losses"] = losses
+    # seconds from the loop's start to each step's loss (metrics.jsonl): the
+    # first step carries the start-up (cuDNN's first calls)
+    with open(os.path.join(work, "ckpt", "metrics.jsonl")) as f:
+        out["cli_elapsed_s"] = [json.loads(l)["elapsed_s"] for l in f]
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    out["loss_first5_mean"], out["loss_last5_mean"] = first, last
+    if (len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses))
+            or not last < first):
+        fail(f"training: {len(losses)} losses, finite "
+             f"{bool(np.all(np.isfinite(losses)))}, mean of the first 5 "
+             f"{first} and of the last 5 {last}: {losses}")
+    model = state.module
+    if next(model.parameters()).device.type != "cuda":
+        fail("training: the CLI did not train on the card")
+
+    # 2. the checkpoint loads into a fresh state, bit for bit
+    ckpt_dir = os.path.join(work, "ckpt")
+    fresh = trainer.create_train_state(
+        trainer.create_model(cfg_json["wavenet_config"]),
+        trainer.TrainConfig(seed=train_c.get("seed", 1234) + 1), dev)
+    fresh, it = trainer.load_checkpoint(ckpt_dir, None, fresh)
+    want, got = model.state_dict(), fresh.module.state_dict()
+    out["checkpoint"] = {"iteration": it, "tensors": len(want),
+                         "equal": all(torch.equal(want[k], got[k])
+                                      for k in want)}
+    if it != TRAIN_STEPS or not out["checkpoint"]["equal"]:
+        fail(f"training: the checkpoint did not round-trip: "
+             f"{out['checkpoint']}")
+    del fresh
+
+    # 3. train <-> infer on the card: the first batch the CLI trained on,
+    # teacher forced over TRAIN_SCORE_T steps from y_cur = audio[:, 0]
+    data_cfg = data_config_from_json(cfg_json["data_config"])
+    ds = Mel2Samp(synthetic_clips(n_clips=4,
+                                  length=4 * data_cfg.segment_length),
+                  data_cfg, seed=train_c.get("seed", 1234))
+    mel_np, audio_np = next(ds.batches(train_c["batch_size"]))
+    mel = torch.from_numpy(mel_np).to(dev)
+    audio = torch.from_numpy(audio_np).to(dev)
+    B, Ts = audio.shape[0], TRAIN_SCORE_T
+    with torch.no_grad():
+        logits = model(mel, audio)                         # [B, T, A]
+        cond = model._cond_acts(mel, Ts).permute(1, 2, 0, 3).contiguous()
+        p_train = torch.softmax(logits[:, 1:Ts + 1], -1).permute(1, 0, 2)
+    cfg = wavenet_lib.config_of(model)
+    canon = wavenet_lib.export_canonical(model)
+    eng = WaveNetInfer(num_layers=cfg.num_layers,
+                       max_dilation=cfg.max_dilation, R=cfg.R, S=cfg.S,
+                       A=cfg.A, max_batch=B, tanh_embed=cfg.tanh_embed,
+                       chunk_size=MAIN_CHUNK, device=dev)
+    eng.set_canonical_params(canon)
+    eng.begin_stream(B)
+    y_state = np.stack([np.full(B, cfg.silence_bin, np.int32),
+                        audio_np[:, 0].astype(np.int32)])
+    eng.import_state({"ring": np.zeros((cfg.ring_size, B, cfg.R), np.float32),
+                      "y_state": y_state, "stream_t_row": np.zeros(B, np.int64),
+                      "stream_t": np.asarray(0), "stream_batch": np.asarray(B)})
+    symbols = audio[:, 1:Ts + 1].T.contiguous()            # [Ts, B]
+    for k in all_kernels:
+        k.launches = 0
+    p_score = eng.score_device(cond, symbols)              # [Ts, B, A]
+    torch.cuda.synchronize()
+    score_launches = {k.symbol: k.launches for k in all_kernels if k.launches}
+    params = params_lib.canonical_to_torch(canon, dev)
+    gen = persistent.make_persistent_generator(cfg, B, mode="forced")
+    k2 = gen.route.cuda_kernel("exact")
+    ring = persistent.init_ring(cfg, B, dev)
+    ys = torch.from_numpy(y_state).to(dev)
+    cond_pre = (cond + params["dil_b"][None, :, None, :]).contiguous()
+    k2.launches = 0
+    p_k2 = gen(params, 0, cond_pre, symbols.to(torch.float32), ring, ys)[-1]
+    torch.cuda.synchronize()
+    out["train_infer"] = {
+        "steps": Ts, "batch": B, "k2": k2.symbol, "k2_launches": k2.launches,
+        "score_launches": score_launches,
+        "score_max_abs_err": float((p_score - p_train).abs().max()),
+        "k2_max_abs_err": float((p_k2 - p_train).abs().max()),
+        "score_vs_k2_bit_mismatches": bit_mismatches(torch, p_score, p_k2),
+        "p_tolerance": TRAIN_P_TOL}
+    ti = out["train_infer"]
+    if (ti["score_max_abs_err"] > TRAIN_P_TOL
+            or ti["k2_max_abs_err"] > TRAIN_P_TOL or not ti["k2_launches"]
+            or ti["score_vs_k2_bit_mismatches"]
+            or not score_launches.get(om.ORDERED_GATE_KERNEL.symbol)
+            or not score_launches.get(em.SOFTMAX_KERNEL.symbol)):
+        fail(f"training: train <-> infer on the card: {ti}")
+    del logits, p_train, p_score, p_k2, cond, cond_pre
+
+    # 4. tools/inference.py on the checkpoint: one mel of 1 s, K1 on the card
+    clip = synthetic_clips(n_clips=1, length=data_cfg.sampling_rate,
+                           sr=data_cfg.sampling_rate, seed=9)[0]
+    mel_1s = mel_spectrogram(clip, data_cfg)
+    np.save(os.path.join(work, "mel_0.npy"), mel_1s)
+    with open(os.path.join(work, "mels.txt"), "w") as f:
+        f.write(os.path.join(work, "mel_0.npy") + "\n")
+    for k in all_kernels:
+        k.launches = 0
+    t = time.perf_counter()
+    written = inference.main(["-c", ckpt_dir, "-f",
+                              os.path.join(work, "mels.txt"), "-o",
+                              os.path.join(work, "wav"), "--config", config])
+    torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t
+    from scipy.io import wavfile
+    sr, wav = wavfile.read(written[0])
+    k1 = persistent.PERSISTENT_KERNELS["exact"]
+    out["inference_cli"] = {
+        "wav": os.path.relpath(written[0], HERE), "sr": int(sr),
+        "samples": int(wav.shape[0]),
+        "expected_samples": mel_1s.shape[0] * cfg_json["wavenet_config"][
+            "upsamp_stride"],
+        "nonzero_samples": int(np.count_nonzero(wav)),
+        "distinct_values": int(len(np.unique(wav))),
+        "k1_launches": k1.launches,
+        "launches": {k.symbol: k.launches for k in all_kernels if k.launches},
+        "s": infer_s}
+    ic = out["inference_cli"]
+    if (ic["samples"] != ic["expected_samples"] or ic["distinct_values"] < 2
+            or not ic["k1_launches"] or sr != data_cfg.sampling_rate):
+        fail(f"training: tools/inference.py on the checkpoint: {ic}")
+
+    # 5. steps timed in "highest" (the trained state, the same batch) and in
+    # "default" (TF32; a fresh model)
+    out["highest"] = train_timed_steps(
+        torch, trainer, wavenet_lib.precision_scope, state, mel, audio,
+        TRAIN_TIMED)
+    del state, model
+    torch.cuda.empty_cache()
+    default = trainer.create_train_state(
+        trainer.create_model(dict(cfg_json["wavenet_config"],
+                                  precision="default")),
+        trainer.TrainConfig(seed=train_c.get("seed", 1234)), dev)
+    out["default"] = train_timed_steps(
+        torch, trainer, wavenet_lib.precision_scope, default, mel, audio,
+        TRAIN_TIMED)
+    if not all(np.isfinite(out[p]["losses"]).all()
+               for p in ("highest", "default")):
+        fail(f"training: a timed step's loss is not finite: "
+             f"{out['highest']['losses']} {out['default']['losses']}")
+    after = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    out["tf32_flags_before_after"] = (flags, after)
+    if after != flags:
+        fail(f"training: the TF32 flags were {flags} before the phase and "
+             f"{after} after it")
+    return out
 
 
 def check_k7(torch, om, dev, gen) -> dict:
@@ -2620,21 +2973,26 @@ def main() -> int:
 
     # -- phase 4: K0b vs plain ------------------------------------------------
     mark("phase 4: K0b vs plain")
-    rng = np.random.RandomState(4)
-    za = torch.from_numpy(rng.uniform(-8, 8, (4096, 256)).astype(np.float32)
-                          ).to(dev)
-    sel_za = torch.from_numpy(rng.uniform(0, 1, (4096, 1)).astype(np.float32)
-                              ).to(dev)
-    yk = em.sample_from_logits(za, sel_za, 128)
-    yp = em.sample_from_logits_plain(za, sel_za, 128)
-    torch.cuda.synchronize()
-    k0b_mism = int((yk != yp).sum())
-    k0b_cpu = int((yk.cpu() != em.sample_from_logits_plain(
-        za.cpu(), sel_za.cpu(), 128)).sum())
-    log(f"[K0b] {k0b_mism}/{yk.numel()} mismatches vs plain on the card, "
-        f"{k0b_cpu} vs plain on the CPU")
-    if k0b_mism:
-        fail(f"K0b disagrees with its plain version: {k0b_mism}")
+    k0b = check_k0b(torch, np, em, scorer_ab, build, dev)
+    for row in k0b["per_shape"]:
+        log(f"[K0b] {row['instance']} za {row['shape']}: "
+            f"{row['mismatches']} mismatches vs plain on the card, "
+            f"{row['cpu_plain_mismatches']} vs plain on the CPU (sel 1.0 "
+            f"rows: {row['sel1_rows_mismatches']} mismatches, "
+            f"{row['sel1_rows_silent']} of 8 silent); {row['ms']:.5f} ms, "
+            f"device {row['device_ms']:.5f} (bound {row['bound_ms']:.5f}, "
+            f"plain {row['plain_ms']:.4f}); checked in {row['check_s']:.2f} s")
+    log("[K0b] in turns at " + str(k0b["turns"]["shape"]) + ", old / new / "
+        "new / old: " + "; ".join(
+            f"{label} device " + ", ".join(f"{v:.5f}" for v in
+                                           t["device_ms"])
+            + " ms, events " + ", ".join(f"{v:.5f}" for v in t["ms"])
+            for label, t in k0b["turns"].items() if label != "shape")
+        + f"; {card}")
+    log(json.dumps({"k0b": k0b, "card": card}))
+    if k0b["mismatches"] or k0b["cpu_plain_mismatches"]:
+        fail(f"K0b disagrees with its plain version: {k0b['mismatches']} on "
+             f"the card, {k0b['cpu_plain_mismatches']} against the CPU")
 
     # K0c and K7 at the scorer's shapes
     mark("phase 4: K0c and K7 vs plain")
@@ -2865,13 +3223,6 @@ def main() -> int:
         b_ms, b_by = bound_ms(8 * n, fn_ops[name])
         k0a_bound += b_ms
         k0a_by.add(b_by)
-    rows, A = za.shape
-    k0b_ms = time_ms(torch, lambda: em.sample_from_logits(za, sel_za, 128), 50)
-    k0b_plain = time_ms(torch, lambda: em.sample_from_logits_plain(
-        za, sel_za, 128), 5)
-    k0b_bound, k0b_by = bound_ms(
-        rows * (4 * A + 4 + 4),
-        rows * A * (2 + EXP_OPS + (A.bit_length() - 1) + 2))
 
     # -- phase 7: the main path at full width ---------------------------------
     mark("phase 7: the main path at full width")
@@ -2893,7 +3244,8 @@ def main() -> int:
                  "K1 generic": persistent.GENERIC_KERNELS,
                  "K5 generic": persistent.GENERIC_RAGGED_KERNELS}
     exact_sym = {k: t["exact"].symbol for k, t in k1_tables.items()}
-    all_kernels = (em.EXACT_FN_KERNEL, em.SAMPLE_KERNEL, em.SOFTMAX_KERNEL,
+    all_kernels = (em.EXACT_FN_KERNEL, em.SAMPLE_KERNEL,
+                   em.SAMPLE_BLOCK_KERNEL, em.SOFTMAX_KERNEL,
                    em.SOFTMAX_BLOCK_KERNEL, om.ORDERED_MATMUL_KERNEL,
                    om.ORDERED_GATE_KERNEL, om.ORDERED_RES_SKIP_KERNEL,
                    *(k for t in k1_tables.values() for k in t.values()),
@@ -4232,6 +4584,33 @@ def main() -> int:
         f"{fit[1]:.2f}, {fit[2]:.2f}) at the flagship, b=1; the adaptive "
         f"tier's branches over every probe result: {branches}; {card}")
 
+    # -- phase 32b: training at full width ----------------------------------
+    mark("phase 32b: training at full width")
+    training = check_training(torch, np, all_kernels, persistent, params_lib,
+                              om, em, dev, card)
+    log("[train] losses " + ", ".join(f"{l:.4f}" for l in training["losses"])
+        + f" (first 5 mean {training['loss_first5_mean']:.4f}, last 5 "
+        f"{training['loss_last5_mean']:.4f}); the CLI {training['cli_s']:.2f}"
+        f" s, its loop's first step at {training['cli_elapsed_s'][0]:.2f} s, "
+        f"its last at {training['cli_elapsed_s'][-1]:.2f} s, peak "
+        f"{training['cli_peak_memory_bytes'] / 2**30:.2f} GiB")
+    for prec in ("highest", "default"):
+        r = training[prec]
+        log(f"[train] {prec}: {r['ms_per_step']:.2f} ms a step (forward "
+            f"{r['forward_ms']:.2f}, backward {r['backward_ms']:.2f}, "
+            f"optimizer {r['optimizer_ms']:.2f}), "
+            f"{r['audio_samples_per_s'] / 1e6:.3f} M audio samples/s, peak "
+            f"{r['peak_memory_bytes'] / 2**30:.2f} GiB; {card}")
+    ti = training["train_infer"]
+    log(f"[train] train <-> infer over {ti['steps']} steps, B={ti['batch']}: "
+        f"score_device max |p - softmax(train logits)| "
+        f"{ti['score_max_abs_err']:.3g}, K2 {ti['k2_max_abs_err']:.3g} (tol "
+        f"{TRAIN_P_TOL}); score vs K2 {ti['score_vs_k2_bit_mismatches']} bit "
+        f"mismatches; tools/inference.py wrote "
+        f"{training['inference_cli']['samples']} samples "
+        f"({training['inference_cli']['k1_launches']} K1 launches)")
+    log(json.dumps({"training": training}))
+
     # -- phase 33: the scorer pass traced ------------------------------------
     mark("phase 33: the scorer pass traced")
     split = scorer_ab.scorer_split(
@@ -4277,12 +4656,17 @@ def main() -> int:
               inlined_in="K1, K2, K3, K5", launches_on="the scoring phase",
               main_path_launches=launches[em.EXACT_FN_KERNEL.symbol],
               speculative_launches=spec_n(em.EXACT_FN_KERNEL)),
-        entry("K0b sample_kernel", csrc + "exact_math_kernels.cu",
+        entry("K0b sample_warp_kernel<A/32>", csrc + "exact_math_kernels.cu",
               "tools/probe_exact_math_tpu.py:107",
-              spec_n(em.SAMPLE_KERNEL), k0b_mism, 0.0, k0b_ms,
-              k0b_plain, k0b_bound, k0b_by, None,
-              f"za [{rows},{A}] f32, sel [{rows},1]",
-              inlined_in="K1, K3, K5", launches_on=spec_on,
+              spec_n(em.SAMPLE_KERNEL), k0b["mismatches"], 0.0, k0b["ms"],
+              k0b["plain_ms"], k0b["bound_ms"], k0b["bound_by"], None,
+              "za [%d,%d] f32, sel [%d,1] (every shape and the block "
+              "instance: per_shape)" % (*k0b["per_shape"][0]["shape"],
+                                        k0b["per_shape"][0]["shape"][0]),
+              device_ms=k0b["device_ms"], instance=k0b["instance"],
+              per_shape=k0b["per_shape"], turns=k0b["turns"],
+              block_instance=em.SAMPLE_BLOCK_KERNEL.symbol,
+              inlined_in="K1-K6", launches_on=spec_on,
               main_path_launches=launches[em.SAMPLE_KERNEL.symbol]),
         entry("K1 staged_generate_kernel<false, kPrecExact>",
               csrc + "staged_generate.cu",
@@ -4293,7 +4677,9 @@ def main() -> int:
               f"flagship, B={MAIN_B}, T={CHECK_T} steps per launch; "
               f"plain_ms over {FLAG_PLAIN_T} steps",
               serving_launches=serve_launches[exact_sym["K1"]],
-              plan=staged_plan_line),
+              plan=staged_plan_line,
+              inference_cli_launches=training["inference_cli"][
+                  "k1_launches"]),
         entry("K5 staged_generate_kernel<true, kPrecExact>",
               csrc + "staged_generate.cu",
               "nv_wavenet_tpu/ops/persistent.py:762",
@@ -4320,6 +4706,7 @@ def main() -> int:
               f"plain_ms over {FLAG_PLAIN_T} steps",
               variant='mode="forced" (:139-146, 387-400, 692-694)',
               launches_on="the scoring phase",
+              train_infer_launches=training["train_infer"]["k2_launches"],
               window_ms=k2_window_ms,
               first_ms=k2k3["first_ms"]["K2 exact"],
               vs_first_mismatches=k2k3["mismatches"],

@@ -7,9 +7,12 @@
 //   instance per function (no per-element branch on it), 16-byte loads and
 //   stores of four elements a thread with a scalar tail, and a grid of a
 //   few blocks an SM striding over the tensor.
-// K0b sample_kernel: the canonical sampler, one block per row of za [N, A]:
-//   max, exp(za - max), fixed-tree prefix sum, count of bins <= sel * sum,
-//   silence fallback.  Replaces tools/probe_exact_math_tpu.py:107.
+// K0b sample_warp_kernel<A / 32>: the canonical sampler, one warp per row
+//   of za [N, A] for A a multiple of 32 up to 1024: max, exp(za - max),
+//   fixed-tree prefix sum, count of bins <= sel * sum, silence fallback.
+//   Replaces tools/probe_exact_math_tpu.py:107.  Any other A takes the
+//   block instance sample_kernel (one block per row, shared memory), chosen
+//   by the wrapper from A.
 // K0c softmax_p_warp_kernel<A / 32>: the canonical softmax, one warp per row
 //   of za [N, A] for A a multiple of 32 up to 1024: max, e = exp(za - max),
 //   fixed-tree prefix sum, p = e / cum[A-1] (IEEE division; -prec-div stays
@@ -24,17 +27,20 @@
 // operations a byte).  K0a's grid-stride loop of float4s and K0b's block
 // per row keep every load coalesced.  The block-per-row form spends a row's ~30 operations an
 // element against 10+ block barriers (block_max, 8 prefix-sum rounds at
-// A = 256), so K0c holds a row in one warp's registers instead: element
+// A = 256), so K0b and K0c hold a row in one warp's registers instead: element
 // i = r * 32 + lane in register r of lane `lane` (128-byte coalesced loads
 // and stores), the max by shuffles, and the Hillis-Steele rounds without
 // shared memory or a barrier: an offset k < 32 takes its partner from lane
 // (lane - k) mod 32 by one shuffle a register (register r - 1 for the lanes
 // below k), an offset 32 q adds register r - q of the lane itself.  Every
 // round pairs the same two partial sums as the shared-memory rounds, so p
-// is unchanged to the bit.  K0a and K0b exist to hold the device library
-// bit for bit against the plain torch versions; the generation kernel
-// (persistent.cu) inlines the same functions.  K0a and K0c are on the
-// scorer's path.
+// is unchanged to the bit.  Both share those rounds (warp_row_cumsum).
+// K0b's select is one fp32 multiply (thr = sel * cum[A-1], the total taken
+// from lane 31 by a shuffle), a count of c[r] <= thr over each lane's
+// registers and one integer __reduce_add_sync (exact).  K0a and K0b exist
+// to hold the device library bit for bit against the plain torch versions;
+// the generation kernels inline the same functions.  K0a and K0c are on the
+// scorer's path, K0b on speculative decode's (select_window).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -139,26 +145,12 @@ softmax_p_kernel(const float* __restrict__ za, float* __restrict__ p, int A) {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarpRowThreads = 256;   // 8 rows a block
 
-// NR = A / 32 registers a lane
+// The fixed-tree Hillis-Steele prefix sum of a row held in one warp's
+// registers (element r * 32 + lane in c[r] of lane `lane`): round k adds
+// c[i - k] to c[i] for i >= k, registers from the top down so that each
+// round reads the previous round's values
 template <int NR>
-__global__ void __launch_bounds__(kWarpRowThreads)
-softmax_p_warp_kernel(const float* __restrict__ za, float* __restrict__ p, int rows) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (kWarpRowThreads / 32) + (threadIdx.x >> 5);
-  if (row >= rows) return;   // the whole warp: its shuffles stay full
-  const float* in = za + (size_t)row * (NR * 32);
-  float e[NR], c[NR];
-  float m = -INFINITY;
-#pragma unroll
-  for (int r = 0; r < NR; ++r) {
-    e[r] = in[r * 32 + lane];
-    m = fmaxf(m, e[r]);
-  }
-  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, o));   // exact
-#pragma unroll
-  for (int r = 0; r < NR; ++r) c[r] = e[r] = nvw::em_exp(e[r] - m);
-  // round k: c[i] + (i >= k ? c[i - k] : 0), registers from the top down so
-  // that each round reads the previous round's values
+__device__ __forceinline__ void warp_row_cumsum(float (&c)[NR], int lane) {
 #pragma unroll
   for (int lg = 0; (1 << lg) < NR * 32; ++lg) {
     const int k = 1 << lg;
@@ -177,10 +169,72 @@ softmax_p_warp_kernel(const float* __restrict__ za, float* __restrict__ p, int r
       for (int r = NR - 1; r >= 0; --r) c[r] = c[r] + (r >= q ? c[r >= q ? r - q : 0] : 0.0f);
     }
   }
+}
+
+// a row's max over the warp (exact: max does not round)
+template <int NR>
+__device__ __forceinline__ float warp_row_max(const float (&v)[NR]) {
+  float m = -INFINITY;
+#pragma unroll
+  for (int r = 0; r < NR; ++r) m = fmaxf(m, v[r]);
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, o));
+  return m;
+}
+
+// NR = A / 32 registers a lane
+template <int NR>
+__global__ void __launch_bounds__(kWarpRowThreads)
+softmax_p_warp_kernel(const float* __restrict__ za, float* __restrict__ p, int rows) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (kWarpRowThreads / 32) + (threadIdx.x >> 5);
+  if (row >= rows) return;   // the whole warp: its shuffles stay full
+  const float* in = za + (size_t)row * (NR * 32);
+  float e[NR], c[NR];
+#pragma unroll
+  for (int r = 0; r < NR; ++r) e[r] = in[r * 32 + lane];
+  const float m = warp_row_max<NR>(e);
+#pragma unroll
+  for (int r = 0; r < NR; ++r) c[r] = e[r] = nvw::em_exp(e[r] - m);
+  warp_row_cumsum<NR>(c, lane);
   const float total = __shfl_sync(kFull, c[NR - 1], 31);
   float* out = p + (size_t)row * (NR * 32);
 #pragma unroll
   for (int r = 0; r < NR; ++r) out[r * 32 + lane] = e[r] / total;
+}
+
+// NR = A / 32 registers a lane; y = #{i : cum[i] <= sel * cum[A-1]}, or
+// silence_bin where that is A
+template <int NR>
+__global__ void __launch_bounds__(kWarpRowThreads)
+sample_warp_kernel(const float* __restrict__ za, const float* __restrict__ sel,
+                   int* __restrict__ y, int rows, int silence_bin) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (kWarpRowThreads / 32) + (threadIdx.x >> 5);
+  if (row >= rows) return;   // the whole warp: its shuffles stay full
+  const float u = sel[row];  // one broadcast load, in flight beside the row
+  const float* in = za + (size_t)row * (NR * 32);
+  float c[NR];
+#pragma unroll
+  for (int r = 0; r < NR; ++r) c[r] = in[r * 32 + lane];
+  const float m = warp_row_max<NR>(c);
+#pragma unroll
+  for (int r = 0; r < NR; ++r) c[r] = nvw::em_exp(c[r] - m);
+  warp_row_cumsum<NR>(c, lane);
+  const float thr = u * __shfl_sync(kFull, c[NR - 1], 31);
+  int n = 0;
+#pragma unroll
+  for (int r = 0; r < NR; ++r) n += c[r] <= thr ? 1 : 0;
+  n = __reduce_add_sync(kFull, n);
+  if (lane == 0) y[row] = n < NR * 32 ? n : silence_bin;
+}
+
+template <int NR>
+int launch_sample_warp(const float* za, const float* sel, int* y, int rows, int silence_bin,
+                       cudaStream_t stream) {
+  const int per_block = kWarpRowThreads / 32;
+  sample_warp_kernel<NR><<<(rows + per_block - 1) / per_block, kWarpRowThreads, 0, stream>>>(
+      za, sel, y, rows, silence_bin);
+  return (int)cudaGetLastError();
 }
 
 template <int NR>
@@ -206,8 +260,31 @@ int nvw_exact_fn(const float* x, float* y, long long n, int fn, void* stream) {
   return (int)cudaErrorInvalidValue;
 }
 
+// K0b: A a multiple of 32, at most 1024 (anything else: cudaErrorInvalidValue)
 int nvw_sample(const float* za, const float* sel, int* y, int rows, int A, int silence_bin,
                void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (A) {
+#define NVW_SAMPLE_CASE(NR) \
+  case NR * 32:             \
+    return launch_sample_warp<NR>(za, sel, y, rows, silence_bin, st);
+    NVW_SAMPLE_CASE(1) NVW_SAMPLE_CASE(2) NVW_SAMPLE_CASE(3) NVW_SAMPLE_CASE(4)
+    NVW_SAMPLE_CASE(5) NVW_SAMPLE_CASE(6) NVW_SAMPLE_CASE(7) NVW_SAMPLE_CASE(8)
+    NVW_SAMPLE_CASE(9) NVW_SAMPLE_CASE(10) NVW_SAMPLE_CASE(11) NVW_SAMPLE_CASE(12)
+    NVW_SAMPLE_CASE(13) NVW_SAMPLE_CASE(14) NVW_SAMPLE_CASE(15) NVW_SAMPLE_CASE(16)
+    NVW_SAMPLE_CASE(17) NVW_SAMPLE_CASE(18) NVW_SAMPLE_CASE(19) NVW_SAMPLE_CASE(20)
+    NVW_SAMPLE_CASE(21) NVW_SAMPLE_CASE(22) NVW_SAMPLE_CASE(23) NVW_SAMPLE_CASE(24)
+    NVW_SAMPLE_CASE(25) NVW_SAMPLE_CASE(26) NVW_SAMPLE_CASE(27) NVW_SAMPLE_CASE(28)
+    NVW_SAMPLE_CASE(29) NVW_SAMPLE_CASE(30) NVW_SAMPLE_CASE(31) NVW_SAMPLE_CASE(32)
+#undef NVW_SAMPLE_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K0b's block instance: any A
+int nvw_sample_block(const float* za, const float* sel, int* y, int rows, int A,
+                     int silence_bin, void* stream) {
   const size_t smem = 2 * (size_t)A * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(

@@ -215,9 +215,14 @@ _P = ctypes.c_void_p
 EXACT_FN_KERNEL = build.CudaKernel(
     "exact_math_kernels.cu", "nvw_exact_fn",
     [_P, _P, ctypes.c_longlong, ctypes.c_int, _P])
-# K0b: one block per row: max, exp, fixed-tree cumsum, counting select
+# K0b: one warp per row (A a multiple of 32 up to 1024): max, exp,
+# fixed-tree cumsum, counting select
 SAMPLE_KERNEL = build.CudaKernel(
     "exact_math_kernels.cu", "nvw_sample",
+    [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P])
+# K0b's block instance, one block per row, for every other A
+SAMPLE_BLOCK_KERNEL = build.CudaKernel(
+    "exact_math_kernels.cu", "nvw_sample_block",
     [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P])
 # K0c: one warp per row (A a multiple of 32 up to 1024): max, exp,
 # fixed-tree cumsum, p = e / sum
@@ -251,11 +256,22 @@ def exact_fn(name: str, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def _warp_row_fits(A: int) -> bool:
+    """A row of A fits one warp's registers: A a multiple of 32 up to 1024."""
+    return A % 32 == 0 and 0 < A <= 1024
+
+
+def sample_kernel(A: int) -> build.CudaKernel:
+    """K0b's instance for rows of A logits: the warp per row where A is a
+    multiple of 32 up to 1024, the block per row otherwise."""
+    return SAMPLE_KERNEL if _warp_row_fits(A) else SAMPLE_BLOCK_KERNEL
+
+
 def sample_from_logits(za: torch.Tensor, sel: torch.Tensor,
                        silence_bin: int) -> torch.Tensor:
     """The canonical sampler: za [..., A] float32 logits, sel [..., 1]
     uniforms -> [...] int32 bins.  CPU tensors: the plain version; CUDA
-    tensors: kernel K0b (one block per row)."""
+    tensors: kernel K0b, the instance `sample_kernel(A)`."""
     if _device_kind(za) == "cpu":
         if sel.device != za.device:
             raise ValueError(f"sel on {sel.device}, za on {za.device}")
@@ -267,16 +283,15 @@ def sample_from_logits(za: torch.Tensor, sel: torch.Tensor,
     y = torch.empty(rows, dtype=torch.int32, device=za.device)
     n = y.numel()
     if n:
-        SAMPLE_KERNEL(za.data_ptr(), sel.data_ptr(), y.data_ptr(), n, A,
-                      silence_bin, build.current_stream(za.device))
+        sample_kernel(A)(za.data_ptr(), sel.data_ptr(), y.data_ptr(), n, A,
+                         silence_bin, build.current_stream(za.device))
     return y
 
 
 def softmax_kernel(A: int) -> build.CudaKernel:
     """K0c's instance for rows of A logits: the warp per row where A is a
     multiple of 32 up to 1024, the block per row otherwise."""
-    return SOFTMAX_KERNEL if A % 32 == 0 and 0 < A <= 1024 else \
-        SOFTMAX_BLOCK_KERNEL
+    return SOFTMAX_KERNEL if _warp_row_fits(A) else SOFTMAX_BLOCK_KERNEL
 
 
 def softmax_canonical(za: torch.Tensor) -> torch.Tensor:

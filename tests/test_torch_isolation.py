@@ -1,8 +1,9 @@
 """The port stands alone: nothing under nv_wavenet_tpu_torch/, and not
-chip_smoke.py, imports jax or the JAX package (`nv_wavenet_tpu`, but not the
-port's own `nv_wavenet_tpu_torch`), whether read from the source or observed
-in `sys.modules` after importing every module; importing needs no nvcc; and
-chip_smoke.py fails, printing no result, where there is no card."""
+chip_smoke.py, imports jax (nor flax, optax or orbax) or the JAX package
+(`nv_wavenet_tpu`, but not the port's own `nv_wavenet_tpu_torch`), whether
+read from the source or observed in `sys.modules` after importing every
+module; importing needs no nvcc; and chip_smoke.py fails, printing no
+result, where there is no card."""
 
 import ast
 import json
@@ -16,7 +17,7 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "nv_wavenet_tpu_torch"
-FORBIDDEN = re.compile(r"^(jax|jaxlib|nv_wavenet_tpu)(\.|$)")
+FORBIDDEN = re.compile(r"^(jax|jaxlib|flax|optax|orbax|nv_wavenet_tpu)(\.|$)")
 SOURCES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
 MODULES = sorted(
     ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(
@@ -46,12 +47,31 @@ SLICE_MODULES = ("nv_wavenet_tpu_torch.ops.speculative",
                  "nv_wavenet_tpu_torch.tools.perf")
 
 
-def test_the_slice_modules_are_checked():
-    """The checks below read and import the speculative slice's modules."""
-    assert set(SLICE_MODULES) <= set(MODULES)
+# the modules of the training slice
+TRAIN_MODULES = ("nv_wavenet_tpu_torch.utils.mu_law",
+                 "nv_wavenet_tpu_torch.train.data",
+                 "nv_wavenet_tpu_torch.train.trainer",
+                 "nv_wavenet_tpu_torch.train.cli",
+                 "nv_wavenet_tpu_torch.models.wavenet",
+                 "nv_wavenet_tpu_torch.parallel.mesh",
+                 "nv_wavenet_tpu_torch.tools.mel2samp",
+                 "nv_wavenet_tpu_torch.tools.inference")
+
+
+def _checked(modules) -> bool:
     names = {p.relative_to(REPO).with_suffix("").as_posix().replace("/", ".")
              for p in SOURCES}
-    assert set(SLICE_MODULES) <= names
+    return set(modules) <= set(MODULES) and set(modules) <= names
+
+
+def test_the_slice_modules_are_checked():
+    """The checks below read and import the speculative slice's modules."""
+    assert _checked(SLICE_MODULES)
+
+
+def test_the_training_modules_are_checked():
+    """The checks below read and import the training slice's modules."""
+    assert _checked(TRAIN_MODULES)
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES[2:])
@@ -73,6 +93,8 @@ def test_forbidden_pattern():
     assert FORBIDDEN.match("nv_wavenet_tpu") and FORBIDDEN.match("jax.numpy")
     assert FORBIDDEN.match("nv_wavenet_tpu.ops.exact_math")
     assert not FORBIDDEN.match("nv_wavenet_tpu_torch.ops.exact_math")
+    assert all(FORBIDDEN.match(m) for m in ("flax.linen", "optax",
+                                            "orbax.checkpoint"))
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)

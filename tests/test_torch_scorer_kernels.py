@@ -130,7 +130,8 @@ def test_fused_wrappers_reject_bad_inputs():
 
 
 def warp_prefix_sum(e: np.ndarray) -> np.ndarray:
-    """exact_math_kernels.cu's softmax_p_warp_kernel scan in numpy: element
+    """exact_math_kernels.cu's warp_row_cumsum in numpy (the scan of K0c's
+    softmax_p_warp_kernel and K0b's sample_warp_kernel): element
     i = r * 32 + lane in register r; a round of offset k < 32 shuffles each
     register from lane (lane - k) mod 32 (register r - 1 for the lanes
     below k), an offset 32 q adds register r - q of the same lane."""
