@@ -26,8 +26,9 @@ per-stage latency floor); speculative exact decode through
 `WaveNetInfer.run_speculative` with its H100 cost fit; and training at
 configs/config.json's width through the training CLI, with the trained
 model's teacher-forced p on the card and `tools/inference.py` on its
-checkpoint.  Phases, in order;
-any failure exits non-zero:
+checkpoint; batch-sharded generation over a device mesh; and the user's
+tools (`NVWaveNet`, `torch_import`, `nvw-torch-verify`,
+`eval_checkpoint`).  Phases, in order; any failure exits non-zero:
 
   1. device: card name and power limit (nvidia-smi), torch.version.cuda, nvcc
   2. build: every csrc/*.cu, timed; beside it (nvcc runs in its own
@@ -279,6 +280,28 @@ any failure exits non-zero:
      split into forward, backward and optimizer, audio samples a second,
      peak memory above what earlier phases hold; the TF32 flags as before
      the phase
+ 32c. the mesh at full width (`parallel/mesh.py`, `WaveNetInfer(mesh=)`):
+     the flagship at B=16 split over two shards of one card
+     (`data_mesh(2, [cuda:0, cuda:0])`), default selectors: 4096 samples
+     through run_chunks(256) equal to the unsharded engine bit for bit (y,
+     y_state, ring), K1 launching twice as often (each shard its own launch
+     on its own stream); over 1024 samples the same for MANYBLOCK int8 (the
+     staged K4), priority="latency" (the cluster K6) and a forced dump,
+     mode prng with each shard's rows equal to an 8-row engine seeded with
+     `mesh.shard_key(seed, k)` (the shards' draws differing), a score ->
+     feed handoff and export -> a fresh mesh engine -> import; two
+     processes of this script (`--mesh-worker`) sharing the card, joined by
+     `initialize_multihost` on gloo at 127.0.0.1, each generating its 8
+     rows through set_inputs with its own inputs, equal to the
+     single-process run given their selectors; every card where there
+     are several; kHz per utterance of the mesh beside the unsharded
+     engine's, in turns
+ 32d. the user's tools on phase 32b's trained model: `NVWaveNet.infer`
+     from its export_weights equal to the engine's run bit for bit,
+     `torch_import` of its state_dict (exports equal, conditioning within
+     1e-5 of get_cond_input), `nvw-torch-verify` (exit 0) and
+     `eval_checkpoint` on its checkpoint (finite bits per sample below
+     log2(256) = 8, the scorer and K1 launching)
  33. the scorer pass of phase 11 traced with torch.profiler: its device
      time by kernel group (K7's gate, res/skip and product entries, K0a,
      K0c, torch's own kernels) and their shares; its Chrome trace under
@@ -506,6 +529,18 @@ SPEC_FIT_REPS = 3
 # on ~40 steps at b=16 (a negated rs_w missed none at b=1)
 SPEC_PERT_T, SPEC_PERT_WINDOW, SPEC_PERT_OFFSET = 100, 16, 0.5
 SPEC_PERT_COSTS = {0: (1.0, 0.0, 1e9), 1: (-1.0, 1.0, 1e9), 2: None}
+# the mesh at full width (phase 32c): the flagship's batch split over two
+# shards of one card, default selectors from MESH_SEED's conditioning;
+# MESH_T samples through run_chunks(MAIN_CHUNK) for K1 and the speed turns,
+# MESH_TIER_T for the other tiers (the handoff and migration at
+# MESH_SPLIT), MESH_MP_T in each of the two processes
+MESH_T, MESH_TIER_T, MESH_MP_T, MESH_SPLIT, MESH_SEED = 4096, 1024, 1024, \
+    640, 7
+MESH_WORKER_TIMEOUT = 300
+# the user's tools (phase 32d) on phase 32b's trained model: TOOLS_B clips
+# of TOOLS_CLIP samples; eval_checkpoint over TOOLS_SECONDS of a clip;
+# torch_import's conditioning within TOOLS_COND_TOL of get_cond_input's
+TOOLS_B, TOOLS_CLIP, TOOLS_SECONDS, TOOLS_COND_TOL = 2, 4000, 0.5, 1e-5
 START = time.perf_counter()
 
 
@@ -2862,6 +2897,434 @@ def spec_perturbed_hold(torch, np, fc, eng, B: int, T: int, window: int,
     return out
 
 
+def mesh_cond(torch, cfg, T: int, B: int, seed: int, dev):
+    """Conditioning [T, L, B, 2R] uniform in [-0.5, 0.5) drawn on the card
+    from `seed`: the same tensor in every process on this card."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return torch.rand((T, cfg.num_layers, B, 2 * cfg.R), generator=gen,
+                      device=dev) - 0.5
+
+
+def state_mismatches(np, a: dict, b: dict) -> int:
+    """Elements of two snapshots (`export_state`) whose bits differ: the
+    ring, y_state and the row clocks."""
+    def bits(x):
+        x = np.ascontiguousarray(x)
+        return x.view(f"i{x.dtype.itemsize}")
+    return sum(int((bits(a[k]) != bits(b[k])).sum())
+               for k in ("ring", "y_state", "stream_t_row"))
+
+
+def check_mesh(torch, np, persistent, fc, om, mesh_lib, Impl, WaveNetInfer,
+               cfg, ref_w, dev, card) -> dict:
+    """The mesh at full width (phase 32c): the flagship at B=16 split over
+    two shards of one card, each generating its 8 rows with its own launch
+    on its own stream, against the unsharded engine bit for bit in K1 (and
+    2x its launches), the staged K4 (int8), the cluster K6, prng with each
+    shard's key, a forced dump, a score -> feed handoff and a migration;
+    two processes on the card joined on gloo; every card where there are
+    several; and kHz per utterance in turns."""
+    out = {"card": card}
+    B, half = MAIN_B, MAIN_B // 2
+    two = mesh_lib.data_mesh(2, [dev, dev])
+    out["mesh"] = repr(two)
+
+    def make(mesh, rows=B, **kw):
+        eng = WaveNetInfer(num_layers=cfg.num_layers,
+                           max_dilation=cfg.max_dilation, R=cfg.R, S=cfg.S,
+                           A=cfg.A, max_batch=rows, chunk_size=MAIN_CHUNK,
+                           mesh=mesh, device=None if mesh else dev, **kw)
+        eng.set_reference_weights(ref_w)
+        return eng
+
+    def counted(counters, fn):
+        """fn() on counts set to 0 just before it; (its result, the counts
+        read just after)."""
+        for k in counters:
+            k.launches = 0
+        res = fn()
+        torch.cuda.synchronize()
+        return res, [k.launches for k in counters]
+
+    # (a) K1: two shards of one card against the unsharded engine, default
+    # selectors, through run_chunks
+    cond = mesh_cond(torch, cfg, MESH_T, B, MESH_SEED, dev)
+    k1 = persistent.PERSISTENT_KERNELS["exact"]
+    engines, runs = {}, {}
+    for name, mesh in (("single", None), ("mesh", two)):
+        eng = engines[name] = make(mesh)
+        eng.set_inputs(cond)
+        y, (n,) = counted([k1], lambda: eng.run_chunks(
+            MAIN_CHUNK, lambda *a: None, MESH_T, B))
+        runs[name] = (y, eng.export_state(), n)
+    (y_s, st_s, n_s), (y_m, st_m, n_m) = runs["single"], runs["mesh"]
+    a = {"y_mismatches": int((y_s != y_m).sum()),
+         "state_bit_mismatches": state_mismatches(np, st_s, st_m),
+         "k1_launches": {"single": n_s, "mesh": n_m}}
+    out["k1"] = a
+    log(f"[mesh] (a) K1, {two}: {a['y_mismatches']} mismatches in "
+        f"{B} x {MESH_T} samples against the unsharded engine, "
+        f"{a['state_bit_mismatches']} bits of ring and y_state; K1 "
+        f"launches {n_m} against {n_s}")
+    if a["y_mismatches"] or a["state_bit_mismatches"]:
+        fail("the two-shard mesh disagrees with the unsharded engine")
+    if n_s == 0 or n_m != 2 * n_s:
+        fail(f"K1 launched {n_m} times on the mesh, {n_s} unsharded "
+             f"(expected twice as many, each shard its own launch)")
+
+    # (e) speed, in turns: unsharded, mesh, mesh, unsharded
+    khz = {"single": [], "mesh": []}
+    for name in ("single", "mesh", "mesh", "single"):
+        eng = engines[name]
+        eng.set_inputs(cond)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.run_chunks(MAIN_CHUNK, lambda *a: None, MESH_T, B)
+        torch.cuda.synchronize()
+        khz[name].append(MESH_T / (time.perf_counter() - t) / 1e3)
+    out["khz_per_utt"] = khz
+    log(f"[mesh] (e) kHz per utterance, B={B}, {MESH_T} samples through "
+        f"run_chunks({MAIN_CHUNK}), in turns: unsharded "
+        f"{khz['single'][0]:.3f} / {khz['single'][1]:.3f}, two shards on "
+        f"one card {khz['mesh'][0]:.3f} / {khz['mesh'][1]:.3f}; {card}")
+    del engines
+
+    # (b) the other tiers over MESH_TIER_T samples
+    T = MESH_TIER_T
+    stag = persistent.STAGED_STREAM_KERNELS["exact"]
+
+    def pair(kw, counter, mode="sample", sel=None, dump=False, seed=0):
+        res = []
+        for mesh in (None, two):
+            eng = make(mesh, **kw)
+            eng.sampling_seed = seed
+            eng.set_inputs(cond[:T], sel)
+            y, (n,) = counted([counter], lambda: eng.run(
+                T, B, mode=mode, dump_activations=dump))
+            dumps = ({k: eng._dump(k) for k in ("xt", "skip", "zs", "za",
+                                                "p")} if dump else {})
+            res.append((y, eng.export_state(), dumps, n))
+        (y1, s1, d1, n1), (y2, s2, d2, n2) = res
+        return {"y_mismatches": int((y1 != y2).sum()),
+                "state_bit_mismatches": state_mismatches(np, s1, s2),
+                "dump_bit_mismatches": sum(bit_mismatches(torch, d1[k], d2[k])
+                                           for k in d1),
+                "launches": {"single": n1, "mesh": n2}}, y1
+    tiers = {}
+    tiers["manyblock int8 (the staged K4)"], _ = pair(
+        dict(implementation=Impl.MANYBLOCK, stream_quant="int8"), stag)
+    tiers["priority=latency (the cluster K6)"], _ = pair(
+        dict(priority="latency"), fc.FUSED_KERNELS[("injected", "fast")])
+    forced = torch.from_numpy(y_s[:, :T].T.astype(np.float32).copy())
+    tiers["forced dump (the staged K2)"], y_f = pair(
+        {}, stag, mode="forced", sel=forced, dump=True)
+    if not np.array_equal(y_f, y_s[:, :T]):
+        fail("the forced run did not emit its symbols")
+
+    # prng: shard k keyed on shard_key(seed, k); rows 8-15 repeat rows
+    # 0-7's conditioning, so only the keys tell the shards apart
+    cond_p = torch.cat([cond[:T, :, :half]] * 2, dim=2)
+    eng = make(two)
+    eng.sampling_seed = PRNG_SEED
+    eng.set_inputs(cond_p)
+    y_p, (n_p,) = counted([stag], lambda: eng.run(T, B, mode="prng"))
+    prng = {"launches": n_p, "shard_keys": [], "y_mismatches": 0}
+    for k in range(2):
+        one = make(None, rows=half)
+        one.sampling_seed = mesh_lib.shard_key(PRNG_SEED, k)
+        one.set_inputs(cond_p[:, :, k * half:(k + 1) * half])
+        prng["shard_keys"].append(one.sampling_seed)
+        prng["y_mismatches"] += int((one.run(T, half, mode="prng")
+                                     != y_p[k * half:(k + 1) * half]).sum())
+    prng["shards_differ_in"] = int((y_p[:half] != y_p[half:]).sum())
+    tiers["prng (each shard its key)"] = prng
+
+    # score -> feed handoff and export -> import, at MESH_SPLIT
+    S = MESH_SPLIT
+    handoff = []
+    for mesh in (None, two):
+        eng = make(mesh)
+        eng.begin_stream(B)
+        (p, tail), n = counted([om.ORDERED_GATE_KERNEL, k1], lambda: (
+            eng.score(cond[:S], y_s[:, :S]), eng.feed(cond[S:T])))
+        handoff.append((p, tail, n))
+    tiers["score -> feed"] = {
+        "p_bit_mismatches": bit_mismatches(torch, handoff[0][0],
+                                           handoff[1][0]),
+        "tail_mismatches": int((handoff[0][1] != handoff[1][1]).sum()),
+        "launches": {"single": handoff[0][2], "mesh": handoff[1][2]},
+        "launches_are": "K7's gate entry, K1"}
+    single = make(None)
+    single.begin_stream(B)
+    single.feed(cond[:S])
+    tail_single = single.feed(cond[S:T])
+    src = make(two)
+    src.begin_stream(B)
+    src.feed(cond[:S])
+    dst = make(two)
+    dst.import_state(src.export_state())
+    tiers["export -> import"] = {"tail_mismatches": int(
+        (dst.feed(cond[S:T]) != tail_single).sum())}
+    out["tiers"] = tiers
+    for name, r in tiers.items():
+        log(f"[mesh] (b) {name}: {json.dumps(r)}")
+    for name, r in tiers.items():
+        bad = sum(v for k, v in r.items() if k.endswith("mismatches"))
+        if bad:
+            fail(f"the mesh disagrees with the unsharded engine: {name}")
+        n = r.get("launches")
+        # each shard launches its own kernels: the mesh twice as often
+        if isinstance(n, dict) and not (
+                np.all(np.asarray(n["single"]) > 0)
+                and np.array_equal(np.asarray(n["mesh"]),
+                                   2 * np.asarray(n["single"]))):
+            fail(f"{name}: launches {n} (each shard's own expected)")
+    if not prng["launches"] or not prng["shards_differ_in"]:
+        fail("prng under the mesh: no launch, or the shards drew alike")
+
+    # (c) two processes on this card, joined by initialize_multihost on
+    # gloo; the libraries are built already (phase 2)
+    out["two_processes"] = mesh_two_processes(np, torch, cfg, dev, make)
+
+    # (d) every card, where there are several
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1 and B % n_cards == 0:
+        y_all = []
+        for mesh in (None, mesh_lib.data_mesh()):
+            eng = make(mesh)
+            eng.set_inputs(cond[:T])
+            y_all.append(eng.run(T, B))
+        out["every_card"] = {"cards": n_cards, "y_mismatches": int(
+            (y_all[0] != y_all[1]).sum())}
+        log(f"[mesh] (d) {n_cards} cards: {out['every_card']}")
+        if out["every_card"]["y_mismatches"]:
+            fail("the mesh over every card disagrees with one card")
+    else:
+        out["every_card"] = f"{n_cards} card(s): not run"
+    return out
+
+
+def mesh_two_processes(np, torch, cfg, dev, make) -> dict:
+    """Phase 32c(c): two processes of this script (`--mesh-worker`) each
+    generate their 8 rows of the flagship batch through `set_inputs` with
+    process-local inputs and default selectors; their rows against the
+    single-process engine given those selectors explicitly."""
+    import socket
+    from nv_wavenet_tpu_torch.engine.wavenet_infer import _selector_stream
+    B, half, T = MAIN_B, MAIN_B // 2, MESH_MP_T
+    work = os.path.join(HERE, "build", "mesh_smoke")
+    os.makedirs(work, exist_ok=True)
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    t = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--mesh-worker", str(rank), str(port), work],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for rank in range(2)]
+    try:
+        outs = [p.communicate(timeout=MESH_WORKER_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"mesh worker {rank} exited {p.returncode}:\n"
+                 f"{text[-3000:]}")
+    reports = [json.loads(next(ln for ln in text.splitlines()
+                               if ln.startswith("{\"mesh_worker\"")))[
+        "mesh_worker"] for text in outs]
+    y_mp = np.concatenate([np.load(os.path.join(work, f"y{r}.npy"))
+                           for r in range(2)], axis=0)
+    sel = np.concatenate([_selector_stream(0, 0, T, half, pidx)
+                          for pidx in range(2)], axis=1)
+    eng = make(None)
+    eng.set_inputs(mesh_cond(torch, cfg, T, B, MESH_SEED + 1, dev), sel)
+    y1 = eng.run_chunks(MAIN_CHUNK, lambda *a: None, T, B)
+    res = {"seconds": time.perf_counter() - t, "workers": reports,
+           "y_mismatches": int((y_mp != y1).sum())}
+    log(f"[mesh] (c) two processes on one card (gloo): "
+        f"{res['y_mismatches']} mismatches in {B} x {T} against the "
+        f"single-process run given their selectors; {json.dumps(reports)}; "
+        f"{res['seconds']:.1f} s")
+    if res["y_mismatches"] or not all(r["default_selectors_ok"] and
+                                      r["k1_launches"] for r in reports):
+        fail("the two-process mesh disagrees with one process")
+    return res
+
+
+def mesh_worker(rank: int, port: int, work: str) -> int:
+    """One process of phase 32c(c): the flagship's rows rank * 8 .. + 8
+    through `initialize_multihost` (gloo) and `data_mesh()` (this process's
+    card), default selectors, saved to work/y<rank>.npy."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, HERE)
+    from nv_wavenet_tpu_torch import config as cfg_lib
+    from nv_wavenet_tpu_torch.engine.wavenet_infer import (WaveNetInfer,
+                                                           _selector_stream)
+    from nv_wavenet_tpu_torch.models import params as params_lib
+    from nv_wavenet_tpu_torch.ops import persistent
+    from nv_wavenet_tpu_torch.parallel import mesh as mesh_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh_lib.initialize_multihost(f"127.0.0.1:{port}", 2, rank,
+                                  device="cuda", backend="gloo")
+    try:
+        cfg = cfg_lib.FLAGSHIP_CONFIG
+        dev = torch.device("cuda", torch.cuda.current_device())
+        mesh = mesh_lib.data_mesh()
+        half, T = MAIN_B // 2, MESH_MP_T
+        cond = mesh_cond(torch, cfg, T, MAIN_B, MESH_SEED + 1, dev)[
+            :, :, rank * half:(rank + 1) * half]
+        eng = WaveNetInfer(num_layers=cfg.num_layers,
+                           max_dilation=cfg.max_dilation, R=cfg.R, S=cfg.S,
+                           A=cfg.A, max_batch=MAIN_B, chunk_size=MAIN_CHUNK,
+                           mesh=mesh)
+        eng.set_reference_weights(params_lib.random_reference_weights(
+            cfg, seed=1))
+        eng.set_inputs(cond)
+        mine = np.concatenate([s.cpu().numpy() for s in eng._selectors], 1)
+        k1 = persistent.PERSISTENT_KERNELS["exact"]
+        k1.launches = 0
+        y = eng.run_chunks(MAIN_CHUNK, lambda *a: None, T, MAIN_B)
+        torch.cuda.synchronize()
+        np.save(os.path.join(work, f"y{rank}.npy"), y)
+        print(json.dumps({"mesh_worker": {
+            "rank": rank, "mesh": repr(mesh), "rows": list(y.shape),
+            "default_selectors_ok": bool(np.array_equal(
+                mine, _selector_stream(0, 0, T, half, rank))),
+            "k1_launches": k1.launches}}), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def check_tools(torch, np, persistent, om, em, all_kernels, dev,
+                card) -> dict:
+    """The user's tools on the card (phase 32d), on phase 32b's trained
+    model: `NVWaveNet.infer` from its `export_weights` against the engine's
+    run bit for bit; `torch_import` of its state_dict (the exports equal,
+    the conditioning within TOOLS_COND_TOL); `nvw-torch-verify`'s checks;
+    `eval_checkpoint` on its checkpoint (finite bits per sample below
+    log2(A))."""
+    from nv_wavenet_tpu_torch.engine import torch_import
+    from nv_wavenet_tpu_torch.engine.nv_wavenet import Impl, NVWaveNet
+    from nv_wavenet_tpu_torch.engine.wavenet_infer import WaveNetInfer
+    from nv_wavenet_tpu_torch.models import wavenet as wavenet_lib
+    from nv_wavenet_tpu_torch.tools import eval_checkpoint, verify_drive
+    from nv_wavenet_tpu_torch.train import trainer
+    from nv_wavenet_tpu_torch.train.data import (data_config_from_json,
+                                                 mel_spectrogram,
+                                                 synthetic_clips)
+    out = {"card": card}
+    work = os.path.join(HERE, "build", "train_smoke")
+    config, ckpt = os.path.join(work, "config.json"), os.path.join(work,
+                                                                   "ckpt")
+    with open(config) as f:
+        cfg_json = json.load(f)
+    model = trainer.create_model(cfg_json["wavenet_config"])
+    state = trainer.create_train_state(model, trainer.TrainConfig(), dev)
+    _, it = trainer.load_checkpoint(ckpt, None, state)
+    model.eval()
+    data_cfg = data_config_from_json(cfg_json["data_config"])
+    clips = synthetic_clips(n_clips=TOOLS_B, length=TOOLS_CLIP,
+                            sr=data_cfg.sampling_rate, seed=3)
+    mel = torch.from_numpy(np.stack([mel_spectrogram(c, data_cfg)
+                                     for c in clips]).astype(np.float32))
+    with torch.no_grad():
+        cond = model.get_cond_input(mel.to(dev))             # [T, L, B, 2R]
+    T, _, B, _ = cond.shape
+    cfg = wavenet_lib.config_of(model)
+
+    # NVWaveNet.infer (the reference layout) against the engine's run
+    k1 = persistent.PERSISTENT_KERNELS["exact"]
+    net = NVWaveNet(**wavenet_lib.export_weights(model), chunk_size=MAIN_CHUNK)
+    for k in all_kernels:
+        k.launches = 0
+    y_net = net.infer(cond.permute(3, 2, 1, 0), Impl.PERSISTENT, seed=0)
+    n_net = k1.launches
+    eng = WaveNetInfer(num_layers=cfg.num_layers,
+                       max_dilation=cfg.max_dilation, R=cfg.R, S=cfg.S,
+                       A=cfg.A, max_batch=B, tanh_embed=cfg.tanh_embed,
+                       chunk_size=MAIN_CHUNK, device=dev)
+    eng.set_canonical_params(wavenet_lib.export_canonical(model))
+    eng.set_inputs(cond, seed=0)
+    y_eng = eng.run(T, B)
+    out["nv_wavenet"] = {"iteration": it, "samples": [B, T],
+                         "mismatches": int((y_net != y_eng).sum()),
+                         "k1_launches": n_net}
+
+    # torch_import: the trained model's state_dict, natively on the card
+    sd = model.state_dict()
+    d = torch_import.export_weights_from_state_dict(sd, model.max_dilation)
+    want = wavenet_lib.export_weights(model)
+    diff = 0
+    for k, v in want.items():
+        got = d[k]
+        pairs = zip(got, v) if isinstance(v, list) else [(got, v)]
+        for a, b in pairs:
+            if isinstance(b, np.ndarray):
+                diff += int((a.cpu().numpy().reshape(b.shape) != b).sum())
+            elif a != b:
+                diff += 1
+    cond_imp = torch_import.cond_input_from_state_dict(
+        sd, mel.transpose(1, 2), model.upsamp_stride)
+    cond_err = float((cond_imp - cond.permute(3, 2, 1, 0)).abs().max())
+    out["torch_import"] = {"export_mismatches": diff,
+                           "cond_max_abs_err": cond_err,
+                           "device": str(d["embedding_curr"].device)}
+
+    # nvw-torch-verify, in this process
+    t = time.perf_counter()
+    try:
+        rc = verify_drive.main([])
+    except SystemExit as err:
+        rc = err.code
+    out["verify"] = {"rc": rc, "seconds": time.perf_counter() - t}
+
+    # eval_checkpoint on the checkpoint (synthetic clip)
+    for k in all_kernels:
+        k.launches = 0
+    t = time.perf_counter()
+    res = eval_checkpoint.evaluate([
+        "-c", ckpt, "--config", config, "--seconds", str(TOOLS_SECONDS),
+        "-o", os.path.join(work, "eval_gen.wav")])
+    res["seconds"] = time.perf_counter() - t
+    res["launches"] = {k.symbol: k.launches for k in all_kernels
+                       if k.launches}
+    out["eval_checkpoint"] = res
+    log(f"[tools] NVWaveNet.infer vs the engine's run: "
+        f"{out['nv_wavenet']['mismatches']} mismatches in {B} x {T} "
+        f"(K1 launches {n_net}); torch_import: {diff} export mismatches, "
+        f"cond max abs err {cond_err:.3g} (tol {TOOLS_COND_TOL}); "
+        f"nvw-torch-verify rc {rc} in {out['verify']['seconds']:.1f} s; "
+        f"eval_checkpoint: {res['bits_per_sample']:.4f} bits/sample over "
+        f"{res['samples']} samples, dominant {res['source_hz']:.1f} -> "
+        f"{res['generated_hz']:.1f} Hz, {res['seconds']:.1f} s; {card}")
+    if out["nv_wavenet"]["mismatches"] or not n_net:
+        fail("NVWaveNet.infer disagrees with the engine (or launched no K1)")
+    if diff or not cond_err <= TOOLS_COND_TOL:
+        fail("torch_import does not round-trip the trained model")
+    if rc != 0:
+        fail(f"nvw-torch-verify exited {rc}")
+    bits = res["bits_per_sample"]
+    if not (np.isfinite(bits) and bits < np.log2(cfg.A)):
+        fail(f"eval_checkpoint: {bits} bits per sample")
+    if not (res["launches"].get(om.ORDERED_GATE_KERNEL.symbol)
+            and res["launches"].get(em.SOFTMAX_KERNEL.symbol)
+            and res["launches"].get(k1.symbol)):
+        fail(f"eval_checkpoint did not run the scorer and K1: "
+             f"{res['launches']}")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4611,6 +5074,21 @@ def main() -> int:
         f"({training['inference_cli']['k1_launches']} K1 launches)")
     log(json.dumps({"training": training}))
 
+    # -- phase 32c: the mesh at full width -----------------------------------
+    mark("phase 32c: the mesh at full width")
+    from nv_wavenet_tpu_torch.parallel import mesh as mesh_lib
+    flag = cfg_lib.FLAGSHIP_CONFIG
+    mesh_report = check_mesh(
+        torch, np, persistent, fc, om, mesh_lib, Impl, WaveNetInfer, flag,
+        params_lib.random_reference_weights(flag, seed=1), dev, card)
+    log(json.dumps({"mesh": mesh_report}))
+
+    # -- phase 32d: the user's tools on the card -----------------------------
+    mark("phase 32d: the user's tools on the card")
+    tools_report = check_tools(torch, np, persistent, om, em, all_kernels,
+                               dev, card)
+    log(json.dumps({"tools": tools_report}, default=str))
+
     # -- phase 33: the scorer pass traced ------------------------------------
     mark("phase 33: the scorer pass traced")
     split = scorer_ab.scorer_split(
@@ -5069,4 +5547,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        sys.exit(mesh_worker(int(sys.argv[2]), int(sys.argv[3]),
+                             sys.argv[4]))
     sys.exit(main())

@@ -92,6 +92,24 @@ speculative exact decode: `run_speculative`.
     MANYBLOCK, K6 under fuse_chain); per-row `lengths` or desynced clocks
     (after a ragged feed or `reset_utterances`) run on K5, and feeds return
     to the lockstep kernel once the clocks realign.
+  * `mesh=` (`parallel/mesh.data_mesh`) shards the utterance batch over a
+    'data' axis of devices, as the JAX engine's mesh does: the weights are
+    uploaded once to each distinct device (with every per-upload cache:
+    the storage's values, K1's staged stream, K4's stacks, K6's fold), each
+    shard generates its own rows with its own launch on its own stream
+    (`mesh.make_sharded_persistent_generator`), and nothing communicates.
+    Planning (`staged_plan`, `cluster_plan`, `stream_plan`, the route) runs
+    on the per-shard batch; `max_batch` and every batch must divide by the
+    axis.  `run*`, lockstep `feed`, the dumps, `score`, `export_state` /
+    `import_state` and `reset_utterances` work as without a mesh; ragged
+    feeds and `run_speculative` raise, as in the JAX engine.  Under several
+    processes (`mesh.initialize_multihost`) `set_inputs`, `feed` and
+    `score` take this process's rows and return them, batch_size arguments
+    stay global, default selectors are keyed on the process index, and a
+    snapshot holds this process's rows.  Mode "prng" keys shard k on
+    `mesh.shard_key(sampling_seed, k)`.  `reset_utterances` under a mesh
+    keeps the rows' shared clock (the JAX engine's; a lockstep kernel
+    shares one clock, and ragged feeds raise there).
 """
 
 from __future__ import annotations
@@ -108,6 +126,7 @@ from nv_wavenet_tpu_torch.models import params as params_lib
 from nv_wavenet_tpu_torch.ops import (fused_chain, persistent,
                                       scan_generate, score_parallel,
                                       speculative)
+from nv_wavenet_tpu_torch.parallel import mesh as mesh_lib
 
 
 # what a fallback route runs (`persistent.generation_route`)
@@ -211,7 +230,8 @@ class WaveNetInfer:
                  fuse_pack: bool = False,
                  priority: Optional[str] = None,
                  compute_dtype=torch.float32,
-                 device=None):
+                 device=None,
+                 mesh=None):
         """`fuse_chain`: lockstep generation on the collapsed-chain kernel
         K6; `fuse_pack`: its gate blocks at R rows instead of 128
         (`fused_chain._row_stride`; the same values); `fast_math`: bf16
@@ -220,7 +240,9 @@ class WaveNetInfer:
         `priority`: None or "exact" (every knob as passed) or "latency"
         (fuse_chain and fast_math, the latter dropped on dumps).  A
         geometry K6 cannot run leaves fuse_chain to the other kernels, with
-        a note printed once."""
+        a note printed once.  `mesh`: a `parallel/mesh.DataMesh` to shard
+        the batch over (see the module docstring); the engine's device is
+        then the mesh's first, where results are gathered."""
         if priority not in (None, "exact", "latency"):
             raise ValueError(f"unknown priority {priority!r}: expected None, "
                              f"'exact' or 'latency'")
@@ -244,6 +266,18 @@ class WaveNetInfer:
         # and end_b scaled by float32(1/T) at upload, so every path samples
         # from the tempered logits with no per-step cost; T=1 is a no-op
         self.temperature = _check_temperature(temperature)
+        # batch sharding over a 'data' mesh: weights replicated, rows split
+        self.mesh = mesh
+        if mesh is not None:
+            n = mesh.shape["data"]
+            if max_batch % n:
+                raise ValueError(f"max_batch {max_batch} not divisible by "
+                                 f"data axis {n}")
+            if device is None:
+                device = mesh.devices[0]
+            elif torch.device(device) != mesh.devices[0]:
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"device {mesh.devices[0]}")
         self.device = resolve_device(device)
         self.cfg = WaveNetConfig(num_layers=num_layers, R=R, S=S, A=A,
                                  max_dilation=max_dilation,
@@ -267,7 +301,8 @@ class WaveNetInfer:
         # with a note printed once; a geometry neither K4 holds raises here
         for prec in sorted({self._precision(False), self._precision(True)}):
             route = persistent.generation_route(
-                self.cfg, max_batch, prec, stream_weights=self._stream,
+                self.cfg, self._per_device(max_batch), prec,
+                stream_weights=self._stream,
                 storage=persistent.stream_storage(weight_dtype, self._quant,
                                                   prec),
                 stream_group_size=stream_group_size)
@@ -289,20 +324,23 @@ class WaveNetInfer:
         self._np_params: Dict[str, np.ndarray] = {
             k: np.zeros(s, np.float32)
             for k, s in params_lib.canonical_shapes(L, R, S, A).items()}
-        self._params: Optional[Dict[str, torch.Tensor]] = None  # device copy
-        self._values: Optional[Dict[str, torch.Tensor]] = None  # their view
-        self._fused_prep: Optional[tuple] = None   # K6's folded weights
+        # per device: the params, their storage's values, K6's folded weights
+        self._params: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+        self._values: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+        self._fused_prep: Dict[torch.device, tuple] = {}
         self._spec_prep: Optional[tuple] = None    # the draft's fold
         # speculative decode: the adaptive tier's cost model (V0_us, V1_us,
         # E0_us), and what the last run_speculative did
         self.spec_cost_model = speculative.DEFAULT_COST
         self.spec_rounds: Optional[int] = None
         self.spec_branch: Optional[int] = None
-        self._cond: Optional[torch.Tensor] = None
-        self._cond_pre: Optional[torch.Tensor] = None
-        self._selectors: Optional[torch.Tensor] = None
-        self._ring: Optional[torch.Tensor] = None
-        self._y_state: Optional[torch.Tensor] = None
+        # the inputs and the state: tensors, or under a mesh lists of one
+        # tensor a local shard (`mesh.stage`)
+        self._cond = None
+        self._cond_pre = None
+        self._selectors = None
+        self._ring = None
+        self._y_state = None
         self._dumps: Optional[Dict[str, torch.Tensor]] = None
         # generators by (batch, mode, dump, ragged): each holds its FIFO
         # layout on the card, so a feed uploads nothing but its inputs;
@@ -310,8 +348,10 @@ class WaveNetInfer:
         self._gens: Dict[tuple, Callable] = {}
         self._scorers: Dict[int, Callable] = {}
         # the generators' weight storage on the card, shared by what it
-        # holds: K1/K5 and the staged K2/K3 read one stream
+        # holds: K1/K5 and the staged K2/K3 read one stream; under a mesh
+        # one such dict a device
         self._stored: Dict[tuple, dict] = {}
+        self._mesh_stored: Dict[torch.device, dict] = {}
         # per-row absolute clocks of the open stream [batch] (None: no
         # stream)
         self._stream_t_row: Optional[np.ndarray] = None
@@ -322,9 +362,10 @@ class WaveNetInfer:
 
     def _invalidate(self):
         self._stored.clear()
-        self._params = None
-        self._values = None
-        self._fused_prep = None
+        self._mesh_stored.clear()
+        self._params = {}
+        self._values = {}
+        self._fused_prep = {}
         self._spec_prep = None
         self._cond_pre = None
 
@@ -392,41 +433,92 @@ class WaveNetInfer:
         if temperature == self.temperature:
             return
         self.temperature = temperature
-        self._values = None
-        self._fused_prep = None
+        self._values = {}
+        self._fused_prep = {}
         self._spec_prep = None
-        if self._params is not None:
-            tempered = self._tempered_params()
+        tempered = self._tempered_params()
+        for dev, params in self._params.items():
             for k in ("end_w", "end_b"):
-                self._params[k] = torch.as_tensor(
-                    tempered[k], device=self.device).contiguous()
+                params[k] = torch.as_tensor(tempered[k],
+                                            device=dev).contiguous()
 
-    def _device_params(self) -> Dict[str, torch.Tensor]:
-        """The canonical fp32 (tempered) params on the device: what the
-        generators take, each applying its storage itself."""
-        if self._params is None:
-            self._params = params_lib.canonical_to_torch(
-                self._tempered_params(), self.device)
-        return self._params
+    def _device_params(self, dev=None) -> Dict[str, torch.Tensor]:
+        """The canonical fp32 (tempered) params on `dev` (default: the
+        engine's device), uploaded once per device: what the generators
+        take, each applying its storage itself."""
+        dev = self.device if dev is None else dev
+        if dev not in self._params:
+            self._params[dev] = params_lib.canonical_to_torch(
+                self._tempered_params(), dev)
+        return self._params[dev]
 
-    def _value_params(self) -> Dict[str, torch.Tensor]:
-        """The fp32 values of the weight storage (`persistent.value_view`,
-        temperature applied first): what the prefold and the scorer use."""
-        if self._values is None:
-            self._values = persistent.value_view(
-                self._device_params(), self.weight_dtype, self._quant)
-        return self._values
+    def _value_params(self, dev=None) -> Dict[str, torch.Tensor]:
+        """The fp32 values of the weight storage on `dev`
+        (`persistent.value_view`, temperature applied first): what the
+        prefold and the scorer use."""
+        dev = self.device if dev is None else dev
+        if dev not in self._values:
+            self._values[dev] = persistent.value_view(
+                self._device_params(dev), self.weight_dtype, self._quant)
+        return self._values[dev]
 
-    def _fused_weights(self) -> tuple:
-        """K6's folded weights (`fused_chain.prepare_weights` with the dil_b
-        prefold, the engine's storage, fuse_pack, fast_math and
-        compute_dtype), made once per weight upload or temperature: the
-        O(L^2) fold stays off every chunked or streaming dispatch."""
-        if self._fused_prep is None:
-            self._fused_prep = fused_chain.prepare_weights(
-                self._device_params(), self.cfg, True, self.weight_dtype,
+    def _fused_weights(self, dev=None) -> tuple:
+        """K6's folded weights on `dev` (`fused_chain.prepare_weights` with
+        the dil_b prefold, the engine's storage, fuse_pack, fast_math and
+        compute_dtype), made once per weight upload or temperature and
+        device: the O(L^2) fold stays off every chunked or streaming
+        dispatch."""
+        dev = self.device if dev is None else dev
+        if dev not in self._fused_prep:
+            self._fused_prep[dev] = fused_chain.prepare_weights(
+                self._device_params(dev), self.cfg, True, self.weight_dtype,
                 self.fuse_pack, self.fast_math, self.compute_dtype)
-        return self._fused_prep
+        return self._fused_prep[dev]
+
+    # ------------------------------------------------------------------
+    # the mesh (the JAX engine's _n_proc / _shard / _check_mesh_batch /
+    # _per_device)
+    # ------------------------------------------------------------------
+
+    def _n_proc(self) -> int:
+        """Processes holding the mesh's rows: under several, callers pass
+        and read back this process's rows, and batch_size arguments stay
+        global."""
+        return self.mesh.process_count if self.mesh is not None else 1
+
+    def _pidx(self) -> int:
+        """This process's index on the mesh (keys the default selectors)."""
+        return self.mesh.process_index if self.mesh is not None else 0
+
+    def _shard(self, x, batch_axis: int, dtype=torch.float32) -> list:
+        """This process's rows of x split over the mesh's local shards."""
+        return mesh_lib.stage(self.mesh, x, batch_axis, dtype)
+
+    def _check_mesh_batch(self, batch: int):
+        """Fail early, with the JAX engine's message, when the batch cannot
+        shard evenly."""
+        if self.mesh is not None:
+            n = self.mesh.shape["data"]
+            if batch % n:
+                raise ValueError(
+                    f"batch_size {batch} not divisible by the mesh 'data' "
+                    f"axis ({n} devices); pad the utterance batch to a "
+                    f"multiple of {n}")
+
+    def _per_device(self, batch: int) -> int:
+        """The rows of one shard: every plan is made for them."""
+        return batch // self.mesh.shape["data"] if self.mesh else batch
+
+    def _on_devices(self, fn) -> Dict[torch.device, object]:
+        """{device: fn(device)} over the mesh's distinct devices, made on
+        each device's current stream before any shard launches."""
+        return {d: fn(d) for d in self.mesh.local_devices}
+
+    def _state_batch(self) -> int:
+        """The global batch of the carried state."""
+        if self.mesh is None:
+            return self._y_state.shape[1]
+        return sum(y.shape[1] for y in self._y_state) * self._n_proc()
 
     # ------------------------------------------------------------------
     # inputs
@@ -437,26 +529,47 @@ class WaveNetInfer:
         [0, 1).  numpy arrays or tensors (a tensor already on the engine's
         device is used as it is).  With selectors=None they come from the
         default stream `_selector_stream` keyed on `seed` (default: the
-        engine's `sampling_seed`).  Resets the generation state."""
-        T, L, B, C = cond.shape
+        engine's `sampling_seed`).  Resets the generation state.
+
+        Under a mesh of several processes cond and selectors are this
+        process's rows (B_local = B / process count), later batch_size
+        arguments are global, and default selectors are keyed on the
+        process index (`_selector_stream(..., pidx)`, the local row index
+        with the process's)."""
+        T, L, Bl, C = cond.shape
         if L != self.cfg.num_layers or C != 2 * self.cfg.R:
             raise ValueError(f"cond shape {tuple(cond.shape)} does not match "
                              f"config (L={self.cfg.num_layers}, "
                              f"2R={2 * self.cfg.R})")
+        B = Bl * self._n_proc()             # the global utterance batch
         if B > self.max_batch:
             raise ValueError(f"batch {B} exceeds max_batch {self.max_batch}")
+        self._check_mesh_batch(B)
         if selectors is None:
             selectors = _selector_stream(
-                self.sampling_seed if seed is None else seed, 0, T, B)
-        if tuple(selectors.shape) != (T, B):
+                self.sampling_seed if seed is None else seed, 0, T, Bl,
+                self._pidx())
+        if tuple(selectors.shape) != (T, Bl):
             raise ValueError(f"selectors shape {tuple(selectors.shape)} != "
-                             f"{(T, B)}")
-        self._cond = torch.as_tensor(cond, dtype=torch.float32,
-                                     device=self.device).contiguous()
-        self._selectors = torch.as_tensor(selectors, dtype=torch.float32,
-                                          device=self.device).contiguous()
+                             f"{(T, Bl)}")
+        if self.mesh is not None:
+            self._cond = self._shard(cond, 2)
+            self._selectors = self._shard(selectors, 1)
+        else:
+            self._cond = torch.as_tensor(cond, dtype=torch.float32,
+                                         device=self.device).contiguous()
+            self._selectors = torch.as_tensor(
+                selectors, dtype=torch.float32,
+                device=self.device).contiguous()
         self._cond_pre = None
         self._reset_state(B)
+
+    def _inputs_shape(self) -> tuple:
+        """(T, the global batch) of the inputs of `set_inputs`."""
+        if self.mesh is None:
+            return self._cond.shape[0], self._cond.shape[2]
+        return (self._cond[0].shape[0],
+                sum(c.shape[2] for c in self._cond) * self._n_proc())
 
     @property
     def _ring_dtype(self) -> torch.dtype:
@@ -464,22 +577,40 @@ class WaveNetInfer:
         return scan_generate.ring_dtype(self._precision(False))
 
     def _reset_state(self, batch: int):
-        """Silence for `batch` rows; an open stream ends (its clocks
-        described the state this replaces)."""
-        self._ring = persistent.init_ring(self.cfg, batch, self.device,
-                                          self._ring_dtype)
-        self._y_state = torch.full((2, batch), self.cfg.silence_bin,
-                                   dtype=torch.int32, device=self.device)
+        """Silence for `batch` rows (global; each shard gets its own under a
+        mesh); an open stream ends (its clocks described the state this
+        replaces)."""
+        def fresh(dev, b):
+            return (persistent.init_ring(self.cfg, b, dev, self._ring_dtype),
+                    torch.full((2, b), self.cfg.silence_bin,
+                               dtype=torch.int32, device=dev))
+        if self.mesh is None:
+            self._ring, self._y_state = fresh(self.device, batch)
+        else:
+            b = self._per_device(batch)
+            states = mesh_lib.run_shards(
+                self.mesh, lambda shard: fresh(shard.device, b))
+            self._ring = [r for r, _ in states]
+            self._y_state = [y for _, y in states]
         self._stream_t_row = None
 
-    def _prefolded_cond(self) -> torch.Tensor:
-        """cond + dil_b, built once per (inputs, weights) on the device: an
-        exactly-rounded elementwise add, the same values the JAX engine
-        prefolds."""
+    def _prefolded_cond(self):
+        """cond + dil_b, built once per (inputs, weights) on the device (on
+        each shard's under a mesh): an exactly-rounded elementwise add, the
+        same values the JAX engine prefolds."""
         if self._cond_pre is None:
-            dil_b = self._value_params()["dil_b"]
-            self._cond_pre = self._cond + dil_b[None, :, None, :]
+            self._cond_pre = self._fold_dil_b(self._cond)
         return self._cond_pre
+
+    def _fold_dil_b(self, cond):
+        """cond + dil_b of the storage's values, on cond's device(s)."""
+        if self.mesh is None:
+            dil_b = self._value_params()["dil_b"]
+            return cond + dil_b[None, :, None, :]
+        dil_b = self._on_devices(lambda d: self._value_params(d)["dil_b"])
+        return mesh_lib.run_shards(
+            self.mesh, lambda shard, c: c + dil_b[shard.device][
+                None, :, None, :], cond)
 
     # ------------------------------------------------------------------
     # generation
@@ -504,16 +635,18 @@ class WaveNetInfer:
         if self._cond is None:
             raise RuntimeError("set_inputs must be called first")
         B = batch_size
-        if B > self._cond.shape[2]:
-            raise ValueError(f"batch_size {B} exceeds the batch of "
-                             f"set_inputs ({self._cond.shape[2]})")
-        if init_sample + num_samples > self._cond.shape[0]:
+        T_in, B_in = self._inputs_shape()
+        if B > B_in or (self.mesh is not None and B != B_in):
+            raise ValueError(f"batch_size {B} "
+                             f"{'differs from' if self.mesh else 'exceeds'}"
+                             f" the batch of set_inputs ({B_in})")
+        if init_sample + num_samples > T_in:
             raise ValueError("set_inputs cond is shorter than requested run")
         if init_sample == 0:
             self._reset_state(B)
-        elif self._y_state.shape[1] != B:
+        elif self._state_batch() != B:
             raise ValueError(f"batch_size {B} differs from the carried "
-                             f"state's batch {self._y_state.shape[1]}")
+                             f"state's batch {self._state_batch()}")
         gen, params = self._generator(B, mode, dump_activations)
         cond_pre = self._prefolded_cond()
         ys = []
@@ -521,9 +654,13 @@ class WaveNetInfer:
                         self.chunk_size):
             n = min(self.chunk_size, init_sample + num_samples - t0)
             sl = slice(t0, t0 + n)
-            cp = cond_pre[sl] if B == cond_pre.shape[2] \
-                else cond_pre[sl, :, :B].contiguous()
-            sel = self._selectors[sl, :B].contiguous()
+            if self.mesh is not None:
+                cp = [c[sl] for c in cond_pre]
+                sel = [s[sl] for s in self._selectors]
+            else:
+                cp = cond_pre[sl] if B == cond_pre.shape[2] \
+                    else cond_pre[sl, :, :B].contiguous()
+                sel = self._selectors[sl, :B].contiguous()
             out = gen(params, t0, cp, sel, self._ring, self._y_state,
                       seed=self.sampling_seed)
             ys.append(out[0])
@@ -531,7 +668,8 @@ class WaveNetInfer:
                 self._dumps = dict(zip(("xt", "skip", "zs", "za", "p"),
                                        out[3:8]))
         if not ys:
-            return torch.zeros((0, B), dtype=torch.int32, device=self.device)
+            return torch.zeros((0, B // self._n_proc()), dtype=torch.int32,
+                               device=self.device)
         return ys[0] if len(ys) == 1 else torch.cat(ys)
 
     def run_device(self, num_samples: int, batch_size: int,
@@ -600,6 +738,19 @@ class WaveNetInfer:
         fused = self._fuse_fits and not (dump or ragged or self._stream)
         fast = self._effective_fast_math(dump)
         key = (batch, mode, dump, ragged, self._precision(dump))
+        if self.mesh is not None:
+            if key not in self._gens:
+                self._gens[key] = mesh_lib.make_sharded_persistent_generator(
+                    self.cfg, self.mesh, self._per_device(batch), mode=mode,
+                    weight_dtype=self.weight_dtype,
+                    compute_dtype=self.compute_dtype, fast_math=fast,
+                    dump=dump, stream_weights=self._stream,
+                    stream_group_size=self.stream_group_size,
+                    stream_prefetch=self.stream_prefetch,
+                    stream_quant=self._quant, fuse_chain=fused,
+                    fuse_pack=self.fuse_pack, shared=self._mesh_stored)
+            return self._gens[key], self._on_devices(
+                self._fused_weights if fused else self._device_params)
         if key not in self._gens:
             self._gens[key] = (
                 fused_chain.make_fused_generator(
@@ -660,6 +811,11 @@ class WaveNetInfer:
         rounds)."""
         if self._cond is None:
             raise ValueError("set_inputs must be called first")
+        if self.mesh is not None:
+            raise ValueError(
+                "speculative decode: single-process engines only (its "
+                "lockstep commit is a per-batch scalar loop; at multi-chip "
+                "batch the exact kernel wins anyway)")
         if (self.fast_math or self.fuse_chain
                 or self.compute_dtype != torch.float32):
             raise ValueError(
@@ -714,8 +870,10 @@ class WaveNetInfer:
         if not 1 <= batch_size <= self.max_batch:
             raise ValueError(f"batch_size {batch_size} outside [1, "
                              f"max_batch={self.max_batch}]")
+        self._check_mesh_batch(batch_size)
         self._reset_state(batch_size)
-        self._stream_t_row = np.zeros(batch_size, np.int64)
+        # this process's rows' clocks (all of them with one process)
+        self._stream_t_row = np.zeros(batch_size // self._n_proc(), np.int64)
 
     @property
     def _stream_t(self) -> Optional[int]:
@@ -755,7 +913,7 @@ class WaveNetInfer:
         synchronisation before the launch."""
         if self._stream_t_row is None:
             raise RuntimeError("call begin_stream(batch_size) first")
-        B = len(self._stream_t_row)
+        B = len(self._stream_t_row)        # this process's rows
         T = cond_chunk.shape[0]
         if tuple(cond_chunk.shape[1:]) != (self.cfg.num_layers, B,
                                            2 * self.cfg.R):
@@ -772,13 +930,14 @@ class WaveNetInfer:
             if not (aligned and la.shape == (B,) and np.all(la == T)):
                 return self._feed_ragged(cond_chunk, selectors_chunk, mode, la)
         t0 = int(clocks[0])
-        gen, params = self._generator(B, mode)
+        gen, params = self._generator(B * self._n_proc(), mode)
         if selectors_chunk is None:
-            selectors_chunk = (_selector_stream(self.sampling_seed, t0, T, B)
+            selectors_chunk = (_selector_stream(self.sampling_seed, t0, T, B,
+                                                self._pidx())
                                if mode == "sample"
                                else np.zeros((T, B), np.float32))
         y = gen(params, t0, self._stage_cond_pre(cond_chunk),
-                self._stage(selectors_chunk), self._ring, self._y_state,
+                self._stage(selectors_chunk, 1), self._ring, self._y_state,
                 seed=self.sampling_seed)[0]
         self._stream_t_row = clocks + T
         return y
@@ -788,6 +947,11 @@ class WaveNetInfer:
         """Per-row ragged feed on K5: row b runs lengths[b] steps from its
         own clock (the TPU kernel's ragged variant, which the JAX engine
         wraps in per-row ring rotations; K5 takes the clocks directly)."""
+        if self.mesh is not None:
+            raise ValueError(
+                "ragged feeds: single-process engines only (shard desynced "
+                "streams across engine instances; in-batch rows shard on "
+                "one chip)")
         if mode != "sample":
             raise ValueError("ragged feeds (per-row lengths or desynced row "
                              "clocks) run mode='sample' only")
@@ -809,7 +973,7 @@ class WaveNetInfer:
             sel = _selector_stream(self.sampling_seed, clocks, T, B)
         gen, params = self._generator(B, "sample", ragged=True)
         y = gen(params, torch.from_numpy(clocks.copy()),
-                self._stage_cond_pre(cond), self._stage(sel), self._ring,
+                self._stage_cond_pre(cond), self._stage(sel, 1), self._ring,
                 self._y_state,
                 torch.from_numpy(lengths.astype(np.int32)))[0]
         self._stream_t_row = clocks + lengths
@@ -825,7 +989,9 @@ class WaveNetInfer:
         whose p, ring and y_state equal the forced kernel K2's bit for bit
         on the card.  Under a temperature p is the tempered distribution,
         as `feed` samples it.  Needs `begin_stream` and rows at one clock
-        (the scorer shares one clock across the batch)."""
+        (the scorer shares one clock across the batch).  Under a mesh each
+        shard scores its own rows (the scorer is batch-parallel) and p_seq
+        holds this process's rows."""
         if self._stream_t_row is None:
             raise RuntimeError("call begin_stream(batch_size) first")
         clocks = self._stream_t_row
@@ -844,14 +1010,25 @@ class WaveNetInfer:
         if tuple(y_chunk.shape) != (T, B):
             raise ValueError(f"score_device: y_chunk shape "
                              f"{tuple(y_chunk.shape)} != {(T, B)}")
-        if B not in self._scorers:
-            self._scorers[B] = score_parallel.make_parallel_scorer(
-                self.cfg, B, compute_dtype=self.compute_dtype,
+        b = self._per_device(B * self._n_proc())
+        if b not in self._scorers:
+            self._scorers[b] = score_parallel.make_parallel_scorer(
+                self.cfg, b, compute_dtype=self.compute_dtype,
                 prefold_cond=True)
-        y = torch.as_tensor(y_chunk, device=self.device).to(torch.int32)
-        p_seq = self._scorers[B](self._value_params(), int(clocks[0]),
-                                 self._stage_cond_pre(cond_chunk), y,
-                                 self._ring, self._y_state)[0]
+        scorer, t0 = self._scorers[b], int(clocks[0])
+        if self.mesh is None:
+            y = torch.as_tensor(y_chunk, device=self.device).to(torch.int32)
+            p_seq = scorer(self._value_params(), t0,
+                           self._stage_cond_pre(cond_chunk), y, self._ring,
+                           self._y_state)[0]
+        else:
+            vals = self._on_devices(self._value_params)
+            p_seq = mesh_lib.gather(mesh_lib.run_shards(
+                self.mesh, lambda shard, c, y, r, ys: scorer(
+                    vals[shard.device], t0, c, y, r, ys)[0],
+                self._stage_cond_pre(cond_chunk),
+                self._shard(y_chunk, 1, torch.int32), self._ring,
+                self._y_state), 1)
         self._stream_t_row = clocks + T
         return p_seq
 
@@ -861,10 +1038,13 @@ class WaveNetInfer:
         y = torch.as_tensor(y_chunk).T
         return self.score_device(cond_chunk, y).permute(1, 0, 2).cpu().numpy()
 
-    def _stage(self, x) -> torch.Tensor:
-        """A float32 chunk on the engine's device.  A host array goes
-        through pinned memory with a non-blocking copy, so staging a feed
-        never waits for the card."""
+    def _stage(self, x, batch_axis: int):
+        """A float32 chunk on the engine's device (under a mesh, its rows
+        split on `batch_axis` over the shards' devices, `mesh.stage`).  A
+        host array goes through pinned memory with a non-blocking copy, so
+        staging a feed never waits for the card."""
+        if self.mesh is not None:
+            return self._shard(x, batch_axis)
         if isinstance(x, torch.Tensor) and x.device.type != "cpu":
             return x.to(self.device, torch.float32).contiguous()
         host = torch.as_tensor(x, dtype=torch.float32).contiguous()
@@ -872,10 +1052,10 @@ class WaveNetInfer:
             return host
         return host.pin_memory().to(self.device, non_blocking=True)
 
-    def _stage_cond_pre(self, cond) -> torch.Tensor:
-        """cond + dil_b on the device, the values `_prefolded_cond` gives."""
-        dil_b = self._value_params()["dil_b"]
-        return self._stage(cond) + dil_b[None, :, None, :]
+    def _stage_cond_pre(self, cond):
+        """cond + dil_b on the device(s), the values `_prefolded_cond`
+        gives."""
+        return self._fold_dil_b(self._stage(cond, 2))
 
     def reset_utterances(self, rows):
         """Hand the slots `rows` to new utterances while the other rows go
@@ -883,13 +1063,30 @@ class WaveNetInfer:
         its y_state set to silence and its clock to 0: a fresh engine's
         start, so with injected selectors its next samples equal those of
         the utterance generated alone.  Default selectors are keyed on the
-        row's clock, so a reset row draws the clock-0 stream of its row."""
+        row's clock, so a reset row draws the clock-0 stream of its row.
+
+        Under a mesh `rows` are global batch indices (each process resets
+        those it holds, so every process makes the same call) and the rows
+        keep the batch's shared clock, as in the JAX engine: the lockstep
+        kernel shares one clock and ragged feeds raise under a mesh, so a
+        reset row draws the default selectors of the shared clock."""
         if self._ring is None:
             raise RuntimeError("no generation state yet")
-        n = self._y_state.shape[1]
+        n = self._state_batch()
         rows = [operator.index(r) for r in rows]
         if not rows or not all(0 <= r < n for r in rows):
             raise ValueError(f"rows {rows} out of range for batch {n}")
+        if self.mesh is not None:
+            b = self._per_device(n)
+
+            def reset(shard, ring, y_state):
+                for r in rows:
+                    if shard.index * b <= r < (shard.index + 1) * b:
+                        ring[:, r - shard.index * b].zero_()
+                        y_state[:, r - shard.index * b].fill_(
+                            self.cfg.silence_bin)
+            mesh_lib.run_shards(self.mesh, reset, self._ring, self._y_state)
+            return
         for r in rows:
             self._ring[:, r].zero_()
             self._y_state[:, r].fill_(self.cfg.silence_bin)
@@ -904,14 +1101,23 @@ class WaveNetInfer:
         [2, B], `stream_t_row` [B] int64 (each row's clock), `stream_t` (the
         largest clock, -1 when no stream is open) and `stream_batch`.  The
         JAX package's snapshot holds a lane-packed ring and its scan path's
-        state, and no per-row clocks."""
+        state, and no per-row clocks.  Under a mesh it holds this process's
+        rows in order (with one process, the whole batch, in the layout
+        of an engine without a mesh)."""
         if self._ring is None:
             raise RuntimeError("no generation state yet")
-        B = self._y_state.shape[1]
+        if self.mesh is None:
+            ring = np.array(self._ring.to(torch.float32).cpu())
+            y_state = np.array(self._y_state.cpu())
+        else:
+            ring = mesh_lib.fetch_local(
+                self.mesh, [r.to(torch.float32) for r in self._ring], 1)
+            y_state = mesh_lib.fetch_local(self.mesh, self._y_state, 1)
+        B = y_state.shape[1]
         streaming = self._stream_t_row is not None
         return {
-            "ring": np.array(self._ring.to(torch.float32).cpu()),
-            "y_state": np.array(self._y_state.cpu()),
+            "ring": ring,
+            "y_state": y_state,
             "stream_t_row": (self._stream_t_row.copy() if streaming
                              else np.zeros(B, np.int64)),
             "stream_t": np.asarray(self._stream_t if streaming else -1,
@@ -925,11 +1131,12 @@ class WaveNetInfer:
         or `run_partial` continues exactly where the exporter left off,
         every row at its own clock.  The ring takes this engine's dtype
         (bf16 under compute_dtype=bfloat16, rounding a float32 snapshot's
-        values, as the JAX engine casts it)."""
+        values, as the JAX engine casts it).  Under a mesh the snapshot is
+        this process's rows, split over its shards."""
         ring = np.asarray(state["ring"], np.float32)
         y_state = np.asarray(state["y_state"], np.int32)
         B = y_state.shape[-1]
-        if (y_state.shape != (2, B) or B > self.max_batch
+        if (y_state.shape != (2, B) or B * self._n_proc() > self.max_batch
                 or ring.shape != (self.cfg.ring_size, B, self.cfg.R)):
             raise ValueError(f"snapshot ring {ring.shape} / y_state "
                              f"{y_state.shape} do not match the config "
@@ -942,9 +1149,14 @@ class WaveNetInfer:
                     or int(state["stream_batch"]) != B):
                 raise ValueError(f"snapshot stream_t_row {clocks.tolist()} "
                                  f"does not fit its batch {B}")
-        self._ring = torch.from_numpy(ring.copy()).to(self.device,
-                                                      self._ring_dtype)
-        self._y_state = torch.from_numpy(y_state.copy()).to(self.device)
+        if self.mesh is not None:
+            self._check_mesh_batch(B * self._n_proc())
+            self._ring = self._shard(ring, 1, self._ring_dtype)
+            self._y_state = self._shard(y_state, 1, torch.int32)
+        else:
+            self._ring = torch.from_numpy(ring.copy()).to(self.device,
+                                                          self._ring_dtype)
+            self._y_state = torch.from_numpy(y_state.copy()).to(self.device)
         self._stream_t_row = clocks.copy() if streaming else None
 
     # ------------------------------------------------------------------

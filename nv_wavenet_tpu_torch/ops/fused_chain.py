@@ -818,5 +818,18 @@ def make_fused_generator(cfg: WaveNetConfig, batch: int,
         return _launch_fused(cfg, plan, weights, scheds[dev], t0, cond, sel,
                              ring, y_state, n_valid, mode, prec, int(seed))
 
+    def prepare(params, dev) -> None:
+        """Build, on the current stream, what a launch on `dev` reads
+        besides its arguments (the FIFO layout; the cluster stream of
+        prepared weights): see `persistent.make_persistent_generator`."""
+        dev = torch.device(dev)
+        if dev.type != "cuda":
+            return
+        if dev not in scheds:
+            scheds[dev] = persistent.fifo_schedule(cfg, dev)
+        if route.kernel == "cluster" and not isinstance(params, dict):
+            stream_of(tuple(params))
+
     generate.route = route
+    generate.prepare = prepare
     return generate

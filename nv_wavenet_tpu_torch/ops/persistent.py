@@ -1116,6 +1116,18 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
                               sel, ring, y_state, n_valid_row, prec,
                               None if built is None else (plan, built[0]))
 
+    def prepare(params: Dict[str, torch.Tensor], dev) -> None:
+        """Build, on the current stream, what a launch on `dev` reads
+        besides its arguments (the FIFO layout, the storage of `params`): a
+        caller that launches one generator on several streams of a device
+        calls this first, so that no launch reads a cache another stream is
+        still writing."""
+        dev = torch.device(dev)
+        if dev.type == "cuda" and dev not in scheds:
+            scheds[dev] = fifo_schedule(cfg, dev)
+        storage(params, dev)
+
     out = generate_ragged if ragged else generate
     out.route = route
+    out.prepare = prepare
     return out

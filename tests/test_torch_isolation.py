@@ -58,6 +58,15 @@ TRAIN_MODULES = ("nv_wavenet_tpu_torch.utils.mu_law",
                  "nv_wavenet_tpu_torch.tools.inference")
 
 
+# the modules of the mesh and tools slice
+MESH_MODULES = ("nv_wavenet_tpu_torch.parallel.mesh",
+                "nv_wavenet_tpu_torch.engine.nv_wavenet",
+                "nv_wavenet_tpu_torch.engine.torch_import",
+                "nv_wavenet_tpu_torch.tools.verify_drive",
+                "nv_wavenet_tpu_torch.tools.eval_checkpoint",
+                "nv_wavenet_tpu_torch.tools.mesh_probe")
+
+
 def _checked(modules) -> bool:
     names = {p.relative_to(REPO).with_suffix("").as_posix().replace("/", ".")
              for p in SOURCES}
@@ -72,6 +81,48 @@ def test_the_slice_modules_are_checked():
 def test_the_training_modules_are_checked():
     """The checks below read and import the training slice's modules."""
     assert _checked(TRAIN_MODULES)
+
+
+def test_the_mesh_and_tool_modules_are_checked():
+    """The checks below read and import the mesh and tools slice's
+    modules."""
+    assert _checked(MESH_MODULES)
+
+
+@pytest.mark.parametrize("module", MESH_MODULES[3:])
+def test_user_tools_fail_without_a_card(module, tmp_path):
+    """nvw-torch-verify, nvw-torch-eval-checkpoint and the mesh probe run on
+    the card: with none (and no nvcc) they exit non-zero and report
+    nothing, unless asked for the CPU."""
+    if _cuda_available():
+        pytest.skip("a CUDA device is present: run the tools themselves")
+    argv = ["-c", str(tmp_path)] if module.endswith("checkpoint") else []
+    out = subprocess.run([sys.executable, "-m", module, *argv], cwd=REPO,
+                         env=_env_without_nvcc(tmp_path), capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode != 0
+    assert "CUDA device" in out.stderr
+    assert ("PASSED" not in out.stdout and "bits/sample" not in out.stdout
+            and "mesh_probe" not in out.stdout)
+
+
+def test_mesh_and_wrappers_need_a_card_unless_asked():
+    """data_mesh(), NVWaveNet and torch_import default to the card and
+    raise without one; the CPU only when asked."""
+    if _cuda_available():
+        pytest.skip("a CUDA device is present")
+    import torch
+    from nv_wavenet_tpu_torch.engine import torch_import
+    from nv_wavenet_tpu_torch.engine.wavenet_infer import WaveNetInfer
+    from nv_wavenet_tpu_torch.parallel import mesh
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.data_mesh()
+    cpu = mesh.data_mesh(2, [torch.device("cpu")] * 2)
+    assert WaveNetInfer(2, 2, R=8, S=8, A=8, max_batch=2,
+                        mesh=cpu).device.type == "cpu"
+    sd = {"embed.weight": torch.zeros(8, 4)}
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        torch_import.cond_input_from_state_dict(sd, torch.zeros(1, 2, 3), 2)
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES[2:])
