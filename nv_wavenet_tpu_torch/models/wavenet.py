@@ -29,6 +29,12 @@ biases, flax's `Embed` init) from an explicit `torch.Generator`; the bits
 differ from JAX's (another generator), so the tests hand both the same
 parameters through `params_from_flax`.
 
+Tensor and sequence parallelism (`train/sharding.py`): `forward(...,
+mesh=)` computes one rank's part, the module holding its model rank's
+shards (`sharding.shard_module`) and the audio its seq rank's window; the
+collectives sit where the shards meet.  Without a mesh each of them is the
+plain op it replaces.
+
 `export_canonical` / `export_weights` convert the trained parameters into
 the engine's format with the reference's conventions (`pytorch/wavenet.py:
 147-188` + `pytorch/nv_wavenet.py:98-141`): zero embedding_prev,
@@ -48,6 +54,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from nv_wavenet_tpu_torch.config import WaveNetConfig, dilation_schedule
+from nv_wavenet_tpu_torch.train import sharding
 
 PRECISIONS = ("highest", "default")
 
@@ -161,6 +168,9 @@ class WaveNetTrain(nn.Module):
             nn.Conv1d(R, S, 1) for _ in range(L))
         self.conv_out = nn.Conv1d(S, A, 1, bias=False)
         self.conv_end = nn.Conv1d(A, A, 1, bias=False)
+        # the model ranks the sharded convs are split over
+        # (`sharding.shard_module`); 1: the full module
+        self.model_parallel = 1
         self.reset_parameters(torch.Generator().manual_seed(0))
 
     def reset_parameters(self, gen: torch.Generator) -> None:
@@ -181,17 +191,24 @@ class WaveNetTrain(nn.Module):
             if conv.bias is not None:
                 nn.init.zeros_(conv.bias)
 
-    def _cond_bct(self, mel: torch.Tensor, length: int) -> torch.Tensor:
+    def _cond_bct(self, mel: torch.Tensor, length: int,
+                  mesh=None) -> torch.Tensor:
         """mel [B, T_mel, n_cond] -> every layer's conditioning
         [B, 2R L, length]: upsample, crop to the audio, one 1x1 conv
-        (`pytorch/wavenet.py:105-115`)."""
+        (`pytorch/wavenet.py:105-115`).  Under a mesh, `length` is the seq
+        rank's window and the crop that window of the whole upsampled mel;
+        the conv's output shards are gathered over the model group."""
         up = self.upsample.forward_bct(mel.transpose(1, 2))
-        if up.shape[2] < length:
+        seq, s = (1, 0) if mesh is None else (mesh.seq, mesh.seq_rank)
+        if up.shape[2] < length * seq:
             raise ValueError(
                 f"upsampled conditioning covers {up.shape[2]} samples < "
-                f"audio length {length} (mel too short for this segment; "
-                f"the reference asserts the same, `pytorch/wavenet.py:110`)")
-        return self.cond_layer(up[:, :, :length])
+                f"audio length {length * seq} (mel too short for this "
+                f"segment; the reference asserts the same, "
+                f"`pytorch/wavenet.py:110`)")
+        up = sharding.copy_to_model(up[:, :, s * length:(s + 1) * length],
+                                    mesh)
+        return sharding.gather_model(self.cond_layer(up), mesh)
 
     def _cond_acts(self, mel: torch.Tensor, length: int) -> torch.Tensor:
         """mel [B, T_mel, n_cond] -> per-layer conditioning
@@ -202,28 +219,40 @@ class WaveNetTrain(nn.Module):
         return cond.transpose(1, 2).reshape(B, length, self.n_layers,
                                             2 * self.n_residual_channels)
 
-    def forward(self, mel: torch.Tensor, audio: torch.Tensor) -> torch.Tensor:
+    def forward(self, mel: torch.Tensor, audio: torch.Tensor,
+                mesh=None) -> torch.Tensor:
         """mel [B, T_mel, n_cond]; audio [B, T] int mu-law bins -> logits
         [B, T, A], where logits[:, t] predicts audio[:, t] (right-shifted
         by one: position 0 gets zeros, the output for position T-1 is
-        dropped, `pytorch/wavenet.py:136-143`)."""
+        dropped, `pytorch/wavenet.py:136-143`).
+
+        With `mesh` (a `train.sharding.TrainMesh`; the module sharded for
+        it), audio is this seq rank's window of T/seq samples
+        (`sharding.batch_partition`), the mel whole, and the logits are
+        the window's."""
+        if self.model_parallel != (1 if mesh is None else mesh.model):
+            raise ValueError(f"the module is sharded over "
+                             f"{self.model_parallel} model rank(s); the "
+                             f"mesh is {mesh}")
         R = self.n_residual_channels
         T = audio.shape[1]
         with precision_scope(self.precision):
-            cond = self._cond_bct(mel, T)                  # [B, 2RL, T]
+            cond = self._cond_bct(mel, T, mesh)            # [B, 2RL, T]
             x = self.embed(audio.long()).transpose(1, 2)   # [B, R, T]
             output = None
             for i, d in enumerate(self.dilations):
-                in_act = (self.dilate_layers[i](F.pad(x, (d, 0)))
+                in_act = (self.dilate_layers[i](sharding.halo_pad(x, d, mesh))
                           + cond[:, 2 * R * i:2 * R * (i + 1)])
                 acts = torch.tanh(in_act[:, :R]) * torch.sigmoid(in_act[:, R:])
                 if i < len(self.res_layers):
                     x = self.res_layers[i](acts) + x
-                s = self.skip_layers[i](acts)
+                s = self.skip_layers[i](sharding.copy_to_model(acts, mesh))
                 output = s if output is None else output + s
-            output = self.conv_end(F.relu(self.conv_out(F.relu(output))))
+            output = sharding.reduce_from_model(
+                self.conv_out(F.relu(output)), mesh)
+            output = self.conv_end(F.relu(output))
         # next-sample shift: drop the last step, prepend zeros
-        return F.pad(output[:, :, :-1], (1, 0)).transpose(1, 2)
+        return sharding.shift_right(output, mesh).transpose(1, 2)
 
     def get_cond_input(self, mel: torch.Tensor) -> torch.Tensor:
         """Inference conditioning: [B, T_mel, n_cond] -> [T, L, B, 2R], the
@@ -291,11 +320,20 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", torch.float32).numpy()
 
 
+def _check_full(model: WaveNetTrain) -> None:
+    if model.model_parallel != 1:
+        raise ValueError(
+            f"the module holds one of {model.model_parallel} model ranks' "
+            f"shards: export the full parameters (a checkpoint, or "
+            f"trainer.full_state_dict loaded into a full module)")
+
+
 def export_canonical(model: WaveNetTrain) -> Dict[str, np.ndarray]:
     """The trained parameters -> the engine's canonical params (numpy):
     embed_prev zero (tanh_embed=False), dilated tap 0 (the older sample)
     -> Wprev and tap 1 -> Wcur, a zero residual part for the last layer,
     zero out_b / end_b."""
+    _check_full(model)
     L, R, S, A = (model.n_layers, model.n_residual_channels,
                   model.n_skip_channels, model.n_out_channels)
     embed_cur = _np(model.embed.weight)                      # [A, R]
@@ -326,6 +364,7 @@ def export_canonical(model: WaveNetTrain) -> Dict[str, np.ndarray]:
 def export_weights(model: WaveNetTrain) -> Dict[str, Any]:
     """The reference's export dict (`pytorch/wavenet.py:147-188`, key for
     key), tensors in the reference's math shapes (rows = out channels)."""
+    _check_full(model)
     L = model.n_layers
     embed_cur = _np(model.embed.weight)
     out = {

@@ -20,13 +20,16 @@ reference's `pytorch/distributed.py`):
   * several processes (one per card, `initialize_multihost`) each hold their
     own rows: `stage` splits this process's rows over its shards and
     `fetch_local` reads them back in shard order; nothing is gathered across
-    processes, so the rendezvous needs no collective backend of the card
-    (gloo serves, also for processes that share one card).
+    processes, so either backend serves (NCCL across cards, gloo for
+    processes that share one card; `initialize_multihost` chooses).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import json
+import socket
 from typing import Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -42,25 +45,35 @@ SHARD_KEY_STEP = 0x9E3779B97F4A7C15
 
 
 def initialize_multihost(coordinator_address: str, num_processes: int,
-                         process_id: int, device="cuda",
-                         backend: Optional[str] = None) -> None:
+                         process_id: int, device="cuda") -> None:
     """Join the process group of `num_processes` ranks as rank
     `process_id`, rendezvous at `coordinator_address` ("host:port", rank
-    0's; no environment variable is read).  On the card each rank takes card
-    `process_id` modulo the cards it sees.  `backend` defaults to the one
-    the device trains with (NCCL for the card, gloo for the CPU); sharded
-    generation communicates nothing, so gloo serves it on any device,
-    including processes that share one card (NCCL refuses a duplicate
-    GPU)."""
+    0's; no environment variable is read).  On the card each rank takes
+    the next card of its host, in rank order among the host's ranks, and
+    the group runs on NCCL; on gloo where a host holds more ranks than
+    cards (NCCL refuses two ranks on one card), as on the CPU.  Every rank
+    sees every host's rank and card counts through the rendezvous, so all
+    choose the same backend."""
     if not 0 <= process_id < num_processes:
         raise ValueError(f"process_id {process_id} outside [0, "
                          f"{num_processes})")
-    cuda = torch.device(device).type == "cuda"
-    if cuda:
-        torch.cuda.set_device(process_id % torch.cuda.device_count())
-    dist.init_process_group(backend or ("nccl" if cuda else "gloo"),
-                            init_method=f"tcp://{coordinator_address}",
-                            world_size=num_processes, rank=process_id)
+    host, port = coordinator_address.rsplit(":", 1)
+    store = dist.TCPStore(host, int(port), num_processes,
+                          is_master=process_id == 0)
+    backend = "gloo"
+    if torch.device(device).type == "cuda":
+        cards = torch.cuda.device_count()
+        store.set(f"nvw_host/{process_id}",
+                  json.dumps([socket.gethostname(), cards]))
+        hosts = [json.loads(store.get(f"nvw_host/{r}"))
+                 for r in range(num_processes)]
+        mine = [r for r, h in enumerate(hosts) if h[0] == hosts[process_id][0]]
+        torch.cuda.set_device(mine.index(process_id) % cards)
+        ranks_on = collections.Counter(h[0] for h in hosts)
+        if all(ranks_on[name] <= n for name, n in hosts):
+            backend = "nccl"
+    dist.init_process_group(backend, store=store, world_size=num_processes,
+                            rank=process_id)
 
 
 def _process() -> tuple:

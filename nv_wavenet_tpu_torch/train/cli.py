@@ -14,12 +14,14 @@ epoch, the clip list sharded over ranks, drop_last batching, the epoch
 offset on resume).  Resume: train_config.checkpoint_path (a checkpoint
 directory) and checkpoint_iteration (the latest where it is null).
 
-dist_config: data_parallel over several processes, one per card, joined by
-`torch.distributed` from the config alone (`coordinator_address`
-"host:port", `num_processes`, and each rank's `process_id` or the
-`--process_id` flag; `parallel.mesh.initialize_multihost`).  data_parallel
-must equal the number of processes; model_parallel and seq_parallel > 1
-raise (not ported yet, ROADMAP.md section 1).
+dist_config: a data_parallel x model_parallel x seq_parallel mesh
+(`trainer.make_mesh`) over several processes, joined by `torch.distributed`
+from the config alone (`coordinator_address` "host:port", `num_processes`,
+each rank's `process_id` or the `--process_id` flag;
+`parallel.mesh.initialize_multihost`, which joins on NCCL on the card and
+on gloo on the CPU or where processes share a card).  The product of the
+three must equal the number of processes.  batch_size is per data rank:
+every model and seq peer of a data rank draws the same batch.
 """
 
 from __future__ import annotations
@@ -52,11 +54,6 @@ def main(argv=None):
     dp = dist_c.get("data_parallel", 1)
     mp = dist_c.get("model_parallel", 1)
     sp = dist_c.get("seq_parallel", 1)
-    if mp > 1 or sp > 1:
-        raise NotImplementedError(
-            f"model_parallel={mp}, seq_parallel={sp}: tensor and sequence "
-            f"parallel training are not ported to nv_wavenet_tpu_torch yet "
-            f"(ROADMAP.md, section 1); use data_parallel")
 
     import torch
 
@@ -76,15 +73,17 @@ def main(argv=None):
         if rank is None:
             raise ValueError("dist_config.coordinator_address needs each "
                              "rank's process_id (or --process_id)")
-        world = dist_c.get("num_processes", dp)
+        world = dist_c.get("num_processes", dp * mp * sp)
+    if dp * mp * sp != world:
+        raise ValueError(
+            f"data_parallel={dp} x model_parallel={mp} x seq_parallel={sp} "
+            f"= {dp * mp * sp} needs as many processes (dist_config."
+            f"coordinator_address and num_processes), got {world}")
+    if dist_c.get("coordinator_address"):
         initialize_multihost(dist_c["coordinator_address"], world, rank,
                              device)
         if device.type == "cuda":
             device = torch.device("cuda", torch.cuda.current_device())
-    if dp != world:
-        raise ValueError(f"data_parallel={dp} needs as many processes (one "
-                         f"per card; dist_config.coordinator_address and "
-                         f"num_processes), got {world}")
 
     data_cfg = data_config_from_json(data_c)
     if data_c.get("synthetic") or not data_c.get("training_files"):
@@ -96,6 +95,12 @@ def main(argv=None):
 
     ds = Mel2Samp(clips, data_cfg, seed=train_c.get("seed", 1234))
     model = trainer.create_model(wavenet_c)
+    mesh = None
+    if world > 1:
+        mesh = trainer.make_mesh(dp, mp, sp, net=model,
+                                 segment_length=data_cfg.segment_length)
+    # the data pipeline is sharded over the data ranks alone
+    d = mesh.data_rank if mesh is not None else 0
     tcfg = trainer.TrainConfig(
         learning_rate=train_c.get("learning_rate", 1e-3),
         batch_size=train_c.get("batch_size", 4),
@@ -111,20 +116,20 @@ def main(argv=None):
         if train_c.get("epochs"):
             print("note: num_iters set; epochs ignored "
                   "(iteration-driven schedule)", flush=True)
-        batches = ds.batches(tcfg.batch_size, rank=rank, world_size=world)
+        batches = ds.batches(tcfg.batch_size, rank=d, world_size=dp)
     else:
         epochs = train_c.get("epochs", 1)
-        spe = ds.steps_per_epoch(tcfg.batch_size, world)
+        spe = ds.steps_per_epoch(tcfg.batch_size, dp)
         if spe < 1:
             raise ValueError(f"dataset too small: {len(ds.clips)} clips < "
-                             f"batch_size {tcfg.batch_size} x {world} "
-                             f"process(es)")
+                             f"batch_size {tcfg.batch_size} x {dp} data "
+                             f"rank(s)")
         num_iters = epochs * spe
         if resume_dir and resume_it is None:
             resume_it = trainer.latest_iteration(resume_dir)
         start_epoch = (resume_it // spe) if resume_dir else 0
-        batches = ds.epoch_batches(tcfg.batch_size, epochs, rank=rank,
-                                   world_size=world, start_epoch=start_epoch)
+        batches = ds.epoch_batches(tcfg.batch_size, epochs, rank=d,
+                                   world_size=dp, start_epoch=start_epoch)
         print(f"epoch schedule: {epochs} epochs x {spe} steps "
               f"(world={world})", flush=True)
 
@@ -137,12 +142,13 @@ def main(argv=None):
                                   ckpt_dir=out_dir,
                                   log_every=train_c.get("log_every", 1),
                                   resume_dir=resume_dir,
-                                  resume_iteration=resume_it, device=device)
+                                  resume_iteration=resume_it, device=device,
+                                  mesh=mesh)
     dt = time.time() - t0
     ran = len(losses)   # fewer than num_iters when resuming mid-schedule
     if rank == 0:
         if ran:
-            sps = ran * tcfg.batch_size * world * data_cfg.segment_length / dt
+            sps = ran * tcfg.batch_size * dp * data_cfg.segment_length / dt
             print(f"final loss: {losses[-1]:.6f}  ({ran} iters in {dt:.1f}s "
                   f"on {device}, {ran / dt:.2f} it/s, {sps / 1e6:.3f} M "
                   f"audio samples/s)", flush=True)

@@ -64,7 +64,8 @@ MESH_MODULES = ("nv_wavenet_tpu_torch.parallel.mesh",
                 "nv_wavenet_tpu_torch.engine.torch_import",
                 "nv_wavenet_tpu_torch.tools.verify_drive",
                 "nv_wavenet_tpu_torch.tools.eval_checkpoint",
-                "nv_wavenet_tpu_torch.tools.mesh_probe")
+                "nv_wavenet_tpu_torch.tools.mesh_probe",
+                "nv_wavenet_tpu_torch.tools.train_mesh_probe")
 
 
 def _checked(modules) -> bool:
@@ -91,8 +92,8 @@ def test_the_mesh_and_tool_modules_are_checked():
 
 @pytest.mark.parametrize("module", MESH_MODULES[3:])
 def test_user_tools_fail_without_a_card(module, tmp_path):
-    """nvw-torch-verify, nvw-torch-eval-checkpoint and the mesh probe run on
-    the card: with none (and no nvcc) they exit non-zero and report
+    """nvw-torch-verify, nvw-torch-eval-checkpoint and the two mesh probes
+    run on the card: with none (and no nvcc) they exit non-zero and report
     nothing, unless asked for the CPU."""
     if _cuda_available():
         pytest.skip("a CUDA device is present: run the tools themselves")

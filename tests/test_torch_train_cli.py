@@ -1,12 +1,15 @@
 """The port's command-line chain on the CPU at the tiny size of
 `tests/test_train.py`: `nvw-torch-train` (`train/cli.py`) writes
-checkpoints, `tools/mel2samp.py` turns a wav into a mel, and
-`tools/inference.py` vocodes that mel from the checkpoint into a wav of
-the mel's length.  Everything is made here (synthetic audio); nothing is
-downloaded."""
+checkpoints, also from a two-process model-parallel run,
+`tools/mel2samp.py` turns a wav into a mel, and `tools/inference.py`
+vocodes that mel from the checkpoint into a wav of the mel's length.
+Everything is made here (synthetic audio); nothing is downloaded."""
 
 import json
 import os
+import socket
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -14,9 +17,19 @@ import torch
 from scipy.io import wavfile
 
 from nv_wavenet_tpu_torch.tools import inference, mel2samp
-from nv_wavenet_tpu_torch.train import cli
+from nv_wavenet_tpu_torch.train import cli, trainer
 from nv_wavenet_tpu_torch.train.data import synthetic_clips, write_wav
 from tests.test_train import TINY, TINY_DATA
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def free_port() -> int:
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    return port
 
 
 def write_config(tmp_path, **train):
@@ -79,12 +92,16 @@ def test_resume_and_epoch_schedule(tmp_path, capsys):
 
 
 def test_cli_rejects_what_it_does_not_run(tmp_path):
+    """A mesh whose data x model x seq differs from the process count
+    raises, naming the three axes; so does the card where there is none."""
     config = json.loads(open(write_config(tmp_path)).read())
     for key in ("model_parallel", "seq_parallel"):
         bad = dict(config, dist_config=dict(config["dist_config"], **{key: 2}))
         path = tmp_path / f"{key}.json"
         path.write_text(json.dumps(bad))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match=r"data_parallel=1 x "
+                           r"model_parallel=\d x seq_parallel=\d = 2 needs "
+                           r"as many processes .* got 1"):
             cli.main(["-c", str(path), "--device", "cpu"])
     dp = dict(config, dist_config=dict(config["dist_config"],
                                        data_parallel=2))
@@ -97,6 +114,53 @@ def test_cli_rejects_what_it_does_not_run(tmp_path):
         with pytest.raises(RuntimeError, match="CUDA device"):
             inference.main(["--demo", "-o", str(tmp_path / "o"), "--config",
                             str(tmp_path / "config.json")])
+
+
+def test_two_process_model_parallel_cli_writes_a_full_checkpoint(tmp_path):
+    """nvw-torch-train with model_parallel 2 over two gloo processes on the
+    CPU: rank 0 reports, the collective save writes one full checkpoint, a
+    one-process model loads it, and it stays within one Adam step (2.1 x
+    lr) a step of the one-process CLI's on the same batches."""
+    port = free_port()
+    sharded = write_config(tmp_path, num_iters=2, iters_per_checkpoint=2,
+                           output_directory=str(tmp_path / "mp"))
+    cfg = json.loads(open(sharded).read())
+    cfg["dist_config"] = {"data_parallel": 1, "model_parallel": 2,
+                          "seq_parallel": 1, "num_processes": 2,
+                          "coordinator_address": f"127.0.0.1:{port}"}
+    (tmp_path / "mp.json").write_text(json.dumps(cfg))
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "nv_wavenet_tpu_torch.train.cli", "-c",
+         str(tmp_path / "mp.json"), "--device", "cpu", "--process_id",
+         str(r)], cwd=REPO, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=120)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r} failed:\n{out[-3000:]}"
+    assert "final loss" in outs[0] and "final loss" not in outs[1]
+    assert sorted(os.listdir(tmp_path / "mp")) == ["it_2"]
+
+    state = trainer.create_train_state(trainer.create_model(TINY),
+                                       trainer.TrainConfig(seed=7), "cpu")
+    state, it = trainer.load_checkpoint(str(tmp_path / "mp"), None, state)
+    assert it == 2
+    one = write_config(tmp_path, num_iters=2, iters_per_checkpoint=2,
+                       output_directory=str(tmp_path / "one"))
+    want, _ = cli.main(["-c", one, "--device", "cpu"])
+    got, want = state.module.state_dict(), want.module.state_dict()
+    for k in want:
+        assert got[k].shape == want[k].shape, k
+        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), rtol=0,
+                                   atol=2 * 2.1 * 1e-3, err_msg=k)
 
 
 def test_inference_demo_on_cpu(tmp_path, monkeypatch):
