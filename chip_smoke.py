@@ -3261,10 +3261,30 @@ def train_kernel_group(name: str) -> str:
     return "other"
 
 
-def traced_train_step(torch, profiling, trainer, precision_scope, state, mel,
+def on_card(e) -> bool:
+    """Whether a profiler event ran on the card."""
+    return str(e.device_type).endswith("CUDA")
+
+
+def launched_ops(events) -> list:
+    """The card's ops of a trace, each with the host start of the runtime
+    call that launched it (cudaLaunchKernel, cuLaunchKernelEx,
+    cudaMemcpyAsync, ...; None where none was recorded), matched by the
+    correlation id the two share.  The card's side of a host range
+    (record_function's, gloo's own) spans ops already counted, and is left
+    out."""
+    launch = {e.id: e.time_range.start for e in events
+              if not on_card(e) and e.name.startswith("cu")}
+    return [(e, launch.get(e.id, launch.get(
+        getattr(e, "linked_correlation_id", None)))) for e in events
+        if on_card(e) and not (getattr(e, "is_user_annotation", False)
+                               or e.name.startswith(("nvw:", "gloo:")))]
+
+
+def traced_train_step(torch, tracing, trainer, precision_scope, state, mel,
                       audio, mesh, path: str) -> dict:
     """One training step (forward with the loss, backward, Adam; the card
-    synchronised at the end of each) traced with `profiling.trace`: device
+    synchronised at the end of each) traced with `tracing.trace`: device
     time by part and kernel group (`train_kernel_group`), the heaviest
     kernels, and the host time inside collectives (torch.distributed's
     c10d and gloo events) by part.  Every event is placed on the host's
@@ -3276,7 +3296,7 @@ def traced_train_step(torch, profiling, trainer, precision_scope, state, mel,
     Raises where a device event falls in no part, or a part holds none."""
     parts = ("forward", "backward", "optimizer")
     rf = torch.profiler.record_function
-    with profiling.trace(path) as prof:
+    with tracing.trace(path) as prof:
         with precision_scope(state.module.precision):
             with rf("nvw:forward"):
                 state.optimizer.zero_grad(set_to_none=True)
@@ -3290,19 +3310,10 @@ def traced_train_step(torch, profiling, trainer, precision_scope, state, mel,
                 state.optimizer.step()
                 torch.cuda.synchronize()
     events = list(prof.events())
-
-    def on_card(e):
-        return str(e.device_type).endswith("CUDA")
-
     host = {}
     for e in events:
         if e.name.startswith("nvw:") and not on_card(e):
             host[e.name[4:]] = (e.time_range.start, e.time_range.end)
-    # the CUDA API calls (cudaLaunchKernel, cuLaunchKernelEx,
-    # cudaMemcpyAsync, ...) by correlation id, which a device event shares
-    # with the call that launched it
-    launch = {e.id: e.time_range.start for e in events
-              if not on_card(e) and e.name.startswith("cu")}
     out = {"device_ms": {p: {} for p in parts}, "launches": {},
            "collective_host_ms": {p: {} for p in parts}}
 
@@ -3311,25 +3322,21 @@ def traced_train_step(torch, profiling, trainer, precision_scope, state, mel,
                      if host[p][0] <= t <= host[p][1]), "other")
 
     kernels = {}
-    for e in events:
+    ops = launched_ops(events)
+    for e, t in ops:
         ms = e.time_range.elapsed_us() / 1e3
-        # the card's side of a host range (record_function, gloo's own)
-        # spans kernels already counted
-        if on_card(e) and not (getattr(e, "is_user_annotation", False)
-                               or e.name.startswith(("nvw:", "gloo:"))):
-            g = train_kernel_group(e.name)
-            t = launch.get(e.id, launch.get(
-                getattr(e, "linked_correlation_id", None)))
-            d = out["device_ms"].setdefault(
-                "other" if t is None else part_of(t), {})
-            d[g] = d.get(g, 0.0) + ms
-            out["launches"][g] = out["launches"].get(g, 0) + 1
-            kernels[e.name] = kernels.get(e.name, 0.0) + ms
-        elif e.name.startswith(("c10d::", "gloo:")):
+        g = train_kernel_group(e.name)
+        d = out["device_ms"].setdefault(
+            "other" if t is None else part_of(t), {})
+        d[g] = d.get(g, 0.0) + ms
+        out["launches"][g] = out["launches"].get(g, 0) + 1
+        kernels[e.name] = kernels.get(e.name, 0.0) + ms
+    for e in events:
+        if not on_card(e) and e.name.startswith(("c10d::", "gloo:")):
             fam = e.name.split(":")[0]
             c = out["collective_host_ms"].setdefault(
                 part_of(e.time_range.start), {})
-            c[fam] = c.get(fam, 0.0) + ms
+            c[fam] = c.get(fam, 0.0) + e.time_range.elapsed_us() / 1e3
     out["top_kernels_ms"] = dict(sorted(kernels.items(),
                                         key=lambda kv: -kv[1])[:10])
     out["part_ms"] = {p: sum(v.values()) for p, v in
@@ -3338,14 +3345,54 @@ def traced_train_step(torch, profiling, trainer, precision_scope, state, mel,
     out["host_ms"] = {p: (host[p][1] - host[p][0]) / 1e3 for p in parts}
     empty = [p for p in parts if out["part_ms"][p] <= 0]
     if empty or out["part_ms"].get("other", 0.0) > 0:
-        unplaced = [(e.name[:40], e.id) for e in events if on_card(e)
-                     and e.id not in launch][:5]
+        unplaced = [(e.name[:40], e.id) for e, t in ops if t is None]
         raise RuntimeError(
             f"the traced step's split: no device time in {empty}, "
             f"{out['part_ms'].get('other', 0.0):.3f} ms in no part "
-            f"({out['device_ms'].get('other')}); {len(launch)} runtime "
-            f"calls, device events without one: {unplaced}")
+            f"({out['device_ms'].get('other')}); {len(unplaced)} of "
+            f"{len(ops)} device events without a runtime call: "
+            f"{unplaced[:5]}")
     return out
+
+
+def collective_counts(before: dict, after: dict, steps: int) -> dict:
+    """Each kind of collective's calls and bytes a step, from two readings
+    of `tracing.counters()` (`mesh.<kind>`, `mesh.<kind>.bytes`) taken
+    `steps` steps apart; kinds not called between them left out."""
+    out = {}
+    for k, v in after.items():
+        calls = v - before.get(k, 0)
+        if k.startswith("mesh.") and not k.endswith(".bytes") and calls:
+            out[k[5:]] = {"calls": calls / steps, "bytes": (
+                after[k + ".bytes"] - before.get(k + ".bytes", 0)) / steps}
+    return out
+
+
+def traced_collectives(torch, tracing, step, state, mel, audio,
+                       path: str) -> dict:
+    """One step traced with `tracing.trace`: its host ms, and for each kind
+    of collective the host ms of its `nvw:mesh.<kind>` spans and the device
+    ms of the ops launched, on any thread, while one was open (gloo
+    launches its copies from its own threads while the caller waits in the
+    span), each op tied to its launching call by correlation id."""
+    with tracing.trace(path) as prof:
+        t0 = time.perf_counter()
+        step(state, mel, audio)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    events = list(prof.events())
+    spans = [(e.name[len("nvw:mesh."):], e.time_range.start,
+              e.time_range.end) for e in events
+             if e.name.startswith("nvw:mesh.") and not on_card(e)]
+    out = {k: {"host_ms": 0.0, "device_ms": 0.0} for k, _, _ in spans}
+    for k, a, b in spans:
+        out[k]["host_ms"] += (b - a) / 1e3
+    for e, t in launched_ops(events):
+        k = next((k for k, a, b in spans if t is not None and a <= t <= b),
+                 None)
+        if k is not None:
+            out[k]["device_ms"] += e.time_range.elapsed_us() / 1e3
+    return {"step_ms": step_ms, "collectives": out}
 
 
 def tp_excess(torch, got, ref) -> dict:
@@ -3571,13 +3618,14 @@ def log_train_parallel(r: dict, card: str) -> None:
     log(f"[train-tp] one process: {one[0]:.2f} ms a step before the "
         f"workers, {one[-1]:.2f} after; {card}")
     for tag, m in rank0["meshes"].items():
-        coll = sum(m["collectives_timed_ms"].values())
+        coll = m["collectives_traced_ms"]
         log(f"[train-tp] {tag} ({m['rows']} rows x {m['window']} samples a "
-            f"rank): {m['ms_per_step']:.2f} ms a step; a step with its "
-            f"collectives timed {m['step_with_collectives_timed_ms']:.2f} "
-            f"ms, {coll:.2f} ms inside them ("
-            + ", ".join(f"{k} {v:.2f}" for k, v in
-                        sorted(m["collectives_timed_ms"].items()))
+            f"rank): {m['ms_per_step']:.2f} ms a step; a traced step "
+            f"{m['step_traced_ms']:.2f} ms, "
+            f"{sum(v['host_ms'] for v in coll.values()):.2f} ms inside its "
+            f"collectives (host / device ms: "
+            + ", ".join(f"{k} {v['host_ms']:.2f} / {v['device_ms']:.2f}"
+                        for k, v in sorted(coll.items()))
             + f"); processes sharing one card on gloo: what the collectives "
             f"cost, not a speed-up; {card}")
     for tag, t in rank0["traces"].items():
@@ -3598,7 +3646,8 @@ def train_worker(rank: int, port: str, work: str) -> int:
     that group, and a traced data 1 x model 2 step; rank 0 alone at the
     end, a traced one-process step.  Each mesh: one held step (rank 0 saves
     the gathered gradients and parameters), a collective checkpoint,
-    TP_TIMED steps timed and one more with the collectives timed."""
+    TP_TIMED steps timed and one more traced (its collectives' host and
+    device time)."""
     t_start = time.perf_counter()
     import torch
     import torch.distributed as dist
@@ -3610,7 +3659,7 @@ def train_worker(rank: int, port: str, work: str) -> int:
     from nv_wavenet_tpu_torch.models.wavenet import precision_scope
     from nv_wavenet_tpu_torch.parallel import mesh as mesh_lib
     from nv_wavenet_tpu_torch.train import cli, trainer
-    from nv_wavenet_tpu_torch.utils import profiling
+    from nv_wavenet_tpu_torch.utils import tracing
 
     with open(os.path.join(HERE, TRAIN_CONFIG)) as f:
         cfg_json = json.load(f)
@@ -3642,34 +3691,29 @@ def train_worker(rank: int, port: str, work: str) -> int:
                        os.path.join(work, f"{tag}.pt"))
 
     def timed(tag, state):
-        """TP_TIMED steps timed, then one with the collectives timed."""
+        """TP_TIMED steps timed, each kind of collective's calls and bytes
+        a step counted, then one step traced (`traced_collectives`)."""
         mesh = state.mesh
         step = trainer.make_sharded_train_step(mesh)
         mel, audio = rows_of(mesh)
-        mesh.stats.clear()
+        before = tracing.counters()
         torch.cuda.synchronize()
         dist.barrier()
         t0 = time.perf_counter()
         losses = [float(step(state, mel, audio)) for _ in range(TP_TIMED)]
         ms = (time.perf_counter() - t0) * 1e3 / TP_TIMED
-        per_step = {k: {"calls": v["calls"] / TP_TIMED,
-                        "bytes": v["bytes"] / TP_TIMED}
-                    for k, v in mesh.stats.items()}
-        mesh.stats.clear()
-        mesh.timing = True
+        per_step = collective_counts(before, tracing.counters(), TP_TIMED)
         dist.barrier()
-        t0 = time.perf_counter()
-        step(state, mel, audio)
-        torch.cuda.synchronize()
-        timed_ms = (time.perf_counter() - t0) * 1e3
-        mesh.timing = False
+        traced = traced_collectives(
+            torch, tracing, step, state, mel, audio,
+            os.path.join(HERE, "build", "traces",
+                         f"collectives_{tag}_rank{rank}.json"))
         report["meshes"][tag] = {
             "mesh": repr(mesh), "rows": audio.shape[0],
             "window": audio.shape[1] // mesh.seq, "ms_per_step": ms,
             "timed_losses": losses, "collectives_per_step": per_step,
-            "collectives_timed_ms": {k: v["s"] * 1e3
-                                     for k, v in mesh.stats.items()},
-            "step_with_collectives_timed_ms": timed_ms,
+            "collectives_traced_ms": traced["collectives"],
+            "step_traced_ms": traced["step_ms"],
             "peak_memory_bytes": torch.cuda.max_memory_allocated()}
         mark_t(tag)
 
@@ -3709,7 +3753,7 @@ def train_worker(rank: int, port: str, work: str) -> int:
         mel, audio = trainer.sharding.batch_partition(
             state.mesh, *rows_of(state.mesh))
         report["traces"][tag] = traced_train_step(
-            torch, profiling, trainer, precision_scope, state, mel, audio,
+            torch, tracing, trainer, precision_scope, state, mel, audio,
             state.mesh, os.path.join(HERE, "build", "traces",
                                      f"train_{tag}_rank{rank}.json"))
         del state
@@ -3720,7 +3764,7 @@ def train_worker(rank: int, port: str, work: str) -> int:
         mel, audio = batch["mel"].to(dev), batch["audio"].to(dev)
         trainer.train_step(one, mel, audio)
         report["traces"]["one_process"] = traced_train_step(
-            torch, profiling, trainer, precision_scope, one, mel, audio,
+            torch, tracing, trainer, precision_scope, one, mel, audio,
             None, os.path.join(HERE, "build", "traces",
                                "train_one_process.json"))
     mark_t("end")
@@ -3869,7 +3913,7 @@ def main() -> int:
     from nv_wavenet_tpu_torch.tools import probe_exact_math as pem
     from nv_wavenet_tpu_torch.tools import probe_stage as ps
     from nv_wavenet_tpu_torch.tools import scorer_ab
-    from nv_wavenet_tpu_torch.utils import build, profiling
+    from nv_wavenet_tpu_torch.utils import build, profiling, tracing
 
     # the plain versions' matrix products go to cuBLAS: full fp32, no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5620,7 +5664,7 @@ def main() -> int:
     # -- phase 33: the scorer pass traced ------------------------------------
     mark("phase 33: the scorer pass traced")
     split = scorer_ab.scorer_split(
-        torch, profiling.trace, *traced_pass, MAIN_B,
+        torch, tracing.trace, *traced_pass, MAIN_B,
         os.path.join(HERE, "build", "traces", "scorer_trace.json"))
     del traced_pass
     log(json.dumps({"scorer_split": split, "card": card}))

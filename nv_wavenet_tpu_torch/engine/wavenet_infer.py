@@ -127,6 +127,7 @@ from nv_wavenet_tpu_torch.ops import (fused_chain, persistent,
                                       scan_generate, score_parallel,
                                       speculative)
 from nv_wavenet_tpu_torch.parallel import mesh as mesh_lib
+from nv_wavenet_tpu_torch.utils import tracing
 
 
 # what a fallback route runs (`persistent.generation_route`)
@@ -353,8 +354,9 @@ class WaveNetInfer:
         self._stored: Dict[tuple, dict] = {}
         self._mesh_stored: Dict[torch.device, dict] = {}
         # per-row absolute clocks of the open stream [batch] (None: no
-        # stream)
+        # stream), and the count of feeds, which names each in a trace
         self._stream_t_row: Optional[np.ndarray] = None
+        self._feeds = 0
 
     # ------------------------------------------------------------------
     # weight upload (reference setter parity)
@@ -913,6 +915,12 @@ class WaveNetInfer:
         synchronisation before the launch."""
         if self._stream_t_row is None:
             raise RuntimeError("call begin_stream(batch_size) first")
+        self._feeds += 1
+        with tracing.span("feed_device", self._feeds):
+            return self._feed(cond_chunk, selectors_chunk, mode, lengths)
+
+    def _feed(self, cond_chunk, selectors_chunk, mode: str,
+              lengths) -> torch.Tensor:
         B = len(self._stream_t_row)        # this process's rows
         T = cond_chunk.shape[0]
         if tuple(cond_chunk.shape[1:]) != (self.cfg.num_layers, B,
@@ -930,15 +938,20 @@ class WaveNetInfer:
             if not (aligned and la.shape == (B,) and np.all(la == T)):
                 return self._feed_ragged(cond_chunk, selectors_chunk, mode, la)
         t0 = int(clocks[0])
-        gen, params = self._generator(B * self._n_proc(), mode)
-        if selectors_chunk is None:
-            selectors_chunk = (_selector_stream(self.sampling_seed, t0, T, B,
-                                                self._pidx())
-                               if mode == "sample"
-                               else np.zeros((T, B), np.float32))
-        y = gen(params, t0, self._stage_cond_pre(cond_chunk),
-                self._stage(selectors_chunk, 1), self._ring, self._y_state,
-                seed=self.sampling_seed)[0]
+        with tracing.span("feed.stage"):
+            if selectors_chunk is None:
+                selectors_chunk = (
+                    _selector_stream(self.sampling_seed, t0, T, B,
+                                     self._pidx())
+                    if mode == "sample" else np.zeros((T, B), np.float32))
+            cond, sel = (self._stage(cond_chunk, 2),
+                         self._stage(selectors_chunk, 1))
+        with tracing.span("feed.prefold"):
+            cond = self._fold_dil_b(cond)
+        with tracing.span("feed.launch"):
+            gen, params = self._generator(B * self._n_proc(), mode)
+            y = gen(params, t0, cond, sel, self._ring, self._y_state,
+                    seed=self.sampling_seed)[0]
         self._stream_t_row = clocks + T
         return y
 
@@ -969,13 +982,17 @@ class WaveNetInfer:
         if lengths.max() == 0:
             return torch.zeros((0, B), dtype=torch.int32, device=self.device)
         clocks = self._stream_t_row
-        if sel is None:
-            sel = _selector_stream(self.sampling_seed, clocks, T, B)
-        gen, params = self._generator(B, "sample", ragged=True)
-        y = gen(params, torch.from_numpy(clocks.copy()),
-                self._stage_cond_pre(cond), self._stage(sel, 1), self._ring,
-                self._y_state,
-                torch.from_numpy(lengths.astype(np.int32)))[0]
+        with tracing.span("feed.stage"):
+            if sel is None:
+                sel = _selector_stream(self.sampling_seed, clocks, T, B)
+            cond, sel = self._stage(cond, 2), self._stage(sel, 1)
+        with tracing.span("feed.prefold"):
+            cond = self._fold_dil_b(cond)
+        with tracing.span("feed.launch"):
+            gen, params = self._generator(B, "sample", ragged=True)
+            y = gen(params, torch.from_numpy(clocks.copy()), cond, sel,
+                    self._ring, self._y_state,
+                    torch.from_numpy(lengths.astype(np.int32)))[0]
         self._stream_t_row = clocks + lengths
         return y
 

@@ -84,7 +84,7 @@ import torch
 from nv_wavenet_tpu_torch.config import WaveNetConfig
 from nv_wavenet_tpu_torch.models import params as params_lib
 from nv_wavenet_tpu_torch.ops import scan_generate
-from nv_wavenet_tpu_torch.utils import build
+from nv_wavenet_tpu_torch.utils import build, tracing
 
 _MODE_IDS = {"sample": 0, "argmax": 1}
 _DUMP_KEYS = ("xt", "skip", "zs", "za", "p")
@@ -1105,9 +1105,15 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
         build.check_tensor(n_valid_row, "n_valid_row", torch.int32, (B,), cpu)
         if int(t0_row.min()) < 0:
             raise ValueError(f"t0_row {t0_row.tolist()} must be >= 0")
-        if int(n_valid_row.min()) < 0 or int(n_valid_row.max()) > T:
-            raise ValueError(f"n_valid_row {n_valid_row.tolist()} outside "
-                             f"[0, T={T}]")
+        nv = n_valid_row.tolist()   # B ints: cheaper than torch's reductions
+        steps = max(nv)
+        if min(nv) < 0 or steps > T:
+            raise ValueError(f"n_valid_row {nv} outside [0, T={T}]")
+        # K5's CTA b loops n_valid_row[b] steps (staged_generate.cu and
+        # generic_generate.cu), so the launch lasts its longest row's: of
+        # its B x that many row-steps, sum(n_valid_row) are live
+        tracing.count("k5.row_steps", B * steps)
+        tracing.count("k5.live_row_steps", sum(nv))
         view, built = storage(params, dev)
         if dev.type == "cpu":
             return generate_plain(cfg, view, t0_row, cond_pre, sel, ring,

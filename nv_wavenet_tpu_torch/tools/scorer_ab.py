@@ -137,7 +137,8 @@ def kernel_group(name: str) -> str:
 
 def scorer_split(torch, trace, eng, cond, y, B: int, path: str) -> dict:
     """One scorer pass (`eng.score_device(cond, y)` from silence, after a
-    warm-up pass) traced with `trace` (`utils/profiling.trace`): device time
+    warm-up pass) traced with `trace` (`utils/tracing.trace`; in a tree
+    older than that module, `utils/profiling.trace`): device time
     by kernel group (`kernel_group`), launches and shares; the Chrome trace
     goes to `path`.  A trace without a device event is taken again, and
     after PROFILE_TRIES such traces it raises."""
@@ -193,6 +194,10 @@ def one_turn(root: str) -> dict:
     from nv_wavenet_tpu_torch.ops import exact_math as em
     from nv_wavenet_tpu_torch.ops import ordered_matmul as om
     from nv_wavenet_tpu_torch.utils import profiling
+    try:
+        from nv_wavenet_tpu_torch.utils.tracing import trace
+    except ImportError:   # a tree older than the tracing module
+        trace = profiling.trace
     dev = torch.device("cuda")
     out = {"root": root, "card": profiling.card(), "products": [],
            "softmax": [], "k0a": [], "hashes": {}}
@@ -262,7 +267,7 @@ def one_turn(root: str) -> dict:
         times.append(start.elapsed_time(end))
     out["scorer_ms"] = sum(times) / len(times)
     out["scorer_split"] = scorer_split(
-        torch, profiling.trace, eng, cond, y, SCORER_B,
+        torch, trace, eng, cond, y, SCORER_B,
         os.path.join(HERE_ROOT, "build", "traces",
                      f"scorer_ab_{os.path.basename(root) or 'root'}.json"))
     return out

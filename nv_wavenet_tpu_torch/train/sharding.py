@@ -40,14 +40,14 @@ each one is code:
 
 from __future__ import annotations
 
-import contextlib
-import time
-from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
+
+from nv_wavenet_tpu_torch.utils import tracing
 
 AXES = ("data", "model", "seq")
 
@@ -56,11 +56,8 @@ class TrainMesh:
     """A data x model x seq mesh over the processes of the default process
     group (whose size must be data * model * seq), with this rank's
     coordinates and groups.  Every rank must build it, in the same order
-    as every other mesh: the groups are made collectively.
-
-    `stats[kind]` counts the calls and bytes of each kind of collective;
-    with `timing` set, each collective also waits for the card before and
-    after it and adds its host seconds (a measurement, off by default)."""
+    as every other mesh: the groups are made collectively.  Each collective
+    is a span and two counters of `utils/tracing.py` (`_count`)."""
 
     def __init__(self, data: int, model: int = 1, seq: int = 1):
         for name, n in zip(AXES, (data, model, seq)):
@@ -100,29 +97,19 @@ class TrainMesh:
                 group = dist.new_group(ranks) if len(ranks) > 1 else None
                 if r in ranks:
                     self.ranks[axis], self.groups[axis] = ranks, group
-        self.timing = False
-        self.stats: Dict[str, Dict[str, float]] = {}
 
     def __repr__(self) -> str:
         return (f"TrainMesh(data={self.data}, model={self.model}, "
                 f"seq={self.seq}; rank {self.rank} at (d={self.data_rank}, "
                 f"m={self.model_rank}, s={self.seq_rank}))")
 
-    @contextlib.contextmanager
-    def _count(self, kind: str, t: torch.Tensor) -> Iterator[None]:
-        st = self.stats.setdefault(kind, {"calls": 0, "bytes": 0, "s": 0.0})
-        st["calls"] += 1
-        st["bytes"] += t.numel() * t.element_size()
-        if not self.timing:
-            yield
-            return
-        if t.is_cuda:
-            torch.cuda.synchronize(t.device)
-        t0 = time.perf_counter()
-        yield
-        if t.is_cuda:
-            torch.cuda.synchronize(t.device)
-        st["s"] += time.perf_counter() - t0
+    @staticmethod
+    def _count(kind: str, t: torch.Tensor):
+        """The span of one collective (`nvw:mesh.<kind>`), its call and its
+        bytes counted (`mesh.<kind>`, `mesh.<kind>.bytes`)."""
+        tracing.count("mesh." + kind, 1)
+        tracing.count("mesh." + kind + ".bytes", t.numel() * t.element_size())
+        return tracing.span("mesh." + kind)
 
     def all_reduce(self, t: torch.Tensor, axis: str, kind: str) -> None:
         """Sum `t` in place over this rank's `axis` group."""

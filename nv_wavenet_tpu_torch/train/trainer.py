@@ -28,6 +28,7 @@ trainer, `pytorch/train.py` + `pytorch/distributed.py`):
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 import queue
@@ -43,6 +44,7 @@ from nv_wavenet_tpu_torch.engine.wavenet_infer import resolve_device
 from nv_wavenet_tpu_torch.models.wavenet import WaveNetTrain, precision_scope
 from nv_wavenet_tpu_torch.train import sharding
 from nv_wavenet_tpu_torch.train.sharding import TrainMesh
+from nv_wavenet_tpu_torch.utils import tracing
 
 CHECKPOINT_FILE = "checkpoint.pt"
 
@@ -175,17 +177,23 @@ def train_step(state: TrainState, mel: torch.Tensor, audio: torch.Tensor
     the mean over its b x T/seq positions (equal counts on every rank; the
     t = 0 zero logit on seq rank 0), so DDP's average over the data x seq
     group is the whole batch's gradient."""
-    mesh = state.mesh
-    if mesh is not None:
-        mel, audio = sharding.batch_partition(mesh, mel, audio)
-    with precision_scope(state.module.precision):
-        state.optimizer.zero_grad(set_to_none=True)
-        loss = cross_entropy_loss(state.model(mel, audio, mesh=mesh), audio)
-        loss.backward()
-        state.optimizer.step()
-    state.step += 1
-    loss = loss.detach()
-    return loss if mesh is None else mesh.mean(loss)
+    with tracing.span("train.step", state.step):
+        mesh = state.mesh
+        if mesh is not None:
+            mel, audio = sharding.batch_partition(mesh, mel, audio)
+        with precision_scope(state.module.precision):
+            with tracing.span("train.optimizer"):
+                state.optimizer.zero_grad(set_to_none=True)
+            with tracing.span("train.forward"):
+                loss = cross_entropy_loss(state.model(mel, audio, mesh=mesh),
+                                          audio)
+            with tracing.span("train.backward"):
+                loss.backward()
+            with tracing.span("train.optimizer"):
+                state.optimizer.step()
+        state.step += 1
+        loss = loss.detach()
+        return loss if mesh is None else mesh.mean(loss)
 
 
 def make_sharded_train_step(mesh: TrainMesh):
@@ -357,7 +365,9 @@ def _device_prefetch(batches: Iterator, device, depth: int = 2):
     `device` (through pinned memory on the card) while the current step
     runs: the counterpart of the reference's `DataLoader(num_workers=1,
     pin_memory=True)` (`train.py:109-117`).  Yields tuples of tensors; an
-    exception in the worker is raised in the consumer."""
+    exception in the worker is raised in the consumer.  The worker counts
+    its batches and the ns it spent featurising them (`data.featurized`,
+    `data.featurize_ns`)."""
     device = torch.device(device)
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     stop = threading.Event()
@@ -382,8 +392,19 @@ def _device_prefetch(batches: Iterator, device, depth: int = 2):
 
     def worker():
         try:
-            for batch in batches:
-                if not put(stage(batch)):
+            it = iter(batches)
+            for i in itertools.count():
+                t0 = time.perf_counter_ns()
+                with tracing.span("data.featurize", i):
+                    batch = next(it, None)
+                if batch is None:
+                    break
+                tracing.count("data.featurize_ns",
+                              time.perf_counter_ns() - t0)
+                tracing.count("data.featurized", 1)
+                with tracing.span("data.stage", i):
+                    batch = stage(batch)
+                if not put(batch):
                     return
         except BaseException as e:   # raised again in the consumer
             put(e)
@@ -393,8 +414,9 @@ def _device_prefetch(batches: Iterator, device, depth: int = 2):
     t = threading.Thread(target=worker, daemon=True)
     t.start()
     try:
-        while True:
-            item = q.get()
+        for i in itertools.count():
+            with tracing.span("data.wait", i):
+                item = q.get()
             if item is None:
                 return
             if isinstance(item, BaseException):

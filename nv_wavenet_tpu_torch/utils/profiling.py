@@ -1,9 +1,6 @@
-"""Tracing and the H100 cost model: the port's counterpart of
-`nv_wavenet_tpu/utils/profiling.py`.
+"""The H100 cost model: the port's counterpart of
+`nv_wavenet_tpu/utils/profiling.py` (tracing is `utils/tracing.py`).
 
-  * `trace(path)`: a `torch.profiler` region written as a Chrome trace
-    (chrome://tracing, Perfetto), the card's kernels included when there
-    is one;
   * `step_cost(cfg)`: the analytic count per sample (FLOPs, weight and
     conditioning bytes, the dependent products of a step), the same count
     as the JAX package's, with the H100's roofline and latency floors;
@@ -19,9 +16,7 @@ data sheet for the H100 SXM, `STAGE_NS` measured by probe P5
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import os
 import subprocess
 
 import torch
@@ -40,23 +35,6 @@ L2_BYTES = 50 * 1024 * 1024
 # phase 30, T=1024, W laid out before the timed launches; the first design,
 # W read from L2 inside the chain, took 3226.2 in the same run)
 STAGE_NS = 447.0
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-TRACE_PATH = os.path.join(_REPO, "build", "traces", "trace.json")
-
-
-@contextlib.contextmanager
-def trace(path: str = TRACE_PATH):
-    """Profile a region, `with trace(): eng.run(...)`, and write it to
-    `path` as a Chrome trace.  The card's activity is recorded when CUDA is
-    available, the host's always."""
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield prof
-    prof.export_chrome_trace(path)
 
 
 def card() -> str:

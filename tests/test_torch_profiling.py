@@ -1,4 +1,4 @@
-"""The port's cost model and tracing (`utils/profiling.py`) and its perf
+"""The port's cost model (`utils/profiling.py`) and its perf
 harness (`tools/perf.py`) on the CPU.
 
   * `step_cost` equals the JAX package's field for field (the same
@@ -8,7 +8,6 @@ harness (`tools/perf.py`) on the CPU.
     NVIDIA's data sheet, P5's measured stage), never the TPU's;
   * `memory_report` shows K1, K4 and K6 against the card's shared memory
     and L2, and says where a kernel cannot run;
-  * `trace` writes a Chrome trace;
   * perf.py on `--device cpu` at the tiny config of tests/test_perf_cli.py
     gives one record, and a sweep that includes speculative decode.
 """
@@ -77,13 +76,6 @@ def test_memory_report():
     small = tcfg.WaveNetConfig(num_layers=2, R=36, S=128, A=256,
                                max_dilation=2)
     assert "K6  cannot run" in tprof.memory_report(small, 1, 8)
-
-
-def test_trace_writes_a_chrome_trace(tmp_path):
-    path = tmp_path / "t" / "trace.json"
-    with tprof.trace(str(path)):
-        torch.ones(8).add_(1)
-    assert "traceEvents" in json.loads(path.read_text())
 
 
 def run_cli(capsys, args):
