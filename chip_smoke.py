@@ -89,7 +89,15 @@ in order; any failure exits non-zero:
      they were served (0 mismatches), among them one that crossed the
      migration and one that began at the full reset and ran through the
      partial reset; then K5 on one 160-step ragged tick of the scenario,
-     timed, and on a 16-step tick against the plain version (0 mismatches)
+     timed, and on a 16-step tick against the plain version (0 mismatches);
+     then K5's launch (`k5_card_check`) over 64 ragged ticks of at most 8
+     steps (rows of length 0, desynced clocks, rows past 2^31 and 2^32,
+     slot resets, a weight changed in place): y, ring bits and y_state
+     against K1 row by row bit for bit, y and y_state against the plain
+     K5, y's steps past each row's length 0 in a block that held a
+     sentinel, 2 binds; and K5 over 260 rows (two launches of its by-value
+     rows: the staged K5 at the flagship, the generic one at R=9 in bf16)
+     against the same rows fed as two batches, bit for bit
  10. K2 and K3 at the flagship (the staged step: the staged K4 on K1's own
      stream, ops/persistent.py::generation_route): vs plain over 16 steps
      of request 1 (K2 forcing its samples), each timed over a 256-step
@@ -387,6 +395,13 @@ SERVE_REPLAY = 16   # the first utterances completed, replayed lockstep
 # steps of the exact kernels' checks against their plain versions at the
 # flagship (K1, K2, K3, K4, K5, K6): the plain step costs ~32 ms there
 FLAG_PLAIN_T = 16
+# K5's launch at the flagship (`k5_card_check`): K5_CARD_B rows over
+# K5_CARD_TICKS ragged ticks of at most K5_CARD_T steps
+K5_CARD_B, K5_CARD_TICKS, K5_CARD_T = 16, 64, 8
+# a batch past K5's rows a launch (csrc/staged_generate.cu kRaggedRows, 256)
+# runs in groups: K5_GROUP_B rows over K5_GROUP_TICKS ticks of at most
+# K5_GROUP_T steps, held against the same rows fed as two batches
+K5_GROUP_B, K5_GROUP_SPLIT, K5_GROUP_TICKS, K5_GROUP_T = 260, 256, 3, 4
 # K7 at the scorer's flagship products, (entry, M, K, N): "gate" is the
 # dilated layer (x_{t-d} Wprev + x_t Wcur + zb, then tanh * sigmoid; N = R,
 # its halves K x 2R), "res_skip" the res/skip product with the residual and
@@ -779,6 +794,149 @@ def replay_lockstep(torch, np, make_engine, cfg, dev, utts):
     y = eng.run(T, B)
     return [int((y[b, :u["n"]] != np.concatenate(u["out"])).sum())
             for b, u in enumerate(utts)]
+
+
+def k5_card_check(torch, np, persistent, tracing, cfg, params, dev) -> dict:
+    """K5 at `cfg`'s widths, K5_CARD_B rows, over K5_CARD_TICKS ragged ticks
+    of at most K5_CARD_T steps: rows of length 0 (one tick all of them),
+    desynced clocks, a row that passes 2^31 samples and one past 2^32,
+    slot resets, and at the half a weight changed in place (K5 binds anew
+    and rebuilds its stream).  Held bit for bit against K1 run row by row
+    on its own state (y, ring bits, y_state; the lockstep instance, K5's
+    step), and against the plain K5 (`generate_plain`: y and y_state
+    exactly, the ring in the reference ladder, since its products go to
+    cuBLAS).  Before each launch a block of y's size is filled with a
+    sentinel and freed, so that K5's y, which is not zeroed, is mostly that
+    block: its steps past each row's length must read 0."""
+    B, T = K5_CARD_B, K5_CARD_T
+    p = {k: v.clone() for k, v in params.items()}
+    rng = np.random.RandomState(2027)
+    gen_cd = torch.Generator(device=dev)
+    gen_cd.manual_seed(2027)
+    gen5 = persistent.make_persistent_generator(cfg, B, ragged=True)
+    gen1 = persistent.make_persistent_generator(cfg, 1)
+    state = {k: fresh_state(torch, persistent, cfg, B, dev)
+             for k in ("k5", "k1", "plain")}
+    clocks = rng.randint(0, 1 << 20, size=B).astype(np.int64)
+    clocks[1], clocks[2] = (1 << 31) - 3, (1 << 32) + 5
+    binds0 = tracing.counters().get("k5.binds", 0)
+    launches0 = persistent.RAGGED_KERNELS["exact"].launches
+    out = {"ticks": K5_CARD_TICKS, "y_mismatches_k1": 0,
+           "y_mismatches_plain": 0, "tail_nonzero": 0, "sentinel_reused": 0}
+    for tick in range(K5_CARD_TICKS):
+        n = int(rng.randint(1, T + 1))
+        lens = np.where(rng.rand(B) < 0.25, 0, rng.randint(1, n + 1, B))
+        if tick == 5:
+            lens[:] = 0
+        if tick in (9, 30, 47):
+            rows = sorted(rng.choice(np.arange(3, B), 3, replace=False)
+                          .tolist())   # rows 1 and 2 keep their far clocks
+            for ring, ys in state.values():
+                ring[:, rows] = 0
+                ys[:, rows] = cfg.silence_bin
+            clocks[rows] = 0
+        if tick == K5_CARD_TICKS // 2:
+            p["end_w"].mul_(1.25)
+        cond = torch.rand((n, cfg.num_layers, B, 2 * cfg.R), generator=gen_cd,
+                          device=dev) - 0.5
+        cond_pre = (cond + p["dil_b"][None, :, None, :]).contiguous()
+        sel = torch.rand((n, B), generator=gen_cd, device=dev)
+        t0_row = torch.from_numpy(clocks.copy())
+        nv_row = torch.from_numpy(lens.astype(np.int32))
+        sentinel = torch.full((n, B), -7, dtype=torch.int32, device=dev)
+        ptr = sentinel.data_ptr()
+        del sentinel
+        y5 = gen5(p, t0_row, cond_pre, sel, *state["k5"], nv_row)[0]
+        out["sentinel_reused"] += int(y5.data_ptr() == ptr)
+        yp = persistent.generate_plain(cfg, p, t0_row, cond_pre, sel,
+                                       *state["plain"], nv_row)[0]
+        y1 = torch.zeros((n, B), dtype=torch.int32, device=dev)
+        ring1, ys1 = state["k1"]
+        for b in range(B):
+            if not lens[b]:
+                continue
+            r, ys = ring1[:, b:b + 1].contiguous(), ys1[:, b:b + 1].contiguous()
+            y1[:, b:b + 1] = gen1(p, int(clocks[b]),
+                                  cond_pre[:, :, b:b + 1].contiguous(),
+                                  sel[:, b:b + 1].contiguous(), r, ys,
+                                  int(lens[b]))[0]
+            ring1[:, b] = r[:, 0]
+            ys1[:, b] = ys[:, 0]
+        past = torch.arange(n, device=dev)[:, None] >= torch.from_numpy(
+            lens).to(dev)[None, :]
+        out["tail_nonzero"] += int((y5[past] != 0).sum())
+        out["y_mismatches_k1"] += int((y5 != y1).sum())
+        out["y_mismatches_plain"] += int((y5 != yp).sum())
+        clocks += lens
+    torch.cuda.synchronize()
+    (r5, s5), (r1, s1), (rp, sp) = (state[k] for k in ("k5", "k1", "plain"))
+    out.update(
+        ring_bit_mismatches_k1=bit_mismatches(torch, r5, r1),
+        y_state_equal_k1=bool(torch.equal(s5, s1)),
+        y_state_equal_plain=bool(torch.equal(s5, sp)),
+        ring_in_ladder_plain=rel_close(rp.cpu(), r5.cpu(), 1e-2, 3e-4),
+        ring_max_abs_err_plain=float((r5 - rp).abs().max()),
+        launches=persistent.RAGGED_KERNELS["exact"].launches - launches0,
+        binds=tracing.counters().get("k5.binds", 0) - binds0,
+        clocks_past_2_31=int((clocks >= 1 << 31).sum()))
+    return out
+
+
+def k5_group_check(torch, np, persistent, cfg, params, dev,
+                   compute_dtype=None) -> dict:
+    """K5 at K5_GROUP_B rows (launched in groups of 256 rows, each from its
+    first row's pointers) against the same rows fed as two batches,
+    [0, K5_GROUP_SPLIT) and the rest, each on its own state: y, ring bits
+    and y_state bit for bit over K5_GROUP_TICKS ticks of desynced clocks
+    and lengths (some 0).  `compute_dtype` selects the precision (bf16
+    keeps a bf16 ring)."""
+    from nv_wavenet_tpu_torch.ops import scan_generate as tsg
+    kw = {} if compute_dtype is None else {"compute_dtype": compute_dtype}
+    prec = tsg.precision(compute_dtype or torch.float32)
+    B, S = K5_GROUP_B, K5_GROUP_SPLIT
+    parts = ((0, S), (S, B))
+    gens = {n: persistent.make_persistent_generator(cfg, n, ragged=True,
+                                                    **kw)
+            for n in {B, S, B - S}}
+
+    def fresh(n):
+        return (persistent.init_ring(cfg, n, dev, tsg.ring_dtype(prec)),
+                torch.full((2, n), cfg.silence_bin, dtype=torch.int32,
+                           device=dev))
+    whole = fresh(B)
+    split = [fresh(b - a) for a, b in parts]
+    rng = np.random.RandomState(2029)
+    gen_cd = torch.Generator(device=dev)
+    gen_cd.manual_seed(2029)
+    clocks = rng.randint(0, 1 << 20, size=B).astype(np.int64)
+    out = {"rows": B, "route": gens[B].route.kernel, "y_mismatches": 0}
+    for _ in range(K5_GROUP_TICKS):
+        n = K5_GROUP_T
+        lens = np.where(rng.rand(B) < 0.25, 0, rng.randint(1, n + 1, B))
+        lens[[0, S - 1, S, B - 1]] = n
+        cond_pre = (torch.rand((n, cfg.num_layers, B, 2 * cfg.R),
+                               generator=gen_cd, device=dev) - 0.5
+                    + params["dil_b"][None, :, None, :]).contiguous()
+        sel = torch.rand((n, B), generator=gen_cd, device=dev)
+        y = gens[B](params, torch.from_numpy(clocks.copy()), cond_pre, sel,
+                    *whole, torch.from_numpy(lens.astype(np.int32)))[0]
+        for (a, b), (ring, ys) in zip(parts, split):
+            yp = gens[b - a](params, torch.from_numpy(clocks[a:b].copy()),
+                             cond_pre[:, :, a:b].contiguous(),
+                             sel[:, a:b].contiguous(), ring, ys,
+                             torch.from_numpy(lens[a:b].astype(np.int32)))[0]
+            out["y_mismatches"] += int((y[:, a:b] != yp).sum())
+        clocks += lens
+    torch.cuda.synchronize()
+    ring_w, ys_w = whole
+    out["ring_bit_mismatches"] = sum(
+        int((ring_w[:, a:b].contiguous().view(torch.int16 if prec == "bf16"
+                                              else torch.int32)
+             != ring.view(torch.int16 if prec == "bf16" else torch.int32))
+            .sum()) for (a, b), (ring, _) in zip(parts, split))
+    out["y_state_equal"] = all(torch.equal(ys_w[:, a:b], ys)
+                               for (a, b), (_, ys) in zip(parts, split))
+    return out
 
 
 def bit_mismatches(torch, a, b) -> int:
@@ -4474,6 +4632,32 @@ def main() -> int:
         f"mismatches, ring max abs err {k5_err:.3g}")
     if k5_flag_mism:
         fail("K5 disagrees with its plain version at the flagship")
+    k5_card = k5_card_check(torch, np, persistent, tracing, cfg, params, dev)
+    log(json.dumps({"k5_card_check": k5_card}))
+    if (k5_card["y_mismatches_k1"] or k5_card["y_mismatches_plain"]
+            or k5_card["tail_nonzero"] or k5_card["ring_bit_mismatches_k1"]
+            or not (k5_card["y_state_equal_k1"]
+                    and k5_card["y_state_equal_plain"]
+                    and k5_card["ring_in_ladder_plain"])
+            or k5_card["sentinel_reused"] < K5_CARD_TICKS // 2
+            or k5_card["binds"] != 2 or k5_card["clocks_past_2_31"] < 2):
+        fail(f"K5's launch disagrees with K1 row by row or with its plain "
+             f"version, or leaves y's tail unwritten: {k5_card}")
+    # a batch past K5's rows a launch, on the staged K5 (the flagship) and
+    # the generic one (an F2 geometry, R=9 in bf16)
+    f2_cfg = cfg_lib.WaveNetConfig(num_layers=2, R=9, S=16, A=32,
+                                   max_dilation=2, silence_bin=16)
+    f2_params = params_lib.canonical_to_torch(params_lib.to_canonical(
+        params_lib.random_reference_weights(f2_cfg, seed=9), f2_cfg), dev)
+    k5_groups = [k5_group_check(torch, np, persistent, cfg, params, dev),
+                 k5_group_check(torch, np, persistent, f2_cfg, f2_params, dev,
+                                torch.bfloat16)]
+    log(json.dumps({"k5_group_check": k5_groups}))
+    if ([g["route"] for g in k5_groups] != ["staged", "generic"]
+            or any(g["y_mismatches"] or g["ring_bit_mismatches"]
+                   or not g["y_state_equal"] for g in k5_groups)):
+        fail(f"K5 over more rows than a launch takes disagrees with the same "
+             f"rows fed apart: {k5_groups}")
 
     # -- phase 10: K2 and K3 at the flagship ----------------------------------
     mark("phase 10: K2 and K3 at the flagship")

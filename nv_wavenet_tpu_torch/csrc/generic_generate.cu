@@ -34,6 +34,9 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
+#include <type_traits>
+
 #include "exact_math.cuh"
 #include "step_common.cuh"
 
@@ -69,12 +72,40 @@ struct GenArgs {
   int tanh_embed;
   int silence_bin;
   int mode;
-  const long long* t0_row;   // [B] K5 only: each row's absolute clock
-  const int* n_valid_row;    // [B] K5 only: each row's steps (<= T)
+  int T;                // K5 only: y's steps (it writes 0 past a row's length)
 };
 
+// K5's rows by value in the launch's parameters, kRaggedRows a launch
+// (staged_generate.cu's RaggedArgs)
+constexpr int kRaggedRows = 256;
+
+struct GenRaggedArgs : GenArgs {
+  long long t0_row[kRaggedRows];   // the group's row i's absolute clock
+  int n_valid_row[kRaggedRows];    // the group's row i's steps (<= T)
+};
+static_assert(sizeof(GenRaggedArgs) <= 4096, "K5's parameters past 4 KB");
+
+template <bool kRagged>
+using GenKernelArgs = std::conditional_t<kRagged, GenRaggedArgs, GenArgs>;
+
+// the clock and the steps of the launch's i-th CTA
+__device__ __forceinline__ long long row_clock(const GenArgs& a, int) { return a.t0; }
+// through an opaque move, as staged_generate.cu's K5 reads them
+__device__ __forceinline__ long long row_clock(const GenRaggedArgs& a, int i) {
+  long long t = a.t0_row[i];
+  asm volatile("mov.b64 %0, %0;" : "+l"(t));
+  return t;
+}
+__device__ __forceinline__ int row_steps(const GenArgs& a, int) { return a.n_valid; }
+__device__ __forceinline__ int row_steps(const GenRaggedArgs& a, int i) {
+  int n = a.n_valid_row[i];
+  asm volatile("mov.b32 %0, %0;" : "+r"(n));
+  return n;
+}
+
 template <bool kRagged, int kPrec>
-__global__ void __launch_bounds__(kThreads) generic_generate_kernel(const GenArgs a) {
+__global__ void __launch_bounds__(kThreads)
+    generic_generate_kernel(const __grid_constant__ GenKernelArgs<kRagged> a) {
   extern __shared__ float smem[];
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const int B = a.B, L = a.L, R = a.R, S = a.S, A = a.A;
@@ -94,8 +125,12 @@ __global__ void __launch_bounds__(kThreads) generic_generate_kernel(const GenArg
 
   int y_prev = a.y_state[b];
   int y_cur = a.y_state[B + b];
-  const long long t0 = kRagged ? a.t0_row[b] : a.t0;
-  const int n_valid = kRagged ? a.n_valid_row[b] : a.n_valid;
+  const long long t0 = row_clock(a, b);
+  const int n_valid = row_steps(a, b);
+  if constexpr (kRagged) {
+    // y comes uninitialised: the row's steps past its length read 0
+    for (int j = n_valid + tid; j < a.T; j += nt) a.y[(size_t)j * B + b] = 0;
+  }
 
   for (int j = 0; j < n_valid; ++j) {
     const long long t = t0 + j;
@@ -245,18 +280,52 @@ __global__ void __launch_bounds__(kThreads) generic_generate_kernel(const GenArg
   }
 }
 
+constexpr int kMaxDevices = 64;
+
+// `rows` CTAs.  The shared-memory attribute is set once per
+// instance and device (and again only for larger activations).
 template <bool kRagged, int kPrec>
-int launch(const GenArgs& args, void* stream) {
-  const size_t smem = (size_t)(7 * args.R + args.S + 4 * args.A +
-                               (kPrec == kPrecFast ? args.R : 0)) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(generic_generate_kernel<kRagged, kPrec>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+int launch(const GenKernelArgs<kRagged>& args, int rows, void* stream) {
+  const int smem = (7 * args.R + args.S + 4 * args.A + (kPrec == kPrecFast ? args.R : 0)) *
+                   (int)sizeof(float);
+  static std::atomic<int> granted[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (smem > 48 * 1024 && (dev >= kMaxDevices || granted[dev].load() < smem)) {
+    err = cudaFuncSetAttribute(generic_generate_kernel<kRagged, kPrec>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
+    if (dev < kMaxDevices) granted[dev].store(smem);
   }
-  generic_generate_kernel<kRagged, kPrec><<<args.B, kThreads, smem, (cudaStream_t)stream>>>(args);
+  generic_generate_kernel<kRagged, kPrec><<<rows, kThreads, smem, (cudaStream_t)stream>>>(args);
   return (int)cudaGetLastError();
+}
+
+// K5: the rows' clocks and lengths, host arrays, copied into the launch's
+// parameters, kRaggedRows rows a launch
+template <int kPrec>
+int launch_ragged(GenRaggedArgs& args, const long long* t0_row, const int* n_valid_row,
+                  void* stream) {
+  const GenRaggedArgs first = args;
+  const size_t ring_row = (size_t)args.R * (kPrec == kPrecBF16 ? 2 : 4);
+  for (int r0 = 0; r0 < args.B; r0 += kRaggedRows) {
+    const int rows = args.B - r0 < kRaggedRows ? args.B - r0 : kRaggedRows;
+    // the group's first row: B stays the stride
+    args.cond = first.cond + (size_t)r0 * 2 * args.R;
+    args.sel = first.sel + r0;
+    args.ring = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(first.ring) +
+                                         r0 * ring_row);
+    args.y_state = first.y_state + r0;
+    args.y = first.y + r0;
+    for (int i = 0; i < rows; ++i) {
+      args.t0_row[i] = t0_row[r0 + i];
+      args.n_valid_row[i] = n_valid_row[r0 + i];
+    }
+    const int err = launch<true, kPrec>(args, rows, stream);
+    if (err) return err;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -276,23 +345,22 @@ int launch(const GenArgs& args, void* stream) {
            int silence_bin, int mode, void* stream) {                                         \
     const GenArgs args{embed, dil_w, rs_w, rs_b, out_w, out_b, end_w, end_b, cond,           \
                        sel, sched, ring, y_state, y, d_xt, d_skip, d_zs, d_za, d_p, t0,      \
-                       n_valid, B, L, R, S, A, tanh_embed, silence_bin, mode, nullptr,       \
-                       nullptr};                                                             \
-    return launch<false, kPrec>(args, stream);                                                \
+                       n_valid, B, L, R, S, A, tanh_embed, silence_bin, mode, 0};            \
+    return launch<false, kPrec>(args, B, stream);                                             \
   }
 
-// K5 (generic): mode "sample", no dump; t0_row [B] and n_valid_row [B] on the device
+// K5 (generic): mode "sample", no dump; t0_row [B] and n_valid_row [B] are
+// host arrays (read before the call returns); y [T, B] need not be zeroed
 #define NVW_RAGGED_ENTRY(name, kPrec)                                                         \
   int name(const float* embed, const float* dil_w, const float* rs_w, const float* rs_b,      \
            const float* out_w, const float* out_b, const float* end_w, const float* end_b,    \
            const float* cond, const float* sel, const int* sched, float* ring, int* y_state,  \
-           int* y, const long long* t0_row, const int* n_valid_row, int B, int L, int R,      \
-           int S, int A, int tanh_embed, int silence_bin, void* stream) {                     \
-    const GenArgs args{embed, dil_w, rs_w, rs_b, out_w, out_b, end_w, end_b, cond,           \
-                       sel, sched, ring, y_state, y, nullptr, nullptr, nullptr, nullptr,     \
-                       nullptr, 0, 0, B, L, R, S, A, tanh_embed, silence_bin, kModeSample,   \
-                       t0_row, n_valid_row};                                                 \
-    return launch<true, kPrec>(args, stream);                                                 \
+           int* y, const long long* t0_row, const int* n_valid_row, int T, int B, int L,      \
+           int R, int S, int A, int tanh_embed, int silence_bin, void* stream) {              \
+    GenRaggedArgs args{{embed, dil_w, rs_w, rs_b, out_w, out_b, end_w, end_b, cond, sel,     \
+                        sched, ring, y_state, y, nullptr, nullptr, nullptr, nullptr, nullptr,\
+                        0, 0, B, L, R, S, A, tanh_embed, silence_bin, kModeSample, T}};      \
+    return launch_ragged<kPrec>(args, t0_row, n_valid_row, stream);                           \
   }
 
 // This source is built once per precision (utils/build.py: -DNVW_PREC=0

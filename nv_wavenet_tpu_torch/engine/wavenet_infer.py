@@ -912,7 +912,9 @@ class WaveNetInfer:
         array is staged through pinned memory.  Per feed, on the card: one
         dil_b prefold and one kernel launch (K1 lockstep, K4 under
         MANYBLOCK, K6 under fuse_chain, K5 ragged), with no host
-        synchronisation before the launch."""
+        synchronisation before the launch; a ragged feed's row clocks and
+        lengths go in K5's launch parameters, and K5 writes y's steps past
+        each row's length itself, so no copy or fill comes before it."""
         if self._stream_t_row is None:
             raise RuntimeError("call begin_stream(batch_size) first")
         self._feeds += 1

@@ -106,10 +106,11 @@ def _kernels(source: str, symbol: str, argtypes) -> Dict[str, build.CudaKernel]:
 PERSISTENT_KERNELS = _kernels(
     "staged_generate.cu", "nvw_staged_generate",
     [_P] * 16 + [ctypes.c_longlong] + [_I] * 9 + [_P, _P])
-# K5: K1's instance with per-row clocks and lengths (ragged feeds)
+# K5: K1's instance with per-row clocks and lengths (ragged feeds), which
+# travel in the launch's parameters from two host arrays
 RAGGED_KERNELS = _kernels(
     "staged_generate.cu", "nvw_staged_generate_ragged",
-    [_P] * 13 + [_I] * 7 + [_P, _P])
+    [_P] * 13 + [_I] * 8 + [_P, _P])
 # K2: K1's instance that consumes the symbols in sel and writes p_seq
 FORCED_KERNELS = _kernels(
     "persistent.cu", "nvw_persistent_generate_forced",
@@ -126,7 +127,7 @@ GENERIC_KERNELS = _kernels(
     [_P] * 19 + [ctypes.c_longlong] + [_I] * 9 + [_P])
 GENERIC_RAGGED_KERNELS = _kernels(
     "generic_generate.cu", "nvw_generic_generate_ragged",
-    [_P] * 16 + [_I] * 7 + [_P])
+    [_P] * 16 + [_I] * 8 + [_P])
 # K4: K1's staged step on a stream in the storage's own bytes, every mode
 STAGED_STREAM_KERNELS = _kernels(
     "staged_stream_generate.cu", "nvw_staged_stream_generate",
@@ -712,6 +713,7 @@ def fifo_schedule(cfg: WaveNetConfig, device) -> torch.Tensor:
 
 _WEIGHTS = ("embed", "dil_w", "rs_w", "rs_b", "out_w", "out_b", "end_w",
             "end_b")
+_CPU = torch.device("cpu")
 
 
 def _plan_array(plan: StagedPlan):
@@ -724,9 +726,10 @@ def _launch_kernel(cfg: WaveNetConfig, params: Dict[str, torch.Tensor],
                    sched: torch.Tensor, t0: int, cond_pre: torch.Tensor,
                    sel: torch.Tensor, ring: torch.Tensor,
                    y_state: torch.Tensor, n_valid: int, mode: str, dump: bool,
-                   seed: int, prec: str, staged=None):
-    """K1 (modes sample and argmax: `staged` is (plan, stream), or None for
-    the generic instance), K2 or K3."""
+                   seed: int, prec: str, stream: int, staged=None):
+    """K1 (modes sample and argmax: `staged` is (the plan's array,
+    `_plan_array`, and the weight stream), or None for the generic
+    instance), K2 or K3, on the raw CUDA stream `stream`."""
     T, _, B, _ = cond_pre.shape
     dev = cond_pre.device
     y = torch.zeros((T, B), dtype=torch.int32, device=dev)
@@ -741,7 +744,6 @@ def _launch_kernel(cfg: WaveNetConfig, params: Dict[str, torch.Tensor],
              y.data_ptr(), *d_ptrs]
     shape = [t0, n_valid, B, cfg.num_layers, cfg.R, cfg.S, cfg.A,
              int(cfg.tanh_embed), cfg.silence_bin]
-    stream = build.current_stream(dev)
     if n_valid:
         if mode == "forced":
             FORCED_KERNELS[prec](*head, sel.data_ptr(), *state,
@@ -753,8 +755,7 @@ def _launch_kernel(cfg: WaveNetConfig, params: Dict[str, torch.Tensor],
             GENERIC_KERNELS[prec](*head, sel.data_ptr(), *state, *shape,
                                   _MODE_IDS[mode], stream)
         else:
-            plan, weights = staged
-            plan_arr = _plan_array(plan)
+            plan_arr, weights = staged
             PERSISTENT_KERNELS[prec](
                 params["embed"].data_ptr(), weights.data_ptr(),
                 *(params[k].data_ptr() for k in ("rs_b", "out_b", "end_b")),
@@ -773,7 +774,7 @@ def _launch_stream(cfg: WaveNetConfig, plan: StreamPlan, prefetch: bool,
                    sched: torch.Tensor, t0: int, cond_pre: torch.Tensor,
                    sel: torch.Tensor, ring: torch.Tensor,
                    y_state: torch.Tensor, n_valid: int, mode: str, dump: bool,
-                   seed: int, prec: str):
+                   seed: int, prec: str, stream: int):
     """The first K4: `params` gives the fp32 values of the small tensors,
     `stacks` the stored (dil_w, rs_w, dil_s, rs_s); outputs as
     `_launch_kernel`."""
@@ -804,20 +805,20 @@ def _launch_stream(cfg: WaveNetConfig, plan: StreamPlan, prefetch: bool,
             _STORAGE_IDS[plan.storage], plan.rows_per_stage, plan.stages,
             plan.stage_bytes, int(prefetch), plan.smem_bytes,
             plan.dil_stride if plan.general else 0,
-            plan.rs_stride if plan.general else 0,
-            build.current_stream(dev))
+            plan.rs_stride if plan.general else 0, stream)
     return (y, ring, y_state, *outs)
 
 
-def _launch_staged_stream(cfg: WaveNetConfig, plan: StagedPlan,
+def _launch_staged_stream(cfg: WaveNetConfig, plan: StagedPlan, plan_arr,
                           params: Dict[str, torch.Tensor], stored: tuple,
                           sched: torch.Tensor, t0: int, cond_pre: torch.Tensor,
                           sel: torch.Tensor, ring: torch.Tensor,
                           y_state: torch.Tensor, n_valid: int, mode: str,
-                          dump: bool, seed: int, prec: str):
+                          dump: bool, seed: int, prec: str, stream: int):
     """The staged K4: `params` gives the fp32 values of the small tensors,
-    `stored` the stream and the int8 scales (dil_s, rs_s; None otherwise);
-    outputs as `_launch_kernel`."""
+    `stored` the stream and the int8 scales (dil_s, rs_s; None otherwise),
+    `plan_arr` the plan's array (`_plan_array`); outputs as
+    `_launch_kernel`."""
     T, _, B, _ = cond_pre.shape
     dev = cond_pre.device
     y = torch.zeros((T, B), dtype=torch.int32, device=dev)
@@ -829,7 +830,6 @@ def _launch_staged_stream(cfg: WaveNetConfig, plan: StagedPlan,
     weights, dil_s, rs_s = stored
     if n_valid:
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-        plan_arr = _plan_array(plan)
         STAGED_STREAM_KERNELS[prec](
             params["embed"].data_ptr(), weights.data_ptr(), ptr(dil_s),
             ptr(rs_s), *(params[k].data_ptr() for k in ("rs_b", "out_b",
@@ -840,46 +840,29 @@ def _launch_staged_stream(cfg: WaveNetConfig, plan: StagedPlan,
             ptr(p_seq), t0, seed & 0xFFFFFFFFFFFFFFFF, n_valid, B,
             cfg.num_layers, cfg.R, cfg.S, cfg.A, int(cfg.tanh_embed),
             cfg.silence_bin, _STREAM_MODE_IDS[mode],
-            _STORAGE_IDS[plan.storage], ctypes.addressof(plan_arr),
-            build.current_stream(dev))
+            _STORAGE_IDS[plan.storage], ctypes.addressof(plan_arr), stream)
     return (y, ring, y_state, *outs)
 
 
-def _launch_ragged(cfg: WaveNetConfig, params: Dict[str, torch.Tensor],
-                   sched: torch.Tensor, t0_row: torch.Tensor,
-                   cond_pre: torch.Tensor, sel: torch.Tensor,
-                   ring: torch.Tensor, y_state: torch.Tensor,
-                   n_valid_row: torch.Tensor, prec: str, staged):
-    """K5: `staged` is (plan, stream), or None for the generic instance."""
+def _launch_ragged(kernel: build.CudaKernel, bound: dict,
+                   t0_row: torch.Tensor, cond_pre: torch.Tensor,
+                   sel: torch.Tensor, n_valid_row: torch.Tensor,
+                   steps: int) -> torch.Tensor:
+    """K5 (`kernel`: the staged or the generic instance) with the arguments
+    a generator keeps between calls (`bound`: the weights' and the state's
+    pointers, then the widths, the plan and the stream), returning y.  The
+    rows' clocks and lengths go to the entry point as host arrays, which it
+    copies into the launch's own parameters; K5 writes every step of y, 0
+    past a row's length, so y is not zeroed first.  `steps` is the longest
+    row's length: at 0 nothing is launched."""
     T, _, B, _ = cond_pre.shape
-    dev = cond_pre.device
-    # zeros, never empty: K5 writes no step past a row's length
-    y = torch.zeros((T, B), dtype=torch.int32, device=dev)
-    if int(n_valid_row.max()):
-        # pinned staging and non-blocking copies: the launch waits for
-        # nothing queued before it
-        t0_dev, nv_dev = (x.pin_memory().to(dev, non_blocking=True)
-                          for x in (t0_row, n_valid_row))
-        if staged is None:
-            GENERIC_RAGGED_KERNELS[prec](
-                *(params[k].data_ptr() for k in _WEIGHTS),
-                cond_pre.data_ptr(), sel.data_ptr(), sched.data_ptr(),
-                ring.data_ptr(), y_state.data_ptr(), y.data_ptr(),
-                t0_dev.data_ptr(), nv_dev.data_ptr(), B, cfg.num_layers,
-                cfg.R, cfg.S, cfg.A, int(cfg.tanh_embed), cfg.silence_bin,
-                build.current_stream(dev))
-            return y, ring, y_state
-        plan, weights = staged
-        plan_arr = _plan_array(plan)
-        RAGGED_KERNELS[prec](
-            params["embed"].data_ptr(), weights.data_ptr(),
-            *(params[k].data_ptr() for k in ("rs_b", "out_b", "end_b")),
-            cond_pre.data_ptr(), sel.data_ptr(), sched.data_ptr(),
-            ring.data_ptr(), y_state.data_ptr(), y.data_ptr(),
-            t0_dev.data_ptr(), nv_dev.data_ptr(), B, cfg.num_layers, cfg.R,
-            cfg.S, cfg.A, int(cfg.tanh_embed), cfg.silence_bin,
-            ctypes.addressof(plan_arr), build.current_stream(dev))
-    return y, ring, y_state
+    if not steps:
+        return torch.zeros((T, B), dtype=torch.int32, device=cond_pre.device)
+    y = torch.empty((T, B), dtype=torch.int32, device=cond_pre.device)
+    kernel(*bound["head"], cond_pre.data_ptr(), sel.data_ptr(),
+           *bound["state"], y.data_ptr(), t0_row.data_ptr(),
+           n_valid_row.data_ptr(), T, *bound["tail"])
+    return y
 
 
 def _stream_stacks(params: Dict[str, torch.Tensor], plan: StreamPlan
@@ -934,7 +917,16 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
     host ints.  Row b runs its first n_valid_row[b] steps (0 <= n <= T) from
     its own absolute clock t0_row[b] >= 0; past its length a row keeps its
     FIFO content and y_state and emits 0.  The wrapper checks them on the
-    host and stages them to the card without a synchronisation.
+    host, and K5 takes them by value in its launch's parameters: no copy,
+    no synchronisation, and no fill of y (K5 writes its 0s itself).
+
+    A generator binds what outlives a call once and keeps it while it holds
+    (checked, with its storage, its FIFO layout and for K5 the entry
+    point's arguments): the params' tensors, unchanged in place, the ring
+    and y_state objects, the device and its current stream.  A call checks
+    cond_pre and sel (and K5's t0_row and n_valid_row) alone; a change to
+    any of the others binds anew, and a ragged generator counts that in
+    `utils/tracing` as `k5.binds`.
 
     Returns y [T, B] int32, ring, y_state (the same tensors, updated in
     place), plus xt [L,B,R], skip [L,B,S], zs, za, p [B,A] of the last run
@@ -1043,28 +1035,77 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
                           else None)
         return stored["view"], stored["built"]
 
-    def check(params, cond_pre, sel, ring, y_state):
+    def check(cond_pre, sel):
+        """What a call brings anew: (its device, T)."""
         dev = cond_pre.device
         if dev.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {dev}")
         T = cond_pre.shape[0]
+        build.check_tensor(cond_pre, "cond_pre", torch.float32,
+                           (T, L, B, 2 * R), dev)
+        build.check_tensor(sel, "sel", torch.float32, (T, B), dev)
+        return dev, T
+
+    # the plan as the staged entry points read it, made once
+    plan_arr = (_plan_array(plan)
+                if route.kernel in ("staged", "staged_stream") else None)
+    kernel = route.cuda_kernel(prec)
+    bound: Dict[str, object] = {}   # `bind`'s arguments, while they hold
+
+    def bind(params, dev, ring, y_state) -> Dict[str, object]:
+        """The arguments of a call that outlive it, checked once and kept
+        while they hold: the params' tensors (the same objects, unchanged
+        in place: their `_version`s), the ring and y_state (the same
+        objects), the device and its current stream.  When any differs they
+        are checked and bound anew (K5 counts it, `k5.binds`): the storage
+        (`storage`), the FIFO layout, and for K5 on a card the entry point's
+        arguments but those of the call (`_launch_ragged`)."""
+        stream = build.current_stream(dev) if dev.type == "cuda" else None
+        src = [params[k] for k in params_lib.PARAM_ORDER]
+        if (bound and bound["ring"] is ring and bound["y_state"] is y_state
+                and bound["dev"] == dev and bound["stream"] == stream
+                and all(a is b for a, b in zip(bound["src"], src))
+                and bound["versions"] == [t._version for t in src]):
+            return bound
         check_t = build.check_tensor
-        check_t(cond_pre, "cond_pre", torch.float32, (T, L, B, 2 * R), dev)
-        check_t(sel, "sel", torch.float32, (T, B), dev)
         check_t(ring, "ring", scan_generate.ring_dtype(prec),
                 (cfg.ring_size, B, R), dev)
         check_t(y_state, "y_state", torch.int32, (2, B), dev)
         for k, shape in shapes.items():
             check_t(params[k], k, torch.float32, shape, dev)
-        if dev.type == "cuda" and dev not in scheds:
-            scheds[dev] = fifo_schedule(cfg, dev)
-        return dev, T
+        view, built = storage(params, dev)
+        new = {"src": src, "versions": [t._version for t in src],
+               "ring": ring, "y_state": y_state, "dev": dev,
+               "stream": stream, "view": view, "built": built}
+        if dev.type == "cuda":
+            if dev not in scheds:
+                scheds[dev] = fifo_schedule(cfg, dev)
+            new["sched"] = sched = scheds[dev]
+            if ragged:
+                weights = ((view["embed"], built[0],
+                            *(view[k] for k in ("rs_b", "out_b", "end_b")))
+                           if route.kernel == "staged"
+                           else tuple(view[k] for k in _WEIGHTS))
+                new["head"] = tuple(w.data_ptr() for w in weights)
+                new["state"] = (sched.data_ptr(), ring.data_ptr(),
+                                y_state.data_ptr())
+                new["tail"] = ((B, L, R, cfg.S, A, int(cfg.tanh_embed),
+                                cfg.silence_bin)
+                               + ((ctypes.addressof(plan_arr),)
+                                  if plan_arr is not None else ())
+                               + (stream,))
+        bound.clear()
+        bound.update(new)
+        if ragged:
+            tracing.count("k5.binds", 1)
+        return bound
 
     def generate(params: Dict[str, torch.Tensor], t0: int,
                  cond_pre: torch.Tensor, sel: torch.Tensor,
                  ring: torch.Tensor, y_state: torch.Tensor,
                  n_valid: int | None = None, seed: int = 0):
-        dev, T = check(params, cond_pre, sel, ring, y_state)
+        dev, T = check(cond_pre, sel)
+        bnd = bind(params, dev, ring, y_state)
         n_valid = T if n_valid is None else int(n_valid)
         if not 0 <= n_valid <= T:
             raise ValueError(f"n_valid={n_valid} outside [0, T={T}]")
@@ -1077,35 +1118,40 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
                         .all()):
                 raise ValueError(f"mode 'forced': sel must hold symbols, "
                                  f"integers in [0, A={A})")
-        view, built = storage(params, dev)
+        view, built = bnd["view"], bnd["built"]
         if dev.type == "cpu":
             return generate_plain(cfg, view, t0, cond_pre, sel, ring,
                                   y_state, n_valid, mode, dump, int(seed),
                                   prec)
+        sched, stream = bnd["sched"], bnd["stream"]
         if route.kernel == "staged_stream":
-            return _launch_staged_stream(cfg, plan, view, built, scheds[dev],
-                                         t0, cond_pre, sel, ring, y_state,
-                                         n_valid, mode, dump, int(seed), prec)
+            return _launch_staged_stream(cfg, plan, plan_arr, view, built,
+                                         sched, t0, cond_pre, sel, ring,
+                                         y_state, n_valid, mode, dump,
+                                         int(seed), prec, stream)
         if route.kernel == "stream":
             return _launch_stream(cfg, plan, stream_prefetch, view, built,
-                                  scheds[dev], t0, cond_pre, sel, ring,
-                                  y_state, n_valid, mode, dump, int(seed),
-                                  prec)
-        return _launch_kernel(cfg, view, scheds[dev], t0, cond_pre, sel,
-                              ring, y_state, n_valid, mode, dump, int(seed),
-                              prec, None if built is None else (plan, built[0]))
+                                  sched, t0, cond_pre, sel, ring, y_state,
+                                  n_valid, mode, dump, int(seed), prec,
+                                  stream)
+        return _launch_kernel(cfg, view, sched, t0, cond_pre, sel, ring,
+                              y_state, n_valid, mode, dump, int(seed), prec,
+                              stream,
+                              None if built is None else (plan_arr, built[0]))
 
     def generate_ragged(params: Dict[str, torch.Tensor],
                         t0_row: torch.Tensor, cond_pre: torch.Tensor,
                         sel: torch.Tensor, ring: torch.Tensor,
                         y_state: torch.Tensor, n_valid_row: torch.Tensor):
-        dev, T = check(params, cond_pre, sel, ring, y_state)
-        cpu = torch.device("cpu")
-        build.check_tensor(t0_row, "t0_row", torch.int64, (B,), cpu)
-        build.check_tensor(n_valid_row, "n_valid_row", torch.int32, (B,), cpu)
-        if int(t0_row.min()) < 0:
-            raise ValueError(f"t0_row {t0_row.tolist()} must be >= 0")
-        nv = n_valid_row.tolist()   # B ints: cheaper than torch's reductions
+        dev, T = check(cond_pre, sel)
+        bnd = bind(params, dev, ring, y_state)
+        build.check_tensor(t0_row, "t0_row", torch.int64, (B,), _CPU)
+        build.check_tensor(n_valid_row, "n_valid_row", torch.int32, (B,),
+                           _CPU)
+        t0 = t0_row.tolist()   # B ints: cheaper than torch's reductions
+        if min(t0) < 0:
+            raise ValueError(f"t0_row {t0} must be >= 0")
+        nv = n_valid_row.tolist()
         steps = max(nv)
         if min(nv) < 0 or steps > T:
             raise ValueError(f"n_valid_row {nv} outside [0, T={T}]")
@@ -1114,13 +1160,11 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
         # its B x that many row-steps, sum(n_valid_row) are live
         tracing.count("k5.row_steps", B * steps)
         tracing.count("k5.live_row_steps", sum(nv))
-        view, built = storage(params, dev)
         if dev.type == "cpu":
-            return generate_plain(cfg, view, t0_row, cond_pre, sel, ring,
-                                  y_state, n_valid_row, prec=prec)
-        return _launch_ragged(cfg, view, scheds[dev], t0_row, cond_pre,
-                              sel, ring, y_state, n_valid_row, prec,
-                              None if built is None else (plan, built[0]))
+            return generate_plain(cfg, bnd["view"], t0_row, cond_pre, sel,
+                                  ring, y_state, n_valid_row, prec=prec)
+        return (_launch_ragged(kernel, bnd, t0_row, cond_pre, sel,
+                               n_valid_row, steps), ring, y_state)
 
     def prepare(params: Dict[str, torch.Tensor], dev) -> None:
         """Build, on the current stream, what a launch on `dev` reads

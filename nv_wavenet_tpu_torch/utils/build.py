@@ -195,8 +195,12 @@ def check_tensor(t, name: str, dtype, shape: Sequence[int], device) -> None:
 
 
 def current_stream(device) -> int:
-    """The raw cudaStream_t of PyTorch's current stream on `device`."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw cudaStream_t of PyTorch's current stream on `device` (a
+    torch.device), read without making a `torch.cuda.Stream`."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 class CudaKernel:

@@ -200,3 +200,147 @@ def test_unported_options_raise_and_bad_inputs_are_rejected():
                ys, n_row)
     with pytest.raises(ValueError, match="cond_pre"):
         ragged(params, t0_row, cond.double(), sel, ring, ys, n_row)
+
+
+# ----------------------------------------------------------------------
+# what a generator binds once (`bind`): the params, the ring, y_state, the
+# device and its stream; what a call brings (cond_pre, sel, t0_row,
+# n_valid_row) is checked on every call
+# ----------------------------------------------------------------------
+
+BIND_CFG = tcfg.WaveNetConfig(num_layers=2, R=32, S=128, A=256,
+                              max_dilation=2)
+BIND_B, BIND_T = 2, 4
+
+
+def bind_case(fast_math=False):
+    """(a ragged generator that has bound once, params, ring, y_state,
+    cond_pre, sel, t0_row, n_valid_row)."""
+    cfg = BIND_CFG
+    ref_w = tparams.random_reference_weights(cfg, seed=0)
+    params = tparams.canonical_to_torch(tparams.to_canonical(ref_w, cfg),
+                                        "cpu")
+    gen = tper.make_persistent_generator(cfg, BIND_B, ragged=True,
+                                         fast_math=fast_math)
+    ring = tper.init_ring(cfg, BIND_B, "cpu")
+    ys = torch.full((2, BIND_B), cfg.silence_bin, dtype=torch.int32)
+    g = torch.Generator().manual_seed(3)
+    cond = torch.rand((BIND_T, 2, BIND_B, 64), generator=g) - 0.5
+    sel = torch.rand((BIND_T, BIND_B), generator=g)
+    t0_row = torch.tensor([0, 5], dtype=torch.int64)
+    n_row = torch.tensor([BIND_T, 2], dtype=torch.int32)
+    gen(params, t0_row, cond, sel, ring, ys, n_row)
+    return gen, params, ring, ys, cond, sel, t0_row, n_row
+
+
+# (what to pass in place of one argument, the ValueError's text): the
+# wrapper's messages, unchanged
+BAD_CALLS = {
+    "cond_pre dtype": (lambda a: {"cond": a["cond"].double()},
+                       "cond_pre: expected torch.float32 (4, 2, 2, 64), got "
+                       "torch.float64 (4, 2, 2, 64)"),
+    "cond_pre shape": (lambda a: {"cond": a["cond"][:, :1].contiguous()},
+                       "cond_pre: expected torch.float32 (4, 2, 2, 64), got "
+                       "torch.float32 (4, 1, 2, 64)"),
+    "cond_pre strides": (lambda a: {"cond": a["cond"].transpose(2, 1)
+                                    .contiguous().transpose(2, 1)},
+                         "cond_pre: must be contiguous"),
+    "sel shape": (lambda a: {"sel": torch.zeros((BIND_T, 3))},
+                  "sel: expected torch.float32 (4, 2), got torch.float32 "
+                  "(4, 3)"),
+    "sel dtype": (lambda a: {"sel": a["sel"].double()},
+                  "sel: expected torch.float32 (4, 2), got torch.float64 "
+                  "(4, 2)"),
+    "t0_row negative": (lambda a: {"t0": torch.tensor([0, -1])},
+                        "t0_row [0, -1] must be >= 0"),
+    "t0_row dtype": (lambda a: {"t0": a["t0"].int()},
+                     "t0_row: expected torch.int64 (2,), got torch.int32 "
+                     "(2,)"),
+    "t0_row shape": (lambda a: {"t0": torch.zeros(3, dtype=torch.int64)},
+                     "t0_row: expected torch.int64 (2,), got torch.int64 "
+                     "(3,)"),
+    "n_valid_row past T": (lambda a: {"n": torch.tensor([5, 0],
+                                                        dtype=torch.int32)},
+                           "n_valid_row [5, 0] outside [0, T=4]"),
+    "n_valid_row negative": (lambda a: {"n": torch.tensor([1, -1],
+                                                          dtype=torch.int32)},
+                             "n_valid_row [1, -1] outside [0, T=4]"),
+    "n_valid_row dtype": (lambda a: {"n": a["n"].long()},
+                          "n_valid_row: expected torch.int32 (2,), got "
+                          "torch.int64 (2,)"),
+    "ring": (lambda a: {"ring": a["ring"].transpose(1, 2)},
+             "ring: expected torch.float32 (3, 2, 32), got torch.float32 "
+             "(3, 32, 2)"),
+    "y_state": (lambda a: {"ys": a["ys"].long()},
+                "y_state: expected torch.int32 (2, 2), got torch.int64 "
+                "(2, 2)"),
+    "params": (lambda a: {"params": {**a["params"],
+                                     "end_b": a["params"]["end_b"][:-1]}},
+               "end_b: expected torch.float32 (256,), got torch.float32 "
+               "(255,)"),
+}
+
+
+@pytest.mark.parametrize("what", sorted(BAD_CALLS))
+def test_a_bound_ragged_generator_still_checks_each_call(what):
+    """After a call has bound, a wrong cond_pre, sel, t0_row or n_valid_row
+    raises the same ValueError as before any binding; so does a wrong
+    ring, y_state or params tensor, which binds anew.  A failed call leaves
+    the binding as it was: the good arguments do not bind again."""
+    from nv_wavenet_tpu_torch.utils import tracing
+    gen, params, ring, ys, cond, sel, t0, n = bind_case()
+    good = dict(params=params, ring=ring, ys=ys, cond=cond, sel=sel, t0=t0,
+                n=n)
+    change, text = BAD_CALLS[what]
+    a = {**good, **change(good)}
+    with pytest.raises(ValueError) as err:
+        gen(a["params"], a["t0"], a["cond"], a["sel"], a["ring"], a["ys"],
+            a["n"])
+    assert str(err.value) == text
+    binds = tracing.counters().get("k5.binds", 0)
+    gen(params, t0, cond, sel, ring, ys, n)
+    assert tracing.counters().get("k5.binds", 0) == binds
+
+
+# each change, applied after a first bound call: (how, binds it adds)
+BIND_CHANGES = {
+    "nothing": 0,
+    "params replaced": 1,
+    "weight in place": 1,
+    "new ring": 1,
+    "new y_state": 1,
+}
+
+
+@pytest.mark.parametrize("fast_math", [False, True])
+@pytest.mark.parametrize("change", sorted(BIND_CHANGES))
+def test_ragged_generator_binds_once_per_change(change, fast_math):
+    """Repeated calls on the same state bind once; replacing a params
+    tensor, changing a weight in place, or passing another ring or y_state
+    object binds once more (`k5.binds`), and what follows equals a fresh
+    generator's run on the same values (the storage, a rounded view under
+    fast_math, is rebuilt after the in-place change)."""
+    from nv_wavenet_tpu_torch.utils import tracing
+    gen, params, ring, ys, cond, sel, t0, n = bind_case(fast_math)
+    before = tracing.counters().get("k5.binds", 0)
+    gen(params, t0, cond, sel, ring, ys, n)
+    assert tracing.counters().get("k5.binds", 0) == before
+    if change == "params replaced":
+        params = {**params, "end_w": params["end_w"] * 1.5}
+    elif change == "weight in place":
+        params["end_w"].mul_(1.5)
+    elif change == "new ring":
+        ring = ring.clone()
+    elif change == "new y_state":
+        ys = ys.clone()
+    fresh = tper.make_persistent_generator(BIND_CFG, BIND_B, ragged=True,
+                                           fast_math=fast_math)
+    ring_f, ys_f = ring.clone(), ys.clone()
+    for _ in range(3):
+        y = gen(params, t0, cond, sel, ring, ys, n)[0]
+        y_f = fresh(params, t0, cond, sel, ring_f, ys_f, n)[0]
+        assert torch.equal(y, y_f) and torch.equal(ys, ys_f)
+        assert torch.equal(ring, ring_f)
+    # the fresh generator's own first call binds once too
+    assert (tracing.counters().get("k5.binds", 0) - before
+            == BIND_CHANGES[change] + 1)
