@@ -467,6 +467,19 @@ K2K3_T = 2048
 FIRST_K6_CFG = dict(num_layers=6, R=40, S=128, A=256, max_dilation=8)
 FIRST_K6_B, FIRST_K6_T = 4, 16
 F2_B, F2_T, F2_TIME_T = 4, 16, 64
+# K1 card-wide (phase 17c): the wide vocoder's published widths
+# (kan-bayashi's WaveNet, ESPnet's wavenet.py: 30 layers, R = 512, S = A =
+# 256, no embedding tanh), B=WIDE_B over WIDE_T steps in two chunks (the
+# second from WIDE_SPLIT) against the generic K1 and the plain version; the
+# wide kernel launched at the flagship's widths against the staged K1 and at
+# WIDE_SMALL (uneven slices) against its plain model; the step timed over
+# WIDE_TIME_T steps (the generic K1's over WIDE_GENERIC_T), in turns
+WIDE_CFG = dict(num_layers=30, R=512, S=256, A=256, max_dilation=512,
+                tanh_embed=False)
+WIDE_B, WIDE_T, WIDE_SPLIT = 16, 256, 128
+WIDE_TIME_T, WIDE_GENERIC_T = 256, 8
+WIDE_SMALL = dict(num_layers=3, R=12, S=20, A=32, max_dilation=2,
+                  silence_bin=16, tanh_embed=False)
 K4_SMALL_T = 19   # K4 vs plain at TEST_CONFIG_MED: holds the 11 + 8 split
 # K6 (the collapsed chain): against its plain version at TEST_CONFIG_MED,
 # B=4, over 16 steps (the plain version costs ~1 s per 32 steps), in every
@@ -1861,8 +1874,13 @@ def check_fallbacks(torch, np, persistent, tsg, cfg_lib, params_lib,
                 gen = persistent.make_persistent_generator(
                     cfg, B, mode=mode, dump=dump, ragged=ragged, **kw)
                 route = gen.route
-                if route.kernel != "generic":
-                    fail(f"F2 {label} {prec}: routed to {route.kernel}")
+                # lockstep exact generation without a dump at R = 512 runs
+                # K1 card-wide (phase 17c), the rest the generic kernel
+                want = ("wide" if label == "R=512" and prec == "exact"
+                        and not (dump or ragged) else "generic")
+                if route.kernel != want:
+                    fail(f"F2 {label} {prec}: routed to {route.kernel}, not "
+                         f"{want}")
                 zero()
                 if ragged:
                     out_k = gen(params, t0_row, cpn, seln, *fresh(), nv_row)
@@ -1876,7 +1894,8 @@ def check_fallbacks(torch, np, persistent, tsg, cfg_lib, params_lib,
                 if n_l[sym] != 1 or n_l[staged] or sum(n_l.values()) != 1:
                     fail(f"F2 {label} {prec}: the route's {sym} did not "
                          f"launch alone: {n_l}")
-                key = f"{'K5' if ragged else 'K1'} {prec}"
+                key = (f"{'K5' if ragged else 'K1'} {prec}" if want == "generic"
+                       else "K1 wide")
                 res["launches"][key] = res["launches"].get(key, 0) + 1
                 out_p = persistent.generate_plain(
                     cfg, view, t0_row if ragged else 0, cpn, seln, *fresh(),
@@ -1955,8 +1974,9 @@ def check_fallbacks(torch, np, persistent, tsg, cfg_lib, params_lib,
                              f"to {g4.route.kernel}")
                     g1 = persistent.make_persistent_generator(cfg, B,
                                                               mode=mode, **kw)
-                    want1 = {"sample": "generic", "forced": "forced",
-                             "prng": "prng"}[mode]
+                    want1 = {"sample": "wide" if label == "R=512"
+                             and prec == "exact" else "generic",
+                             "forced": "forced", "prng": "prng"}[mode]
                     if g1.route.kernel != want1:
                         fail(f"{label} {prec} {mode}: routed to "
                              f"{g1.route.kernel}, not {want1}")
@@ -2061,6 +2081,227 @@ def check_fallbacks(torch, np, persistent, tsg, cfg_lib, params_lib,
             res["launches"][f"K4 first {eprec}"] += n_l[sym]
             log(f"[F2] {label} MANYBLOCK {name} request of {B} x {T}: the "
                 f"first K4 launched {n_l[sym]} time(s), the staged K4 none")
+    return res
+
+
+def wide_launcher(torch, persistent, cfg, B: int, params, dev):
+    """launch(t0, cond_pre, sel, ring, y_state, n, mode) of K1 card-wide at
+    any geometry its plan holds (the route takes it only where the staged
+    plan raises; a check may launch it anywhere), on the current stream."""
+    plan = persistent.wide_plan(cfg, B)
+    arr = persistent._plan_array(plan)
+    stream = persistent.wide_stream(params, cfg, plan)
+    bufs = (torch.empty(plan.scratch_floats, dtype=torch.float32, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev))
+    sched = persistent.fifo_schedule(cfg, dev)
+
+    def launch(t0, cp, sel, ring, ys, n, mode="sample"):
+        return persistent._launch_wide(
+            cfg, arr, params, stream, *bufs, sched, t0, cp, sel, ring, ys, n,
+            mode, persistent.build.current_stream(dev))
+    launch.plan = plan
+    return launch
+
+
+def generic_k1(torch, persistent, cfg, params, dev):
+    """launch(t0, cond_pre, sel, ring, y_state, n, mode) of the generic K1
+    (`csrc/generic_generate.cu`), whatever the route."""
+    sched = persistent.fifo_schedule(cfg, dev)
+
+    def launch(t0, cp, sel, ring, ys, n, mode="sample"):
+        return persistent._launch_kernel(
+            cfg, params, sched, t0, cp, sel, ring, ys, n, mode, False, 0,
+            "exact", persistent.build.current_stream(dev))
+    return launch
+
+
+def check_wide(torch, np, persistent, cfg_lib, params_lib, tracing, dev,
+               all_kernels) -> dict:
+    """K1 card-wide (`csrc/wide_generate.cu`): (1) at WIDE_SMALL, uneven
+    slices over its grid, against its plain model (`wide_model`) and the
+    generic K1 bit for bit; (2) at the flagship's widths against the staged
+    K1 bit for bit; (3) at the wide vocoder's published widths through the
+    route (`make_persistent_generator`: the wide kernel must launch, the
+    generic one not), over WIDE_T steps in two chunks, against the generic
+    K1 (y, ring bits, y_state) and `generate_plain` (y and y_state; the ring
+    within the ladder), in modes sample and argmax; (4) the step's time
+    against the generic K1's in turns, the stamps on against off in turns,
+    and the shares of the step the chains wait in the grid barriers and for
+    weight slices (`gen.wide.wait_cycles`, `gen.wide.stream_wait_cycles`
+    over `gen.wide.cta_cycles`)."""
+    res = {"mismatches": 0, "ring_err": 0.0, "runs": [], "launches": 0}
+    counts = lambda: {k.symbol: k.launches for k in all_kernels}  # noqa: E731
+    wide_sym = persistent.WIDE_KERNELS["exact"].symbol
+    gen_sym = persistent.GENERIC_KERNELS["exact"].symbol
+
+    def zero():
+        for k in all_kernels:
+            k.launches = 0
+
+    def mism(a, b):
+        return (int((a[0] != b[0]).sum()) + bit_mismatches(torch, a[1], b[1])
+                + int(not torch.equal(a[2], b[2])))
+
+    def inputs(cfg, B, T, seed, params):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        cond = torch.rand((T, cfg.num_layers, B, 2 * cfg.R), generator=g,
+                          device=dev) - 0.5
+        sel = torch.rand((T, B), generator=g, device=dev)
+        return ((cond + params["dil_b"][None, :, None, :]).contiguous(),
+                sel)
+
+    def chunks(launch, cfg, B, cp, sel, splits, mode="sample"):
+        ring, ys = fresh_state(torch, persistent, cfg, B, dev)
+        ys_out = []
+        for t0, t1 in splits:
+            ys_out.append(launch(t0, cp[t0:t1].contiguous(),
+                                 sel[t0:t1].contiguous(), ring, ys, t1 - t0,
+                                 mode)[0])
+        torch.cuda.synchronize()
+        return torch.cat(ys_out), ring, ys
+
+    # (1) uneven slices against the plain model and the generic K1
+    cfg = cfg_lib.WaveNetConfig(**WIDE_SMALL)
+    B, T = 3, 24
+    params = params_lib.canonical_to_torch(params_lib.to_canonical(
+        params_lib.random_reference_weights(cfg, seed=5), cfg), dev)
+    cp, sel = inputs(cfg, B, T, 5, params)
+    w = wide_launcher(torch, persistent, cfg, B, params, dev)
+    plan = w.plan
+    splits = ((0, 13), (13, T))
+    for mode in ("sample", "argmax"):
+        out_w = chunks(w, cfg, B, cp, sel, splits, mode)
+        out_g = chunks(generic_k1(torch, persistent, cfg, params, dev), cfg,
+                       B, cp, sel, splits, mode)
+        ring, ys = persistent.init_ring(cfg, B, "cpu"), torch.full(
+            (2, B), cfg.silence_bin, dtype=torch.int32)
+        ym = torch.cat([persistent.wide_model(
+            cfg, plan, persistent.wide_stream(
+                {k: v.cpu() for k, v in params.items()}, cfg, plan),
+            {k: v.cpu() for k, v in params.items()}, t0,
+            cp[t0:t1].cpu(), sel[t0:t1].cpu(), ring, ys, t1 - t0, mode)[0]
+            for t0, t1 in splits])
+        m = (mism(out_w, out_g) + mism(tuple(t.cpu() for t in out_w),
+                                       (ym, ring, ys)))
+        res["mismatches"] += m
+        res["runs"].append(f"small {mode} ({plan.ctas} CTAs, rs widths "
+                           f"{sorted({b - a for a, b in zip(plan.rs, plan.rs[1:])})})"
+                           f" vs generic and model: {m}")
+        log(f"[wide] {res['runs'][-1]}")
+    # (2) the flagship's widths against the staged K1
+    cfg = cfg_lib.FLAGSHIP_CONFIG
+    B, T = 16, 64
+    params = params_lib.canonical_to_torch(params_lib.to_canonical(
+        params_lib.random_reference_weights(cfg, seed=7), cfg), dev)
+    cp, sel = inputs(cfg, B, T, 7, params)
+    gen = persistent.make_persistent_generator(cfg, B)
+    out_s = chunks(lambda t0, c, s_, r, y, n, mode: gen(params, t0, c, s_, r, y),
+                   cfg, B, cp, sel, ((0, 40), (40, T)))
+    out_w = chunks(wide_launcher(torch, persistent, cfg, B, params, dev), cfg,
+                   B, cp, sel, ((0, 40), (40, T)))
+    m = mism(out_w, out_s)
+    res["mismatches"] += m
+    res["runs"].append(f"flagship widths vs staged K1: {m}")
+    log(f"[wide] {res['runs'][-1]}")
+    # (3) the published widths, through the route
+    cfg = cfg_lib.WaveNetConfig(**WIDE_CFG)
+    B, T = WIDE_B, WIDE_T
+    params = params_lib.canonical_to_torch(params_lib.to_canonical(
+        params_lib.random_reference_weights(cfg, seed=31), cfg), dev)
+    cp, sel = inputs(cfg, B, T, 31, params)
+    splits = ((0, WIDE_SPLIT), (WIDE_SPLIT, T))
+    for mode in ("sample", "argmax"):
+        gen = persistent.make_persistent_generator(cfg, B, mode=mode)
+        if gen.route.kernel != "wide":
+            fail(f"the wide vocoder routed to {gen.route.kernel}")
+        zero()
+        out_w = chunks(lambda t0, c, s_, r, y, n, md: gen(params, t0, c, s_,
+                                                          r, y),
+                       cfg, B, cp, sel, splits)
+        n_w = counts()
+        if (n_w[wide_sym] != 2 or n_w[gen_sym]
+                or sum(n_w.values()) != 2):
+            fail(f"the wide route did not launch K1 card-wide alone: {n_w}")
+        res["launches"] += n_w[wide_sym]
+        out_g = chunks(generic_k1(torch, persistent, cfg, params, dev), cfg,
+                       B, cp, sel, splits, mode)
+        ring, ys = fresh_state(torch, persistent, cfg, B, dev)
+        out_p = persistent.generate_plain(cfg, params, 0, cp, sel, ring, ys,
+                                          T, mode)
+        torch.cuda.synchronize()
+        m_g = mism(out_w, out_g)
+        m_p = (int((out_w[0] != out_p[0]).sum())
+               + int(not torch.equal(out_w[2], out_p[2])))
+        err = float((out_w[1] - out_p[1]).abs().max())
+        ok = rel_close(out_p[1].cpu(), out_w[1].cpu(), 1e-2, 3e-4)
+        res["mismatches"] += m_g + m_p + int(not ok)
+        res["ring_err"] = max(res["ring_err"], err)
+        res["runs"].append(f"published widths {mode}, {T} steps in chunks "
+                           f"{splits}: vs generic K1 {m_g} (y, ring bits, "
+                           f"y_state), vs plain {m_p} (y, y_state), ring max "
+                           f"abs err {err:.3g} ok {ok}")
+        log(f"[wide] {res['runs'][-1]}")
+    # (4) times in turns: the wide step against the generic K1's, the
+    # stamps on against off, and the chains' wait share
+    plan = persistent.wide_plan(cfg, B)
+    w = wide_launcher(torch, persistent, cfg, B, params, dev)
+    g = generic_k1(torch, persistent, cfg, params, dev)
+    fresh = lambda: fresh_state(torch, persistent, cfg, B, dev)  # noqa: E731
+    wide_ms, gen_ms, on_ms, off_ms = [], [], [], []
+    for turn in range(2):
+        for which in ((w, "w"), (g, "g")) if turn == 0 else ((g, "g"),
+                                                             (w, "w")):
+            f, name = which
+            n = WIDE_TIME_T if name == "w" else WIDE_GENERIC_T
+            ms = time_launch_ms(torch, np, lambda r, y: f(
+                0, cp[:n], sel[:n], r, y, n), fresh, reps=2)
+            (wide_ms if name == "w" else gen_ms).append(ms / n)
+    before = tracing.counters()
+    for turn in range(4):
+        for stamps in ((True, False) if turn % 2 == 0 else (False, True)):
+            persistent.WIDE_STAMPS = stamps
+            ms = time_launch_ms(torch, np, lambda r, y: w(
+                0, cp, sel, r, y, WIDE_TIME_T), fresh, reps=2)
+            (on_ms if stamps else off_ms).append(ms / WIDE_TIME_T)
+    persistent.WIDE_STAMPS = True
+    after = tracing.counters()
+    split = {k: after[k] - before.get(k, 0) for k in persistent.WIDE_STATS}
+    wait, cyc, starved = (split[k] for k in (
+        "gen.wide.wait_cycles", "gen.wide.cta_cycles",
+        "gen.wide.stream_wait_cycles"))
+    res.update(
+        plan={"ctas": plan.ctas, "threads": plan.threads,
+              "chain_slots": plan.chain_slots, "smem_bytes": plan.smem_bytes,
+              "stream_bytes": plan.stream_bytes},
+        step_us=float(np.mean(wide_ms)) * 1e3, step_us_turns=[
+            x * 1e3 for x in wide_ms],
+        generic_step_us=float(np.mean(gen_ms)) * 1e3,
+        generic_step_us_turns=[x * 1e3 for x in gen_ms],
+        speedup=float(np.mean(gen_ms) / np.mean(wide_ms)),
+        stamps_on_us=[x * 1e3 for x in on_ms],
+        stamps_off_us=[x * 1e3 for x in off_ms],
+        stamps_cost_pct=float(100 * (np.mean(on_ms) / np.mean(off_ms) - 1)),
+        wait_pct=100.0 * wait / cyc if cyc else None,
+        stream_wait_pct=100.0 * starved / cyc if cyc else None,
+        split_pct={k.split(".")[-1]: round(100.0 * v / cyc, 2)
+                   for k, v in split.items()} if cyc else None,
+        # the chains' cycles a step (one CTA; 4 turns of 3 stamped launches
+        # of WIDE_TIME_T steps) over the timed step: the clock
+        cycles_per_step=cyc / plan.ctas / (12 * WIDE_TIME_T),
+        mhz=cyc / plan.ctas / (12 * WIDE_TIME_T) / (float(np.mean(on_ms))
+                                                  * 1e3),
+        floors_us={"weight_bytes": plan.stream_bytes / 3.35e12 * 1e6})
+    log(f"[wide] step {res['step_us']:.1f} us at B={B} (turns "
+        f"{[round(x, 1) for x in res['step_us_turns']]}); generic K1 "
+        f"{res['generic_step_us']:.1f} us a step ({res['speedup']:.1f}x); "
+        f"stamps on {[round(x, 2) for x in res['stamps_on_us']]} off "
+        f"{[round(x, 2) for x in res['stamps_off_us']]} us "
+        f"({res['stamps_cost_pct']:+.2f}%); the chains waited "
+        f"{res['wait_pct']:.1f}% of their cycles in the grid barriers and "
+        f"{res['stream_wait_pct']:.1f}% for weight slices; by part "
+        f"{res['split_pct']}; {res['cycles_per_step']:.0f} cycles a step "
+        f"({res['mhz']:.0f} MHz)")
     return res
 
 
@@ -4429,7 +4670,8 @@ def main() -> int:
                  "K4": persistent.STAGED_STREAM_KERNELS,
                  "K4 first": persistent.STREAM_KERNELS,
                  "K1 generic": persistent.GENERIC_KERNELS,
-                 "K5 generic": persistent.GENERIC_RAGGED_KERNELS}
+                 "K5 generic": persistent.GENERIC_RAGGED_KERNELS,
+                 "K1 wide": persistent.WIDE_KERNELS}
     exact_sym = {k: t["exact"].symbol for k, t in k1_tables.items()}
     all_kernels = (em.EXACT_FN_KERNEL, em.SAMPLE_KERNEL,
                    em.SAMPLE_BLOCK_KERNEL, em.SOFTMAX_KERNEL,
@@ -5015,6 +5257,14 @@ def main() -> int:
     if f2["mismatches"] or not f2["ok"]:
         fail(f"the generic K1/K5 or the first K4 disagree at the F2 "
              f"geometries: {f2['runs']}")
+
+    # -- phase 17c: K1 card-wide --------------------------------------------
+    mark("phase 17c: K1 card-wide")
+    wide = check_wide(torch, np, persistent, cfg_lib, params_lib, tracing,
+                      dev, all_kernels)
+    log(json.dumps({"wide": wide, "card": card}))
+    if wide["mismatches"]:
+        fail(f"K1 card-wide disagrees: {wide['runs']}")
 
     # -- phase 18: score -> feed under MANYBLOCK int8 (fault R9) --------------
     mark("phase 18: score -> feed under MANYBLOCK int8 (fault R9)")
@@ -6302,7 +6552,44 @@ def main() -> int:
     return 0
 
 
+def wide_only() -> int:
+    """Phase 17c alone (`python3 chip_smoke.py --wide`): the build, then K1
+    card-wide's checks and times."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, HERE)
+    from nv_wavenet_tpu_torch import config as cfg_lib
+    from nv_wavenet_tpu_torch.models import params as params_lib
+    from nv_wavenet_tpu_torch.ops import persistent
+    from nv_wavenet_tpu_torch.utils import build, tracing
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    mark("phase 2: build")
+    for src, text in build.build_all().items():
+        for line in text.splitlines():
+            if src.startswith("wide") and ("registers" in line
+                                           or "spill" in line
+                                           or line.startswith("built in")):
+                log(f"[build] {src}: {line.strip()}")
+    mark("phase 17c: K1 card-wide")
+    kernels = [k for t in (persistent.PERSISTENT_KERNELS,
+                           persistent.GENERIC_KERNELS,
+                           persistent.WIDE_KERNELS) for k in t.values()]
+    wide = check_wide(torch, np, persistent, cfg_lib, params_lib, tracing,
+                      torch.device("cuda", 0), kernels)
+    log(json.dumps({"wide": wide, "card": card}))
+    if wide["mismatches"]:
+        fail(f"K1 card-wide disagrees: {wide['runs']}")
+    mark("done")
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--wide"]:
+        sys.exit(wide_only())
     if sys.argv[1:2] == ["--mesh-worker"]:
         sys.exit(mesh_worker(int(sys.argv[2]), int(sys.argv[3]),
                              sys.argv[4]))

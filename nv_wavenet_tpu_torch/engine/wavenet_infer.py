@@ -133,6 +133,8 @@ from nv_wavenet_tpu_torch.utils import tracing
 # what a fallback route runs (`persistent.generation_route`)
 _ROUTE_NOTES = {"generic": "K1/K5 run the generic kernel "
                            "(csrc/generic_generate.cu)",
+                "wide": "K1 runs card-wide (csrc/wide_generate.cu), K5 and "
+                        "the dumps the generic kernel",
                 "stream": "MANYBLOCK runs the first K4 "
                           "(csrc/stream_generate.cu)"}
 
@@ -339,6 +341,8 @@ class WaveNetInfer:
         # tensor a local shard (`mesh.stage`)
         self._cond = None
         self._cond_pre = None
+        # a stale cond_pre whose storage the next fold reuses (one device)
+        self._cond_pre_spare = None
         self._selectors = None
         self._ring = None
         self._y_state = None
@@ -369,7 +373,7 @@ class WaveNetInfer:
         self._values = {}
         self._fused_prep = {}
         self._spec_prep = None
-        self._cond_pre = None
+        self._drop_prefold()
 
     def set_embeddings(self, embed_prev, embed_cur):
         """embed_prev/embed_cur: [R, A] (column per symbol)."""
@@ -563,7 +567,7 @@ class WaveNetInfer:
             self._selectors = torch.as_tensor(
                 selectors, dtype=torch.float32,
                 device=self.device).contiguous()
-        self._cond_pre = None
+        self._drop_prefold()
         self._reset_state(B)
 
     def _inputs_shape(self) -> tuple:
@@ -596,18 +600,34 @@ class WaveNetInfer:
             self._y_state = [y for _, y in states]
         self._stream_t_row = None
 
+    def _drop_prefold(self):
+        """Mark cond + dil_b stale.  On one device its storage is kept for
+        the next fold: a buffer of the inputs' size (32 GB at the wide
+        vocoder's 16 x 16,384 samples) freed and allocated anew may not find
+        room again once smaller tensors have split its freed block."""
+        if self._cond_pre is not None and self.mesh is None:
+            self._cond_pre_spare = self._cond_pre
+        self._cond_pre = None
+
     def _prefolded_cond(self):
         """cond + dil_b, built once per (inputs, weights) on the device (on
-        each shard's under a mesh): an exactly-rounded elementwise add, the
-        same values the JAX engine prefolds."""
+        each shard's under a mesh), into the stale one's storage where the
+        shapes agree: an exactly-rounded elementwise add, the same values
+        the JAX engine prefolds."""
         if self._cond_pre is None:
-            self._cond_pre = self._fold_dil_b(self._cond)
+            spare, self._cond_pre_spare = self._cond_pre_spare, None
+            if spare is not None and spare.shape != self._cond.shape:
+                spare = None
+            self._cond_pre = self._fold_dil_b(self._cond, spare)
         return self._cond_pre
 
-    def _fold_dil_b(self, cond):
-        """cond + dil_b of the storage's values, on cond's device(s)."""
+    def _fold_dil_b(self, cond, out=None):
+        """cond + dil_b of the storage's values, on cond's device(s) (into
+        `out` when given, one device)."""
         if self.mesh is None:
             dil_b = self._value_params()["dil_b"]
+            if out is not None:
+                return torch.add(cond, dil_b[None, :, None, :], out=out)
             return cond + dil_b[None, :, None, :]
         dil_b = self._on_devices(lambda d: self._value_params(d)["dil_b"])
         return mesh_lib.run_shards(

@@ -1,6 +1,7 @@
 """The persistent generator: the whole generation of a call in one kernel
 launch (K1 and K5, `csrc/staged_generate.cu`, or where their plan cannot
-hold the geometry `csrc/generic_generate.cu`; K2 and K3, K1's staged step
+hold the geometry K1 card-wide, `csrc/wide_generate.cu`, lockstep and exact
+where `wide_plan` holds, else `csrc/generic_generate.cu`; K2 and K3, K1's staged step
 in `csrc/staged_stream_generate.cu` on K1's own stream, or where the
 staged plan cannot hold the geometry `csrc/persistent.cu`; K4,
 `csrc/staged_stream_generate.cu`, or where its plan cannot hold the
@@ -128,6 +129,12 @@ GENERIC_KERNELS = _kernels(
 GENERIC_RAGGED_KERNELS = _kernels(
     "generic_generate.cu", "nvw_generic_generate_ragged",
     [_P] * 16 + [_I] * 8 + [_P])
+# K1 where the staged plan cannot hold the geometry and `wide_plan` can
+# (lockstep, exact, no dump): every CTA of the card a slice of every
+# product's columns for all rows, the weights streamed once a step
+WIDE_KERNELS = {"exact": build.CudaKernel(
+    "wide_generate.cu", "nvw_wide_generate",
+    [_P] * 14 + [ctypes.c_longlong] + [_I] * 9 + [_P, _P])}
 # K4: K1's staged step on a stream in the storage's own bytes, every mode
 STAGED_STREAM_KERNELS = _kernels(
     "staged_stream_generate.cu", "nvw_staged_stream_generate",
@@ -602,11 +609,271 @@ def staged_columns(cfg: WaveNetConfig, plan: StagedPlan) -> Dict[str, list]:
     return out
 
 
+WIDE_MAX_THREADS = 512    # chain + prev + producer (csrc/wide_generate.cu kWideThreads)
+WIDE_MAX_SLOT_BYTES = 65536   # one slice of a product, one ring slot at most
+WIDE_CHAIN_SLOTS = 4      # slots of the chain ring, at most (2 at least)
+WIDE_PREV_SLOTS = 2
+WIDE_LOOKAHEAD = 2        # layer-steps of zp the prev warps run ahead (kLookahead)
+
+
+def wide_bounds(n: int, ctas: int) -> tuple:
+    """The first column of each CTA's slice of n columns, then n: CTA c owns
+    [c n / G, (c + 1) n / G), rounded down (csrc/wide_generate.cu `bound`)."""
+    return tuple(c * n // ctas for c in range(ctas + 1))
+
+
+def _wide_stride(n: int) -> int:
+    """A row stride of n floats in K1 card-wide's shared memory: n padded to
+    a multiple of 32 and 4 more, so that the rows of a warp's float4 loads
+    fall in different banks."""
+    return -(-n // 32) * 32 + 4
+
+
+class WidePlan(NamedTuple):
+    """K1 card-wide's plan (`wide_plan`)."""
+    ctas: int             # G: co-resident CTAs, one an SM, a cooperative launch
+    chain_threads: int    # the chain's warps: the products, the gate, the sampler
+    prev_threads: int     # the prev warps': x_{t-d} Wprev, ahead
+    threads: int          # chain + prev + one producer warp
+    pairs: tuple          # wide_bounds(R, G): each CTA's column pairs (i, R + i)
+    rs: tuple             # wide_bounds(R + S, G): its res/skip columns
+    out: tuple            # wide_bounds(A, G): its columns of out_w and of end_w
+    chain_slots: int
+    prev_slots: int
+    slot_bytes: int       # a chain slot: the largest Wcur, rs_w, out_w or end_w slice
+    prev_slot_bytes: int  # a prev slot: the largest Wprev slice
+    xs: int               # row stride of x, h and x_{t-d} (floats)
+    ss: int               # of relu(skip)
+    as_: int              # of zs, za and the sampler's sums
+    arena_floats: int     # x | h, or the output stack's vectors
+    smem_bytes: int       # dynamic shared memory of the launch
+    cta_bytes: tuple      # each CTA's bytes of the stream
+    stream_bytes: int     # the whole stream
+    scratch_floats: int   # the activations between CTAs: x, h, skip, zs, za
+
+    def kernel_args(self) -> tuple:
+        """The plan array of the entry point (csrc/wide_generate.cu
+        `launch`)."""
+        return (self.ctas, self.chain_threads, self.prev_threads,
+                self.chain_slots, self.prev_slots, self.slot_bytes,
+                self.prev_slot_bytes, self.xs, self.ss, self.as_,
+                self.smem_bytes)
+
+
+def wide_plan(cfg: WaveNetConfig, batch: int, prec: str = "exact",
+              mode: str = "sample", sms: int = SMS) -> WidePlan:
+    """Decide K1 card-wide's grid, threads, rings and stream layout for
+    `batch` rows (csrc/wide_generate.cu).
+
+    The grid is the fewest CTAs, at most one an SM (`sms`), that give no CTA
+    more column pairs than one an SM would: G = ceil(R / ceil(R / sms)).
+    CTA c owns the pairs, res/skip columns and output columns of
+    `wide_bounds` (uneven where G does not divide a width).  Its stream
+    holds, per layer, its Wprev, Wcur and rs_w columns, then its out_w and
+    end_w columns, each as k-quads [K/4][columns][4] (`wide_stream`), one
+    slice a ring slot: Wprev through the prev ring, the rest through the
+    chain ring (up to WIDE_CHAIN_SLOTS slots, as the shared memory allows).
+    The launch groups the grid into clusters of up to 8 CTAs (the most that
+    divide it and that the card holds at once), whose CTAs share the reads
+    of each vector passed between CTAs by multicast copies.
+    A chain thread has one (column, row) task of each product at most (two
+    columns, the pair's halves, in the dilated one), a prev thread a (pair,
+    row) or more.
+
+    Raises ValueError for what it does not run: another precision than
+    "exact", a mode other than "sample" or "argmax", R, S or A not a
+    multiple of 4 (whole k-quads), a slice past WIDE_MAX_SLOT_BYTES, more
+    tasks than chain threads, or two chain slots and the activations past
+    SMEM_PER_BLOCK."""
+    scan_generate._check_precision(prec)
+    if prec != "exact":
+        raise ValueError(f"K1 card-wide runs the exact precision only, not "
+                         f"{prec!r}")
+    if mode not in ("sample", "argmax"):
+        raise ValueError(f"K1 card-wide runs modes 'sample' and 'argmax', "
+                         f"not {mode!r}")
+    if batch < 1:
+        raise ValueError(f"batch must be >= 1, got {batch}")
+    L, R, S, A = cfg.num_layers, cfg.R, cfg.S, cfg.A
+    if R % 4 or S % 4 or A % 4:
+        raise ValueError(f"K1 card-wide sums whole k-quads: R = {R}, S = {S} "
+                         f"and A = {A} must be multiples of 4")
+    G = -(-R // -(-R // sms))
+    pairs, rs, out = (wide_bounds(R, G), wide_bounds(R + S, G),
+                      wide_bounds(A, G))
+    width = lambda bd: max(b - a for a, b in zip(bd, bd[1:]))  # noqa: E731
+    pmax, qmax, amax = width(pairs), width(rs), width(out)
+    prev_slot = 4 * R * 2 * pmax
+    slot = 4 * max(R * 2 * pmax, R * qmax, S * amax, A * amax)
+    if max(slot, prev_slot) > WIDE_MAX_SLOT_BYTES:
+        raise ValueError(f"K1 card-wide streams a slice of "
+                         f"{max(slot, prev_slot)} bytes, past "
+                         f"{WIDE_MAX_SLOT_BYTES} bytes a slot")
+    r128 = lambda n: -(-n // 128) * 128  # noqa: E731
+    slot, prev_slot = r128(slot), r128(prev_slot)
+    xs, ss, as_ = _wide_stride(R), _wide_stride(S), _wide_stride(A)
+    arena = max(2 * batch * xs, batch * ss, 3 * batch * as_)
+    act = 4 * (arena + batch * xs + WIDE_LOOKAHEAD * 2 * pmax * batch
+               + qmax * batch + batch + 3 * batch)
+    bars = -(-8 * (2 * (WIDE_CHAIN_SLOTS + WIDE_PREV_SLOTS + WIDE_LOOKAHEAD)
+                   + 1) // 16) * 16
+    room = SMEM_PER_BLOCK - _STATIC_SMEM - act - WIDE_PREV_SLOTS * prev_slot
+    chain_slots = min(WIDE_CHAIN_SLOTS, (room - bars) // slot)
+    if chain_slots < 2:
+        raise ValueError(f"K1 card-wide needs two chain slots of {slot} bytes "
+                         f"and two prev slots of {prev_slot} beside {act} "
+                         f"bytes of activations in {SMEM_PER_BLOCK} bytes of "
+                         f"shared memory")
+    bars = -(-8 * (2 * (chain_slots + WIDE_PREV_SLOTS + WIDE_LOOKAHEAD) + 1)
+             // 16) * 16
+    smem = (chain_slots * slot + WIDE_PREV_SLOTS * prev_slot + bars + act)
+    rup = lambda n: -(-n // 32) * 32  # noqa: E731
+    chain = max(128, rup(batch * max(pmax, qmax, amax)))
+    if chain > WIDE_MAX_THREADS - 32 - 128:
+        raise ValueError(f"K1 card-wide gives a chain thread one (column, "
+                         f"row) task of each product: {batch} rows of "
+                         f"{max(pmax, qmax, amax)} columns a CTA need more "
+                         f"than {WIDE_MAX_THREADS - 32 - 128} threads")
+    prev = min(max(128, rup(batch * pmax)), WIDE_MAX_THREADS - 32 - chain)
+    cta = tuple(4 * (L * (2 * R * 2 * (pairs[c + 1] - pairs[c])
+                          + R * (rs[c + 1] - rs[c]))
+                     + (S + A) * (out[c + 1] - out[c])) for c in range(G))
+    return WidePlan(G, chain, prev, chain + prev + 32, pairs, rs, out,
+                    chain_slots, WIDE_PREV_SLOTS, slot, prev_slot, xs, ss,
+                    as_, arena, smem, cta, sum(cta),
+                    batch * (2 * R + S + 2 * A))
+
+
+def _wide_quads(w: torch.Tensor, c0: int, c1: int) -> torch.Tensor:
+    """Columns [c0, c1) of w [..., K, N] as k-quads [..., K/4, c1 - c0, 4]:
+    element [q, n, u] is w[4q + u, c0 + n]."""
+    s = w[..., c0:c1]
+    K = s.shape[-2]
+    return s.reshape(*s.shape[:-2], K // 4, 4, c1 - c0).transpose(-1, -2)
+
+
+def wide_stream(params: Dict[str, torch.Tensor], cfg: WaveNetConfig,
+                plan: WidePlan) -> torch.Tensor:
+    """K1 card-wide's weight stream, one flat float32 tensor: for each CTA
+    in turn, per layer its Wprev and Wcur columns (the pairs (i, R + i) of
+    its slice, interleaved i, R + i, i + 1, ...) and its rs_w columns, then
+    its out_w and end_w columns, each as k-quads [K/4][columns][4]
+    (`wide_plan`).  Built once per upload."""
+    L, R = cfg.num_layers, cfg.R
+    dev = params["dil_w"].device
+    i = torch.arange(R, device=dev)
+    pairs = torch.stack([i, R + i], 1).reshape(-1)
+    prev = params["dil_w"][:, :R][:, :, pairs]
+    cur = params["dil_w"][:, R:][:, :, pairs]
+    parts = []
+    for c in range(plan.ctas):
+        p0, p1 = plan.pairs[c], plan.pairs[c + 1]
+        q0, q1 = plan.rs[c], plan.rs[c + 1]
+        a0, a1 = plan.out[c], plan.out[c + 1]
+        layers = torch.cat([
+            _wide_quads(prev, 2 * p0, 2 * p1).reshape(L, -1),
+            _wide_quads(cur, 2 * p0, 2 * p1).reshape(L, -1),
+            _wide_quads(params["rs_w"], q0, q1).reshape(L, -1)], 1)
+        parts += [layers.reshape(-1),
+                  _wide_quads(params["out_w"], a0, a1).reshape(-1),
+                  _wide_quads(params["end_w"], a0, a1).reshape(-1)]
+    out = torch.cat(parts).contiguous()
+    if 4 * out.numel() != plan.stream_bytes:
+        raise ValueError(f"the stream holds {4 * out.numel()} bytes, the "
+                         f"plan {plan.stream_bytes}")
+    return out
+
+
+def wide_model(cfg: WaveNetConfig, plan: WidePlan, stream: torch.Tensor,
+               params: Dict[str, torch.Tensor], t0: int,
+               cond_pre: torch.Tensor, sel: torch.Tensor, ring: torch.Tensor,
+               y_state: torch.Tensor, n_valid: int, mode: str = "sample"):
+    """A plain model of K1 card-wide on the CPU: each CTA's slices read from
+    `stream` at the kernel's offsets, every column summed in k order
+    (`ordered_matmul_plain`), the ring written by each CTA's pair slice
+    after every CTA has read the layer's slot, the sampler on the whole za.
+    Returns (y [T, B], ring, y_state), updated in place as the kernel's."""
+    from nv_wavenet_tpu_torch.ops import exact_math as em
+    from nv_wavenet_tpu_torch.ops.ordered_matmul import ordered_matmul_plain
+    L, R, S, A = cfg.num_layers, cfg.R, cfg.S, cfg.A
+    T, _, B, _ = cond_pre.shape
+    offs, dils = cfg.ring_offsets, cfg.dilations
+    ctas, pos = [], 0
+    for c in range(plan.ctas):
+        np_ = plan.pairs[c + 1] - plan.pairs[c]
+        nq = plan.rs[c + 1] - plan.rs[c]
+        na = plan.out[c + 1] - plan.out[c]
+
+        def take(K, n):
+            nonlocal pos
+            q = stream[pos:pos + K * n].view(K // 4, n, 4)
+            pos += K * n
+            return q.permute(0, 2, 1).reshape(K, n)
+        layers = [(take(R, 2 * np_), take(R, 2 * np_), take(R, nq))
+                  for _ in range(L)]
+        ctas.append((layers, take(S, na), take(A, na)))
+    y = torch.zeros((T, B), dtype=torch.int32)
+    y_prev, y_cur = y_state[0].clone().long(), y_state[1].clone().long()
+    for j in range(n_valid):
+        t = t0 + j
+        x = params["embed"][y_prev] + params["embed"][A + y_cur]
+        if cfg.tanh_embed:
+            x = em.tanh(x)
+        skip = torch.zeros((B, S))
+        for l in range(L):
+            slot = offs[l] + (t & (dils[l] - 1))
+            x_prev = ring[slot].clone()
+            h = torch.empty((B, R))
+            for c, (layers, _, _) in enumerate(ctas):
+                p0, p1 = plan.pairs[c], plan.pairs[c + 1]
+                wp, wc, _ = layers[l]
+                zp = ordered_matmul_plain(x_prev, wp)
+                zc = ordered_matmul_plain(x, wc)
+                zt = (zp[:, 0::2] + zc[:, 0::2]) + cond_pre[j, l, :, p0:p1]
+                zg = (zp[:, 1::2] + zc[:, 1::2]) + cond_pre[j, l, :,
+                                                           R + p0:R + p1]
+                h[:, p0:p1] = em.tanh(zt) * em.sigmoid(zg)
+            for c in range(plan.ctas):   # after the gate barrier
+                p0, p1 = plan.pairs[c], plan.pairs[c + 1]
+                ring[slot, :, p0:p1] = x[:, p0:p1]
+            x_next = torch.empty((B, R))
+            for c, (layers, _, _) in enumerate(ctas):
+                q0, q1 = plan.rs[c], plan.rs[c + 1]
+                acc = ordered_matmul_plain(h, layers[l][2])
+                for v, o in enumerate(range(q0, q1)):
+                    bo = params["rs_b"][l, o]
+                    if o < R:
+                        x_next[:, o] = (acc[:, v] + bo) + x[:, o]
+                    else:
+                        skip[:, o - R] = (skip[:, o - R] + acc[:, v]) + bo
+            x = x_next
+        skip = torch.clamp_min(skip, 0.0)
+        zs, za = torch.empty((B, A)), torch.empty((B, A))
+        for c, (_, wo, _) in enumerate(ctas):
+            a0, a1 = plan.out[c], plan.out[c + 1]
+            zs[:, a0:a1] = torch.clamp_min(ordered_matmul_plain(skip, wo)
+                                           + params["out_b"][a0:a1], 0.0)
+        for c, (_, _, we) in enumerate(ctas):
+            a0, a1 = plan.out[c], plan.out[c + 1]
+            za[:, a0:a1] = ordered_matmul_plain(zs, we) + params["end_b"][a0:a1]
+        if mode == "argmax":
+            y_t = torch.argmax(za, dim=-1).to(torch.int32)
+        else:
+            _, cum = em.softmax_cumsum(za)
+            y_t = em.select_from_cumsum(cum, sel[j][:, None], A,
+                                        cfg.silence_bin)
+        y[j] = y_t
+        y_prev, y_cur = y_cur, y_t.long()
+    y_state[0] = y_prev.to(torch.int32)
+    y_state[1] = y_cur.to(torch.int32)
+    return y, ring, y_state
+
+
 class Route(NamedTuple):
     """The kernel one call of a generator runs (`generation_route`)."""
-    kernel: str       # "staged", "generic", "forced", "prng", "staged_stream" or "stream"
+    kernel: str       # "staged", "wide", "generic", "forced", "prng", "staged_stream" or "stream"
     ragged: bool
-    plan: object      # StagedPlan ("staged", "staged_stream"), StreamPlan ("stream") or None
+    plan: object      # StagedPlan ("staged", "staged_stream"), WidePlan ("wide"), StreamPlan ("stream") or None
     note: str | None  # why the staged plan was not taken, for a fallback
 
     def cuda_kernel(self, prec: str = "exact") -> build.CudaKernel:
@@ -616,6 +883,7 @@ class Route(NamedTuple):
                  else PERSISTENT_KERNELS,
                  "generic": GENERIC_RAGGED_KERNELS if self.ragged
                  else GENERIC_KERNELS,
+                 "wide": WIDE_KERNELS,
                  "forced": FORCED_KERNELS, "prng": PRNG_KERNELS,
                  "staged_stream": STAGED_STREAM_KERNELS,
                  "stream": STREAM_KERNELS}[self.kernel]
@@ -626,7 +894,7 @@ def generation_route(cfg: WaveNetConfig, batch: int, prec: str = "exact",
                      mode: str = "sample", ragged: bool = False,
                      stream_weights: bool = False,
                      storage: torch.dtype = torch.float32,
-                     stream_group_size: int = 8) -> Route:
+                     stream_group_size: int = 8, dump: bool = False) -> Route:
     """Name the kernel a generator's call runs on the card, before any
     launch and without a card:
 
@@ -639,8 +907,10 @@ def generation_route(cfg: WaveNetConfig, batch: int, prec: str = "exact",
         it equals `csrc/persistent.cu`'s K2/K3 bit for bit) where
         `staged_plan` holds the geometry, else `csrc/persistent.cu`;
       * modes "sample" and "argmax", lockstep (K1) or ragged (K5): the
-        staged kernel where `staged_plan` holds the geometry, else the
-        generic one (`csrc/generic_generate.cu`, no width limit).
+        staged kernel where `staged_plan` holds the geometry; else, lockstep
+        without `dump`, K1 card-wide (`csrc/wide_generate.cu`) where
+        `wide_plan` holds it (the exact precision); else the generic one
+        (`csrc/generic_generate.cu`, no width limit).
 
     A fallback carries the staged plan's error as its `note`."""
     if stream_weights:
@@ -660,6 +930,12 @@ def generation_route(cfg: WaveNetConfig, batch: int, prec: str = "exact",
     try:
         return Route("staged", ragged, staged_plan(cfg, batch, prec), None)
     except ValueError as err:
+        if not (ragged or dump):
+            try:
+                return Route("wide", False, wide_plan(cfg, batch, prec, mode),
+                             str(err))
+            except ValueError:
+                pass
         return Route("generic", ragged, None, str(err))
 
 
@@ -865,6 +1141,72 @@ def _launch_ragged(kernel: build.CudaKernel, bound: dict,
     return y
 
 
+# K1 card-wide's stamps (csrc/wide_generate.cu `stats`, `Stat`): on each
+# card its CTAs' chains' cycles, summed there: in the grid barriers
+# (gen.wide.wait_cycles), over the launches (gen.wide.cta_cycles), waiting
+# for a weight slice (gen.wide.stream_wait_cycles) and by the step's other
+# parts; on unless WIDE_STAMPS is False.  Read into the counters only when
+# `tracing.counters()` is read.
+WIDE_STAMPS = True
+WIDE_STATS = ("gen.wide.wait_cycles", "gen.wide.cta_cycles",
+              "gen.wide.stream_wait_cycles", "gen.wide.prev_wait_cycles",
+              "gen.wide.cur_cycles", "gen.wide.load_h_cycles",
+              "gen.wide.rs_cycles", "gen.wide.load_x_cycles",
+              "gen.wide.step_ends_cycles", "gen.wide.vector_wait_cycles")
+_WIDE_STATS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _wide_stats(dev) -> torch.Tensor:
+    if dev not in _WIDE_STATS:
+        _WIDE_STATS[dev] = torch.zeros(len(WIDE_STATS), dtype=torch.int64,
+                                       device=dev)
+    return _WIDE_STATS[dev]
+
+
+def _wide_counters() -> Dict[str, int]:
+    """The stamps summed over the cards, or nothing before a launch."""
+    if not _WIDE_STATS:
+        return {}
+    total = [0] * len(WIDE_STATS)
+    for t in _WIDE_STATS.values():
+        total = [a + b for a, b in zip(total, t.tolist())]
+    return dict(zip(WIDE_STATS, total))
+
+
+tracing.add_source(_wide_counters)
+
+
+def _launch_wide(cfg: WaveNetConfig, plan_arr, params: Dict[str, torch.Tensor],
+                 weights: torch.Tensor, scratch: torch.Tensor,
+                 sync: torch.Tensor, sched: torch.Tensor, t0: int,
+                 cond_pre: torch.Tensor, sel: torch.Tensor, ring: torch.Tensor,
+                 y_state: torch.Tensor, n_valid: int, mode: str, stream: int):
+    """K1 card-wide: `weights` the stream (`wide_stream`), `scratch` and
+    `sync` the activations between its CTAs and its barrier's flags (one
+    int a CTA; one of each a generator and card), `plan_arr` the plan's
+    array; outputs as
+    `_launch_kernel`.  Counts `gen.wide.launches` and `gen.wide.row_steps`,
+    and the launch is the span `nvw:gen.wide.launch`."""
+    T, _, B, _ = cond_pre.shape
+    y = torch.zeros((T, B), dtype=torch.int32, device=cond_pre.device)
+    if n_valid:
+        tracing.count("gen.wide.launches", 1)
+        tracing.count("gen.wide.row_steps", B * n_valid)
+        stats = (_wide_stats(cond_pre.device).data_ptr() if WIDE_STAMPS
+                 else None)
+        with tracing.span("gen.wide.launch"):
+            WIDE_KERNELS["exact"](
+                params["embed"].data_ptr(), weights.data_ptr(),
+                *(params[k].data_ptr() for k in ("rs_b", "out_b", "end_b")),
+                cond_pre.data_ptr(), sel.data_ptr(), sched.data_ptr(),
+                ring.data_ptr(), y_state.data_ptr(), y.data_ptr(),
+                scratch.data_ptr(), sync.data_ptr(), stats, t0, n_valid, B,
+                cfg.num_layers, cfg.R, cfg.S, cfg.A, int(cfg.tanh_embed),
+                cfg.silence_bin, _MODE_IDS[mode], ctypes.addressof(plan_arr),
+                stream)
+    return y, ring, y_state
+
+
 def _stream_stacks(params: Dict[str, torch.Tensor], plan: StreamPlan
                    ) -> tuple:
     """The first K4's stored stacks (dil_w, rs_w, dil_s, rs_s) in
@@ -980,7 +1322,7 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
         route = generation_route(
             cfg, B, prec, mode, ragged, stream_weights,
             stream_storage(weight_dtype, stream_quant, prec),
-            stream_group_size)
+            stream_group_size, dump)
     elif route.kernel != ("forced" if mode == "forced" else "prng") or (
             mode not in ("forced", "prng") or stream_weights):
         raise ValueError(f"route {route.kernel!r} cannot run mode {mode!r} "
@@ -988,6 +1330,8 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
     plan = route.plan
     shapes = params_lib.canonical_shapes(L, R, cfg.S, A)
     scheds: Dict[torch.device, torch.Tensor] = {}  # the FIFO layout per card
+    # K1 card-wide's activations between CTAs and its barrier's count, per card
+    wide_bufs: Dict[torch.device, tuple] = {}
     # the last params object's storage, under a key that names what it
     # holds: one stream for every staged route on the same layout
     layout = ((plan.matrices, plan.storage, plan.out_storage)
@@ -1003,6 +1347,8 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
         dil_s, rs_s); None for the others."""
         if route.kernel == "staged":
             return staged_stream(view, cfg, plan), None, None
+        if route.kernel == "wide":
+            return wide_stream(view, cfg, plan), None, None
         if route.kernel == "staged_stream":
             if plan.storage == torch.int8:
                 # int8 quantises the canonical params; K4 rounds q * s
@@ -1019,7 +1365,7 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
         card or None), rebuilt when a tensor of params is replaced or
         changed in place."""
         on_card = dev.type == "cuda" and route.kernel in (
-            "staged", "staged_stream", "stream")
+            "staged", "staged_stream", "stream", "wide")
         if (weight_dtype == torch.float32 and not stream_quant
                 and prec == "exact" and not on_card):
             return params, None
@@ -1048,7 +1394,8 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
 
     # the plan as the staged entry points read it, made once
     plan_arr = (_plan_array(plan)
-                if route.kernel in ("staged", "staged_stream") else None)
+                if route.kernel in ("staged", "staged_stream", "wide")
+                else None)
     kernel = route.cuda_kernel(prec)
     bound: Dict[str, object] = {}   # `bind`'s arguments, while they hold
 
@@ -1124,6 +1471,15 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
                                   y_state, n_valid, mode, dump, int(seed),
                                   prec)
         sched, stream = bnd["sched"], bnd["stream"]
+        if route.kernel == "wide":
+            if dev not in wide_bufs:
+                wide_bufs[dev] = (
+                    torch.empty(plan.scratch_floats, dtype=torch.float32,
+                                device=dev),
+                    torch.zeros(plan.ctas, dtype=torch.int32, device=dev))
+            return _launch_wide(cfg, plan_arr, view, built[0], *wide_bufs[dev],
+                                sched, t0, cond_pre, sel, ring, y_state,
+                                n_valid, mode, stream)
         if route.kernel == "staged_stream":
             return _launch_staged_stream(cfg, plan, plan_arr, view, built,
                                          sched, t0, cond_pre, sel, ring,

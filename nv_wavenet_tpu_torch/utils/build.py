@@ -41,7 +41,7 @@ BUILD_ROOT = os.path.join(os.path.dirname(PKG_DIR), "build",
 SOURCES = ("exact_math_kernels.cu", "ordered_matmul.cu", "persistent.cu",
            "staged_generate.cu", "generic_generate.cu",
            "staged_stream_generate.cu", "stream_generate.cu", "fused_chain.cu",
-           "fused_chain_first.cu", "probes.cu")
+           "fused_chain_first.cu", "probes.cu", "wide_generate.cu")
 PRECISION_SOURCES = ("persistent.cu", "staged_generate.cu",
                      "generic_generate.cu", "staged_stream_generate.cu",
                      "stream_generate.cu", "fused_chain.cu",

@@ -15,7 +15,9 @@ counters, and a Chrome trace of a region.
     as `trace`'s does;
   * `count(name, n)`, `counters()`: plain integers, always on (K5's
     row-steps, the data pipeline's featurising time, the collectives'
-    calls and bytes);
+    calls and bytes); `add_source(fn)` adds counters that a function reads
+    only when `counters()` is read (K1 card-wide's stamps, summed on the
+    card);
   * `trace(path)`: a `torch.profiler` region over every thread, written as
     a Chrome trace (chrome://tracing, Perfetto), the card's kernels
     included when there is one.
@@ -28,7 +30,7 @@ from __future__ import annotations
 
 import contextlib
 import os
-from typing import Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 import torch.autograd.profiler as _profiler
@@ -40,6 +42,7 @@ TRACE_PATH = os.path.join(_REPO, "build", "traces", "trace.json")
 
 _OFF = contextlib.nullcontext()
 _COUNTS: Dict[str, int] = {}
+_SOURCES: List[Callable[[], Dict[str, int]]] = []
 
 
 def span(name: str, id: Optional[int] = None):
@@ -56,9 +59,17 @@ def count(name: str, n: int) -> None:
     _COUNTS[name] = _COUNTS.get(name, 0) + n
 
 
+def add_source(fn: Callable[[], Dict[str, int]]) -> None:
+    """Counters that `fn()` returns, read each time `counters()` is."""
+    _SOURCES.append(fn)
+
+
 def counters() -> Dict[str, int]:
-    """A copy of every counter."""
-    return dict(_COUNTS)
+    """A copy of every counter, those of the sources included."""
+    out = dict(_COUNTS)
+    for fn in _SOURCES:
+        out.update(fn())
+    return out
 
 
 @contextlib.contextmanager

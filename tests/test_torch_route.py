@@ -86,16 +86,30 @@ def test_route_takes_the_generic_kernel_where_the_staged_plan_raises(
         cfg, prec, why):
     with pytest.raises(ValueError, match=why):
         tper.staged_plan(cfg, 4, prec)
+    # lockstep exact generation without a dump runs K1 card-wide where its
+    # plan holds (R = 512); K5, the dumps and the low precisions stay generic
+    try:
+        wide = tper.wide_plan(cfg, 4, prec)
+    except ValueError:
+        wide = None
+    assert (wide is not None) == (why == "Wprev")
     for ragged in (False, True):
         route = tper.generation_route(cfg, 4, prec, "sample", ragged)
-        assert route.kernel == "generic" and route.plan is None
         assert why in route.note
+        if wide is not None and not ragged:
+            assert route.kernel == "wide" and route.plan == wide
+            assert route.cuda_kernel(prec) is tper.WIDE_KERNELS[prec]
+            route = tper.generation_route(cfg, 4, prec, "sample", dump=True)
+        assert route.kernel == "generic" and route.plan is None
         kernel = route.cuda_kernel(prec)
         table = (tper.GENERIC_RAGGED_KERNELS if ragged
                  else tper.GENERIC_KERNELS)
         assert kernel is table[prec]
         assert kernel.source == tbuild.unit("generic_generate.cu", prec)
-    assert tper.generation_route(cfg, 4, prec, "argmax").kernel == "generic"
+    assert tper.generation_route(cfg, 4, prec, "argmax").kernel == (
+        "generic" if wide is None else "wide")
+    assert tper.generation_route(cfg, 4, prec, "argmax",
+                                 dump=True).kernel == "generic"
     # modes forced and prng stay on csrc/persistent.cu's K2 and K3, which
     # have no width limit, with the staged plan's error as the note
     for mode in ("forced", "prng"):
