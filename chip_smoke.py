@@ -472,7 +472,10 @@ F2_B, F2_T, F2_TIME_T = 4, 16, 64
 # 256, no embedding tanh), B=WIDE_B over WIDE_T steps in two chunks (the
 # second from WIDE_SPLIT) against the generic K1 and the plain version; the
 # wide kernel launched at the flagship's widths against the staged K1 and at
-# WIDE_SMALL (uneven slices) against its plain model; the step timed over
+# WIDE_SMALL (uneven slices, 12 CTAs: clusters of 4) against its plain
+# model; at WIDE_PRIME (131 CTAs, a prime grid: clusters of 1) against the
+# generic K1; WIDE_SOAK back-to-back launches of WIDE_T steps at the
+# published widths, each against the generic K1; the step timed over
 # WIDE_TIME_T steps (the generic K1's over WIDE_GENERIC_T), in turns
 WIDE_CFG = dict(num_layers=30, R=512, S=256, A=256, max_dilation=512,
                 tanh_embed=False)
@@ -480,6 +483,9 @@ WIDE_B, WIDE_T, WIDE_SPLIT = 16, 256, 128
 WIDE_TIME_T, WIDE_GENERIC_T = 256, 8
 WIDE_SMALL = dict(num_layers=3, R=12, S=20, A=32, max_dilation=2,
                   silence_bin=16, tanh_embed=False)
+WIDE_PRIME = dict(num_layers=3, R=524, S=256, A=256, max_dilation=4,
+                  tanh_embed=False)
+WIDE_PRIME_T, WIDE_SOAK = 32, 50
 K4_SMALL_T = 19   # K4 vs plain at TEST_CONFIG_MED: holds the 11 + 8 split
 # K6 (the collapsed chain): against its plain version at TEST_CONFIG_MED,
 # B=4, over 16 steps (the plain version costs ~1 s per 32 steps), in every
@@ -2119,17 +2125,27 @@ def check_wide(torch, np, persistent, cfg_lib, params_lib, tracing, dev,
                all_kernels) -> dict:
     """K1 card-wide (`csrc/wide_generate.cu`): (1) at WIDE_SMALL, uneven
     slices over its grid, against its plain model (`wide_model`) and the
-    generic K1 bit for bit; (2) at the flagship's widths against the staged
-    K1 bit for bit; (3) at the wide vocoder's published widths through the
-    route (`make_persistent_generator`: the wide kernel must launch, the
-    generic one not), over WIDE_T steps in two chunks, against the generic
-    K1 (y, ring bits, y_state) and `generate_plain` (y and y_state; the ring
-    within the ladder), in modes sample and argmax; (4) the step's time
-    against the generic K1's in turns, the stamps on against off in turns,
-    and the shares of the step the chains wait in the grid barriers and for
-    weight slices (`gen.wide.wait_cycles`, `gen.wide.stream_wait_cycles`
-    over `gen.wide.cta_cycles`)."""
-    res = {"mismatches": 0, "ring_err": 0.0, "runs": [], "launches": 0}
+    generic K1 bit for bit; (1b) at WIDE_PRIME, a grid of 131 CTAs, against
+    the generic K1 bit for bit; (2) at the flagship's widths against the
+    staged K1 bit for bit; (3) at the wide vocoder's published widths
+    through the route (`make_persistent_generator`: the wide kernel must
+    launch, the generic one not), over WIDE_T steps in two chunks, against
+    the generic K1 (y, ring bits, y_state) and `generate_plain` (y and
+    y_state; the ring within the ladder), in modes sample and argmax; (3b)
+    WIDE_SOAK back-to-back launches there, each against the generic K1's
+    sample run bit for bit (a racy barrier can pass one launch); (4) the
+    step's time against the generic K1's in turns, the stamps on against off
+    in turns, and the shares of the step the chains wait in the grid
+    barriers and for weight slices (`gen.wide.wait_cycles`,
+    `gen.wide.stream_wait_cycles` over `gen.wide.cta_cycles`).  In (1),
+    (1b), (3) and (3b) the counters must read 2L + 2 grid barriers a step
+    (`gen.wide.barriers`) and the launches' clusters (`gen.wide.clusters`)
+    of the size `cluster_of` allows the grid: 4 at WIDE_SMALL's 12 CTAs, 1
+    at WIDE_PRIME's 131, and at the published widths' 128 the most the card
+    holds (2 on an H100 SXM, which holds 15 clusters of 8 and 30 of 4 at one
+    CTA an SM)."""
+    res = {"mismatches": 0, "ring_err": 0.0, "runs": [], "launches": 0,
+           "clusters": {}}
     counts = lambda: {k.symbol: k.launches for k in all_kernels}  # noqa: E731
     wide_sym = persistent.WIDE_KERNELS["exact"].symbol
     gen_sym = persistent.GENERIC_KERNELS["exact"].symbol
@@ -2161,6 +2177,22 @@ def check_wide(torch, np, persistent, cfg_lib, params_lib, tracing, dev,
         torch.cuda.synchronize()
         return torch.cat(ys_out), ring, ys
 
+    def clusters(before, cfg, G, steps, allowed, label):
+        """The counters since `before`: 2L + 2 grid barriers over `steps`
+        steps, and launches of G CTAs in clusters of a size in `allowed`."""
+        after = tracing.counters()
+        nb, nc, nl = (after.get(k, 0) - before.get(k, 0) for k in (
+            "gen.wide.barriers", "gen.wide.clusters", "gen.wide.launches"))
+        n = G * nl // nc if nc else 0
+        ok = (nb == steps * (2 * cfg.num_layers + 2) and n in allowed
+              and nc * n == G * nl)
+        res["mismatches"] += int(not ok)
+        res["clusters"][label] = n
+        res["runs"].append(f"{label}: {nb} barriers over {steps} steps, "
+                           f"{nl} launches of {G} CTAs in {nc} clusters: "
+                           f"clusters of {n} (allowed {allowed}) ok {ok}")
+        log(f"[wide] {res['runs'][-1]}")
+
     # (1) uneven slices against the plain model and the generic K1
     cfg = cfg_lib.WaveNetConfig(**WIDE_SMALL)
     B, T = 3, 24
@@ -2170,6 +2202,7 @@ def check_wide(torch, np, persistent, cfg_lib, params_lib, tracing, dev,
     w = wide_launcher(torch, persistent, cfg, B, params, dev)
     plan = w.plan
     splits = ((0, 13), (13, T))
+    before = tracing.counters()
     for mode in ("sample", "argmax"):
         out_w = chunks(w, cfg, B, cp, sel, splits, mode)
         out_g = chunks(generic_k1(torch, persistent, cfg, params, dev), cfg,
@@ -2189,6 +2222,27 @@ def check_wide(torch, np, persistent, cfg_lib, params_lib, tracing, dev,
                            f"{sorted({b - a for a, b in zip(plan.rs, plan.rs[1:])})})"
                            f" vs generic and model: {m}")
         log(f"[wide] {res['runs'][-1]}")
+    clusters(before, cfg, plan.ctas, 2 * T, (4,), "small")
+    # (1b) a prime grid (clusters of one CTA: the flat barrier's arrivals)
+    # against the generic K1
+    cfg = cfg_lib.WaveNetConfig(**WIDE_PRIME)
+    B, T = WIDE_B, WIDE_PRIME_T
+    params = params_lib.canonical_to_torch(params_lib.to_canonical(
+        params_lib.random_reference_weights(cfg, seed=11), cfg), dev)
+    cp, sel = inputs(cfg, B, T, 11, params)
+    w = wide_launcher(torch, persistent, cfg, B, params, dev)
+    splits = ((0, 13), (13, T))
+    before = tracing.counters()
+    for mode in ("sample", "argmax"):
+        m = mism(chunks(w, cfg, B, cp, sel, splits, mode),
+                 chunks(generic_k1(torch, persistent, cfg, params, dev), cfg,
+                        B, cp, sel, splits, mode))
+        res["mismatches"] += m
+        res["runs"].append(f"prime grid {mode} ({w.plan.ctas} CTAs, R="
+                           f"{cfg.R}) vs generic K1 (y, ring bits, y_state): "
+                           f"{m}")
+        log(f"[wide] {res['runs'][-1]}")
+    clusters(before, cfg, w.plan.ctas, 2 * T, (1,), "prime")
     # (2) the flagship's widths against the staged K1
     cfg = cfg_lib.FLAGSHIP_CONFIG
     B, T = 16, 64
@@ -2211,6 +2265,8 @@ def check_wide(torch, np, persistent, cfg_lib, params_lib, tracing, dev,
         params_lib.random_reference_weights(cfg, seed=31), cfg), dev)
     cp, sel = inputs(cfg, B, T, 31, params)
     splits = ((0, WIDE_SPLIT), (WIDE_SPLIT, T))
+    G = persistent.wide_plan(cfg, B).ctas
+    before = tracing.counters()
     for mode in ("sample", "argmax"):
         gen = persistent.make_persistent_generator(cfg, B, mode=mode)
         if gen.route.kernel != "wide":
@@ -2226,6 +2282,8 @@ def check_wide(torch, np, persistent, cfg_lib, params_lib, tracing, dev,
         res["launches"] += n_w[wide_sym]
         out_g = chunks(generic_k1(torch, persistent, cfg, params, dev), cfg,
                        B, cp, sel, splits, mode)
+        if mode == "sample":
+            soak_ref = out_g
         ring, ys = fresh_state(torch, persistent, cfg, B, dev)
         out_p = persistent.generate_plain(cfg, params, 0, cp, sel, ring, ys,
                                           T, mode)
@@ -2242,6 +2300,29 @@ def check_wide(torch, np, persistent, cfg_lib, params_lib, tracing, dev,
                            f"y_state), vs plain {m_p} (y, y_state), ring max "
                            f"abs err {err:.3g} ok {ok}")
         log(f"[wide] {res['runs'][-1]}")
+    clusters(before, cfg, G, 2 * T, (8, 4, 2), "published")
+    # (3b) the soak: back-to-back launches from the silence state, each
+    # compared on the card with the generic K1's sample run, one sync at the
+    # end
+    w = wide_launcher(torch, persistent, cfg, B, params, dev)
+    ring0, ys0 = fresh_state(torch, persistent, cfg, B, dev)
+    ring, ys = torch.empty_like(ring0), torch.empty_like(ys0)
+    y_ref, ring_ref, ys_ref = soak_ref
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    before = tracing.counters()
+    for _ in range(WIDE_SOAK):
+        ring.copy_(ring0)
+        ys.copy_(ys0)
+        y = w(0, cp, sel, ring, ys, T)[0]
+        bad += ((y != y_ref).sum() + (ys != ys_ref).sum()
+                + (ring.view(torch.int32) != ring_ref.view(torch.int32)).sum())
+    torch.cuda.synchronize()
+    m = int(bad)
+    res["mismatches"] += m
+    res["runs"].append(f"soak: {WIDE_SOAK} back-to-back launches of {T} "
+                       f"steps vs generic K1 (y, ring bits, y_state): {m}")
+    log(f"[wide] {res['runs'][-1]}")
+    clusters(before, cfg, G, WIDE_SOAK * T, (8, 4, 2), "soak")
     # (4) times in turns: the wide step against the generic K1's, the
     # stamps on against off, and the chains' wait share
     plan = persistent.wide_plan(cfg, B)

@@ -72,11 +72,24 @@
 //     buffers suffice: a CTA can send stage d+1's x only once it holds
 //     every slice of stage d's, and each worker sends its slice after its
 //     reads.
+//
+// P6 barrier_probe_kernel<kForm, kPoller>: K grid barriers with no work
+//   between them, over a cooperative grid of one CTA an SM in clusters, so
+//   that a barrier's own cost shows apart from the skew between CTAs that
+//   K1 card-wide's stamps count in its waits.  Timed by
+//   tools/barrier_probe.py.  The forms: K1 card-wide's barrier
+//   (grid_barrier.cuh: every CTA adds its arrival to one count and polls
+//   it), and in two levels (a cluster's CTAs gather on their leader's
+//   mbarrier, one global arrival and one global poller a cluster).  kPoller
+//   adds a second waiting thread a CTA, in a warp of its own, that waits for
+//   every barrier as K1 card-wide's prev warps do: on the count (flat) or on
+//   a word of its CTA's shared memory (two levels).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "exact_math.cuh"
+#include "grid_barrier.cuh"
 #include "staged_common.cuh"
 #include "step_common.cuh"
 
@@ -89,12 +102,16 @@
 #define NVW_STAGE_STREAM nvw_stage_stream_fast
 #define NVW_STAGE_CLUSTER nvw_stage_cluster_fast
 #define NVW_STAGE_CLUSTER_FIT nvw_stage_cluster_fit_fast
+#define NVW_BARRIER_PROBE nvw_barrier_probe_fast
+#define NVW_BARRIER_PROBE_FIT nvw_barrier_probe_fit_fast
 #else
 #define NVW_FMA_PROBE nvw_fma_probe
 #define NVW_STAGE_CHAIN nvw_stage_chain
 #define NVW_STAGE_STREAM nvw_stage_stream
 #define NVW_STAGE_CLUSTER nvw_stage_cluster
 #define NVW_STAGE_CLUSTER_FIT nvw_stage_cluster_fit
+#define NVW_BARRIER_PROBE nvw_barrier_probe
+#define NVW_BARRIER_PROBE_FIT nvw_barrier_probe_fit
 #endif
 
 extern __shared__ __align__(128) unsigned char p5_smem[];
@@ -544,6 +561,177 @@ int launch_layout(const ChainArgs& a, int gate, int smem, void* stream, int* q) 
   return gate ? launch_np<kCluster, true>(a, smem, s, q) : launch_np<kCluster, false>(a, smem, s, q);
 }
 
+// ---- P6 ---------------------------------------------------------------------
+
+// the threads that sync before each arrival (K1 card-wide's chain at B=16),
+// and the dynamic shared memory that leaves one CTA an SM
+constexpr int kBarrierThreads = 128;
+constexpr int kBarrierSmem = 120 * 1024;
+// the forms (tools/barrier_probe.py FORMS): K1 card-wide's barrier
+// (grid_barrier.cuh), and the barrier in two levels below
+constexpr int kFlat = 0, kTwoLevel = 1;
+
+// The two-level form.  Barrier n: the arriving thread of each CTA arrives
+// on the "gather" mbarrier of its cluster's leader (rank 0) through
+// distributed shared memory, with release at cluster scope; the leader's
+// thread waits for its cluster's arrivals (acquire, cluster scope), adds one
+// arrival to the count with release at gpu scope, polls the count with
+// acquire loads until it reads n x (the grid's clusters), then writes n
+// into the `passed` word of every CTA of its cluster (a release fence at
+// cluster scope, then relaxed stores); every other waiting thread polls its
+// own CTA's `passed` with acquire loads at cluster scope.  So the count
+// takes G / (cluster size) arrivals and pollers a barrier, not G or 2G.
+struct TwoLevel {
+  uint64_t* gather;       // this CTA's mbarrier; the leader's gathers its cluster's arrivals
+  unsigned int* passed;   // this CTA's word: the last barrier the grid passed
+  uint32_t gather0;       // the leader's gather in the cluster's shared window
+  uint32_t ctas, rank;    // the cluster's CTAs, and this CTA's rank in it
+  unsigned int clusters;  // the grid's clusters
+};
+
+__device__ __forceinline__ TwoLevel two_level(uint64_t* gather, unsigned int* passed) {
+  TwoLevel g;
+  g.gather = gather;
+  g.passed = passed;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(g.ctas));
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(g.rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, 0;" : "=r"(g.gather0) : "r"(smem_addr(gather)));
+  g.clusters = gridDim.x / g.ctas;
+  return g;
+}
+
+// until the CTA's word reads n
+__device__ __forceinline__ void local_wait(const unsigned int* passed, unsigned int n) {
+  const long long start = clock64();
+  for (;;) {
+    unsigned int v;
+    asm volatile("ld.acquire.cluster.shared::cta.u32 %0, [%1];"
+                 : "=r"(v)
+                 : "r"(smem_addr(passed))
+                 : "memory");
+    if (v >= n) return;
+    if (clock64() - start > kBarrierTrapCycles) __trap();
+  }
+}
+
+__device__ __forceinline__ void two_level_sync(const TwoLevel& g, unsigned int* count,
+                                               unsigned int n) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(g.gather0)
+               : "memory");
+  if (g.rank != 0) {
+    local_wait(g.passed, n);
+    return;
+  }
+  // the cluster's arrivals complete the gather's phase n - 1
+  long long start = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.b32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(g.gather)), "r"((n - 1u) & 1u)
+        : "memory");
+    if (done) break;
+    if (clock64() - start > kBarrierTrapCycles) __trap();
+  }
+  grid_arrive(count);
+  start = clock64();
+  while (grid_count(count) < n * g.clusters) {
+    if (clock64() - start > kBarrierTrapCycles) __trap();
+  }
+  asm volatile("fence.acq_rel.cluster;" ::: "memory");
+  for (uint32_t r = 0; r < g.ctas; ++r) {
+    uint32_t dst;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+                 : "=r"(dst)
+                 : "r"(smem_addr(g.passed)), "r"(r));
+    asm volatile("st.relaxed.cluster.shared::cluster.u32 [%0], %1;" ::"r"(dst), "r"(n) : "memory");
+  }
+}
+
+template <int kForm, bool kPoller>
+__global__ void __launch_bounds__(kBarrierThreads + 32, 1)
+    barrier_probe_kernel(unsigned int* count, int K) {
+  __shared__ uint64_t gather;
+  __shared__ unsigned int passed;
+  const int tid = threadIdx.x;
+  const TwoLevel g = two_level(&gather, &passed);
+  if (tid == 0) {
+    bar_init(&gather, g.ctas);
+    passed = 0u;
+    bar_init_fence();
+  }
+  cluster_sync();
+  if (tid < kBarrierThreads) {
+    for (int n = 1; n <= K; ++n) {
+      named_sync(kChainBar, kBarrierThreads);
+      if (tid == 0) {
+        if (kForm == kTwoLevel) {
+          two_level_sync(g, count, (unsigned)n);
+        } else {
+          grid_arrive(count);
+          grid_wait(count, (unsigned)n);
+        }
+      }
+      named_sync(kChainBar, kBarrierThreads);
+    }
+  } else if (kPoller && tid == kBarrierThreads) {
+    for (int n = 1; n <= K; ++n) {
+      if (kForm == kFlat) {
+        grid_wait(count, (unsigned)n);
+      } else {
+        local_wait(&passed, (unsigned)n);
+      }
+    }
+  }
+  // no CTA leaves while a store to or an arrival on its shared memory may
+  // be in flight
+  cluster_sync();
+}
+
+// launches P6, or with `active` set only asks how many of its clusters the
+// card holds at once
+template <int kForm, bool kPoller>
+int launch_p6(unsigned int* count, int ctas, int cluster, int K, cudaStream_t stream,
+              int* active) {
+  auto kernel = barrier_probe_kernel<kForm, kPoller>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBarrierSmem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas);
+  cfg.blockDim = dim3(kBarrierThreads + (kPoller ? 32 : 0));
+  cfg.dynamicSmemBytes = kBarrierSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeCooperative;
+  attr[1].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int held = 0;
+  err = cudaOccupancyMaxActiveClusters(&held, kernel, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (active) {
+    *active = held;
+    return 0;
+  }
+  if (held * cluster < ctas) return (int)cudaErrorCooperativeLaunchTooLarge;
+  err = cudaMemsetAsync(count, 0, sizeof(unsigned int), stream);
+  if (err != cudaSuccess) return (int)err;
+  cfg.numAttrs = 2;
+  err = cudaLaunchKernelEx(&cfg, kernel, count, K);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -606,6 +794,31 @@ int NVW_STAGE_CLUSTER_FIT(int B, int R, int D, int G, int rows, int gate, int np
                           int smem_bytes, int* out) {
   const ChainArgs a{nullptr, nullptr, nullptr, B, R, D, 1, G, rows, np, ctas};
   return launch_layout<true>(a, gate, smem_bytes, nullptr, out);
+}
+
+// P6: K barriers over `ctas` CTAs (one an SM, all resident) in clusters of
+// `cluster`, in form `form` (kFlat, kTwoLevel), with a second
+// waiting thread a CTA or not; count: one unsigned int, zeroed on the
+// stream before the launch
+int NVW_BARRIER_PROBE(unsigned int* count, int ctas, int cluster, int K, int form,
+                      int poller, void* stream) {
+  if (ctas < 1 || cluster < 1 || cluster > 8 || ctas % cluster || K < 0 || form < 0 ||
+      form > kTwoLevel)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (form == kTwoLevel) {
+    return poller ? launch_p6<kTwoLevel, true>(count, ctas, cluster, K, s, nullptr)
+                  : launch_p6<kTwoLevel, false>(count, ctas, cluster, K, s, nullptr);
+  }
+  return poller ? launch_p6<kFlat, true>(count, ctas, cluster, K, s, nullptr)
+                : launch_p6<kFlat, false>(count, ctas, cluster, K, s, nullptr);
+}
+
+// how many clusters of `cluster` CTAs of P6 (with the second waiting
+// thread) the card holds at once, into *active; launches nothing
+int NVW_BARRIER_PROBE_FIT(int cluster, int* active) {
+  if (cluster < 1 || cluster > 8) return (int)cudaErrorInvalidValue;
+  return launch_p6<kTwoLevel, true>(nullptr, cluster, cluster, 0, nullptr, active);
 }
 
 }  // extern "C"

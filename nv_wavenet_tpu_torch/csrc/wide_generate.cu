@@ -28,7 +28,15 @@
 //     the chain, since the weights do not depend on the data: the prev ring
 //     (Wprev) and the chain ring (Wcur, rs_w, out_w, end_w).
 //   * Prev warps compute x_{t-d} Wprev of their columns off the chain, up
-//     to kLookahead layer-steps ahead, as K1's prev warps do.
+//     to kLookahead layer-steps ahead, as K1's prev warps do, but timed
+//     against the chain's grid barriers: on an H100 a barrier takes ~1 us
+//     from the last arrival to the first exit over an idle card, and up to
+//     ~2.3 us while its SMs' own copies are in flight.  So a layer-step's
+//     copy of x_{t-d} waits until the chain has passed the res/skip barrier
+//     kLookahead layer-steps back, and its products until the chain has
+//     arrived at the gate barrier one back, which they fill while the chain
+//     waits there; and the producer issues no slice of the chain ring while
+//     the chain waits in a barrier.
 //   * The activations pass between CTAs through global memory (L2): the
 //     gate h, the residual stream x, relu(skip), zs and za, each [B, width],
 //     written by their owners and read back by bulk copies multicast to the
@@ -36,7 +44,8 @@
 //     over the grid wherever the next product needs a whole vector: after
 //     each layer's gate and after its res/skip (2L), after zs and after za.
 //     Every CTA then runs the sampler for every row itself, so y needs no
-//     further barrier.
+//     further barrier.  The barrier is grid_barrier.cuh's: one count in
+//     global memory that every CTA's chain adds its arrival to and polls.
 //   * The FIFO ring is K1's [ring_size, B, R]: CTA c writes its pair slice
 //     of x_t into layer l's slot once every CTA has read x_{t-d} from it
 //     (after layer l's gate barrier).  t0 and n_valid as K1's.
@@ -54,6 +63,7 @@
 #include <atomic>
 
 #include "exact_math.cuh"
+#include "grid_barrier.cuh"
 #include "staged_common.cuh"
 
 namespace {
@@ -276,40 +286,19 @@ __device__ __forceinline__ void vector_wait(uint64_t* vbar, uint32_t& parity) {
   parity ^= 1u;
 }
 
-// ---- the grid barrier: a count of arrivals, zeroed before the launch ------
-// (cooperative groups' grid sync, split so that the count of a barrier is
-// its sequence number n times the grid): after the CTA's threads sync, one
-// thread adds its arrival with release semantics and polls the count with
-// acquire loads, then the threads sync again
-
-__device__ __forceinline__ unsigned int grid_count(const unsigned int* sync) {
-  unsigned int v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(sync) : "memory");
-  return v;
-}
-
-// Spin until barrier n has all its arrivals.  A barrier that never
-// completes traps after ~2^34 cycles (~10 s), so the launch fails instead
-// of hanging the card.
-__device__ __forceinline__ void grid_wait(const unsigned int* sync, unsigned int n) {
-  const unsigned int target = n * gridDim.x;
-  const long long start = clock64();
-  while (grid_count(sync) < target) {
-    if (clock64() - start > (1ll << 34)) __trap();
-  }
-}
-
-__device__ __forceinline__ void grid_arrive(unsigned int* sync) {
-  asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(sync) : "memory");
-}
-
+// ---- the grid barrier (grid_barrier.cuh) ----------------------------------
 // the chain's barrier number n: every chain thread's writes before it are
-// seen by every CTA's reads after it
-__device__ __forceinline__ void chain_barrier(const WideArgs& a, unsigned int n, int tid, int Tc) {
+// seen by every CTA's reads after it.  Thread 0 posts n in the CTA's words
+// `at` on arriving and `left` on leaving, by which the prev warps and the
+// producer time their work (no ordering rides on them).
+__device__ __forceinline__ void chain_barrier(const WideArgs& a, unsigned int n, int tid, int Tc,
+                                              unsigned int* at, unsigned int* left) {
   named_sync(kChainBar, Tc);
   if (tid == 0) {
+    *(volatile unsigned int*)at = n;
     grid_arrive(a.sync);
     grid_wait(a.sync, n);
+    *(volatile unsigned int*)left = n;
   }
   named_sync(kChainBar, Tc);
 }
@@ -317,6 +306,8 @@ __device__ __forceinline__ void chain_barrier(const WideArgs& a, unsigned int n,
 __global__ void __launch_bounds__(kWideThreads, 1)
     wide_generate_kernel(const __grid_constant__ WideArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
+  // the grid barriers the chain arrived at and left last
+  __shared__ unsigned int chain_at, chain_left;
   const int G = gridDim.x, c = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
   const int B = a.B, L = a.L, R = a.R, S = a.S, A = a.A, RS = R + S;
   const int Tc = a.chain_threads, Tp = a.prev_threads;
@@ -376,6 +367,8 @@ __global__ void __launch_bounds__(kWideThreads, 1)
       bar_init(zempty + s, 1);
     }
     bar_init(vbar, 1);
+    chain_at = 0u;
+    chain_left = 0u;
     bar_init_fence();
   }
   // every CTA's barriers initialised before any copy multicast to it
@@ -403,7 +396,10 @@ __global__ void __launch_bounds__(kWideThreads, 1)
     long long k = slot_i;
     while (__any_sync(0xffffffffu, k < total)) {
       bool issued = false;
-      if (k < total && bar_done(empty, (uint32_t)((k / stride) & 1) ^ 1u)) {
+      // the chain ring's slices wait while the chain waits in a barrier
+      const bool hold = is_chain && *(volatile unsigned int*)&chain_at >
+                                        *(volatile unsigned int*)&chain_left;
+      if (k < total && !hold && bar_done(empty, (uint32_t)((k / stride) & 1) ^ 1u)) {
         long long off;
         uint32_t bytes;
         if (is_chain) {
@@ -433,16 +429,32 @@ __global__ void __launch_bounds__(kWideThreads, 1)
     // ---- the prev warps: x_{t-d} Wprev of the CTA's pairs, ahead ---------
     const int p = tid - Tc;
     const int Gs = n_valid * L;
+    // grid barrier numbers of layer-step h = j L + l: its gate's, then its
+    // res/skip's
+    auto gate_of = [&](int h) { return (unsigned)(h / L) * NB + 2 * (h % L) + 1; };
     for (int g = 0; g < Gs; ++g) {
       const int j = g / L, l = g % L, s = g % NP;
       // layer l's slot holds x_{t-d} once step j - 1 passed its res/skip
-      // barrier (the slot is written after its gate barrier)
-      if (p == 0 && j > 0) grid_wait(a.sync, (unsigned)(j - 1) * NB + 2 * l + 2);
+      // barrier (the slot is written after its gate barrier); the copy also
+      // waits for layer-step g - NP's res/skip barrier, so that it lands
+      // while the chain sums, not while it waits in a barrier
+      unsigned need = j > 0 ? (unsigned)(j - 1) * NB + 2 * l + 2 : 0u;
+      if (g >= NP && gate_of(g - NP) + 1 > need) need = gate_of(g - NP) + 1;
+      if (p == 0 && need) grid_wait(a.sync, need);
       bar_wait(zempty + s, ((uint32_t)(g / NP) & 1u) ^ 1u);
       named_sync(kPrevBar, Tp);
       const long long t = a.t0 + j;
       const int off = __ldg(a.sched + l), d = __ldg(a.sched + L + l);
       load_rows(xp, xs, a.ring + (size_t)(off + (int)(t & (d - 1))) * B * R, R, B, R, p, Tp);
+      if (p == 0 && g > 0) {
+        // the products once the chain waits in layer-step g - 1's gate
+        // barrier
+        const long long start = clock64();
+        while (*(volatile unsigned int*)&chain_at < gate_of(g - 1)) {
+          __nanosleep(32);
+          if (clock64() - start > kBarrierTrapCycles) __trap();
+        }
+      }
       named_sync(kPrevBar, Tp);
       ring_wait(prev);
       const float4* w = reinterpret_cast<const float4*>(prev.slots + (size_t)prev.slot * a.prev_slot_bytes);
@@ -546,7 +558,8 @@ __global__ void __launch_bounds__(kWideThreads, 1)
       named_sync(kChainBar, Tc);
       if (tid == 0) bar_arrive(zempty + s);
       stamp(kStCur);
-      chain_barrier(a, ++nbar, tid, Tc);   // every gate, and every read of x_{t-d}
+      // every gate, and every read of x_{t-d}
+      chain_barrier(a, ++nbar, tid, Tc, &chain_at, &chain_left);
       stamp(kStBarrier);
 
       // the gate to every CTA of the cluster, then x_t into layer l's FIFO
@@ -589,7 +602,8 @@ __global__ void __launch_bounds__(kWideThreads, 1)
       ring_release(chain, lane);
       named_sync(kChainBar, Tc);
       stamp(kStRs);
-      chain_barrier(a, ++nbar, tid, Tc);   // the next layer's x (the last: skip)
+      // the next layer's x (the last: skip)
+      chain_barrier(a, ++nbar, tid, Tc, &chain_at, &chain_left);
       stamp(kStBarrier);
       if (l < L - 1) {
         vector_load(x, xs, a.xg, B, R, vbar, tid);
@@ -617,7 +631,7 @@ __global__ void __launch_bounds__(kWideThreads, 1)
     ring_release(chain, lane);
     named_sync(kChainBar, Tc);
     stamp(kStStepEnds);
-    chain_barrier(a, ++nbar, tid, Tc);
+    chain_barrier(a, ++nbar, tid, Tc, &chain_at, &chain_left);
     stamp(kStBarrier);
     vector_load(vec, as, a.zsg, B, A, vbar, tid);
     stamp(kStStepEnds);
@@ -634,7 +648,7 @@ __global__ void __launch_bounds__(kWideThreads, 1)
     ring_release(chain, lane);
     named_sync(kChainBar, Tc);
     stamp(kStStepEnds);
-    chain_barrier(a, ++nbar, tid, Tc);
+    chain_barrier(a, ++nbar, tid, Tc, &chain_at, &chain_left);
     stamp(kStBarrier);
 
     // the sampler of every row, in every CTA: za, then e = exp(za - max)
@@ -763,10 +777,10 @@ int cluster_of(int ctas, int threads, int smem, cudaStream_t stream, int* out) {
 // One launch of `plan[0]` CTAs, every one resident at once (plan: ctas,
 // chain threads, prev threads, chain slots, prev slots, slot bytes, prev
 // slot bytes, xs, ss, as, shared-memory bytes), in clusters
-// (`cluster_of`), cooperative.  The barrier's count is zeroed on the stream
-// first; the shared-memory attribute is set once per device (and again only
-// for a larger size).
-int launch(WideArgs& args, const long long* plan, void* stream) {
+// (`cluster_of`; its size into *cluster), cooperative.  The barrier's count
+// is zeroed on the stream first; the shared-memory attribute is set once
+// per device (and again only for a larger size).
+int launch(WideArgs& args, const long long* plan, void* stream, int* cluster) {
   const int ctas = (int)plan[0], smem = (int)plan[10];
   args.chain_threads = (int)plan[1];
   args.prev_threads = (int)plan[2];
@@ -798,6 +812,7 @@ int launch(WideArgs& args, const long long* plan, void* stream) {
     if (e) return e;
     if (dev < kMaxDevices) clusters[dev].store(key | n);
   }
+  *cluster = n;
   err = cudaMemsetAsync(args.sync, 0, sizeof(unsigned int), (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
@@ -828,13 +843,14 @@ const char* nvw_error_string(int err) { return cudaGetErrorString((cudaError_t)e
 // K1 card-wide: sel carries uniforms; mode 0 sample, 1 argmax.  scratch:
 // [B, R] x, [B, R] h, [B, S] relu(skip), [B, A] zs, [B, A] za, floats, in
 // that order; sync: one unsigned int; stats: kStats unsigned long longs or
-// null; plan: `WidePlan.kernel_args`
+// null; plan: `WidePlan.kernel_args`; cluster: the launch's cluster size in
+// CTAs, written on the host
 int nvw_wide_generate(const float* embed, const unsigned char* weights, const float* rs_b,
                       const float* out_b, const float* end_b, const float* cond, const float* sel,
                       const int* sched, float* ring, int* y_state, int* y, float* scratch,
                       unsigned int* sync, unsigned long long* stats, long long t0, int n_valid,
                       int B, int L, int R, int S, int A, int tanh_embed, int silence_bin,
-                      int mode, const long long* plan, void* stream) {
+                      int mode, const long long* plan, void* stream, int* cluster) {
   WideArgs args{};
   args.embed = embed;
   args.weights = weights;
@@ -864,7 +880,7 @@ int nvw_wide_generate(const float* embed, const unsigned char* weights, const fl
   args.tanh_embed = tanh_embed;
   args.silence_bin = silence_bin;
   args.mode = mode;
-  return launch(args, plan, stream);
+  return launch(args, plan, stream, cluster);
 }
 
 }  // extern "C"

@@ -134,7 +134,8 @@ GENERIC_RAGGED_KERNELS = _kernels(
 # product's columns for all rows, the weights streamed once a step
 WIDE_KERNELS = {"exact": build.CudaKernel(
     "wide_generate.cu", "nvw_wide_generate",
-    [_P] * 14 + [ctypes.c_longlong] + [_I] * 9 + [_P, _P])}
+    [_P] * 14 + [ctypes.c_longlong] + [_I] * 9 + [_P, _P,
+                                                   ctypes.POINTER(_I)])}
 # K4: K1's staged step on a stream in the storage's own bytes, every mode
 STAGED_STREAM_KERNELS = _kernels(
     "staged_stream_generate.cu", "nvw_staged_stream_generate",
@@ -1181,12 +1182,15 @@ def _launch_wide(cfg: WaveNetConfig, plan_arr, params: Dict[str, torch.Tensor],
                  sync: torch.Tensor, sched: torch.Tensor, t0: int,
                  cond_pre: torch.Tensor, sel: torch.Tensor, ring: torch.Tensor,
                  y_state: torch.Tensor, n_valid: int, mode: str, stream: int):
-    """K1 card-wide: `weights` the stream (`wide_stream`), `scratch` and
-    `sync` the activations between its CTAs and its barrier's flags (one
-    int a CTA; one of each a generator and card), `plan_arr` the plan's
-    array; outputs as
-    `_launch_kernel`.  Counts `gen.wide.launches` and `gen.wide.row_steps`,
-    and the launch is the span `nvw:gen.wide.launch`."""
+    """K1 card-wide: `weights` the stream (`wide_stream`), `scratch` the
+    activations between its CTAs, `sync` its grid barrier's count (one
+    unsigned int; one of each a generator and card), `plan_arr` the plan's
+    array; outputs as `_launch_kernel`.  Counts `gen.wide.launches`,
+    `gen.wide.row_steps`, `gen.wide.barriers` (the grid barriers every CTA
+    passes, 2L + 2 a step) and `gen.wide.clusters` (the clusters the launch
+    ran in, G over the cluster size the C side launched with: each vector
+    passed between CTAs leaves L2 once a cluster), and the launch is the
+    span `nvw:gen.wide.launch`."""
     T, _, B, _ = cond_pre.shape
     y = torch.zeros((T, B), dtype=torch.int32, device=cond_pre.device)
     if n_valid:
@@ -1194,6 +1198,7 @@ def _launch_wide(cfg: WaveNetConfig, plan_arr, params: Dict[str, torch.Tensor],
         tracing.count("gen.wide.row_steps", B * n_valid)
         stats = (_wide_stats(cond_pre.device).data_ptr() if WIDE_STAMPS
                  else None)
+        cluster = ctypes.c_int(0)
         with tracing.span("gen.wide.launch"):
             WIDE_KERNELS["exact"](
                 params["embed"].data_ptr(), weights.data_ptr(),
@@ -1203,7 +1208,10 @@ def _launch_wide(cfg: WaveNetConfig, plan_arr, params: Dict[str, torch.Tensor],
                 scratch.data_ptr(), sync.data_ptr(), stats, t0, n_valid, B,
                 cfg.num_layers, cfg.R, cfg.S, cfg.A, int(cfg.tanh_embed),
                 cfg.silence_bin, _MODE_IDS[mode], ctypes.addressof(plan_arr),
-                stream)
+                stream, ctypes.pointer(cluster))
+        tracing.count("gen.wide.barriers",
+                      n_valid * (2 * cfg.num_layers + 2))
+        tracing.count("gen.wide.clusters", plan_arr[0] // cluster.value)
     return y, ring, y_state
 
 
@@ -1476,7 +1484,7 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
                 wide_bufs[dev] = (
                     torch.empty(plan.scratch_floats, dtype=torch.float32,
                                 device=dev),
-                    torch.zeros(plan.ctas, dtype=torch.int32, device=dev))
+                    torch.zeros(1, dtype=torch.int32, device=dev))
             return _launch_wide(cfg, plan_arr, view, built[0], *wide_bufs[dev],
                                 sched, t0, cond_pre, sel, ring, y_state,
                                 n_valid, mode, stream)

@@ -1,5 +1,7 @@
 """The port's probes on the CPU: P1 (`tools/probe_exact_math.py`) and P5
-(`tools/probe_stage.py`), the plain versions of `csrc/probes.cu`.
+(`tools/probe_stage.py`), the plain versions of `csrc/probes.cu`, and P6's
+bookkeeping (`tools/barrier_probe.py`: its cases and the count each form
+leaves, which the tool checks after every launch on the card).
 
   * P5's plain version against the JAX probe's `make_chain` in interpret
     mode (B=2, R=8, D=3, T=2, gate on and off, groups 1 and 2): max abs
@@ -27,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from nv_wavenet_tpu_torch.tools import barrier_probe as bp
 from nv_wavenet_tpu_torch.tools import probe_exact_math as pem
 from nv_wavenet_tpu_torch.tools import probe_stage as ps
 
@@ -165,3 +168,38 @@ def test_measuring_needs_a_card():
         ps.measure("x", T=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         pem.main()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bp.measure("flat", 8, False, K=1)
+
+
+@pytest.mark.parametrize("form, cluster, want", [
+    ("flat", 8, 128 * 62), ("flat", 1, 128 * 62),
+    ("two_level", 8, 16 * 62), ("two_level", 4, 32 * 62),
+    ("two_level", 1, 128 * 62)])
+def test_barrier_probe_counts_one_arrival_a_cluster(form, cluster, want):
+    """The flat barrier's count takes every CTA's arrival, the two-level
+    one's one a cluster: at K1 card-wide's 128 CTAs, 16 a barrier in
+    clusters of 8."""
+    assert bp.expected_count(form, 62, 128, cluster) == want
+
+
+def test_barrier_probe_takes_k1_card_wides_cluster():
+    """cluster_of's rule: the most CTAs (8 at most) that divide the grid
+    and whose clusters the card holds all at once."""
+    held = {8: 15, 4: 32, 2: 66, 1: 132}
+    assert bp.cluster_sizes(128, held) == [4, 2, 1]
+    assert bp.cluster_sizes(120, held) == [8, 4, 2, 1]
+    assert bp.cluster_sizes(12, held) == [4, 2, 1]
+    assert bp.cluster_sizes(131, held) == [1]
+    with pytest.raises(ValueError, match="holds no grid"):
+        bp.cluster_sizes(133, held)
+
+
+def test_barrier_probe_cases():
+    assert bp.cases([8, 4, 1]) == [
+        ("flat", 8, False), ("flat", 8, True),
+        ("two_level", 8, False), ("two_level", 8, True),
+        ("two_level", 4, False), ("two_level", 4, True),
+        ("two_level", 1, False), ("two_level", 1, True)]
+    with pytest.raises(ValueError, match="form"):
+        bp.expected_count("tree", 1, 8, 8)

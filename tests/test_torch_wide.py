@@ -17,8 +17,10 @@
 * The benchmark's wide reference (`benchmark/reference/wide_wavenet_ref.py`)
   agrees with the port's plain path without the embedding tanh: every
   selector inside its interval, in blocks of any size.
-* The counters: the launch's host counters and span, and the card's stamps
-  read through `tracing.counters()` only when it is read.
+* The counters: the launch's host counters (its row-steps, grid barriers and
+  clusters) and span, and the card's stamps read through
+  `tracing.counters()` only when it is read; the A/B tool's call of an
+  older tree's entry point.
 * The engine folds cond + dil_b into the stale fold's storage (the wide
   cell's 32 GB prefold, freed and allocated anew, found no room on the card).
 """
@@ -222,13 +224,16 @@ def test_wide_reference_agrees_with_the_port_without_tanh(block):
 
 
 class _Stub:
-    """A kernel that records its arguments (no card here)."""
+    """A kernel that records its arguments and reports the launch's cluster
+    size as the C side does (no card here)."""
 
-    def __init__(self):
+    def __init__(self, cluster=1):
         self.calls = []
+        self.cluster = cluster
 
     def __call__(self, *args):
         self.calls.append(args)
+        args[-1].contents.value = self.cluster
 
 
 def test_the_launch_counts_its_row_steps_and_opens_its_span(monkeypatch):
@@ -267,6 +272,47 @@ def test_the_launch_counts_its_row_steps_and_opens_its_span(monkeypatch):
     tper._launch_wide(cfg, plan_arr, params, torch.zeros(4), scratch, sync,
                       sched, 0, cond, sel, ring, y_state, 2, "argmax", 0)
     assert stub.calls[-1][13] is None and stub.calls[-1][23] == 1
+
+
+@pytest.mark.parametrize("cluster", [8, 4, 1])
+def test_the_launch_counts_its_barriers_and_clusters(monkeypatch, cluster):
+    """2L + 2 grid barriers a step, and the clusters a launch ran in: G over
+    the cluster size the launch reports; a call of no steps counts
+    nothing."""
+    cfg, batch = SMALL[1][0], SMALL[1][1]
+    plan = tper.wide_plan(cfg, batch, sms=8)
+    assert plan.ctas == 8
+    monkeypatch.setitem(tper.WIDE_KERNELS, "exact", _Stub(cluster))
+    monkeypatch.setattr(tper, "_WIDE_STATS", {})
+    cond, sel = _inputs(cfg, batch, 9, seed=1)
+    ring, y_state = _fresh(cfg, batch, "exact")
+    plan_arr = tper._plan_array(plan)
+    keys = ("gen.wide.barriers", "gen.wide.clusters")
+    for n in (9, 0):
+        before = tracing.counters()
+        tper._launch_wide(cfg, plan_arr, _params(cfg), torch.zeros(4),
+                          torch.empty(plan.scratch_floats),
+                          torch.zeros(1, dtype=torch.int32),
+                          tper.fifo_schedule(cfg, "cpu"), 0, cond, sel, ring,
+                          y_state, n, "sample", 0)
+        after = tracing.counters()
+        got = [after.get(k, 0) - before.get(k, 0) for k in keys]
+        assert got == ([n * (2 * cfg.num_layers + 2), plan.ctas // cluster]
+                       if n else [0, 0])
+
+
+def test_the_ab_tool_calls_each_tree_with_its_own_arguments():
+    """tools/wide_ab.py cuts this tree's arguments to the other tree's entry
+    point: this tree's has one a ctypes argument type, an entry point
+    without the trailing cluster-size pointer one fewer."""
+    import pathlib
+    from nv_wavenet_tpu_torch.tools import wide_ab
+    from nv_wavenet_tpu_torch.utils import build
+    text = (pathlib.Path(build.CSRC_DIR) / "wide_generate.cu").read_text()
+    n = len(tper.WIDE_KERNELS["exact"].argtypes)
+    assert wide_ab.entry_arity(text) == n
+    older = text.replace(", void* stream, int* cluster)", ", void* stream)")
+    assert older != text and wide_ab.entry_arity(older) == n - 1
 
 
 def test_the_cards_stamps_are_read_with_the_counters(monkeypatch):
