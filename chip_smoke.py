@@ -101,9 +101,11 @@ in order; any failure exits non-zero:
  10. K2 and K3 at the flagship (the staged step: the staged K4 on K1's own
      stream, ops/persistent.py::generation_route): vs plain over 16 steps
      of request 1 (K2 forcing its samples), each timed over a 256-step
-     launch; then in each precision against csrc/persistent.cu's K2 and K3
-     (named by route=) over 2048 steps, bit for bit in y, p_seq, ring and
-     y_state, each launching its kernel alone, both timed
+     launch; then in each precision against the first K4's forced and
+     prng (csrc/stream_generate.cu in K1's storage, launched directly: the
+     route takes it only where the staged plan raises) over 2048 steps, bit
+     for bit in y, p_seq, ring and y_state, each launching its kernel
+     alone, both timed
  11. scoring at full width: counts set to 0 just before and read just
      after; request 1's window (16 x 8192 samples) scored from silence by
      `WaveNetInfer.score` (the time-parallel scorer: K7's gate, res/skip
@@ -111,17 +113,17 @@ in order; any failure exits non-zero:
      symbols: p_seq, the final ring and y_state bit-equal; both timed;
      `scoring.score_teacher_forced_kernel` (K2) and
      `score_teacher_forced_parallel` on the same audio, bits per sample
-     within 1e-5; K2 must launch on the staged step, csrc/persistent.cu
-     not; then one scorer pass on counts of its own (L gate, L
+     within 1e-5; K2 must launch on the staged step, the first K4 and the
+     generic kernel not; then one scorer pass on counts of its own (L gate, L
      res/skip, 2 product, 1 K0a, 1 K0c launches); it is traced in phase 33
  12. handoff: request 1 fed in two halves equals its run; then the first
      half scored and the second fed: 0 mismatches, and the half-window
      p_seq equals the full window's first half bit for bit
  13. prng at full width: counts set to 0 just before and read just after;
      one request of 16 x 8192 samples through run_chunks(256, mode="prng"),
-     its time per step beside K1's; K3 on the staged step must launch,
-     csrc/persistent.cu's not
- 14. K4 (weight streaming; the staged K4 of csrc/staged_stream_generate.cu
+     its time per step beside K1's; K3 on the staged step must launch, the
+     first K4 and the generic kernel not
+ 14. K4 (weight streaming; the staged K4 of csrc/staged_generate.cu
      wherever its plan holds) vs plain, TEST_CONFIG_MED, B=4, T=19, in each
      storage (fp32, bf16, int8) and mode (sample, argmax with the dump,
      forced, prng): 0 integer mismatches, ring, p_seq and dumps within the
@@ -150,17 +152,20 @@ in order; any failure exits non-zero:
      request of 256 on counts of its own (the staged K4 alone)
  17b. the geometries the staged plan rejects (fault F2): A=2048 and R=512
      (2 layers) in each precision, R=9 in bf16: K1 (sample; argmax with
-     the dump) and K5 (one ragged tick) against their plain versions, each
-     on counts of its own (the route's generic kernel launched once, the
+     the dump), K5 (one ragged tick), K2 and K3 (forced and prng: their
+     route is the first K4 in K1's storage) against their plain versions,
+     each on counts of its own (the route's kernel launched once, the
      staged one not; 0 mismatches in y and y_state in the case's own
-     precision, the others as phase 23); at each of them (fault F3 at
-     R=512 and R=9: the first K4's general instance) the first K4 in each
-     storage and precision the case runs, mode sample against the generic
-     K1 and modes forced and prng against csrc/persistent.cu's K2 and K3
-     (their route there), all on the storage's values, bit for bit (y,
-     ring, y_state, p_seq), each launching alone; a MANYBLOCK request per
-     storage at A=2048 and R=512 (the first K4 launched, the staged K4
-     not); each kernel timed at A=2048
+     precision, forced p_seq within 1e-6, the others as phase 23); at each
+     of them (fault F3 at R=512 and R=9: the first K4's general instance)
+     the first K4 in each storage and precision the case runs, mode sample
+     against the generic K1 and modes forced and prng against the generic
+     kernel's K2 and K3, all on the storage's values, bit for bit (y, ring,
+     y_state, p_seq), each launching alone; a MANYBLOCK request per storage
+     at A=2048 and R=512 (the first K4 launched, the staged K4 not); each
+     kernel timed at A=2048; then at GENERIC_ONLY_CFG, where the first K4's
+     plan raises too, K2 and K3 on the generic kernel (their route) against
+     their plain versions in the exact precision
  18. score -> feed under MANYBLOCK int8 (fault R9 of the JAX engine): score
      the first half of a 2048-step flagship window, feed the second: equal
      to one int8 generation, and the scored ring equal to the generated one
@@ -222,7 +227,8 @@ in order; any failure exits non-zero:
      read just after; the main path's 3 requests, a prng and a forced
      request of 1024 (K1 of that precision must launch, exact K1 not; the
      prng and the forced request on the staged step of that precision, on
-     counts of their own, csrc/persistent.cu not), kHz per utterance
+     counts of their own, the first K4 and the generic kernel not), kHz
+     per utterance
      beside K1-exact's; request 1's first 8 samples
      against the plain version (>= 99% equal); one MANYBLOCK request of
      each precision on its own counts (K4 of that precision must launch)
@@ -336,7 +342,7 @@ in order; any failure exits non-zero:
      K3 (the staged step): the prng request; K4: the MANYBLOCK main path;
      K6: the latency-tier main path; each fast and bf16 instance: its
      phase 25 or 26 path; the generic K1/K5, the first K4 and
-     csrc/persistent.cu's K2/K3: phase 17b; the first K6: phase 22b; P1,
+     the generic K2/K3: phase 17b; the first K6: phase 22b; P1,
      P5: the probe phases), its
      time, the
      plain version's, the least time the card could take for the same work
@@ -459,14 +465,17 @@ F2_CASES = (("A=2048", dict(num_layers=2, R=64, S=256, A=2048,
             ("R=9", dict(num_layers=2, R=9, S=16, A=32, max_dilation=2,
                          silence_bin=16), "bf16"))
 F2_PRECISIONS = ("exact", "fast", "bf16")
-# K2 and K3 on the staged step (generation_route) against csrc/persistent.cu's
-# K2 and K3 at the flagship, bit for bit, over K2K3_T steps in each precision
+# K2 and K3 on the staged step (generation_route) against the first K4's at
+# the flagship, bit for bit, over K2K3_T steps in each precision
 K2K3_T = 2048
 # the first K6 alone: a geometry the cluster plan rejects (R not a multiple
 # of 16) and the first K6 runs, B=FIRST_K6_B over FIRST_K6_T steps
 FIRST_K6_CFG = dict(num_layers=6, R=40, S=128, A=256, max_dilation=8)
 FIRST_K6_B, FIRST_K6_T = 4, 16
 F2_B, F2_T, F2_TIME_T = 4, 16, 64
+# a geometry where the staged plan and the first K4's raise (its rows of
+# rs_w, 16385 wide, leave no room for two stages): K2/K3 on the generic kernel
+GENERIC_ONLY_CFG = dict(num_layers=2, R=1, S=16384, A=2560, max_dilation=2)
 # K1 card-wide (phase 17c): the wide vocoder's published widths
 # (kan-bayashi's WaveNet, ESPnet's wavenet.py: 30 layers, R = 512, S = A =
 # 256, no embedding tanh), B=WIDE_B over WIDE_T steps in two chunks (the
@@ -1816,7 +1825,7 @@ def check_config4(torch, np, persistent, tsg, cfg_lib, params_lib,
     res["manyblock_khz_per_utt"] = n / (time.perf_counter() - t) / 1e3
     res["manyblock_launches"] = {k.symbol: k.launches for k in all_kernels
                                  if k.launches}
-    want = persistent.STAGED_STREAM_KERNELS["exact"].symbol
+    want = persistent.PERSISTENT_KERNELS["exact"].symbol
     if set(res["manyblock_launches"]) != {want}:
         fail(f"the config 4 MANYBLOCK request did not run on the staged K4 "
              f"alone: {res['manyblock_launches']}")
@@ -1836,15 +1845,18 @@ def check_fallbacks(torch, np, persistent, tsg, cfg_lib, params_lib,
                     WaveNetInfer, Impl, dev, all_kernels) -> dict:
     """The geometries the staged plan rejects (fault F2 of ROADMAP.md):
     at each of F2_CASES, in each of its precisions, K1 (sample; argmax with
-    the dump) and K5 (one ragged tick) against their plain versions on the
-    card, each on counts of its own: the route's generic kernel must launch
-    once and the staged one not; y and y_state exact in the case's own
-    precision (the ring within the ladder; the other precisions as
-    lowp_compare).  Then at A = 2048, where the staged K4's plan raises
+    the dump), K5 (one ragged tick), K2 and K3 (forced and prng, routed to
+    the first K4) against their plain versions on the card, each on counts
+    of its own: the route's kernel must launch once and the staged one
+    not; y and y_state exact in the case's own precision (the ring within
+    the ladder, forced p_seq within 1e-6; the other precisions as
+    lowp_compare).  Then at each case, where the staged K4's plan raises
     too: the first K4 in every storage and precision against the generic
-    K1 fed the storage's values, bit for bit in y, ring and y_state, and
-    one MANYBLOCK request per storage (the first K4 must launch, the staged
-    K4 not).  Each kernel timed at its case (F2_TIME_T steps, B=F2_B)."""
+    kernel (K1, K2, K3) fed the storage's values, bit for bit in y, ring,
+    y_state and p_seq, and one MANYBLOCK request per storage (the first K4
+    must launch, the staged K4 not).  Each kernel timed at its case
+    (F2_TIME_T steps, B=F2_B).  Last, K2 and K3 on the generic kernel at
+    GENERIC_ONLY_CFG (`check_generic_only`)."""
     res = {"mismatches": 0, "ring_err": 0.0, "ok": True, "launches": {},
            "ms": {}, "plain_ms": {}, "bound": {}, "runs": []}
     B, T = F2_B, F2_T
@@ -1866,6 +1878,8 @@ def check_fallbacks(torch, np, persistent, tsg, cfg_lib, params_lib,
         cpn, seln = cp[:T].contiguous(), sel[:T].contiguous()
         t0_row = torch.tensor([0, 5, 2, 9], dtype=torch.int64)
         nv_row = torch.tensor([T, 0, 7, 3], dtype=torch.int32)
+        symn = torch.randint(0, cfg.A, (T, B), device=dev, generator=torch.
+                             Generator(device=dev).manual_seed(22)).float()
         for prec in F2_PRECISIONS if label != "R=9" else (own,):
             kw = prec_kw(torch, prec)
             view = tsg.product_view(params, prec)
@@ -1876,22 +1890,30 @@ def check_fallbacks(torch, np, persistent, tsg, cfg_lib, params_lib,
                                    device=dev))
             for mode, dump, ragged in (("sample", False, False),
                                        ("argmax", True, False),
-                                       ("sample", False, True)):
+                                       ("sample", False, True),
+                                       ("forced", False, False),
+                                       ("prng", False, False)):
                 gen = persistent.make_persistent_generator(
                     cfg, B, mode=mode, dump=dump, ragged=ragged, **kw)
                 route = gen.route
                 # lockstep exact generation without a dump at R = 512 runs
-                # K1 card-wide (phase 17c), the rest the generic kernel
-                want = ("wide" if label == "R=512" and prec == "exact"
-                        and not (dump or ragged) else "generic")
-                if route.kernel != want:
-                    fail(f"F2 {label} {prec}: routed to {route.kernel}, not "
-                         f"{want}")
+                # K1 card-wide (phase 17c), K2 and K3 the first K4 in K1's
+                # storage, the rest the generic kernel
+                scored = mode in ("forced", "prng")
+                want = ("stream" if scored else "wide" if label == "R=512"
+                        and prec == "exact" and not (dump or ragged)
+                        else "generic")
+                if route.kernel != want or scored and (
+                        route.plan.storage != persistent.staged_storage(prec)):
+                    fail(f"F2 {label} {prec} {mode}: routed to "
+                         f"{route.kernel}, not {want}")
+                s_in = symn if mode == "forced" else seln
                 zero()
                 if ragged:
                     out_k = gen(params, t0_row, cpn, seln, *fresh(), nv_row)
                 else:
-                    out_k = gen(params, 0, cpn, seln, *fresh())
+                    out_k = gen(params, 0, cpn, s_in, *fresh(),
+                                seed=PRNG_SEED)
                 torch.cuda.synchronize()
                 n_l = counts()
                 sym = route.cuda_kernel(prec).symbol
@@ -1900,12 +1922,14 @@ def check_fallbacks(torch, np, persistent, tsg, cfg_lib, params_lib,
                 if n_l[sym] != 1 or n_l[staged] or sum(n_l.values()) != 1:
                     fail(f"F2 {label} {prec}: the route's {sym} did not "
                          f"launch alone: {n_l}")
-                key = (f"{'K5' if ragged else 'K1'} {prec}" if want == "generic"
-                       else "K1 wide")
+                key = {"generic": f"{'K5' if ragged else 'K1'} {prec}",
+                       "wide": "K1 wide",
+                       "stream": f"K4 first {prec}"}[want]
                 res["launches"][key] = res["launches"].get(key, 0) + 1
                 out_p = persistent.generate_plain(
-                    cfg, view, t0_row if ragged else 0, cpn, seln, *fresh(),
-                    nv_row if ragged else T, mode=mode, dump=dump, prec=prec)
+                    cfg, view, t0_row if ragged else 0, cpn, s_in, *fresh(),
+                    nv_row if ragged else T, mode=mode, dump=dump,
+                    seed=PRNG_SEED, prec=prec)
                 torch.cuda.synchronize()
                 if prec == own:
                     mism = (int((out_k[0] != out_p[0]).sum())
@@ -1914,6 +1938,8 @@ def check_fallbacks(torch, np, persistent, tsg, cfg_lib, params_lib,
                                      .abs().max())
                     ok = rel_close(out_p[1].float().cpu(),
                                    out_k[1].float().cpu(), 1e-2, 3e-4)
+                    if mode == "forced":
+                        ok &= float((out_k[3] - out_p[3]).abs().max()) <= 1e-6
                 else:
                     r = lowp_compare(torch, np, out_k, out_p, mode, dump)
                     mism, ring_err, ok = 0, r["ring_err"], r["ok"]
@@ -1954,8 +1980,9 @@ def check_fallbacks(torch, np, persistent, tsg, cfg_lib, params_lib,
         # the first K4 (the staged K4's plan raises at every F2 geometry; at
         # R = 512 and R = 9 in bf16 its general instance, fault F3) in every
         # storage and precision the case runs: mode sample against the
-        # generic K1, forced and prng against csrc/persistent.cu's K2 and K3
-        # (their route there), all fed the storage's values, bit for bit
+        # route's K1 (generic or card-wide), forced and prng against the
+        # generic kernel's K2 and K3, all fed the storage's values, bit for
+        # bit
         precs = F2_PRECISIONS if label != "R=9" else (own,)
         for prec in precs:
             kw = prec_kw(torch, prec)
@@ -1978,24 +2005,37 @@ def check_fallbacks(torch, np, persistent, tsg, cfg_lib, params_lib,
                             label != "A=2048") != g4.route.plan.general:
                         fail(f"{label} MANYBLOCK {name} {prec} {mode}: routed "
                              f"to {g4.route.kernel}")
-                    g1 = persistent.make_persistent_generator(cfg, B,
-                                                              mode=mode, **kw)
-                    want1 = {"sample": "wide" if label == "R=512"
-                             and prec == "exact" else "generic",
-                             "forced": "forced", "prng": "prng"}[mode]
-                    if g1.route.kernel != want1:
-                        fail(f"{label} {prec} {mode}: routed to "
-                             f"{g1.route.kernel}, not {want1}")
+                    if mode == "sample":
+                        g1 = persistent.make_persistent_generator(
+                            cfg, B, mode=mode, **kw)
+                        want1 = ("wide" if label == "R=512"
+                                 and prec == "exact" else "generic")
+                        if g1.route.kernel != want1:
+                            fail(f"{label} {prec} {mode}: routed to "
+                                 f"{g1.route.kernel}, not {want1}")
+                        sym1 = g1.route.cuda_kernel(prec).symbol
+
+                        def run1(r_, y_):
+                            return g1(sview, 0, scp, s_in, r_, y_)
+                    else:
+                        want1 = "generic"
+                        gk = generic_k1(torch, persistent, cfg,
+                                        tsg.product_view(sview, prec), dev,
+                                        prec)
+                        sym1 = persistent.GENERIC_KERNELS[prec].symbol
+
+                        def run1(r_, y_):
+                            return gk(0, scp, s_in, r_, y_, F2_TIME_T, mode,
+                                      PRNG_SEED)
                     zero()
                     o4 = g4(params, 0, scp, s_in, *fresh(), seed=PRNG_SEED)
                     torch.cuda.synchronize()
                     n_l = counts()
                     zero()
-                    o1 = g1(sview, 0, scp, s_in, *fresh(), seed=PRNG_SEED)
+                    o1 = run1(*fresh())
                     torch.cuda.synchronize()
                     n_1 = counts()
                     sym = persistent.STREAM_KERNELS[prec].symbol
-                    sym1 = g1.route.cuda_kernel(prec).symbol
                     if (n_l[sym] != 1 or sum(n_l.values()) != 1
                             or n_1[sym1] != 1 or sum(n_1.values()) != 1):
                         fail(f"{label} MANYBLOCK {name} {prec} {mode}: {sym} "
@@ -2004,7 +2044,8 @@ def check_fallbacks(torch, np, persistent, tsg, cfg_lib, params_lib,
                     key = f"K4 first {prec}"
                     res["launches"][key] = res["launches"].get(key, 0) + 1
                     if mode != "sample":
-                        k1 = f"{'K2' if mode == 'forced' else 'K3'} first {prec}"
+                        k1 = (f"{'K2' if mode == 'forced' else 'K3'} generic "
+                              f"{prec}")
                         res["launches"][k1] = res["launches"].get(k1, 0) + 1
                     mism = (int((o4[0] != o1[0]).sum())
                             + bit_mismatches(torch, o4[1].float(),
@@ -2016,7 +2057,7 @@ def check_fallbacks(torch, np, persistent, tsg, cfg_lib, params_lib,
                     res["runs"].append(f"first K4 {label} {name} {prec} "
                                        f"{mode} vs {want1}: {mism}")
                     log(f"[F2] {label} first K4 {name} {prec} {mode} vs "
-                        f"{g1.route.kernel} on the storage's values over "
+                        f"{want1} on the storage's values over "
                         f"{F2_TIME_T} steps: {mism} mismatches (y, ring bits, "
                         f"y_state{', p_seq bits' if mode == 'forced' else ''})")
                     if (label == F2_CASES[0][0] and mode == "sample"
@@ -2041,12 +2082,12 @@ def check_fallbacks(torch, np, persistent, tsg, cfg_lib, params_lib,
                     if (label == F2_CASES[0][0] and mode != "sample"
                             and name == ("fp32" if prec == "exact"
                                          else "bf16")):
-                        # persistent.cu's K2 / K3 timed at their fallback
-                        k1 = f"{'K2' if mode == 'forced' else 'K3'} first {prec}"
-                        res["ms"][k1] = time_launch_ms(
-                            torch, np, lambda r_, y_: g1(
-                                sview, 0, scp, s_in, r_, y_, seed=PRNG_SEED),
-                            fresh, reps=2)
+                        # the generic kernel's K2 / K3 timed here (their
+                        # route only where the first K4's plan raises too)
+                        k1 = (f"{'K2' if mode == 'forced' else 'K3'} generic "
+                              f"{prec}")
+                        res["ms"][k1] = time_launch_ms(torch, np, run1, fresh,
+                                                       reps=2)
                         st = fresh()
                         torch.cuda.synchronize()
                         t = time.perf_counter()
@@ -2080,13 +2121,65 @@ def check_fallbacks(torch, np, persistent, tsg, cfg_lib, params_lib,
             n_l = counts()
             eprec = "exact"
             sym = persistent.STREAM_KERNELS[eprec].symbol
-            if (not n_l[sym] or n_l[persistent.STAGED_STREAM_KERNELS[
+            if (not n_l[sym] or n_l[persistent.PERSISTENT_KERNELS[
                     eprec].symbol] or y.shape != (B, T)):
                 fail(f"the {label} MANYBLOCK request ({name}) did not run on "
                      f"the first K4 alone: {n_l}")
             res["launches"][f"K4 first {eprec}"] += n_l[sym]
             log(f"[F2] {label} MANYBLOCK {name} request of {B} x {T}: the "
                 f"first K4 launched {n_l[sym]} time(s), the staged K4 none")
+    # K2 and K3 where the first K4's plan raises too: the generic kernel
+    # against the plain version, the weights drawn on the card.  Exact only:
+    # there the plain version sums in the kernel's order; in fast and bf16
+    # its cuBLAS order over S = 16384 terms flips bf16 roundings of zs, which
+    # LOWP_TV is too tight to allow, and the generic K2/K3 of those
+    # precisions are held bit for bit against the first K4's above
+    cfg = cfg_lib.WaveNetConfig(**GENERIC_ONLY_CFG)
+    g = torch.Generator(device=dev)
+    g.manual_seed(24)
+    params = {k: (torch.rand(shape, generator=g, device=dev) - 0.5)
+              / max(1, shape[-2] if len(shape) > 1 else 1) ** 0.5
+              for k, shape in params_lib.canonical_shapes(
+                  cfg.num_layers, cfg.R, cfg.S, cfg.A).items()}
+    cond = torch.rand((T, cfg.num_layers, B, 2 * cfg.R), generator=g,
+                      device=dev) - 0.5
+    cp = (cond + params["dil_b"][None, :, None, :]).contiguous()
+    sel = torch.rand((T, B), generator=g, device=dev)
+    sym_in = torch.randint(0, cfg.A, (T, B), generator=g,
+                           device=dev).to(torch.float32)
+    sym = persistent.GENERIC_KERNELS["exact"].symbol
+
+    def fresh():
+        return fresh_state(torch, persistent, cfg, B, dev)
+    for mode in ("forced", "prng"):
+        gen = persistent.make_persistent_generator(cfg, B, mode=mode)
+        if gen.route.kernel != "generic":
+            fail(f"generic-only {mode}: routed to {gen.route.kernel}")
+        s_in = sym_in if mode == "forced" else sel
+        zero()
+        out_k = gen(params, 0, cp, s_in, *fresh(), seed=PRNG_SEED)
+        torch.cuda.synchronize()
+        n_l = counts()
+        if n_l[sym] != 1 or sum(n_l.values()) != 1:
+            fail(f"generic-only {mode}: {sym} did not launch alone: {n_l}")
+        key = f"{'K2' if mode == 'forced' else 'K3'} generic exact"
+        res["launches"][key] = res["launches"].get(key, 0) + 1
+        out_p = persistent.generate_plain(cfg, params, 0, cp, s_in, *fresh(),
+                                          T, mode=mode, seed=PRNG_SEED)
+        torch.cuda.synchronize()
+        mism = (int((out_k[0] != out_p[0]).sum())
+                + int(not torch.equal(out_k[2], out_p[2])))
+        ring_err = float((out_k[1] - out_p[1]).abs().max())
+        ok = rel_close(out_p[1].cpu(), out_k[1].cpu(), 1e-2, 3e-4)
+        if mode == "forced":
+            ok &= float((out_k[3] - out_p[3]).abs().max()) <= 1e-6
+        res["mismatches"] += mism
+        res["ring_err"] = max(res["ring_err"], ring_err)
+        res["ok"] &= bool(ok)
+        res["runs"].append(f"generic-only exact {mode}: {mism}")
+        log(f"[F2] generic-only ({GENERIC_ONLY_CFG}) exact {mode}: route "
+            f"generic ({sym} launched once); {mism} mismatches vs plain (y, "
+            f"y_state), ring max abs err {ring_err:.3g}, ok {ok}")
     return res
 
 
@@ -2109,15 +2202,17 @@ def wide_launcher(torch, persistent, cfg, B: int, params, dev):
     return launch
 
 
-def generic_k1(torch, persistent, cfg, params, dev):
-    """launch(t0, cond_pre, sel, ring, y_state, n, mode) of the generic K1
-    (`csrc/generic_generate.cu`), whatever the route."""
+def generic_k1(torch, persistent, cfg, params, dev, prec="exact"):
+    """launch(t0, cond_pre, sel, ring, y_state, n, mode, seed) of the
+    generic kernel (`csrc/generic_generate.cu`: K1, K2, K3) in precision
+    `prec` on `params` (the precision's product view), whatever the
+    route."""
     sched = persistent.fifo_schedule(cfg, dev)
 
-    def launch(t0, cp, sel, ring, ys, n, mode="sample"):
+    def launch(t0, cp, sel, ring, ys, n, mode="sample", seed=0):
         return persistent._launch_kernel(
-            cfg, params, sched, t0, cp, sel, ring, ys, n, mode, False, 0,
-            "exact", persistent.build.current_stream(dev))
+            cfg, params, sched, t0, cp, sel, ring, ys, n, mode, False, seed,
+            prec, persistent.build.current_stream(dev))
     return launch
 
 
@@ -2386,20 +2481,43 @@ def check_wide(torch, np, persistent, cfg_lib, params_lib, tracing, dev,
     return res
 
 
+def first_k4(torch, persistent, tsg, cfg, B: int, params, dev,
+             prec="exact"):
+    """launch(t0, cond_pre, sel, ring, y_state, mode, seed) of the first K4
+    (`csrc/stream_generate.cu`) on K1's storage in precision `prec`
+    (`staged_storage`), whatever the route: the route takes it for K2/K3
+    only where the staged plan raises, and a check may launch it anywhere
+    its plan holds."""
+    plan = persistent.stream_plan(cfg, B, persistent.staged_storage(prec),
+                                  prec=prec)
+    view = tsg.product_view(params, prec)
+    stacks = persistent._stream_stacks(view, plan)
+    sched = persistent.fifo_schedule(cfg, dev)
+
+    def launch(t0, cp, sel, ring, ys, mode="sample", seed=0):
+        return persistent._launch_stream(
+            cfg, plan, False, view, stacks, sched, t0, cp, sel, ring, ys,
+            cp.shape[0], mode, False, seed, prec,
+            persistent.build.current_stream(dev))
+    launch.kernel = persistent.STREAM_KERNELS[prec]
+    return launch
+
+
 def check_k2k3_routes(torch, np, persistent, tsg, cfg, params, cond, sel,
                       sym, dev, all_kernels) -> dict:
     """K2 and K3 without stream_weights run the staged K4 on K1's own stream
     (`generation_route`): at the flagship, over K2K3_T steps in each
     precision, the routed K2 (forced on request 1's samples) and K3 (prng)
-    against csrc/persistent.cu's K2 and K3 (named by route=), bit for bit
-    in y, p_seq, ring and y_state, each launching its kernel alone; both
-    timed over a CHECK_T-step launch."""
+    against the first K4's (`first_k4`, their route where the staged plan
+    raises), bit for bit in y, p_seq, ring and y_state, each launching its
+    kernel alone; both timed over a CHECK_T-step launch."""
     B = sel.shape[1]
     res = {"mismatches": 0, "ms": {}, "first_ms": {}, "runs": []}
     cp = (cond[:K2K3_T] + params["dil_b"][None, :, None, :]).contiguous()
     counts = lambda: {k.symbol: k.launches for k in all_kernels}  # noqa: E731
     for prec in F2_PRECISIONS:
         kw = prec_kw(torch, prec)
+        old = first_k4(torch, persistent, tsg, cfg, B, params, dev, prec)
 
         def fresh():
             return (persistent.init_ring(cfg, B, dev, tsg.ring_dtype(prec)),
@@ -2409,19 +2527,19 @@ def check_k2k3_routes(torch, np, persistent, tsg, cfg, params, cond, sel,
                            ("prng", sel[:K2K3_T].contiguous())):
             new = persistent.make_persistent_generator(cfg, B, mode=mode,
                                                        **kw)
-            old = persistent.make_persistent_generator(
-                cfg, B, mode=mode, route=persistent.Route(
-                    mode, False, None, "held against the staged step"), **kw)
             if new.route.kernel != "staged_stream":
                 fail(f"{mode} {prec} is routed to {new.route.kernel}")
             outs, launched = [], []
-            for gen in (new, old):
+            for run in (lambda: new(params, 0, cp, s_in, *fresh(),
+                                    seed=PRNG_SEED),
+                        lambda: old(0, cp, s_in, *fresh(), mode, PRNG_SEED)):
                 for k in all_kernels:
                     k.launches = 0
-                outs.append(gen(params, 0, cp, s_in, *fresh(), seed=PRNG_SEED))
+                outs.append(run())
                 torch.cuda.synchronize()
                 launched.append({k: v for k, v in counts().items() if v})
-            want = [{g.route.cuda_kernel(prec).symbol: 1} for g in (new, old)]
+            want = [{new.route.cuda_kernel(prec).symbol: 1},
+                    {old.kernel.symbol: 1}]
             if launched != want:
                 fail(f"{mode} {prec}: launched {launched}, not {want}")
             a, b = outs
@@ -2436,11 +2554,11 @@ def check_k2k3_routes(torch, np, persistent, tsg, cfg, params, cond, sel,
                 params, 0, cp[:CHECK_T], s_in[:CHECK_T].contiguous(), r, ys,
                 seed=PRNG_SEED), fresh)
             res["first_ms"][key] = time_launch_ms(torch, np, lambda r, ys: old(
-                params, 0, cp[:CHECK_T], s_in[:CHECK_T].contiguous(), r, ys,
-                seed=PRNG_SEED), fresh)
+                0, cp[:CHECK_T], s_in[:CHECK_T].contiguous(), r, ys, mode,
+                PRNG_SEED), fresh)
             res["runs"].append(f"{key}: {mism}")
-            log(f"[K2/K3 route] {key}: the staged step vs csrc/persistent.cu "
-                f"over {K2K3_T} flagship steps: {mism} mismatches (y, ring "
+            log(f"[K2/K3 route] {key}: the staged step vs the first K4 over "
+                f"{K2K3_T} flagship steps: {mism} mismatches (y, ring "
                 f"bits, y_state{', p_seq bits' if mode == 'forced' else ''}); "
                 f"{res['ms'][key]:.3f} vs {res['first_ms'][key]:.3f} ms per "
                 f"{CHECK_T}-step launch")
@@ -3506,7 +3624,7 @@ def check_mesh(torch, np, persistent, fc, om, mesh_lib, Impl, WaveNetInfer,
 
     # (b) the other tiers over MESH_TIER_T samples
     T = MESH_TIER_T
-    stag = persistent.STAGED_STREAM_KERNELS["exact"]
+    stag = persistent.PERSISTENT_KERNELS["exact"]
 
     def pair(kw, counter, mode="sample", sel=None, dump=False, seed=0):
         res = []
@@ -4744,11 +4862,13 @@ def main() -> int:
     eng.set_reference_weights(ref_w)
     gen_dev = torch.Generator(device=dev)
     gen_dev.manual_seed(0)
+    # "K1" and "K4" count one entry point: the staged step's lockstep one
+    # (K1, K2 and K3 on the staged route, K4); "K4 first" also counts K2
+    # and K3 where the staged plan raises, "K1 generic" K1, K2 and K3 where
+    # the first K4's plan raises too
     k1_tables = {"K1": persistent.PERSISTENT_KERNELS,
                  "K5": persistent.RAGGED_KERNELS,
-                 "K2": persistent.FORCED_KERNELS,
-                 "K3": persistent.PRNG_KERNELS,
-                 "K4": persistent.STAGED_STREAM_KERNELS,
+                 "K4": persistent.PERSISTENT_KERNELS,
                  "K4 first": persistent.STREAM_KERNELS,
                  "K1 generic": persistent.GENERIC_KERNELS,
                  "K5 generic": persistent.GENERIC_RAGGED_KERNELS,
@@ -5041,13 +5161,13 @@ def main() -> int:
     if (k2_flag["echo_mismatches"] or k2_flag["p_err"] > 1e-6
             or not k2_flag["state_equal"] or k3_flag["mismatches"]):
         fail("K2 or K3 disagrees with its plain version at the flagship")
-    # K2 and K3 run the staged step: bit for bit against csrc/persistent.cu's
+    # K2 and K3 run the staged step: bit for bit against the first K4's
     k2k3 = check_k2k3_routes(torch, np, persistent, tsg, cfg, params, cond,
                              sel, sym_main, dev, all_kernels)
     log(json.dumps({"k2k3_routes": {**k2k3, "steps": K2K3_T,
                                     "card": card}}))
     if k2k3["mismatches"]:
-        fail(f"the staged K2/K3 differ from csrc/persistent.cu's: {k2k3}")
+        fail(f"the staged K2/K3 differ from the first K4's: {k2k3}")
 
     # -- phase 11: scoring at full width --------------------------------------
     mark("phase 11: scoring at full width")
@@ -5152,12 +5272,13 @@ def main() -> int:
     scoring_kernels = (om.ORDERED_MATMUL_KERNEL, om.ORDERED_GATE_KERNEL,
                        om.ORDERED_RES_SKIP_KERNEL, em.EXACT_FN_KERNEL,
                        em.SOFTMAX_KERNEL,
-                       persistent.STAGED_STREAM_KERNELS["exact"])
+                       persistent.PERSISTENT_KERNELS["exact"])
     if (not all(score_launches[k.symbol] for k in scoring_kernels)
-            or score_launches[exact_sym["K2"]]):
+            or score_launches[exact_sym["K4 first"]]
+            or score_launches[exact_sym["K1 generic"]]):
         fail(f"the scoring path did not launch K7 (product, gate and "
-             f"res/skip), K0a, K0c and K2 on the staged step (not "
-             f"csrc/persistent.cu): {score_launches}")
+             f"res/skip), K0a, K0c and K2 on the staged step (not the "
+             f"first K4 or the generic kernel): {score_launches}")
 
     # -- phase 12: score -> feed handoff --------------------------------------
     mark("phase 12: score -> feed handoff")
@@ -5211,9 +5332,11 @@ def main() -> int:
         f"{k3_ms / CHECK_T * 1e3:.2f} us per step on the card, K1 "
         f"{k1_us:.2f}; output well-formed {prng_ok}")
     if (not prng_ok or not prng_launches[exact_sym["K4"]]
-            or prng_launches[exact_sym["K3"]]):
+            or prng_launches[exact_sym["K4 first"]]
+            or prng_launches[exact_sym["K1 generic"]]):
         fail(f"the prng request did not launch K3 on the staged step (and "
-             f"not csrc/persistent.cu) or is malformed: {prng_launches}")
+             f"not the first K4 or the generic kernel) or is malformed: "
+             f"{prng_launches}")
 
     # -- phase 14: K4 vs plain, small config ----------------------------------
     mark("phase 14: K4 vs plain, small config")
@@ -5315,9 +5438,9 @@ def main() -> int:
         "samples_per_request": MAIN_T, "storages": manyblock,
         "launches": mb_launches, "card": card}}))
     stream_sym = exact_sym["K4"]
-    if (not mb_launches[stream_sym] or mb_launches[exact_sym["K1"]]
+    if (not mb_launches[stream_sym]
             or mb_launches[exact_sym["K4 first"]]):
-        fail(f"the MANYBLOCK path did not run on the staged K4 alone: "
+        fail(f"the MANYBLOCK path did not run on the staged step alone: "
              f"{mb_launches}")
 
     # -- phase 17: config 4 ---------------------------------------------------
@@ -5691,13 +5814,15 @@ def main() -> int:
                                     MAIN_B, mode="forced")
         lw_forced = {k.symbol: k.launches for k in all_kernels}
         staged = k1_tables["K4"][prec].symbol
+        others = (k1_tables["K4 first"][prec].symbol,
+                  k1_tables["K1 generic"][prec].symbol)
         if (not lw[k1_tables["K1"][prec].symbol] or lw[exact_sym["K1"]]
                 or not lw_prng[staged] or not lw_forced[staged]
-                or lw_prng[k1_tables["K3"][prec].symbol]
-                or lw_forced[k1_tables["K2"][prec].symbol]):
+                or any(lw_prng[o] or lw_forced[o] for o in others)):
             fail(f"the {prec} main path did not run on K1-{prec} and its "
-                 f"forced and prng requests on the staged step (not "
-                 f"csrc/persistent.cu): {lw}, {lw_prng}, {lw_forced}")
+                 f"forced and prng requests on the staged step (not the "
+                 f"first K4 or the generic kernel): {lw}, {lw_prng}, "
+                 f"{lw_forced}")
         # request 1's first LOWP_PLAIN_T samples against the plain version
         # of this precision (timed: the plain_ms of K1-{prec})
         cpp = (first[0][:LOWP_PLAIN_T] + params["dil_b"][None, :, None, :]
@@ -5726,10 +5851,9 @@ def main() -> int:
         mbl = {k.symbol: k.launches for k in all_kernels}
         del meng
         if (not mbl[k1_tables["K4"][prec].symbol]
-                or mbl[k1_tables["K1"][prec].symbol]
                 or mbl[k1_tables["K4 first"][prec].symbol]):
             fail(f"the {prec} MANYBLOCK request did not run on the staged "
-                 f"K4-{prec} alone: {mbl}")
+                 f"step-{prec} alone: {mbl}")
         lowp_main[prec] = {
             "requests": reqs,
             "khz_per_utt": float(np.mean([q["khz_per_utt"] for q in reqs])),
@@ -6233,7 +6357,8 @@ def main() -> int:
               block_instance=em.SAMPLE_BLOCK_KERNEL.symbol,
               inlined_in="K1-K6", launches_on=spec_on,
               main_path_launches=launches[em.SAMPLE_KERNEL.symbol]),
-        entry("K1 staged_generate_kernel<false, kPrecExact>",
+        entry("K1 staged_generate_kernel<false, 2, kStorageF32, kPrecExact, "
+              "kGeo>",
               csrc + "staged_generate.cu",
               "nv_wavenet_tpu/ops/persistent.py:762",
               launches[exact_sym["K1"]],
@@ -6245,7 +6370,8 @@ def main() -> int:
               plan=staged_plan_line,
               inference_cli_launches=training["inference_cli"][
                   "k1_launches"]),
-        entry("K5 staged_generate_kernel<true, kPrecExact>",
+        entry("K5 staged_generate_kernel<true, 2, kStorageF32, kPrecExact, "
+              "kGeo>",
               csrc + "staged_generate.cu",
               "nv_wavenet_tpu/ops/persistent.py:762",
               serve_launches[exact_sym["K5"]],
@@ -6257,9 +6383,9 @@ def main() -> int:
               variant="ragged=True (:109-118, 252-256, 302-311, 410-416) "
                       "and rotate_ring_phase (:785)",
               launches_on="the serving phase"),
-        entry("K2 staged_stream_kernel<kStorageF32, kPrecExact, 1> (mode "
-              "forced, on K1's stream)",
-              csrc + "staged_stream_generate.cu",
+        entry("K2 staged_generate_kernel<false, 4, kStorageF32, kPrecExact, "
+              "1> (mode forced, on K1's stream)",
+              csrc + "staged_generate.cu",
               "nv_wavenet_tpu/ops/persistent.py:762",
               score_launches[exact_sym["K4"]],
               k2_small["echo_mismatches"] + k2_flag["echo_mismatches"]
@@ -6275,11 +6401,12 @@ def main() -> int:
               window_ms=k2_window_ms,
               first_ms=k2k3["first_ms"]["K2 exact"],
               vs_first_mismatches=k2k3["mismatches"],
-              first="persistent_generate_kernel<kSelForced, kPrecExact> "
-                    "(csrc/persistent.cu), where staged_plan raises: K2-first"),
-        entry("K3 staged_stream_kernel<kStorageF32, kPrecExact, 1> (mode "
-              "prng, on K1's stream)",
-              csrc + "staged_stream_generate.cu",
+              first="stream_generate_kernel<kStorageF32, kSelForced, "
+                    "kPrecExact, false> (csrc/stream_generate.cu, the first "
+                    "K4), where staged_plan raises"),
+        entry("K3 staged_generate_kernel<false, 4, kStorageF32, kPrecExact, "
+              "1> (mode prng, on K1's stream)",
+              csrc + "staged_generate.cu",
               "nv_wavenet_tpu/ops/persistent.py:762",
               prng_launches[exact_sym["K4"]],
               k3_small["mismatches"] + k3_small["chunk_mismatches"]
@@ -6290,10 +6417,13 @@ def main() -> int:
               variant='mode="prng", prng_uniform_sel (:74-83, 404-405)',
               launches_on="the prng request",
               first_ms=k2k3["first_ms"]["K3 exact"],
-              first="persistent_generate_kernel<kSelPrng, kPrecExact> "
-                    "(csrc/persistent.cu), where staged_plan raises: K3-first"),
-        entry("K4 staged_stream_kernel<kStorage, kPrecExact, kGeo>",
-              csrc + "staged_stream_generate.cu",
+              first="stream_generate_kernel<kStorageF32, kSelPrng, "
+                    "kPrecExact, false> (csrc/stream_generate.cu, the first "
+                    "K4), where staged_plan raises"),
+        entry("K4 staged_generate_kernel<false, 4, kStorage, kPrecExact, "
+              "kGeo> (K1's instance in modes sample and argmax on fp32 "
+              "stacks)",
+              csrc + "staged_generate.cu",
               "nv_wavenet_tpu/ops/persistent.py:762",
               mb_launches[stream_sym],
               k4_small["mismatches"] + k4_flag["schedule_mismatches"]
@@ -6312,7 +6442,8 @@ def main() -> int:
                       "(:723-725)",
               launches_on="the MANYBLOCK main path (3 storages x "
                           f"{MAIN_REQUESTS} requests)",
-              instances=[f"staged_stream_kernel<{st}, kPrecExact, {g}>"
+              instances=[f"staged_generate_kernel<false, 4, {st}, "
+                         f"kPrecExact, {g}>"
                          for st in ("kStorageF32", "kStorageBF16",
                                     "kStorageI8") for g in (0, 1, 2)],
               storages={n: {"ms": k4_flag["k4_ms"][n],
@@ -6445,14 +6576,14 @@ def main() -> int:
                    "268-280, 313-347, 367-369)")
         specs = [
             ("K1", "staged_generate.cu",
-             f"staged_generate_kernel<false, {kp}>",
+             f"staged_generate_kernel<false, 2, kStorageBF16, {kp}, kGeo>",
              main_l[k1_tables["K1"][prec].symbol],
              f"the {prec} main path ({MAIN_REQUESTS} requests)",
              lowp_bound(cfg, MAIN_B, CHECK_T, prec),
              f"flagship, B={MAIN_B}, T={CHECK_T} steps per launch",
              lowp_main[prec]["plain_mismatches"]),
             ("K5", "staged_generate.cu",
-             f"staged_generate_kernel<true, {kp}>",
+             f"staged_generate_kernel<true, 2, kStorageBF16, {kp}, kGeo>",
              handover[prec]["launches"][k1_tables["K5"][prec].symbol],
              f"the latency tier's slot handover ({prec}, "
              f"{LOWP_SERVE_TICKS} ticks)",
@@ -6460,9 +6591,9 @@ def main() -> int:
              f"flagship, B={MAIN_B}, one {SERVE['tick_t']}-step ragged "
              f"tick ({live} live row-steps)",
              handover[prec]["replay_mismatches"]),
-            ("K2", "staged_stream_generate.cu",
-             f"staged_stream_kernel<kStorageBF16, {kp}, 1> (mode forced, "
-             f"on K1's stream)",
+            ("K2", "staged_generate.cu",
+             f"staged_generate_kernel<false, 4, kStorageBF16, {kp}, 1> (mode "
+             f"forced, on K1's stream)",
              lowp_main[prec]["forced_launches"][k1_tables["K4"][prec].symbol],
              f"the {prec} forced request ({LOWP_SHORT_T} steps)",
              lowp_bound(cfg, MAIN_B, CHECK_T, prec, mode="forced"),
@@ -6470,15 +6601,16 @@ def main() -> int:
              lowp_main[prec]["forced_echo_mismatches"] + (
                  bf_score["p_bit_mismatches"]
                  + bf_score["ring_bit_mismatches"] if prec == "bf16" else 0)),
-            ("K3", "staged_stream_generate.cu",
-             f"staged_stream_kernel<kStorageBF16, {kp}, 1> (mode prng, on "
-             f"K1's stream)",
+            ("K3", "staged_generate.cu",
+             f"staged_generate_kernel<false, 4, kStorageBF16, {kp}, 1> (mode "
+             f"prng, on K1's stream)",
              lowp_main[prec]["prng_launches"][k1_tables["K4"][prec].symbol],
              f"the {prec} prng request ({LOWP_SHORT_T} steps)",
              lowp_bound(cfg, MAIN_B, CHECK_T, prec, mode="prng"),
              f"flagship, B={MAIN_B}, T={CHECK_T} steps per launch", 0),
-            ("K4", "staged_stream_generate.cu",
-             f"staged_stream_kernel<kStorageBF16|kStorageI8, {kp}, kGeo>",
+            ("K4", "staged_generate.cu",
+             f"staged_generate_kernel<false, 2|4, kStorageBF16|kStorageI8, "
+             f"{kp}, kGeo>",
              lowp_main[prec]["manyblock_launches"][
                  k1_tables["K4"][prec].symbol],
              f"one {prec} MANYBLOCK request",
@@ -6523,42 +6655,44 @@ def main() -> int:
                                              storage="int8")}
                    if k == "K4" else {})))
     # the kernels of the geometries the staged plan rejects (phase 17b):
-    # the generic K1/K5 and the first K4, each precision, launched there
+    # the generic K1/K5/K2/K3 and the first K4, each precision, launched
+    # there (the generic K2/K3 timed at A=2048, routed at GENERIC_ONLY_CFG)
     a_cfg = ", ".join(f"{k}={v}" for k, v in F2_CASES[0][1].items())
     for prec in F2_PRECISIONS:
         kp = {"exact": "kPrecExact", "fast": "kPrecFast",
               "bf16": "kPrecBF16"}[prec]
-        for k, inst, shape in (
-                ("K1", f"generic_generate_kernel<false, {kp}>",
+        for k, name, inst, shape in (
+                ("K1", "K1-generic",
+                 f"generic_generate_kernel<false, kSelInjected, {kp}>",
                  f"{a_cfg}, B={F2_B}, T={F2_TIME_T} steps"),
-                ("K5", f"generic_generate_kernel<true, {kp}>",
+                ("K5", "K5-generic",
+                 f"generic_generate_kernel<true, kSelInjected, {kp}>",
                  f"{a_cfg}, B={F2_B}, a {F2_T}-step ragged tick"),
-                ("K4 first", f"stream_generate_kernel<kStorage, kSel, {kp}, "
-                 f"false>",
+                ("K4 first", "K4-first", f"stream_generate_kernel<kStorage, "
+                 f"kSel, {kp}, false>",
                  f"{a_cfg}, B={F2_B}, T={F2_TIME_T} steps, "
                  f"{'fp32' if prec == 'exact' else 'bf16'} stacks"),
-                ("K2 first", f"persistent_generate_kernel<kSelForced, {kp}>",
+                ("K2 generic", "K2-generic",
+                 f"generic_generate_kernel<false, kSelForced, {kp}>",
                  f"{a_cfg}, B={F2_B}, T={F2_TIME_T} steps"),
-                ("K3 first", f"persistent_generate_kernel<kSelPrng, {kp}>",
+                ("K3 generic", "K3-generic",
+                 f"generic_generate_kernel<false, kSelPrng, {kp}>",
                  f"{a_cfg}, B={F2_B}, T={F2_TIME_T} steps")):
             key = f"{k} {prec}"
             n_l = f2["launches"].get(key, 0)
             if not n_l:
                 fail(f"{key} did not launch on the F2 path")
             kernels.append(entry(
-                f"{k.replace(' ', '-') if 'first' in k else k + '-generic'}"
-                f"{'' if prec == 'exact' else '-' + prec} {inst}",
-                csrc + {"K4 first": "stream_generate.cu",
-                        "K2 first": "persistent.cu",
-                        "K3 first": "persistent.cu"}.get(
-                            k, "generic_generate.cu"),
+                f"{name}{'' if prec == 'exact' else '-' + prec} {inst}",
+                csrc + ("stream_generate.cu" if k == "K4 first"
+                        else "generic_generate.cu"),
                 "nv_wavenet_tpu/ops/persistent.py:762", n_l,
                 f2["mismatches"], f2["ring_err"], f2["ms"][key],
                 f2["plain_ms"][key], *f2["bound"][key], None,
                 f"{shape}; plain_ms over {F2_T} steps",
                 launches_on="the geometries the staged plan rejects "
                             "(phase 17b: " + ", ".join(
-                                c[0] for c in F2_CASES) + ")",
+                                c[0] for c in F2_CASES) + ", generic-only)",
                 library="none: no single torch call computes it"))
     # the probes: P1 from both builds at the probe's shape and at N_LARGE,
     # P5 in each precision and W layout

@@ -1,25 +1,33 @@
 // K1 and K5 for the geometries the staged kernel (staged_generate.cu) cannot
-// hold: fault F2 of ROADMAP.md.  ops/persistent.py::generation_route sends a
-// call here where ops/persistent.py::staged_plan raises: more output columns
-// than its threads take (A = 2048 at R = 64), more than 4 prev columns a
-// thread (R = 512), or an odd R under bf16 (its FIFO copy takes 4 bytes).
+// hold (fault F2 of ROADMAP.md), and K2 and K3 where the first K4
+// (stream_generate.cu) cannot hold them either.
+// ops/persistent.py::generation_route sends a call here where
+// ops/persistent.py::staged_plan raises: more output columns than its
+// threads take (A = 2048 at R = 64), more than 4 prev columns a thread
+// (R = 512), or an odd R under bf16 (its FIFO copy takes 4 bytes); modes
+// forced and prng only where stream_plan raises too (two stages of one
+// weight row do not fit beside the activations: R = 4096, for example).
 //
 // Replaces the TPU kernel nv_wavenet_tpu/ops/persistent.py:762
 // (make_persistent_generator.generate; body _kernel_body :93-431) in modes
-// "sample" and "argmax" with the optional last-step dump (K1) and with
+// "sample" and "argmax" with the optional last-step dump (K1), with
 // ragged=True (:109-118, 252-256, 302-311, 410-416), per-row clocks and
-// lengths (K5), at any width the reference generates.
+// lengths (K5), in mode "forced" (:139-146, 387-400, 692-694: the symbols
+// in sel, every step's distribution written to p_seq, K2) and in mode
+// "prng" (prng_uniform_sel, :74-83, 404-405: the selectors drawn from
+// Philox4x32-10 on the card, philox_uniform, K3), at any width the
+// reference generates.
 //
-// It is the first K1/K5 design (persistent.cu at commit 14b57bc, its
-// kSelInjected and kRagged branches), in a source of its own so that K2/K3
-// (persistent.cu) and the staged K1/K5 compile as they did:
+// It is the first K1 design (persistent.cu at commit 14b57bc); the
+// selector source (kSel, step_common.cuh) and K5's rows are compile-time:
 //   * ONE CTA PER BATCH ROW (grid = B), 256 threads, the whole call in one
 //     launch; steps past n_valid (a row's length under K5) never run.
 //   * The activations in (7R + S + 4A) floats of shared memory (R more under
 //     fast for the rounded copy of x), so no width limit beyond that.
 //   * Every product's columns looped over the 256 threads, each column a
 //     fixed-order dot product (dot_column: k = 0, 1, ..., K-1 from 0.0f, one
-//     rounded FMUL and FADD per term), the weights read from L2 every step.
+//     rounded FMUL and FADD per term; K2/K3 load eight terms ahead), the
+//     weights read from L2 every step.
 //   * The FIFO in device memory, [ring_size, B, R], each CTA its own row;
 //     the bf16 ring read and written one element at a time, so any R.
 //   * The precisions (kPrec, step_common.cuh) round where the staged K1's
@@ -28,7 +36,7 @@
 // What bounds it: each row's CTA re-reads every weight from L2 every step
 // on one SM, along a dependent chain of 2L + 3 products with a
 // __syncthreads each (185 us a flagship step on an H100, PERF.md).
-// It serves only the geometries the staged plan rejects.
+// It serves only the geometries the other kernels reject.
 //
 // Compiled with -fmad=false (utils/build.py), once per precision.
 
@@ -75,6 +83,12 @@ struct GenArgs {
   int T;                // K5 only: y's steps (it writes 0 past a row's length)
 };
 
+// K2's and K3's own fields
+struct GenScoreArgs : GenArgs {
+  float* p_seq;              // [T, B, A] K2: every run step's distribution
+  unsigned long long seed;   // K3: the Philox key
+};
+
 // K5's rows by value in the launch's parameters, kRaggedRows a launch
 // (staged_generate.cu's RaggedArgs)
 constexpr int kRaggedRows = 256;
@@ -85,8 +99,23 @@ struct GenRaggedArgs : GenArgs {
 };
 static_assert(sizeof(GenRaggedArgs) <= 4096, "K5's parameters past 4 KB");
 
-template <bool kRagged>
-using GenKernelArgs = std::conditional_t<kRagged, GenRaggedArgs, GenArgs>;
+template <bool kRagged, int kSel>
+using GenKernelArgs =
+    std::conditional_t<kRagged, GenRaggedArgs,
+                       std::conditional_t<kSel == kSelInjected, GenArgs, GenScoreArgs>>;
+
+// A column's product in dot_column's order: K1/K5 with dot_column, K2/K3
+// with its eight loads in flight (dot_column_batched; with dot_column the
+// first K2 ran 1.6x slower, PERF.md)
+template <int kSel>
+__device__ __forceinline__ float column_dot(const float* v, const float* __restrict__ w,
+                                            int K, int stride) {
+  if constexpr (kSel == kSelInjected) {
+    return dot_column(v, w, K, stride);
+  } else {
+    return dot_column_batched(v, w, K, stride);
+  }
+}
 
 // the clock and the steps of the launch's i-th CTA
 __device__ __forceinline__ long long row_clock(const GenArgs& a, int) { return a.t0; }
@@ -103,9 +132,9 @@ __device__ __forceinline__ int row_steps(const GenRaggedArgs& a, int i) {
   return n;
 }
 
-template <bool kRagged, int kPrec>
+template <bool kRagged, int kSel, int kPrec>
 __global__ void __launch_bounds__(kThreads)
-    generic_generate_kernel(const __grid_constant__ GenKernelArgs<kRagged> a) {
+    generic_generate_kernel(const __grid_constant__ GenKernelArgs<kRagged, kSel> a) {
   extern __shared__ float smem[];
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const int B = a.B, L = a.L, R = a.R, S = a.S, A = a.A;
@@ -175,7 +204,8 @@ __global__ void __launch_bounds__(kThreads)
       const float* W = a.dil_w + (size_t)l * R2 * R2;
       for (int q = tid; q < 2 * R2; q += nt) {
         const int cur = q >= R2;
-        zh[q] = dot_column(cur ? xop : xp, W + (size_t)cur * R * R2 + (q - cur * R2), R, R2);
+        zh[q] = column_dot<kSel>(cur ? xop : xp, W + (size_t)cur * R * R2 + (q - cur * R2), R,
+                                 R2);
       }
       __syncthreads();
 
@@ -192,7 +222,7 @@ __global__ void __launch_bounds__(kThreads)
       const float* Wrs = a.rs_w + (size_t)l * R * RS;
       const float* brs = a.rs_b + (size_t)l * RS;
       for (int o = tid; o < RS; o += nt) {
-        const float acc = dot_column(h, Wrs + o, R, RS);
+        const float acc = column_dot<kSel>(h, Wrs + o, R, RS);
         if (o < R) {
           const float v = (acc + __ldg(brs + o)) + x[o];
           x[o] = stored<kPrec>(v);
@@ -227,7 +257,8 @@ __global__ void __launch_bounds__(kThreads)
 
     // output stack: zs = relu(skip Wzs + bzs); za = zs Wza + bza
     for (int o = tid; o < A; o += nt) {
-      const float v = fmaxf(dot_column(skip, a.out_w + o, S, A) + __ldg(a.out_b + o), 0.0f);
+      const float v =
+          fmaxf(column_dot<kSel>(skip, a.out_w + o, S, A) + __ldg(a.out_b + o), 0.0f);
       if constexpr (kPrec == kPrecExact) {
         zs[o] = v;
       } else {
@@ -238,12 +269,12 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
     for (int o = tid; o < A; o += nt) {
-      za[o] = dot_column(zs, a.end_w + o, A, A) + __ldg(a.end_b + o);
+      za[o] = column_dot<kSel>(zs, a.end_w + o, A, A) + __ldg(a.end_b + o);
     }
     __syncthreads();
 
     int y;
-    if (a.mode == kModeArgmax && !dump) {
+    if (kSel == kSelInjected && a.mode == kModeArgmax && !dump) {
       y = nvw::block_argmax(za, A);
     } else {
       // canonical softmax pieces: e = exp(za - max), fixed-tree prefix sum
@@ -262,11 +293,22 @@ __global__ void __launch_bounds__(kThreads)
           a.d_p[(size_t)b * A + i] = nvw::em_exp(za[i] - zmax) / total;
         }
       }
-      if (a.mode == kModeArgmax) {
+      if constexpr (kSel == kSelForced) {
+        // the dump's p, for every step: p_seq[j, b, :]
+        const float total = cum[A - 1];
+        float* p = a.p_seq + ((size_t)j * B + b) * A;
+        for (int i = tid; i < A; i += nt) p[i] = nvw::em_exp(za[i] - zmax) / total;
+        y = (int)__ldg(a.sel + (size_t)j * B + b);
+      } else if (kSel == kSelInjected && a.mode == kModeArgmax) {
         y = nvw::block_argmax(za, A);
       } else {
-        y = nvw::block_select_from_cumsum(cum, __ldg(a.sel + (size_t)j * B + b), A,
-                                          a.silence_bin);
+        float u;
+        if constexpr (kSel == kSelPrng) {
+          u = philox_uniform(a.seed, t, b);
+        } else {
+          u = __ldg(a.sel + (size_t)j * B + b);
+        }
+        y = nvw::block_select_from_cumsum(cum, u, A, a.silence_bin);
       }
     }
     y_prev = y_cur;
@@ -284,8 +326,8 @@ constexpr int kMaxDevices = 64;
 
 // `rows` CTAs.  The shared-memory attribute is set once per
 // instance and device (and again only for larger activations).
-template <bool kRagged, int kPrec>
-int launch(const GenKernelArgs<kRagged>& args, int rows, void* stream) {
+template <bool kRagged, int kSel, int kPrec>
+int launch(const GenKernelArgs<kRagged, kSel>& args, int rows, void* stream) {
   const int smem = (7 * args.R + args.S + 4 * args.A + (kPrec == kPrecFast ? args.R : 0)) *
                    (int)sizeof(float);
   static std::atomic<int> granted[kMaxDevices];
@@ -293,12 +335,13 @@ int launch(const GenKernelArgs<kRagged>& args, int rows, void* stream) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (smem > 48 * 1024 && (dev >= kMaxDevices || granted[dev].load() < smem)) {
-    err = cudaFuncSetAttribute(generic_generate_kernel<kRagged, kPrec>,
+    err = cudaFuncSetAttribute(generic_generate_kernel<kRagged, kSel, kPrec>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     if (dev < kMaxDevices) granted[dev].store(smem);
   }
-  generic_generate_kernel<kRagged, kPrec><<<rows, kThreads, smem, (cudaStream_t)stream>>>(args);
+  generic_generate_kernel<kRagged, kSel, kPrec><<<rows, kThreads, smem, (cudaStream_t)stream>>>(
+      args);
   return (int)cudaGetLastError();
 }
 
@@ -322,7 +365,7 @@ int launch_ragged(GenRaggedArgs& args, const long long* t0_row, const int* n_val
       args.t0_row[i] = t0_row[r0 + i];
       args.n_valid_row[i] = n_valid_row[r0 + i];
     }
-    const int err = launch<true, kPrec>(args, rows, stream);
+    const int err = launch<true, kSelInjected, kPrec>(args, rows, stream);
     if (err) return err;
   }
   return 0;
@@ -334,19 +377,28 @@ int launch_ragged(GenRaggedArgs& args, const long long* t0_row, const int* n_val
 // suffix _fast or _bf16.  `ring` is the ring's pointer whatever its element
 // type (bf16 for _bf16).
 
-// K1 (generic): sel carries uniforms; mode 0 sample, 1 argmax; the dump
-// pointers are all null when off
+// K1, K2 and K3 (generic): mode 0 sample and 1 argmax (sel carries
+// uniforms), 2 forced (sel carries the symbols; p_seq [T, B, A] gets every
+// run step's distribution, the wrapper zeroes it, so steps past n_valid
+// stay 0), 3 prng (the selectors from Philox keyed on `seed`, sel not
+// read); the dump pointers are all null when off
 #define NVW_GENERATE_ENTRY(name, kPrec)                                                       \
   int name(const float* embed, const float* dil_w, const float* rs_w, const float* rs_b,      \
            const float* out_w, const float* out_b, const float* end_w, const float* end_b,    \
            const float* cond, const float* sel, const int* sched, float* ring, int* y_state,  \
            int* y, float* d_xt, float* d_skip, float* d_zs, float* d_za, float* d_p,          \
-           long long t0, int n_valid, int B, int L, int R, int S, int A, int tanh_embed,      \
-           int silence_bin, int mode, void* stream) {                                         \
+           float* p_seq, long long t0, unsigned long long seed, int n_valid, int B, int L,    \
+           int R, int S, int A, int tanh_embed, int silence_bin, int mode, void* stream) {    \
     const GenArgs args{embed, dil_w, rs_w, rs_b, out_w, out_b, end_w, end_b, cond,           \
                        sel, sched, ring, y_state, y, d_xt, d_skip, d_zs, d_za, d_p, t0,      \
                        n_valid, B, L, R, S, A, tanh_embed, silence_bin, mode, 0};            \
-    return launch<false, kPrec>(args, B, stream);                                             \
+    if (mode == kModeForced) {                                                                \
+      return launch<false, kSelForced, kPrec>(GenScoreArgs{args, p_seq, 0}, B, stream);      \
+    }                                                                                         \
+    if (mode == kModePrng) {                                                                  \
+      return launch<false, kSelPrng, kPrec>(GenScoreArgs{args, nullptr, seed}, B, stream);   \
+    }                                                                                         \
+    return launch<false, kSelInjected, kPrec>(args, B, stream);                               \
   }
 
 // K5 (generic): mode "sample", no dump; t0_row [B] and n_valid_row [B] are

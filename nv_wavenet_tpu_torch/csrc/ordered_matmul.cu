@@ -5,7 +5,7 @@
 // No Pallas counterpart: the JAX time-parallel scorer leaves its products to
 // XLA (nv_wavenet_tpu/ops/score_parallel.py:135-139, 150-151, 163-168).  The
 // port's scorer needs them in the order of K1's dot_column
-// (persistent.cu): each output accumulated from 0.0f over k = 0, 1, ...,
+// (step_common.cuh): each output accumulated from 0.0f over k = 0, 1, ...,
 // K-1, every product and every sum rounded once (-fmad=false, utils/
 // build.py).  cuBLAS keeps no such order, so a scorer on it would leave a
 // FIFO ring that differs from K1's in the last ulps, and a score -> feed

@@ -1,9 +1,10 @@
-// Device primitives of the staged generation kernels (K1/K5,
-// staged_generate.cu; K4, staged_stream_generate.cu): the mbarriers, the 1D
-// bulk copies (TMA) and cp.async, named barriers, the sampler's reductions
-// over the chain's threads, and the ring of equal slots.  Each source that
-// includes it holds its own copy in an anonymous namespace; a source built
-// with -DNVW_TRACE defines NVW_TW before including it.
+// Device primitives of the staged step (K1, K5, K2, K3 and K4,
+// staged_generate.cu; also K1 card-wide, K6 and the probes): the
+// mbarriers, the 1D bulk copies (TMA) and cp.async, named barriers, the
+// sampler's reductions over the chain's threads, and the ring of equal
+// slots.  Each source that includes it holds its own copy in an anonymous
+// namespace; a source built with -DNVW_TRACE defines NVW_TW before
+// including it.
 //
 // Compiled with -fmad=false (utils/build.py).
 

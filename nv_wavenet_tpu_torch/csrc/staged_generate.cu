@@ -1,41 +1,58 @@
-// K1 and K5 redesigned for Hopper: the generation loop with every weight
-// staged into shared memory by TMA, the dilated prev half computed off the
-// step's dependent chain, and no tail on the chain's products.
+// The staged step redesigned for Hopper: the generation loop with every
+// weight staged into shared memory by TMA, the dilated prev half computed
+// off the step's dependent chain, and no tail on the chain's products.  One
+// kernel template runs K1, K5, K2, K3 and K4 wherever the staged plan holds.
 //
 // Replaces the TPU kernel nv_wavenet_tpu/ops/persistent.py:762
 // (make_persistent_generator, body _kernel_body :93-431):
 //   K1  modes "sample" and "argmax" with the optional last-step dump;
 //   K5  ragged=True (:109-118, 252-256, 302-311, 410-416), per-row clocks
-//       and lengths, mode "sample" without the dump.
-// Each precision (kPrec, step_common.cuh) is a library with its own entry
-// points; the kRagged flag and the geometry (kGeo: the widths compiled in,
-// or 0 for the generic instance) are the other template arguments.
+//       and lengths, mode "sample" without the dump;
+//   K2  mode "forced" (p_seq every step), K3 mode "prng" (Philox on the
+//       card), on K1's own stream;
+//   K4  stream_weights=True (:128-199), stream_quant (:105-108, 189-197,
+//       434-465, 726-729) and weight_dtype (:723-725), in every mode.
+// The template's arguments: kRagged (K5's per-row clocks), kModes (the
+// modes the sampler serves: sample and argmax for K1/K5, all four for
+// K2/K3/K4), kStorage (the layer stacks' bytes in the stream: fp32, bf16 or
+// int8), kPrec (step_common.cuh; each precision is a library with its own
+// entry points) and kGeo (the widths compiled in, or 0 for the generic
+// instance).  Every difference between the routes is one of them, so no
+// instance carries a branch or a load of another's.
 //
-// What it computes is K1's step (csrc/persistent.cu) bit for bit: every
-// column sums k = 0, 1, ..., K-1 from 0.0f, one rounded FMUL and one
-// rounded FADD per term (-fmad=false, no tensor core); z = (zp + zc) +
-// cond_pre; x = (res + b_res) + x; skip = (skip + sk) + b_skip; relu after
-// the last layer; the canonical sampler of exact_math.cuh.  Only the
-// schedule and the layout differ.
+// What it computes is K1's step bit for bit: every column sums k = 0, 1,
+// ..., K-1 from 0.0f, one rounded FMUL and one rounded FADD per term
+// (-fmad=false, no tensor core); z = (zp + zc) + cond_pre; x = (res + b_res)
+// + x; skip = (skip + sk) + b_skip; relu after the last layer; the canonical
+// sampler of exact_math.cuh.  A stored int8 weight enters as
+// __fmul_rn((float)q, s), one rounded product with its (layer, column)
+// scale, as the first K4 (stream_generate.cu) and
+// ops/persistent.py::dequantize_stream_params compute it; bf16 widens to
+// fp32 exactly.  The low precisions round that value to bf16 (operand), as
+// K1 receives it from scan_generate.product_view.  K2's p_seq and K3's
+// draws are step_common.cuh's expressions.
 //
-// What bounded the old K1 on the H100 (PERF.md §5, 185 us a flagship step,
-// 15.7 us + 8.47 us a layer): every weight read from L2 inside the chain,
-// one dependent load a term; the FIFO read and the cond row as round trips
-// on the chain; the output stack as two 256-term chains of L2 loads; a tail
-// of 64 threads on res/skip; four __syncthreads a layer.  The design:
+// What bounded the first K1 on the H100 (PERF.md §5, 185 us a flagship
+// step, 15.7 us + 8.47 us a layer): every weight read from L2 inside the
+// chain, one dependent load a term; the FIFO read and the cond row as round
+// trips on the chain; the output stack as two 256-term chains of L2 loads; a
+// tail of 64 threads on res/skip; four __syncthreads a layer.  The design:
 //
 //   * Weights staged by TMA.  The wrapper re-lays every stack once per
 //     upload into one stream (ops/persistent.py::staged_plan and
-//     staged_stream): per layer Wprev, Wcur, rs_w, then out_w and end_w,
-//     each as k-quads [ceil(K/4), Np, 4] (Np: the columns rounded up to 4),
-//     zero-padded.  A producer warp copies it in chunks of whole quad-rows
-//     (cp.async.bulk, 1D TMA, K4's primitives), one lane per slot, through
-//     two mbarrier rings of equal slots: the prev ring (Wprev, for the prev warps) and the chain
-//     ring (the rest), in the order they are consumed, running on across
-//     layers, into the output stack and into the next step.  A consumer
-//     thread reads the four k-terms of its column in one 16-byte (fp32) or
-//     8-byte (bf16) shared load; neighbouring threads read neighbouring
-//     quads (no bank conflicts) while the activation quad is a broadcast.
+//     staged_stream): per layer Wprev, Wcur, rs_w in the storage's own
+//     bytes, then out_w and end_w as the value view holds them (int8
+//     quantises dil_w and rs_w only, as the JAX kernel streams only those
+//     two), each as k-quads [ceil(K/4), Np, 4] (Np: the columns rounded up
+//     to 4), zero-padded, so a quad is 16 bytes (fp32), 8 (bf16) or 4 (int8
+//     q).  A producer warp copies it in chunks of whole quad-rows
+//     (cp.async.bulk, 1D TMA), one lane per slot, through two mbarrier
+//     rings of equal slots: the prev ring (Wprev, for the prev warps) and
+//     the chain ring (the rest), in the order they are consumed, running on
+//     across layers, into the output stack and into the next step.  A
+//     consumer thread reads the four k-terms of its column in one shared
+//     load while the activation quad is a broadcast; under int8 it loads its
+//     columns' scales once a layer into registers, beside the rs biases.
 //   * The prev half off the chain (the TPU kernel's prev_prefetch,
 //     persistent.py:606-610).  Prev warps load each layer's FIFO slot
 //     x_{t-d} and cond row with cp.async one layer ahead, and compute
@@ -50,12 +67,15 @@
 //     signal through mbarriers.
 //   * The output stack staged as the layers are; the dumps written in the
 //     products' epilogues; the sampler's reductions on the chain's warps.
+//     The mode is read only in the sampler, after the output stack: forced
+//     and prng cost the chain nothing.
 //   * Fixed widths: at the flagship's and config 4's widths (`fixed_widths`)
 //     an instance has R, S, A, the thread counts and the plan's chunking
 //     compiled in, so every product's columns a thread, quad-row stride and
-//     trip count are constants and its quad loop unrolls whole; the plan
-//     (ops/persistent.py::staged_plan) picks it, the launch checks the two
-//     agree, and every other geometry runs the generic instance.
+//     trip count are constants and its quad loop unrolls whole (K4 ran 1.5x
+//     slower without them); the plan (ops/persistent.py::staged_plan) picks
+//     it, the launch checks the two agree, and every other geometry runs
+//     the generic instance.
 //   * The low precisions stage bf16 stacks: their weights are bf16 values
 //     already (scan_generate.product_view), so the copy is exact and moves
 //     half the bytes.  operand/stored/ring_get/ring_put (step_common.cuh)
@@ -73,10 +93,12 @@
 // res/skip's 320 columns, the gate's exact math, two barriers a layer,
 // the output stack, the sampler), and at fp32 the ring now and then: the
 // chain waits on over half its chunks (3.3 MB a step at ~118 GB/s is
-// ~28 us), the bf16 stream (half the bytes) on few.  The card-wide bound
-// (operations at the fp32 rate over all SMs) is far below what one CTA
-// per row can reach.  Holding the weights across a thread-block cluster
-// (fewer bytes and copies per SM) is the lead.
+// ~28 us), the bf16 stream (half the bytes) on few.  int8 moves a quarter
+// of the layer bytes but costs the chain ~3.25 more instructions a weight
+// (the byte permute and exact subtract of (float)q, the dequantising FMUL,
+// a quarter XOR), ~0.5 us a flagship layer: 1.2x K1 on an H100 (PERF.md
+// §6).  The card-wide bound (operations at the fp32 rate over all SMs) is
+// far below what one CTA per row can reach.
 //
 // Compiled with -fmad=false (utils/build.py), one library per precision.
 
@@ -132,30 +154,56 @@ __device__ long long* g_trace;
 
 namespace {
 
-// The widths an instance is compiled for, and the plan's numbers at those
-// widths in each precision (ops/persistent.py::staged_plan with a prev
-// buffer of 4 layers; tests/test_torch_staged.py holds the two equal):
-// R, S, A, the chain's and the prev warps' threads, and the quad-rows a
-// chunk of Wprev, Wcur, rs_w, out_w and end_w brings.  In such an instance
-// every product's columns a thread, quad-row stride and trip count are
-// compile-time constants (K4 ran 1.5x slower without them).  Geometry 0 is
-// the generic instance: it takes every number from the plan at run time.
+// kModes: the modes an instance's sampler serves, sample and argmax (K1,
+// K5) or all four (K2, K3, K4)
+constexpr int kTwoModes = 2;
+constexpr int kAllModes = 4;
+// the layer stacks' storage (ops/persistent.py _STORAGE_IDS)
+constexpr int kStorageF32 = 0;
+constexpr int kStorageBF16 = 1;
+constexpr int kStorageI8 = 2;
+
+// bytes of a stored weight of Wprev, Wcur and rs_w
+__host__ __device__ constexpr int layer_store(int storage) {
+  return storage == kStorageF32 ? 4 : storage == kStorageBF16 ? 2 : 1;
+}
+
+// bytes of a stored weight of out_w and end_w: fp32 (exact) or bf16 beside
+// int8 stacks (ops/persistent.py::staged_out_storage), else the stacks'
+__host__ __device__ constexpr int out_store(int storage, int prec) {
+  return storage == kStorageI8 ? (prec == kPrecExact ? 4 : 2) : layer_store(storage);
+}
+
+// The widths an instance is compiled for, and the plan's numbers there in
+// each precision and storage (ops/persistent.py::staged_plan with a prev
+// buffer of 4 layers; tests/test_torch_staged.py and test_torch_route.py
+// hold the two equal): R, S, A, the chain's and the prev warps' threads,
+// and the quad-rows a chunk of Wprev, Wcur, rs_w, out_w and end_w brings.
+// K1/K5's rows are those of their precision's own storage (fp32 exact,
+// else bf16).  Geometry 0 is the generic instance: it takes every number
+// from the plan at run time.
 struct Fixed {
   int R, S, A, Tc, Tp;
   int rows[5];
 };
 constexpr int kGeometries = 3;
 
-__host__ __device__ constexpr Fixed fixed_widths(int geo, int prec) {
+__host__ __device__ constexpr Fixed fixed_widths(int geo, int prec, int storage) {
   // geometry 1: the flagship's widths (20 layers, R=64, S=256, A=256);
   // geometry 2: config 4's (40 layers, R=128, S=256, A=256)
-  return geo == 1 && prec == kPrecExact ? Fixed{64, 256, 256, 320, 128, {16, 16, 10, 12, 12}}
-       : geo == 1                       ? Fixed{64, 256, 256, 320, 128, {16, 16, 16, 30, 30}}
-       : geo == 2 && prec == kPrecExact ? Fixed{128, 256, 256, 192, 128, {8, 12, 8, 12, 12}}
-       : geo == 2                       ? Fixed{128, 256, 256, 192, 128, {16, 24, 16, 24, 24}}
-                                        : Fixed{};
+  return geo == 1 && storage == kStorageF32 ? Fixed{64, 256, 256, 320, 128, {16, 16, 10, 12, 12}}
+       : geo == 1 && storage == kStorageBF16 ? Fixed{64, 256, 256, 320, 128, {16, 16, 16, 30, 30}}
+       : geo == 1 && prec == kPrecExact     ? Fixed{64, 256, 256, 320, 128, {16, 16, 16, 16, 16}}
+       : geo == 1                           ? Fixed{64, 256, 256, 320, 128, {16, 16, 16, 32, 32}}
+       : geo == 2 && storage == kStorageF32 ? Fixed{128, 256, 256, 192, 128, {8, 12, 8, 12, 12}}
+       : geo == 2 && storage == kStorageBF16 ? Fixed{128, 256, 256, 192, 128, {16, 24, 16, 24, 24}}
+       : geo == 2 && prec == kPrecExact     ? Fixed{128, 256, 256, 192, 128, {32, 32, 32, 12, 12}}
+       : geo == 2                           ? Fixed{128, 256, 256, 192, 128, {32, 32, 32, 24, 24}}
+                                            : Fixed{};
 }
 
+// K1's parameters; K5's and the all-mode instance's extend them, so K1's
+// stay at their offsets (and K5's rows at theirs)
 struct StagedArgs {
   const float* embed;            // [2A, R]
   const unsigned char* stream;   // the relaid stacks (staged_stream)
@@ -163,7 +211,7 @@ struct StagedArgs {
   const float* out_b;            // [A]
   const float* end_b;            // [A]
   const float* cond;             // [T, L, B, 2R], dil_b already added
-  const float* sel;              // [T, B]
+  const float* sel;              // [T, B]: uniforms, or the symbols in mode forced
   const int* sched;              // [2, L]: ring_offsets, then dilations
   float* ring;                   // [ring_size, B, R] (bf16 under kPrecBF16)
   int* y_state;                  // [2, B]
@@ -182,10 +230,18 @@ struct StagedArgs {
   int chain_threads, prev_threads, slot_bytes, chain_slots, prev_slots;
   int lookahead;                 // layers of the prev buffer
   int prev_slot_bytes;           // a prev ring slot (slot_bytes: a chain ring slot)
-  int storage;                   // bytes of a stored weight: 4 or 2
+  int storage;                   // bytes of a stored layer weight: 4, 2 or 1
   long long layer_bytes;
   int smem_bytes;
   Mat mat[5];
+};
+
+// The all-mode instance's: the int8 scales, K2's p_seq and K3's key
+struct StreamArgs : StagedArgs {
+  const float* dil_s;            // [L, 2R]   } int8 scales, null otherwise
+  const float* rs_s;             // [L, R+S]  }
+  float* p_seq;                  // [T, B, A] mode forced only
+  unsigned long long seed;       // mode prng: the Philox key
 };
 
 // K5's rows travel in the launch's own parameters, by value: each row's
@@ -202,8 +258,10 @@ struct RaggedArgs : StagedArgs {
 };
 static_assert(sizeof(RaggedArgs) <= 4096, "K5's parameters past 4 KB");
 
-template <bool kRagged>
-using KernelArgs = std::conditional_t<kRagged, RaggedArgs, StagedArgs>;
+template <bool kRagged, int kModes>
+using KernelArgs =
+    std::conditional_t<kRagged, RaggedArgs,
+                       std::conditional_t<kModes == kAllModes, StreamArgs, StagedArgs>>;
 
 // the clock and the steps of the launch's i-th CTA
 __device__ __forceinline__ long long row_clock(const StagedArgs& a, int) { return a.t0; }
@@ -222,29 +280,62 @@ __device__ __forceinline__ int row_steps(const RaggedArgs& a, int i) {
   return n;
 }
 
+// The all-mode instance's own parameters; the others read none of them
+// (every use sits behind kQuant or kModes == kAllModes)
+__device__ __forceinline__ const float* dil_scales(const StagedArgs&) { return nullptr; }
+__device__ __forceinline__ const float* dil_scales(const StreamArgs& a) { return a.dil_s; }
+__device__ __forceinline__ const float* rs_scales(const StagedArgs&) { return nullptr; }
+__device__ __forceinline__ const float* rs_scales(const StreamArgs& a) { return a.rs_s; }
+__device__ __forceinline__ float* p_seq_of(const StagedArgs&) { return nullptr; }
+__device__ __forceinline__ float* p_seq_of(const StreamArgs& a) { return a.p_seq; }
+__device__ __forceinline__ unsigned long long seed_of(const StagedArgs&) { return 0; }
+__device__ __forceinline__ unsigned long long seed_of(const StreamArgs& a) { return a.seed; }
+
 // ---- the k-quad products ---------------------------------------------------
 
-// quad q of column `col` of a chunk, as four floats (bf16 widens exactly)
-template <int kStore>
-__device__ __forceinline__ float4 load_quad(const unsigned char* w, int idx) {
+// quad q of column `col` of a chunk as four product operands: fp32 as
+// stored, bf16 widened exactly, int8 q as the one rounded product q * s
+// (rounded to bf16 under the low precisions)
+template <int kStore, int kPrec>
+__device__ __forceinline__ float4 load_quad(const unsigned char* w, int idx, float s) {
   if constexpr (kStore == 4) {
     return reinterpret_cast<const float4*>(w)[idx];
-  } else {
+  } else if constexpr (kStore == 2) {
     const uint2 u = reinterpret_cast<const uint2*>(w)[idx];
     return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
                        __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+  } else {
+    // q + 128 in each byte (flipping a byte's sign bit), then per byte
+    // (float)q exactly: one byte permute builds the float 1.5 * 2^23 + 128
+    // + q, and an exact subtract takes 1.5 * 2^23 + 128 off (the conversion
+    // instruction issues at a quarter of the rate); then one rounded product
+    const unsigned u = reinterpret_cast<const unsigned*>(w)[idx] ^ 0x80808080u;
+    auto value = [s, u](int e) {
+      return __fmul_rn(__int_as_float(__byte_perm(u, 0x4B400000u, 0x7640 | e)) - 12583040.0f, s);
+    };
+    const float v0 = value(0), v1 = value(1), v2 = value(2), v3 = value(3);
+    if constexpr (kPrec == kPrecExact) {
+      return make_float4(v0, v1, v2, v3);
+    } else {
+      // operand<kPrec> of each, two at a time: round to nearest even bf16
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(v0, v1), hi = __floats2bfloat162_rn(v2, v3);
+      const unsigned a = *reinterpret_cast<const unsigned*>(&lo);
+      const unsigned b = *reinterpret_cast<const unsigned*>(&hi);
+      return make_float4(__uint_as_float(a << 16), __uint_as_float(a & 0xffff0000u),
+                         __uint_as_float(b << 16), __uint_as_float(b & 0xffff0000u));
+    }
   }
 }
 
 // acc[i] += the four terms of activation quad `a` and the weight quad in
-// quad-row `row` of column col[i], in k order
-template <int kStore, int NC>
+// quad-row `row` of column col[i] (scale sc[i] under int8), in k order
+template <int kStore, int kPrec, int NC>
 __device__ __forceinline__ void mac_quad(float (&acc)[kMaxNC], const float4 a,
                                          const unsigned char* w, int row,
-                                         const int (&col)[kMaxNC]) {
+                                         const int (&col)[kMaxNC], const float (&sc)[kMaxNC]) {
   float4 wq[NC];
 #pragma unroll
-  for (int i = 0; i < NC; ++i) wq[i] = load_quad<kStore>(w, row + col[i]);
+  for (int i = 0; i < NC; ++i) wq[i] = load_quad<kStore, kPrec>(w, row + col[i], sc[i]);
 #pragma unroll
   for (int i = 0; i < NC; ++i) {
     acc[i] = acc[i] + a.x * wq[i].x;
@@ -258,18 +349,18 @@ __device__ __forceinline__ void mac_quad(float (&acc)[kMaxNC], const float4 a,
 // thread's NC columns col[i]: nq whole quads, then the first `rem` terms of
 // the next (the matrix's last, partial quad).  act is 16-byte aligned at
 // the chunk's first k; each quad-row of the chunk holds np quads.
-template <int kStore, int NC>
+template <int kStore, int kPrec, int NC>
 __device__ __forceinline__ void mac_quads(float (&acc)[kMaxNC], const float* act,
                                           const unsigned char* w, const int (&col)[kMaxNC],
-                                          int np, int nq, int rem) {
+                                          const float (&sc)[kMaxNC], int np, int nq, int rem) {
 #pragma unroll 4
   for (int q = 0; q < nq; ++q)
-    mac_quad<kStore, NC>(acc, reinterpret_cast<const float4*>(act)[q], w, q * np, col);
+    mac_quad<kStore, kPrec, NC>(acc, reinterpret_cast<const float4*>(act)[q], w, q * np, col, sc);
   if (rem) {
     const float4 a = reinterpret_cast<const float4*>(act)[nq];
 #pragma unroll
     for (int i = 0; i < NC; ++i) {
-      const float4 wq = load_quad<kStore>(w, nq * np + col[i]);
+      const float4 wq = load_quad<kStore, kPrec>(w, nq * np + col[i], sc[i]);
       acc[i] = acc[i] + a.x * wq.x;
       if (rem > 1) acc[i] = acc[i] + a.y * wq.y;
       if (rem > 2) acc[i] = acc[i] + a.z * wq.z;
@@ -277,33 +368,36 @@ __device__ __forceinline__ void mac_quads(float (&acc)[kMaxNC], const float* act
   }
 }
 
-template <int kStore>
+template <int kStore, int kPrec>
 __device__ __forceinline__ void mac_quads_n(float (&acc)[kMaxNC], const float* act,
                                             const unsigned char* w, const int (&col)[kMaxNC],
-                                            int nc, int np, int nq, int rem) {
-  if (nc == 1) mac_quads<kStore, 1>(acc, act, w, col, np, nq, rem);
-  else if (nc == 2) mac_quads<kStore, 2>(acc, act, w, col, np, nq, rem);
-  else if (nc == 3) mac_quads<kStore, 3>(acc, act, w, col, np, nq, rem);
-  else if (nc == 4) mac_quads<kStore, 4>(acc, act, w, col, np, nq, rem);
+                                            const float (&sc)[kMaxNC], int nc, int np, int nq,
+                                            int rem) {
+  if (nc == 1) mac_quads<kStore, kPrec, 1>(acc, act, w, col, sc, np, nq, rem);
+  else if (nc == 2) mac_quads<kStore, kPrec, 2>(acc, act, w, col, sc, np, nq, rem);
+  else if (nc == 3) mac_quads<kStore, kPrec, 3>(acc, act, w, col, sc, np, nq, rem);
+  else if (nc == 4) mac_quads<kStore, kPrec, 4>(acc, act, w, col, sc, np, nq, rem);
 }
 
 // mac_quads at fixed widths: NQ whole quads, quad-rows of NP quads, fully
 // unrolled, so every load is a constant offset from the thread's column
-template <int kStore, int NC, int NP, int NQ>
+template <int kStore, int kPrec, int NC, int NP, int NQ>
 __device__ __forceinline__ void mac_fixed(float (&acc)[kMaxNC], const float* act,
-                                          const unsigned char* w, const int (&col)[kMaxNC]) {
+                                          const unsigned char* w, const int (&col)[kMaxNC],
+                                          const float (&sc)[kMaxNC]) {
 #pragma unroll
   for (int q = 0; q < NQ; ++q)
-    mac_quad<kStore, NC>(acc, reinterpret_cast<const float4*>(act)[q], w, q * NP, col);
+    mac_quad<kStore, kPrec, NC>(acc, reinterpret_cast<const float4*>(act)[q], w, q * NP, col, sc);
 }
 
 // The product of matrix m over its chunks as they land in ring r: every
 // thread of the consuming group walks every chunk (so all keep one
 // position), the nc > 0 ones add its terms; each warp then frees the slot.
-template <int kStore>
+template <int kStore, int kPrec>
 __device__ __forceinline__ void ring_product(Ring& r, const Mat& m, int K, const float* act,
                                              float (&acc)[kMaxNC], const int (&col)[kMaxNC],
-                                             int nc, int lane, int slot_bytes) {
+                                             const float (&sc)[kMaxNC], int nc, int lane,
+                                             int slot_bytes) {
   const int np = m.row_bytes / (4 * kStore);
   for (int c = 0; c < m.chunks; ++c) {
     ring_wait(r);
@@ -314,8 +408,8 @@ __device__ __forceinline__ void ring_product(Ring& r, const Mat& m, int K, const
         --nq;
         rem = K & 3;
       }
-      mac_quads_n<kStore>(acc, act + 4 * q0, r.slots + (size_t)r.slot * slot_bytes, col, nc,
-                          np, nq, rem);
+      mac_quads_n<kStore, kPrec>(acc, act + 4 * q0, r.slots + (size_t)r.slot * slot_bytes, col,
+                                 sc, nc, np, nq, rem);
     }
     ring_release(r, lane);
   }
@@ -323,25 +417,27 @@ __device__ __forceinline__ void ring_product(Ring& r, const Mat& m, int K, const
 
 // One chunk of NQ quad-rows at fixed widths for a thread that owns NC
 // columns, NC - STEP, or none
-template <int kStore, int NC, int STEP, int NP, int NQ>
+template <int kStore, int kPrec, int NC, int STEP, int NP, int NQ>
 __device__ __forceinline__ void fixed_chunk(float (&acc)[kMaxNC], const float* act,
                                             const unsigned char* w, const int (&col)[kMaxNC],
-                                            int nc) {
+                                            const float (&sc)[kMaxNC], int nc) {
   if (nc == NC) {
-    mac_fixed<kStore, NC, NP, NQ>(acc, act, w, col);
+    mac_fixed<kStore, kPrec, NC, NP, NQ>(acc, act, w, col, sc);
   } else if constexpr (NC > STEP) {
-    if (nc == NC - STEP) mac_fixed<kStore, NC - STEP, NP, NQ>(acc, act, w, col);
+    if (nc == NC - STEP) mac_fixed<kStore, kPrec, NC - STEP, NP, NQ>(acc, act, w, col, sc);
   }
 }
 
 // ring_product of stream matrix kM in an instance of fixed widths (kGeo >
 // 0): K terms, N columns, chunks of the plan's quad-rows; a thread owns its
 // share of the columns (of the R column pairs for Wcur), rounded up or down
-template <int kStore, int kGeo, int kPrec, int kM>
+template <int kStorage, int kGeo, int kPrec, int kM>
 __device__ __forceinline__ void fixed_product(Ring& r, const float* act, float (&acc)[kMaxNC],
-                                              const int (&col)[kMaxNC], int nc, int lane,
+                                              const int (&col)[kMaxNC],
+                                              const float (&sc)[kMaxNC], int nc, int lane,
                                               int slot_bytes) {
-  constexpr Fixed F = fixed_widths(kGeo, kPrec);
+  constexpr Fixed F = fixed_widths(kGeo, kPrec, kStorage);
+  constexpr int kStore = kM <= kRs ? layer_store(kStorage) : out_store(kStorage, kPrec);
   constexpr int K = kM == kOut ? F.S : kM == kEnd ? F.A : F.R;
   constexpr int N = kM <= kCur ? 2 * F.R : kM == kRs ? F.R + F.S : F.A;
   constexpr int T = kM == kPrev ? F.Tp : F.Tc;
@@ -354,9 +450,9 @@ __device__ __forceinline__ void fixed_product(Ring& r, const float* act, float (
     ring_wait(r);
     const unsigned char* w = r.slots + (size_t)r.slot * slot_bytes;
     if (c + 1 < CH) {
-      fixed_chunk<kStore, NC, STEP, NP, ROWS>(acc, act + 4 * ROWS * c, w, col, nc);
+      fixed_chunk<kStore, kPrec, NC, STEP, NP, ROWS>(acc, act + 4 * ROWS * c, w, col, sc, nc);
     } else {
-      fixed_chunk<kStore, NC, STEP, NP, LAST>(acc, act + 4 * ROWS * c, w, col, nc);
+      fixed_chunk<kStore, kPrec, NC, STEP, NP, LAST>(acc, act + 4 * ROWS * c, w, col, sc, nc);
     }
     ring_release(r, lane);
   }
@@ -364,14 +460,16 @@ __device__ __forceinline__ void fixed_product(Ring& r, const float* act, float (
 
 // The product of stream matrix kM: at the instance's fixed widths, or
 // generic
-template <int kStore, int kGeo, int kPrec, int kM>
+template <int kStorage, int kGeo, int kPrec, int kM>
 __device__ __forceinline__ void product(Ring& r, const Mat& m, int K, const float* act,
-                                        float (&acc)[kMaxNC], const int (&col)[kMaxNC], int nc,
-                                        int lane, int slot_bytes) {
+                                        float (&acc)[kMaxNC], const int (&col)[kMaxNC],
+                                        const float (&sc)[kMaxNC], int nc, int lane,
+                                        int slot_bytes) {
   if constexpr (kGeo == 0) {
-    ring_product<kStore>(r, m, K, act, acc, col, nc, lane, slot_bytes);
+    constexpr int kStore = kM <= kRs ? layer_store(kStorage) : out_store(kStorage, kPrec);
+    ring_product<kStore, kPrec>(r, m, K, act, acc, col, sc, nc, lane, slot_bytes);
   } else {
-    fixed_product<kStore, kGeo, kPrec, kM>(r, act, acc, col, nc, lane, slot_bytes);
+    fixed_product<kStorage, kGeo, kPrec, kM>(r, act, acc, col, sc, nc, lane, slot_bytes);
   }
 }
 
@@ -387,11 +485,12 @@ __device__ __forceinline__ void issue_chunk(const StagedArgs& a, unsigned char* 
   bulk_copy(dst, src + (size_t)k * mt.rows * mt.row_bytes, bytes, full);
 }
 
-template <bool kRagged, int kPrec, int kGeo>
+template <bool kRagged, int kModes, int kStorage, int kPrec, int kGeo>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-    staged_generate_kernel(const __grid_constant__ KernelArgs<kRagged> a) {
-  constexpr int kStore = kPrec == kPrecExact ? 4 : 2;
-  constexpr Fixed F = fixed_widths(kGeo, kPrec);
+    staged_generate_kernel(const __grid_constant__ KernelArgs<kRagged, kModes> a) {
+  constexpr bool kQuant = kStorage == kStorageI8;
+  constexpr bool kAll = kModes == kAllModes;
+  constexpr Fixed F = fixed_widths(kGeo, kPrec, kStorage);
   constexpr bool kFix = kGeo != 0;
   const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
   const int B = a.B, L = a.L;
@@ -400,6 +499,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   const int Tc = kFix ? F.Tc : a.chain_threads, Tp = kFix ? F.Tp : a.prev_threads;
   const int NP = a.lookahead;
   const int CS = a.chain_slots, PS = a.prev_slots;
+  const float none[kMaxNC] = {1.0f, 1.0f, 1.0f, 1.0f};   // no scales (out_w, end_w)
 
   // shared memory: chain ring, prev ring, barriers, then the activations
   // (ops/persistent.py::staged_plan computes the same layout's size)
@@ -539,6 +639,15 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     for (int g = 0; g < G; ++g) {
       const int s = g % NP;
       const bool ahead = NP >= 2 && g + 1 < G;
+      // the layer's int8 scales of Wprev, else 1.  Filled in the all-mode
+      // instances alone: in K1/K5 even these dead stores moved ptxas's
+      // schedule of the loop, so they take `none`
+      float sc[kMaxNC];
+      if constexpr (kAll) {
+#pragma unroll
+        for (int i = 0; i < kMaxNC; ++i)
+          sc[i] = kQuant && i < ncp ? __ldg(dil_scales(a) + (size_t)(g % L) * R2 + col[i]) : 1.0f;
+      }
       if (ahead) {
         load(g + 1);
         cp_async_wait<1>();
@@ -553,8 +662,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
       float acc[kMaxNC];
 #pragma unroll
       for (int i = 0; i < kMaxNC; ++i) acc[i] = 0.0f;
-      product<kStore, kGeo, kPrec, kPrev>(prev, a.mat[kPrev], R, xpv, acc, col, ncp, lane,
-                                          a.prev_slot_bytes);
+      product<kStorage, kGeo, kPrec, kPrev>(prev, a.mat[kPrev], R, xpv, acc, col,
+                                            *(kAll ? &sc : &none), ncp, lane,
+                                            a.prev_slot_bytes);
       NVW_TP(1);
 #pragma unroll
       for (int i = 0; i < kMaxNC; ++i)
@@ -619,17 +729,21 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     for (int l = 0; l < L; ++l) {
       const int g = j * L + l, s = g % NP;
       NVW_TL(0);
-      float br[kMaxNC];
+      // the layer's rs biases and int8 scales, loaded under x_t Wcur
+      float br[kMaxNC], scur[kMaxNC], srs[kMaxNC];
 #pragma unroll
-      for (int k = 0; k < kMaxNC; ++k)
+      for (int k = 0; k < kMaxNC; ++k) {
         br[k] = k < n_rs ? __ldg(a.rs_b + (size_t)l * RS + rs_col[k]) : 0.0f;
+        scur[k] = kQuant && k < n_cur ? __ldg(dil_scales(a) + (size_t)l * R2 + cur_col[k]) : 1.0f;
+        srs[k] = kQuant && k < n_rs ? __ldg(rs_scales(a) + (size_t)l * RS + rs_col[k]) : 1.0f;
+      }
 
       // x_t Wcur, then z = (zp + zc) + cond_pre, the FIFO write and the gate
       float acc[kMaxNC];
 #pragma unroll
       for (int k = 0; k < kMaxNC; ++k) acc[k] = 0.0f;
-      product<kStore, kGeo, kPrec, kCur>(chain, a.mat[kCur], R, xop, acc, cur_col, n_cur, lane,
-                                         a.slot_bytes);
+      product<kStorage, kGeo, kPrec, kCur>(chain, a.mat[kCur], R, xop, acc, cur_col, scur, n_cur,
+                                           lane, a.slot_bytes);
       NVW_TL(1);
       if (n_cur) {
         bar_wait(zfull + s, (uint32_t)(g / NP) & 1u);
@@ -643,11 +757,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
             const int i = cur_col[2 * k];
             const float zt = (zp[i] + acc[2 * k]) + cn[i];
             const float zg = (zp[R + i] + acc[2 * k + 1]) + cn[R + i];
-            if constexpr (kPrec == kPrecExact) {
-              a.ring[row + i] = x[i];
-            } else {
-              ring_put<kPrec>(a.ring, row + i, x[i]);
-            }
+            ring_put<kPrec>(a.ring, row + i, x[i]);
             h[i] = operand<kPrec>(nvw::em_tanh(zt) * nvw::em_sigmoid(zg));
           }
         }
@@ -660,8 +770,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
       // layer; the dump in the epilogue
 #pragma unroll
       for (int k = 0; k < kMaxNC; ++k) acc[k] = 0.0f;
-      product<kStore, kGeo, kPrec, kRs>(chain, a.mat[kRs], R, h, acc, rs_col, n_rs, lane,
-                                        a.slot_bytes);
+      product<kStorage, kGeo, kPrec, kRs>(chain, a.mat[kRs], R, h, acc, rs_col, srs, n_rs, lane,
+                                          a.slot_bytes);
       NVW_TL(3);
 #pragma unroll
       for (int k = 0; k < kMaxNC; ++k) {
@@ -693,8 +803,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     float acc[kMaxNC];
 #pragma unroll
     for (int k = 0; k < kMaxNC; ++k) acc[k] = 0.0f;
-    product<kStore, kGeo, kPrec, kOut>(chain, a.mat[kOut], S, skip, acc, out_col, n_out, lane,
-                                       a.slot_bytes);
+    product<kStorage, kGeo, kPrec, kOut>(chain, a.mat[kOut], S, skip, acc, out_col, none, n_out,
+                                         lane, a.slot_bytes);
     NVW_TS(2);
 #pragma unroll
     for (int k = 0; k < kMaxNC; ++k) {
@@ -708,14 +818,15 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     named_sync(kChainBar, Tc);
 #pragma unroll
     for (int k = 0; k < kMaxNC; ++k) acc[k] = 0.0f;
-    product<kStore, kGeo, kPrec, kEnd>(chain, a.mat[kEnd], A, zs, acc, out_col, n_out, lane,
-                                       a.slot_bytes);
+    product<kStorage, kGeo, kPrec, kEnd>(chain, a.mat[kEnd], A, zs, acc, out_col, none, n_out,
+                                         lane, a.slot_bytes);
     NVW_TS(3);
 #pragma unroll
     for (int k = 0; k < kMaxNC; ++k)
       if (k < n_out) za[out_col[k]] = acc[k] + eb[k];
     named_sync(kChainBar, Tc);
 
+    // the sampler: the mode is read here only
     int y;
     if (a.mode == kModeArgmax && !dump) {
       y = chain_argmax(za, A, tid, Tc);
@@ -727,18 +838,29 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
       for (int i = tid; i < A; i += Tc) c0[i] = nvw::em_exp(za[i] - zmax);
       named_sync(kChainBar, Tc);
       const float* cum = chain_cumsum(c0, c1, A, tid, Tc);
+      // the sum: the all-mode instance reads it once, K1/K5 where they use
+      // it (each instance's code as it was measured, PERF.md §6)
+      float total = 0.0f;
+      if constexpr (kAll) total = cum[A - 1];
       if (dump) {
         // p = e / sum: a tolerance-governed output (sampling never divides)
-        const float total = cum[A - 1];
+        if constexpr (!kAll) total = cum[A - 1];
         for (int i = tid; i < A; i += Tc) {
           a.d_za[(size_t)b * A + i] = za[i];
           a.d_p[(size_t)b * A + i] = nvw::em_exp(za[i] - zmax) / total;
         }
       }
-      if (a.mode == kModeArgmax) {
+      if (kAll && a.mode == kModeForced) {
+        // the dump's p, for every step: p_seq[j, b, :] (K2's)
+        float* pj = p_seq_of(a) + ((size_t)j * B + b) * A;
+        for (int i = tid; i < A; i += Tc) pj[i] = nvw::em_exp(za[i] - zmax) / total;
+        y = (int)u;
+      } else if (a.mode == kModeArgmax) {
         y = chain_argmax(za, A, tid, Tc);
       } else {
-        const float thr = u * cum[A - 1];
+        // the inverse CDF over an injected uniform, or K3's Philox draw
+        const float thr = (kAll && a.mode == kModePrng ? philox_uniform(seed_of(a), t, b) : u) *
+                          (kAll ? total : cum[A - 1]);
         int c = 0;
         for (int i = tid; i < A; i += Tc) c += cum[i] <= thr ? 1 : 0;
         c = chain_sum_int(c, tid, Tc);
@@ -770,9 +892,10 @@ constexpr int kMaxDevices = 64;
 
 // `rows` CTAs.  The shared-memory attribute is set once per instance and
 // device (again only for a larger plan), not on every launch.
-template <bool kRagged, int kPrec, int kGeo>
-int launch_instance(const KernelArgs<kRagged>& args, int threads, int rows, void* stream) {
-  auto kernel = staged_generate_kernel<kRagged, kPrec, kGeo>;
+template <bool kRagged, int kModes, int kStorage, int kPrec, int kGeo>
+int launch_instance(const KernelArgs<kRagged, kModes>& args, int threads, int rows,
+                    void* stream) {
+  auto kernel = staged_generate_kernel<kRagged, kModes, kStorage, kPrec, kGeo>;
   static std::atomic<int> granted[kMaxDevices];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -787,8 +910,9 @@ int launch_instance(const KernelArgs<kRagged>& args, int threads, int rows, void
   return (int)cudaGetLastError();
 }
 
-template <bool kRagged, int kPrec>
-int launch(KernelArgs<kRagged>& args, const long long* plan, int rows, void* stream) {
+// The plan's checks, then the instance it chose, over `rows` CTAs
+template <bool kRagged, int kModes, int kStorage, int kPrec>
+int launch(KernelArgs<kRagged, kModes>& args, const long long* plan, int rows, void* stream) {
   // the plan array: ops/persistent.py::StagedPlan.kernel_args
   args.chain_threads = (int)plan[0];
   args.prev_threads = (int)plan[1];
@@ -807,39 +931,70 @@ int launch(KernelArgs<kRagged>& args, const long long* plan, int rows, void* str
     args.mat[m] = Mat{p[0], (int)p[1], (int)p[2], 0, (int)p[3]};
     args.mat[m].chunks = (args.mat[m].kq + args.mat[m].rows - 1) / args.mat[m].rows;
   }
-  const int store = kPrec == kPrecExact ? 4 : 2;
   const int Tc = args.chain_threads, Tp = args.prev_threads;
-  bool ok = args.storage == store && Tc > 0 && Tc % 32 == 0 && Tp > 0 && Tp % 32 == 0 &&
-            threads == Tc + Tp + 32 && threads <= kMaxThreads && args.lookahead >= 1 &&
-            args.lookahead <= args.L && args.chain_slots >= 2 && args.prev_slots >= 2 &&
-            args.chain_slots + args.prev_slots <= 32 && args.slot_bytes % 128 == 0 &&
-            args.prev_slot_bytes % 128 == 0 &&
+  bool ok = args.storage == layer_store(kStorage) && Tc > 0 && Tc % 32 == 0 && Tp > 0 &&
+            Tp % 32 == 0 && threads == Tc + Tp + 32 && threads <= kMaxThreads &&
+            args.lookahead >= 1 && args.lookahead <= args.L && args.chain_slots >= 2 &&
+            args.prev_slots >= 2 && args.chain_slots + args.prev_slots <= 32 &&
+            args.slot_bytes % 128 == 0 && args.prev_slot_bytes % 128 == 0 &&
             smem_layout_bytes(args, kPrec) == args.smem_bytes && 2 * Tc >= args.R &&
             Tc * kMaxNC >= args.R + args.S && Tc * kMaxNC >= args.A &&
             Tp * kMaxNC >= 2 * args.R && (kPrec != kPrecBF16 || args.R % 2 == 0);
   for (int m = 0; m < 5 && ok; ++m) {
-    // whole 16-byte quad-rows, a chunk within its slot, the matrix (at the
-    // last layer if per layer) within the stream
+    // whole 16-byte quad-rows of the matrix's element size, a chunk within
+    // its slot, the matrix (at the last layer if per layer) within the
+    // stream
     const Mat& mt = args.mat[m];
+    const int store = m <= kRs ? layer_store(kStorage) : out_store(kStorage, kPrec);
     const long long slot = m == kPrev ? args.prev_slot_bytes : args.slot_bytes;
     const long long last = mt.offset + (m <= kRs ? (args.L - 1) * args.layer_bytes : 0);
-    ok = mt.row_bytes % 16 == 0 && mt.rows >= 1 && (long long)mt.rows * mt.row_bytes <= slot &&
-         mt.offset % 16 == 0 && last + (long long)mt.kq * mt.row_bytes <= stream_bytes;
+    const int N = m <= kCur ? 2 * args.R : m == kRs ? args.R + args.S : args.A;
+    ok = mt.row_bytes == ((N + 3) & ~3) * 4 * store && mt.rows >= 1 &&
+         (long long)mt.rows * mt.row_bytes <= slot && mt.offset % 16 == 0 &&
+         last + (long long)mt.kq * mt.row_bytes <= stream_bytes;
   }
   // the instance the plan chose: its fixed widths must be the plan's
   const int geo = (int)plan[32];
   ok = ok && geo >= 0 && geo < kGeometries;
   if (ok && geo > 0) {
-    const Fixed f = fixed_widths(geo, kPrec);
+    const Fixed f = fixed_widths(geo, kPrec, kStorage);
     ok = f.R == args.R && f.S == args.S && f.A == args.A && f.Tc == Tc && f.Tp == Tp;
     for (int m = 0; m < 5; ++m) ok = ok && f.rows[m] == args.mat[m].rows;
   }
   if (!ok) return (int)cudaErrorInvalidValue;
   switch (geo) {
-    case 1: return launch_instance<kRagged, kPrec, 1>(args, threads, rows, stream);
-    case 2: return launch_instance<kRagged, kPrec, 2>(args, threads, rows, stream);
-    default: return launch_instance<kRagged, kPrec, 0>(args, threads, rows, stream);
+    case 1: return launch_instance<kRagged, kModes, kStorage, kPrec, 1>(args, threads, rows, stream);
+    case 2: return launch_instance<kRagged, kModes, kStorage, kPrec, 2>(args, threads, rows, stream);
+    default: return launch_instance<kRagged, kModes, kStorage, kPrec, 0>(args, threads, rows, stream);
   }
+}
+
+// the storage of K1/K5's stream in precision kPrec (ops/persistent.py
+// staged_storage)
+constexpr int own_storage(int prec) { return prec == kPrecExact ? kStorageF32 : kStorageBF16; }
+
+// K1, K2, K3 and K4.  Modes sample and argmax on the precision's own
+// storage run K1's instance, which has no branch of the other two; every
+// other call runs the all-mode instance of its storage.
+template <int kPrec>
+int launch_lockstep(StreamArgs& args, int storage, const long long* plan, void* stream) {
+  constexpr int kOwn = own_storage(kPrec);
+  if (args.mode < kModeSample || args.mode > kModePrng ||
+      (storage == kStorageI8 && (args.dil_s == nullptr || args.rs_s == nullptr)) ||
+      (args.mode == kModeForced && args.p_seq == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (storage == kOwn && args.mode <= kModeArgmax)
+    return launch<false, kTwoModes, kOwn, kPrec>(static_cast<StagedArgs&>(args), plan, args.B,
+                                                 stream);
+  if (storage == kStorageBF16)
+    return launch<false, kAllModes, kStorageBF16, kPrec>(args, plan, args.B, stream);
+  if (storage == kStorageI8)
+    return launch<false, kAllModes, kStorageI8, kPrec>(args, plan, args.B, stream);
+  if constexpr (kPrec == kPrecExact) {
+    if (storage == kStorageF32)
+      return launch<false, kAllModes, kStorageF32, kPrec>(args, plan, args.B, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // K5: the rows' clocks and lengths, host arrays, copied into the launch's
@@ -861,7 +1016,7 @@ int launch_ragged(RaggedArgs& args, const long long* t0_row, const int* n_valid_
       args.t0_row[i] = t0_row[r0 + i];
       args.n_valid_row[i] = n_valid_row[r0 + i];
     }
-    const int err = launch<true, kPrec>(args, plan, rows, stream);
+    const int err = launch<true, kTwoModes, own_storage(kPrec), kPrec>(args, plan, rows, stream);
     if (err) return err;
   }
   return 0;
@@ -869,20 +1024,24 @@ int launch_ragged(RaggedArgs& args, const long long* t0_row, const int* n_valid_
 
 }  // namespace
 
-// K1: sel carries uniforms; mode 0 sample, 1 argmax; the dump pointers are
-// all null when off.  `stream` is staged_stream's tensor; `plan` a host
-// array of StagedPlan.kernel_args.
-#define NVW_STAGED_ENTRY(name, kPrec)                                                         \
-  int name(const float* embed, const void* stream_w, const float* rs_b, const float* out_b,   \
-           const float* end_b, const float* cond, const float* sel, const int* sched,         \
-           float* ring, int* y_state, int* y, float* d_xt, float* d_skip, float* d_zs,        \
-           float* d_za, float* d_p, long long t0, int n_valid, int B, int L, int R, int S,    \
-           int A, int tanh_embed, int silence_bin, int mode, const long long* plan,           \
-           void* stream) {                                                                    \
-    StagedArgs args{embed, (const unsigned char*)stream_w, rs_b, out_b, end_b, cond, sel,    \
-                    sched, ring, y_state, y, d_xt, d_skip, d_zs, d_za, d_p, 0, {}, t0,       \
-                    n_valid, B, L, R, S, A, tanh_embed, silence_bin, mode};                  \
-    return launch<false, kPrec>(args, plan, B, stream);                                       \
+// K1, K2, K3 and K4: mode 0 sample, 1 argmax (sel: uniforms), 2 forced
+// (sel: symbols, p_seq written), 3 prng (sel not read); storage 0 fp32
+// (exact only), 1 bf16, 2 int8 (with dil_s, rs_s); the dump pointers all
+// null when off.  `stream_w` is staged_stream's tensor; `plan` a host array
+// of StagedPlan.kernel_args.
+#define NVW_STAGED_ENTRY(name, kPrec)                                                          \
+  int name(const float* embed, const void* stream_w, const float* dil_s, const float* rs_s,    \
+           const float* rs_b, const float* out_b, const float* end_b, const float* cond,       \
+           const float* sel, const int* sched, float* ring, int* y_state, int* y, float* d_xt, \
+           float* d_skip, float* d_zs, float* d_za, float* d_p, float* p_seq, long long t0,    \
+           unsigned long long seed, int n_valid, int B, int L, int R, int S, int A,            \
+           int tanh_embed, int silence_bin, int mode, int storage, const long long* plan,      \
+           void* stream) {                                                                     \
+    StreamArgs args{{embed, (const unsigned char*)stream_w, rs_b, out_b, end_b, cond, sel,    \
+                     sched, ring, y_state, y, d_xt, d_skip, d_zs, d_za, d_p, 0, {}, t0,       \
+                     n_valid, B, L, R, S, A, tanh_embed, silence_bin, mode},                  \
+                    dil_s, rs_s, p_seq, seed};                                                 \
+    return launch_lockstep<kPrec>(args, storage, plan, stream);                                \
   }
 
 // K5: mode "sample", no dump; t0_row [B] and n_valid_row [B] are host

@@ -1,8 +1,9 @@
-// Device code shared by the generation kernels K1/K2/K3/K5 (persistent.cu),
-// K4 (stream_generate.cu) and K6 (fused_chain.cu): the selector sources, the
-// precisions and their roundings, the fixed-order column products and K3's
-// Philox draw.  One copy, so the kernels that chip_smoke.py holds to one
-// another bit for bit compile the same sums, roundings and draws.
+// Device code shared by the generation kernels (staged_generate.cu,
+// generic_generate.cu, stream_generate.cu, fused_chain.cu and the others):
+// the modes and the selector sources, the precisions and their roundings,
+// the fixed-order column products and K3's Philox draw.  One copy, so the
+// kernels that chip_smoke.py holds to one another bit for bit compile the
+// same sums, roundings and draws.
 // Everything is force-inlined.
 //
 // Compiled with -fmad=false (utils/build.py): every a*b+c rounds twice, as
@@ -16,8 +17,11 @@
 
 namespace nvw {
 
+// the entry points' modes (ops/persistent.py _MODE_IDS)
 constexpr int kModeSample = 0;
 constexpr int kModeArgmax = 1;
+constexpr int kModeForced = 2;
+constexpr int kModePrng = 3;
 // where a step's selector comes from
 constexpr int kSelInjected = 0;   // sel[j, b], a uniform (K1, K5)
 constexpr int kSelForced = 1;     // sel[j, b], the symbol to emit (K2)
@@ -96,10 +100,11 @@ __device__ __forceinline__ float dot_column(const float* v, const float* __restr
 
 // dot_column's sums in the same order, with the weights of eight k-steps
 // loaded before their products, so eight L2 loads are in flight at once.
-// In the K2 instance ptxas interleaved dot_column's loads with the
+// In the first K2 instance ptxas interleaved dot_column's loads with the
 // dependent adds, exposing each load's latency alone (295 us per flagship
-// step on an H100 against K1's 183; PERF.md).  K2, K3 and K4 use this form;
-// P5's stage chain (probes.cu) uses dot_column.
+// step on an H100 against K1's 183; PERF.md).  The first K4 and the
+// generic K2/K3 use this form; the generic K1/K5 and P5's stage chain
+// (probes.cu) use dot_column.
 __device__ __forceinline__ float dot_column_batched(const float* v, const float* __restrict__ w,
                                                     int K, int stride) {
   float acc = 0.0f;

@@ -1,8 +1,8 @@
 // The first K4: K1 with the two large per-layer weight stacks streamed
 // through shared memory (weight streaming, the engine's Impl.MANYBLOCK).
-// Since the staged K4 (staged_stream_generate.cu) it runs only where that
+// Since the staged K4 (staged_generate.cu) it runs only where that
 // kernel's plan cannot hold the geometry (ops/persistent.py::
-// generation_route: A = 2048, for example).
+// generation_route: A = 2048, for example), there also for K2 and K3.
 //
 // Replaces the TPU kernel nv_wavenet_tpu/ops/persistent.py:762 with
 // stream_weights=True: dil_w and rs_w stay in device memory and are copied
@@ -14,7 +14,7 @@
 // sample and argmax with the optional last-step dump, forced (p_seq), prng
 // (Philox on the card).
 //
-// What it computes is K1's step, in K1's order (persistent.cu): the split
+// What it computes is K1's step, in K1's order (generic_generate.cu): the split
 // dilated GEMM, the gate, the fused residual + skip GEMM, the output stack
 // and the canonical sampler; the exact math of exact_math.cuh is inlined.
 //
@@ -77,12 +77,12 @@
 // the same precision bit for bit.  The kPrecExact code stays in `if
 // constexpr` branches, so the exact instances compile as they did.
 //
-// A separate source from persistent.cu so that K1, K2, K3 and K5 compile
-// exactly as they did.  The selector sources, the batched column product
-// and the Philox draw are step_common.cuh's, shared with them; the step's
-// tail repeats K1's (folding it into the header as well moved K1's code
-// and its time, PERF.md).  chip_smoke.py holds K4 against K1, K2 and K3
-// bit for bit.
+// A separate source from the generic kernel so that K1, K2, K3 and K5
+// compile exactly as they did.  The selector sources, the batched column
+// product and the Philox draw are step_common.cuh's, shared with them; the
+// step's tail repeats K1's (folding it into the header as well moved K1's
+// code and its time, PERF.md).  chip_smoke.py holds K4 against K1, K2 and
+// K3 bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -102,9 +102,6 @@ using namespace nvw;
 
 constexpr int kThreads = 256;
 constexpr int kMaxTasks = 4;      // output columns per thread and product
-// the entry point's modes beyond kModeSample and kModeArgmax
-constexpr int kModeForced = 2;
-constexpr int kModePrng = 3;
 constexpr int kStorageF32 = 0;
 constexpr int kStorageBF16 = 1;
 constexpr int kStorageI8 = 2;

@@ -20,19 +20,19 @@ speculative exact decode: `run_speculative`.
     feeds) are the staged kernel (`csrc/staged_generate.cu`): every weight
     copied by TMA into shared memory ahead of its use, the dilated prev
     half computed off the step's chain.  K2 and K3 run the same staged
-    step (`csrc/staged_stream_generate.cu` on K1's own stream, one copy of
-    the weights for all of them), or `csrc/persistent.cu` where the staged
-    plan raises.  AUTO stays on K1, whose plan
+    step (the same source, on K1's own stream, one copy of the weights for
+    all of them).  AUTO stays on K1, whose plan
     (`persistent.staged_plan`) holds the flagship, config 4 and every
     geometry the tests run; the JAX engine's AUTO picks MANYBLOCK from a
     VMEM budget, which has no counterpart here (`vmem_budget` is not
     ported).  MANYBLOCK runs K4 in every mode of `run*`, lockstep `feed`
     and the dumps: K1's staged step on a stream that holds dil_w and rs_w
-    in the storage's own bytes (`csrc/staged_stream_generate.cu`).
+    in the storage's own bytes (`csrc/staged_generate.cu`).
     `persistent.generation_route` names the kernel before any launch: a
     geometry the staged plan cannot hold (A = 2048, R = 512, an odd R in
-    bf16) runs the generic K1/K5 (`csrc/generic_generate.cu`) or, under
-    MANYBLOCK, the first K4 (`csrc/stream_generate.cu`, whose copy
+    bf16) runs the generic K1/K5 (`csrc/generic_generate.cu`), K2/K3 on
+    the first K4 (`csrc/stream_generate.cu`; the generic kernel where its
+    plan raises too) or, under MANYBLOCK, K4 on the first K4 (whose copy
     schedule `stream_group_size` and `stream_prefetch` set; they change no
     value and schedule nothing on the staged K4), with a note printed once
     at construction; a geometry neither K4 holds raises there.  Ragged or
@@ -132,9 +132,10 @@ from nv_wavenet_tpu_torch.utils import tracing
 
 # what a fallback route runs (`persistent.generation_route`)
 _ROUTE_NOTES = {"generic": "K1/K5 run the generic kernel "
-                           "(csrc/generic_generate.cu)",
+                           "(csrc/generic_generate.cu), K2/K3 the first K4 "
+                           "(csrc/stream_generate.cu)",
                 "wide": "K1 runs card-wide (csrc/wide_generate.cu), K5 and "
-                        "the dumps the generic kernel",
+                        "the dumps the generic kernel, K2/K3 the first K4",
                 "stream": "MANYBLOCK runs the first K4 "
                           "(csrc/stream_generate.cu)"}
 

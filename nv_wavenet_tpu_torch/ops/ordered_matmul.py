@@ -3,7 +3,7 @@
 
 y[m, n] = sum_k x[m, k] w[k, n], accumulated from 0 over k = 0, 1, ...,
 K-1 with every product and every sum rounded once: the order of K1's
-per-column dot products (`csrc/persistent.cu::dot_column`).  The scorer's
+per-column dot products (`csrc/step_common.cuh::dot_column`).  The scorer's
 products go through it so that its FIFO ring and distributions equal the
 sequential kernels' bit for bit; cuBLAS (`x @ w`) sums in another order.
 

@@ -1,11 +1,12 @@
 """The persistent generator: the whole generation of a call in one kernel
-launch (K1 and K5, `csrc/staged_generate.cu`, or where their plan cannot
-hold the geometry K1 card-wide, `csrc/wide_generate.cu`, lockstep and exact
-where `wide_plan` holds, else `csrc/generic_generate.cu`; K2 and K3, K1's staged step
-in `csrc/staged_stream_generate.cu` on K1's own stream, or where the
-staged plan cannot hold the geometry `csrc/persistent.cu`; K4,
-`csrc/staged_stream_generate.cu`, or where its plan cannot hold the
-geometry `csrc/stream_generate.cu`), with its plain PyTorch version.
+launch (`csrc/staged_generate.cu`, one kernel template for K1, K5, K2, K3
+and K4 wherever `staged_plan` holds the geometry: K1 and K5, K2 and K3 on
+K1's own stream, K4 on a stream in the storage's own bytes; where it raises
+K1 card-wide, `csrc/wide_generate.cu`, lockstep and exact where `wide_plan`
+holds, else `csrc/generic_generate.cu` for K1/K5, and
+`csrc/stream_generate.cu`, the first K4, for K4 and for K2/K3 where
+`stream_plan` holds, else the generic kernel), with its plain PyTorch
+version.
 `generation_route` names the kernel a call runs, before any launch.
 
 The port's counterpart of `nv_wavenet_tpu/ops/persistent.py`
@@ -19,8 +20,8 @@ tensor runs the plain loop of `ops/scan_generate.py`.  Nothing falls back
 from one to the other.
 
 Precision (`fast_math`, `compute_dtype`; `scan_generate.PRECISIONS`): each
-of K1, K2, K3, K5 and K4 has an instance per precision, with its own entry
-point and launch count (`PERSISTENT_KERNELS[prec]`, ...).  "fast" and
+of K1, K2, K3, K5 and K4 has an instance per precision, with its precision's
+entry points and launch counts (`PERSISTENT_KERNELS[prec]`, ...).  "fast" and
 "bf16" compute with the storage's values rounded to bf16 where they enter
 products (`scan_generate.product_view`, made once per params object), and
 "bf16" keeps the FIFO ring as bf16 (`init_ring(dtype=...)`).
@@ -87,7 +88,7 @@ from nv_wavenet_tpu_torch.models import params as params_lib
 from nv_wavenet_tpu_torch.ops import scan_generate
 from nv_wavenet_tpu_torch.utils import build, tracing
 
-_MODE_IDS = {"sample": 0, "argmax": 1}
+_MODE_IDS = {"sample": 0, "argmax": 1, "forced": 2, "prng": 3}
 _DUMP_KEYS = ("xt", "skip", "zs", "za", "p")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -102,30 +103,25 @@ def _kernels(source: str, symbol: str, argtypes) -> Dict[str, build.CudaKernel]:
             for p in scan_generate.PRECISIONS}
 
 
-# K1: one CTA per batch row, all steps and layers inside one launch, every
-# weight staged into shared memory by TMA (`staged_plan`, `staged_stream`)
+# K1, K2, K3 and K4 (lockstep, every mode and storage): one CTA per batch
+# row, all steps and layers inside one launch, every weight staged into
+# shared memory by TMA (`staged_plan`, `staged_stream`)
 PERSISTENT_KERNELS = _kernels(
     "staged_generate.cu", "nvw_staged_generate",
-    [_P] * 16 + [ctypes.c_longlong] + [_I] * 9 + [_P, _P])
-# K5: K1's instance with per-row clocks and lengths (ragged feeds), which
+    [_P] * 19 + [ctypes.c_longlong, ctypes.c_ulonglong] + [_I] * 10
+    + [_P, _P])
+# K5: the same step with per-row clocks and lengths (ragged feeds), which
 # travel in the launch's parameters from two host arrays
 RAGGED_KERNELS = _kernels(
     "staged_generate.cu", "nvw_staged_generate_ragged",
     [_P] * 13 + [_I] * 8 + [_P, _P])
-# K2: K1's instance that consumes the symbols in sel and writes p_seq
-FORCED_KERNELS = _kernels(
-    "persistent.cu", "nvw_persistent_generate_forced",
-    [_P] * 20 + [ctypes.c_longlong] + [_I] * 8 + [_P])
-# K3: K1's instance that draws its selectors from Philox on the card
-PRNG_KERNELS = _kernels(
-    "persistent.cu", "nvw_persistent_generate_prng",
-    [_P] * 18 + [ctypes.c_longlong] + [_I] * 8 + [ctypes.c_ulonglong, _P])
 # K1 and K5 where the staged plan cannot hold the geometry (fault F2 of
-# ROADMAP.md): every product's columns looped over 256 threads, the weights
-# read from L2 (the K1/K5 of commit 14b57bc)
+# ROADMAP.md), K2 and K3 where the first K4's cannot either: every
+# product's columns looped over 256 threads, the weights read from L2 (the
+# K1 of commit 14b57bc); the lockstep entry takes every mode
 GENERIC_KERNELS = _kernels(
     "generic_generate.cu", "nvw_generic_generate",
-    [_P] * 19 + [ctypes.c_longlong] + [_I] * 9 + [_P])
+    [_P] * 20 + [ctypes.c_longlong, ctypes.c_ulonglong] + [_I] * 9 + [_P])
 GENERIC_RAGGED_KERNELS = _kernels(
     "generic_generate.cu", "nvw_generic_generate_ragged",
     [_P] * 16 + [_I] * 8 + [_P])
@@ -136,17 +132,11 @@ WIDE_KERNELS = {"exact": build.CudaKernel(
     "wide_generate.cu", "nvw_wide_generate",
     [_P] * 14 + [ctypes.c_longlong] + [_I] * 9 + [_P, _P,
                                                    ctypes.POINTER(_I)])}
-# K4: K1's staged step on a stream in the storage's own bytes, every mode
-STAGED_STREAM_KERNELS = _kernels(
-    "staged_stream_generate.cu", "nvw_staged_stream_generate",
-    [_P] * 19 + [ctypes.c_longlong, ctypes.c_ulonglong] + [_I] * 10
-    + [_P, _P])
-# K4 where the staged plan cannot hold the geometry: dil_w and rs_w
-# streamed through a ring of row blocks, every mode
+# K4, and K2/K3, where the staged plan cannot hold the geometry: dil_w and
+# rs_w streamed through a ring of row blocks, every mode
 STREAM_KERNELS = _kernels(
     "stream_generate.cu", "nvw_stream_generate",
     [_P] * 22 + [ctypes.c_longlong, ctypes.c_ulonglong] + [_I] * 17 + [_P])
-_STREAM_MODE_IDS = {"sample": 0, "argmax": 1, "forced": 2, "prng": 3}
 # the stacks' storage dtypes in K4 (csrc/stream_generate.cu kStorage*)
 _STORAGE_IDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -253,11 +243,12 @@ def stream_storage(weight_dtype=torch.float32, stream_quant: bool = False,
 
 def activation_smem_bytes(cfg: WaveNetConfig, prec: str = "exact",
                           general: bool = False) -> int:
-    """The shared memory one step's activations take in a CTA of K2/K3 or
-    the first K4, beside its stages ((7R + S + 4A) floats, R more under
-    "fast" for the rounded copy of x; the first K4's general instance holds
-    max(4R, R+S) floats of products where the others hold 4R; the launches
-    in csrc/persistent.cu and csrc/stream_generate.cu compute the same)."""
+    """The shared memory one step's activations take in a CTA of the
+    generic kernel or the first K4, beside its stages ((7R + S + 4A)
+    floats, R more under "fast" for the rounded copy of x; the first K4's
+    general instance holds max(4R, R+S) floats of products where the others
+    hold 4R; the launches in csrc/generic_generate.cu and
+    csrc/stream_generate.cu compute the same)."""
     R = cfg.R
     zh = max(4 * R, R + cfg.S) if general else 4 * R
     return (3 * R + zh + cfg.S + 4 * cfg.A
@@ -872,7 +863,7 @@ def wide_model(cfg: WaveNetConfig, plan: WidePlan, stream: torch.Tensor,
 
 class Route(NamedTuple):
     """The kernel one call of a generator runs (`generation_route`)."""
-    kernel: str       # "staged", "wide", "generic", "forced", "prng", "staged_stream" or "stream"
+    kernel: str       # "staged", "wide", "generic", "staged_stream" or "stream"
     ragged: bool
     plan: object      # StagedPlan ("staged", "staged_stream"), WidePlan ("wide"), StreamPlan ("stream") or None
     note: str | None  # why the staged plan was not taken, for a fallback
@@ -885,8 +876,7 @@ class Route(NamedTuple):
                  "generic": GENERIC_RAGGED_KERNELS if self.ragged
                  else GENERIC_KERNELS,
                  "wide": WIDE_KERNELS,
-                 "forced": FORCED_KERNELS, "prng": PRNG_KERNELS,
-                 "staged_stream": STAGED_STREAM_KERNELS,
+                 "staged_stream": PERSISTENT_KERNELS,
                  "stream": STREAM_KERNELS}[self.kernel]
         return table[prec]
 
@@ -903,17 +893,20 @@ def generation_route(cfg: WaveNetConfig, batch: int, prec: str = "exact",
         holds the geometry with the stacks stored as `storage`
         (`stream_storage`), else the first K4 (`stream_plan`, which raises
         for a geometry it cannot hold either: the call raises as before);
-      * mode "forced" (K2) or "prng" (K3): the staged K4 on K1's own stream
-        (the precision's storage, `staged_storage`: its plan is K1's, and
-        it equals `csrc/persistent.cu`'s K2/K3 bit for bit) where
-        `staged_plan` holds the geometry, else `csrc/persistent.cu`;
+      * mode "forced" (K2) or "prng" (K3), in the precision's storage
+        (`staged_storage`): the staged step on K1's own stream (route
+        "staged_stream": its plan is K1's) where `staged_plan` holds the
+        geometry, else the first K4 (`stream_plan`) where it holds it, else
+        the generic kernel (`csrc/generic_generate.cu`, no width limit);
       * modes "sample" and "argmax", lockstep (K1) or ragged (K5): the
         staged kernel where `staged_plan` holds the geometry; else, lockstep
         without `dump`, K1 card-wide (`csrc/wide_generate.cu`) where
         `wide_plan` holds it (the exact precision); else the generic one
         (`csrc/generic_generate.cu`, no width limit).
 
-    A fallback carries the staged plan's error as its `note`."""
+    The routes "staged" and "staged_stream" launch the one staged entry
+    point (`PERSISTENT_KERNELS`, K5's `RAGGED_KERNELS`).  A fallback carries
+    the staged plan's error as its `note`."""
     if stream_weights:
         stream_group(cfg.num_layers, stream_group_size)   # checked always
         try:
@@ -923,11 +916,16 @@ def generation_route(cfg: WaveNetConfig, batch: int, prec: str = "exact",
             return Route("stream", False, stream_plan(
                 cfg, batch, storage, stream_group_size, prec), str(err))
     if mode in ("forced", "prng"):
+        storage = staged_storage(prec)
         try:
-            return Route("staged_stream", False, staged_plan(
-                cfg, batch, prec, staged_storage(prec)), None)
+            return Route("staged_stream", False,
+                         staged_plan(cfg, batch, prec, storage), None)
         except ValueError as err:
-            return Route(mode, False, None, str(err))
+            try:
+                return Route("stream", False, stream_plan(
+                    cfg, batch, storage, stream_group_size, prec), str(err))
+            except ValueError:
+                return Route("generic", False, None, str(err))
     try:
         return Route("staged", ragged, staged_plan(cfg, batch, prec), None)
     except ValueError as err:
@@ -1003,10 +1001,9 @@ def _launch_kernel(cfg: WaveNetConfig, params: Dict[str, torch.Tensor],
                    sched: torch.Tensor, t0: int, cond_pre: torch.Tensor,
                    sel: torch.Tensor, ring: torch.Tensor,
                    y_state: torch.Tensor, n_valid: int, mode: str, dump: bool,
-                   seed: int, prec: str, stream: int, staged=None):
-    """K1 (modes sample and argmax: `staged` is (the plan's array,
-    `_plan_array`, and the weight stream), or None for the generic
-    instance), K2 or K3, on the raw CUDA stream `stream`."""
+                   seed: int, prec: str, stream: int):
+    """The generic kernel (K1, K2, K3 where no other plan holds the
+    geometry) on the raw CUDA stream `stream`."""
     T, _, B, _ = cond_pre.shape
     dev = cond_pre.device
     y = torch.zeros((T, B), dtype=torch.int32, device=dev)
@@ -1016,28 +1013,15 @@ def _launch_kernel(cfg: WaveNetConfig, params: Dict[str, torch.Tensor],
     # zeros: K2 writes no step past n_valid
     p_seq = (torch.zeros((T, B, cfg.A), dtype=torch.float32, device=dev)
              if mode == "forced" else None)
-    head = [*(params[k].data_ptr() for k in _WEIGHTS), cond_pre.data_ptr()]
-    state = [sched.data_ptr(), ring.data_ptr(), y_state.data_ptr(),
-             y.data_ptr(), *d_ptrs]
-    shape = [t0, n_valid, B, cfg.num_layers, cfg.R, cfg.S, cfg.A,
-             int(cfg.tanh_embed), cfg.silence_bin]
     if n_valid:
-        if mode == "forced":
-            FORCED_KERNELS[prec](*head, sel.data_ptr(), *state,
-                                 p_seq.data_ptr(), *shape, stream)
-        elif mode == "prng":
-            PRNG_KERNELS[prec](*head, *state, *shape,
-                               seed & 0xFFFFFFFFFFFFFFFF, stream)
-        elif staged is None:
-            GENERIC_KERNELS[prec](*head, sel.data_ptr(), *state, *shape,
-                                  _MODE_IDS[mode], stream)
-        else:
-            plan_arr, weights = staged
-            PERSISTENT_KERNELS[prec](
-                params["embed"].data_ptr(), weights.data_ptr(),
-                *(params[k].data_ptr() for k in ("rs_b", "out_b", "end_b")),
-                cond_pre.data_ptr(), sel.data_ptr(), *state, *shape,
-                _MODE_IDS[mode], ctypes.addressof(plan_arr), stream)
+        GENERIC_KERNELS[prec](
+            *(params[k].data_ptr() for k in _WEIGHTS), cond_pre.data_ptr(),
+            sel.data_ptr(), sched.data_ptr(), ring.data_ptr(),
+            y_state.data_ptr(), y.data_ptr(), *d_ptrs,
+            None if p_seq is None else p_seq.data_ptr(), t0,
+            seed & 0xFFFFFFFFFFFFFFFF, n_valid, B, cfg.num_layers, cfg.R,
+            cfg.S, cfg.A, int(cfg.tanh_embed), cfg.silence_bin,
+            _MODE_IDS[mode], stream)
     out = (y, ring, y_state)
     if dump:
         out += tuple(dumps[k] for k in _DUMP_KEYS)
@@ -1078,7 +1062,7 @@ def _launch_stream(cfg: WaveNetConfig, plan: StreamPlan, prefetch: bool,
             *(ptr(dumps[k]) if dump else None for k in _DUMP_KEYS),
             ptr(p_seq), t0, seed & 0xFFFFFFFFFFFFFFFF, n_valid, B,
             cfg.num_layers, cfg.R, cfg.S, cfg.A, int(cfg.tanh_embed),
-            cfg.silence_bin, _STREAM_MODE_IDS[mode],
+            cfg.silence_bin, _MODE_IDS[mode],
             _STORAGE_IDS[plan.storage], plan.rows_per_stage, plan.stages,
             plan.stage_bytes, int(prefetch), plan.smem_bytes,
             plan.dil_stride if plan.general else 0,
@@ -1086,16 +1070,17 @@ def _launch_stream(cfg: WaveNetConfig, plan: StreamPlan, prefetch: bool,
     return (y, ring, y_state, *outs)
 
 
-def _launch_staged_stream(cfg: WaveNetConfig, plan: StagedPlan, plan_arr,
-                          params: Dict[str, torch.Tensor], stored: tuple,
-                          sched: torch.Tensor, t0: int, cond_pre: torch.Tensor,
-                          sel: torch.Tensor, ring: torch.Tensor,
-                          y_state: torch.Tensor, n_valid: int, mode: str,
-                          dump: bool, seed: int, prec: str, stream: int):
-    """The staged K4: `params` gives the fp32 values of the small tensors,
-    `stored` the stream and the int8 scales (dil_s, rs_s; None otherwise),
-    `plan_arr` the plan's array (`_plan_array`); outputs as
-    `_launch_kernel`."""
+def _launch_staged(cfg: WaveNetConfig, plan: StagedPlan, plan_arr,
+                   params: Dict[str, torch.Tensor], stored: tuple,
+                   sched: torch.Tensor, t0: int, cond_pre: torch.Tensor,
+                   sel: torch.Tensor, ring: torch.Tensor,
+                   y_state: torch.Tensor, n_valid: int, mode: str,
+                   dump: bool, seed: int, prec: str, stream: int):
+    """Every lockstep call of the staged step (K1, K2, K3, K4: routes
+    "staged" and "staged_stream"): `params` gives the fp32 values of the
+    small tensors, `stored` the stream and the int8 scales (dil_s, rs_s;
+    None otherwise), `plan_arr` the plan's array (`_plan_array`); outputs
+    as `_launch_kernel`."""
     T, _, B, _ = cond_pre.shape
     dev = cond_pre.device
     y = torch.zeros((T, B), dtype=torch.int32, device=dev)
@@ -1107,7 +1092,7 @@ def _launch_staged_stream(cfg: WaveNetConfig, plan: StagedPlan, plan_arr,
     weights, dil_s, rs_s = stored
     if n_valid:
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-        STAGED_STREAM_KERNELS[prec](
+        PERSISTENT_KERNELS[prec](
             params["embed"].data_ptr(), weights.data_ptr(), ptr(dil_s),
             ptr(rs_s), *(params[k].data_ptr() for k in ("rs_b", "out_b",
                                                           "end_b")),
@@ -1116,7 +1101,7 @@ def _launch_staged_stream(cfg: WaveNetConfig, plan: StagedPlan, plan_arr,
             *(ptr(dumps[k]) if dump else None for k in _DUMP_KEYS),
             ptr(p_seq), t0, seed & 0xFFFFFFFFFFFFFFFF, n_valid, B,
             cfg.num_layers, cfg.R, cfg.S, cfg.A, int(cfg.tanh_embed),
-            cfg.silence_bin, _STREAM_MODE_IDS[mode],
+            cfg.silence_bin, _MODE_IDS[mode],
             _STORAGE_IDS[plan.storage], ctypes.addressof(plan_arr), stream)
     return (y, ring, y_state, *outs)
 
@@ -1242,8 +1227,7 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
                               ragged: bool = False,
                               compute_dtype=torch.float32,
                               fast_math: bool = False,
-                              shared: Dict | None = None,
-                              route: Route | None = None):
+                              shared: Dict | None = None):
     """Build `generate(params, t0, cond_pre, sel, ring, y_state, n_valid=None,
     seed=0)` (K1, K2, K3), or with ragged=True `generate(params, t0_row,
     cond_pre, sel, ring, y_state, n_valid_row)` (K5).
@@ -1284,7 +1268,8 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
     in mode "forced": the JAX order.  All tensors on one device: CPU runs
     the plain loop, CUDA launches the kernel `generation_route` names (K1,
     K2, K3, K5, or K4 in every mode with stream_weights=True; a geometry
-    the staged plan cannot hold runs the generic K1/K5 or the first K4).
+    the staged plan cannot hold runs the generic K1/K5 and the first K4 in
+    K4's and K2/K3's place, or the generic kernel where its plan raises).
     The route is made here and kept on the generator as `.route`.
 
     Storage (see the module docstring): params stay the canonical fp32
@@ -1308,12 +1293,6 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
     alike.  Their storage is kept there by what it holds, so generators
     whose kernels read the same stream (K1/K5 and the staged K2/K3, on K1's
     stream in the precision's storage) hold one copy of the weights.
-
-    route: the `Route` to run in place of `generation_route`'s, for a check
-    that holds two kernels of one mode against each other (for example
-    Route("forced", False, None, note), `csrc/persistent.cu`'s K2, against
-    the staged step); it must be one `generation_route` can name for this
-    mode and storage.
     """
     if mode not in scan_generate.MODES:
         raise ValueError(f"unknown mode {mode!r}")
@@ -1326,15 +1305,10 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
                          "variant")
     L, R, A = cfg.num_layers, cfg.R, cfg.A
     B = batch
-    if route is None:
-        route = generation_route(
-            cfg, B, prec, mode, ragged, stream_weights,
-            stream_storage(weight_dtype, stream_quant, prec),
-            stream_group_size, dump)
-    elif route.kernel != ("forced" if mode == "forced" else "prng") or (
-            mode not in ("forced", "prng") or stream_weights):
-        raise ValueError(f"route {route.kernel!r} cannot run mode {mode!r} "
-                         f"here; only csrc/persistent.cu's K2/K3 may be named")
+    route = generation_route(
+        cfg, B, prec, mode, ragged, stream_weights,
+        stream_storage(weight_dtype, stream_quant, prec), stream_group_size,
+        dump)
     plan = route.plan
     shapes = params_lib.canonical_shapes(L, R, cfg.S, A)
     scheds: Dict[torch.device, torch.Tensor] = {}  # the FIFO layout per card
@@ -1353,11 +1327,9 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
         """What the route's kernel reads besides the view: the staged
         kernels' (stream, dil_s, rs_s), the first K4's stacks (dil_w, rs_w,
         dil_s, rs_s); None for the others."""
-        if route.kernel == "staged":
-            return staged_stream(view, cfg, plan), None, None
         if route.kernel == "wide":
             return wide_stream(view, cfg, plan), None, None
-        if route.kernel == "staged_stream":
+        if route.kernel in ("staged", "staged_stream"):
             if plan.storage == torch.int8:
                 # int8 quantises the canonical params; K4 rounds q * s
                 qd, sd, qr, sr = quantize_stream_weights(params)
@@ -1488,11 +1460,10 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
             return _launch_wide(cfg, plan_arr, view, built[0], *wide_bufs[dev],
                                 sched, t0, cond_pre, sel, ring, y_state,
                                 n_valid, mode, stream)
-        if route.kernel == "staged_stream":
-            return _launch_staged_stream(cfg, plan, plan_arr, view, built,
-                                         sched, t0, cond_pre, sel, ring,
-                                         y_state, n_valid, mode, dump,
-                                         int(seed), prec, stream)
+        if route.kernel in ("staged", "staged_stream"):
+            return _launch_staged(cfg, plan, plan_arr, view, built, sched,
+                                  t0, cond_pre, sel, ring, y_state, n_valid,
+                                  mode, dump, int(seed), prec, stream)
         if route.kernel == "stream":
             return _launch_stream(cfg, plan, stream_prefetch, view, built,
                                   sched, t0, cond_pre, sel, ring, y_state,
@@ -1500,8 +1471,7 @@ def make_persistent_generator(cfg: WaveNetConfig, batch: int,
                                   stream)
         return _launch_kernel(cfg, view, sched, t0, cond_pre, sel, ring,
                               y_state, n_valid, mode, dump, int(seed), prec,
-                              stream,
-                              None if built is None else (plan_arr, built[0]))
+                              stream)
 
     def generate_ragged(params: Dict[str, torch.Tensor],
                         t0_row: torch.Tensor, cond_pre: torch.Tensor,

@@ -2,7 +2,7 @@
 loop over samples, one eager torch op at a time.
 
 The port's counterpart of `nv_wavenet_tpu/ops/scan_generate.py`, and the
-plain version of kernels K1, K2, K3 and K5 (`csrc/persistent.cu`): the CPU
+plain version of kernels K1, K2, K3 and K5 (`ops/persistent.py`): the CPU
 path runs it, and the chip smoke test holds the kernels against it on the
 card.  With per-row clocks and lengths (K5, the ragged feeds of the serving
 path) each row advances its own FIFO phase and freezes once its length is

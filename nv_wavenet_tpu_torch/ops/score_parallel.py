@@ -13,7 +13,7 @@ would leave: scoring in chunks equals one full-window score, and score ->
 generate handoffs continue exactly.  It is also the verify pass of
 speculative decoding (with `return_xt` and `make_state_committer`).
 
-Exactness: the step math is K1's (`csrc/persistent.cu`), term for term:
+Exactness: the step math is K1's (`csrc/generic_generate.cu`), term for term:
   z = (x_{t-d} Wprev + x_t Wcur) + cond_pre,  h = tanh(z[:R]) * sigmoid(z[R:])
   x = (res + b_res) + x,  skip = (skip + sk) + b_skip,
   zs = relu(relu(skip) Wzs + bzs),  za = zs Wza + bza,  p = canonical softmax.

@@ -5,10 +5,11 @@ tree's CUDA sources and this one's, on a machine with nvcc and cuobjdump.
 
 OTHER_CSRC_DIR holds the other tree's `nv_wavenet_tpu_torch/csrc/` (for
 example a `git archive` of the parent commit unpacked into a directory that
-.gitignore lists).  Those of its generation sources (`persistent.cu`,
-`staged_generate.cu`, `generic_generate.cu`, `staged_stream_generate.cu`,
-`stream_generate.cu`, `fused_chain.cu`, `fused_chain_first.cu`) it has are built as this tree's
-are (`utils/build.py`: its flags, one library per precision with
+.gitignore lists).  Those of its generation sources (this tree's
+`build.PRECISION_SOURCES`, `staged_stream_generate.cu`, whose staged K4
+now lives in `staged_generate.cu`, and `persistent.cu`, whose K2/K3 the
+first K4 and the generic kernel took) it has are built as this tree's are
+(`utils/build.py`: its flags, one library per precision with
 -DNVW_PREC=0, 1, 2), and `cuobjdump -sass` of every instance is compared
 with this tree's instance of the same key, in every precision, whichever
 source holds it.  An instance is named by its kernel, its template
@@ -18,18 +19,27 @@ flag, its K2/K3 template a leading kRagged flag (false for them), its
 staged K1/K5 no geometry (the generic one); an injected-selector instance
 of `persistent_generate_kernel` (the K1/K5 of commit 14b57bc) is keyed as
 the generic K1/K5 of `generic_generate.cu`, so a tree of that time holds
-the restored kernel against its original.  The first K6 keeps its kernel's
+the restored kernel against its original; the generic kernel's own K2/K3
+(kSel 1 and 2) are keyed apart from `persistent_generate_kernel`'s, which
+have no counterpart here.  The first K6 keeps its kernel's
 name in `fused_chain_first.cu`, so it is held against an older tree's
 `fused_chain.cu`; the first K4's general instances (a fourth template
 argument, true) are keyed apart from its others, which keep their old
-keys; the cluster K6 (`cluster_chain_kernel`) is new.
+keys; the cluster K6 (`cluster_chain_kernel`) is new.  The staged step's
+one template, `staged_generate_kernel<kRagged, kModes, kStorage, kPrec,
+kGeo>`, is keyed as the two kernels it replaced: its K1/K5 instances (kModes
+2) as the former `staged_generate_kernel<kRagged, kPrec, kGeo>`, its
+all-mode instances (kModes 4: K2, K3, K4) as `staged_stream_kernel<kStorage,
+kPrec, kGeo>`.
 Instruction text is compared with the addresses and encodings stripped, so
 identical code at identical offsets is "identical"; an instance that
 differs is also compared with the kernel parameters' offsets in the
-constant bank (`c[0x0][...]`) masked, and listed under
-"differ_in_param_offsets_only" when that alone tells them apart.  Prints
+constant bank (`c[0x0][...]`, also where a register indexes them) masked,
+and listed under "differ_in_param_offsets_only" when that alone tells them
+apart.  Prints
 one line per instance found in both trees and a JSON summary as its last
-line; exits 0 whatever it finds.
+line, which also lists the instances found only here ("only_here") and
+only in the other tree ("only_there"); exits 0 whatever it finds.
 """
 
 from __future__ import annotations
@@ -44,6 +54,8 @@ import tempfile
 from nv_wavenet_tpu_torch.utils import build
 
 SOURCES = build.PRECISION_SOURCES
+# sources an older tree may have, whose instances this tree keeps elsewhere
+RETIRED_SOURCES = ("staged_stream_generate.cu", "persistent.cu")
 _KERNEL = re.compile(r"(persistent_generate_kernel|staged_generate_kernel|"
                      r"generic_generate_kernel|staged_stream_kernel|"
                      r"stream_generate_kernel|fused_generate_kernel|"
@@ -51,7 +63,9 @@ _KERNEL = re.compile(r"(persistent_generate_kernel|staged_generate_kernel|"
                      r"I((?:L[bi]n?\d+E)+)E")
 _ARG = re.compile(r"L[bi](n?\d+)E")
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
-_PARAM = re.compile(r"c\[0x0\]\[0x[0-9a-f]+\]")
+# a kernel parameter: c[0x0][offset], or c[0x0][R+offset] where a register
+# indexes an array of the parameters
+_PARAM = re.compile(r"c\[0x0\]\[(?:R\d+\+)?0x[0-9a-f]+\]")
 
 
 def instance_key(mangled: str):
@@ -61,10 +75,13 @@ def instance_key(mangled: str):
     <kStorage, kSel, kPrec>, once without kPrec (exact).  K6's last
     argument is its precision (once the kFast flag: false exact, true
     fast).  The staged K1/K5's is <kRagged, kPrec, kGeo>, once without kGeo
-    (the generic instance, 0).  The generic K1/K5's is <kRagged, kPrec>,
-    once <kRagged, kSelInjected, kPrec> of persistent_generate_kernel (the
-    K1/K5 of commit 14b57bc).
-    The staged K4's is <kStorage, kPrec, kGeo>."""
+    (the generic instance, 0).  The generic kernel's is <kRagged, kSel,
+    kPrec>, once <kRagged, kPrec> (K1/K5 only) and before that <kRagged,
+    kSelInjected, kPrec> of persistent_generate_kernel (the K1/K5 of commit
+    14b57bc): its K1/K5 keep the key (kRagged,), its K2/K3 (0, kSel).
+    The staged K4's is <kStorage, kPrec, kGeo>; the one staged template's
+    <kRagged, kModes, kStorage, kPrec, kGeo> is keyed as the staged K1/K5
+    (kModes 2) or the staged K4 (kModes 4)."""
     m = _KERNEL.search(mangled)
     if not m:
         return None
@@ -77,12 +94,19 @@ def instance_key(mangled: str):
             return "generic_generate_kernel", (args[0],), args[2]
         return kernel, tuple(args[:-1]), args[-1]
     if kernel == "generic_generate_kernel":
-        return kernel, (args[0],), args[1]
+        if len(args) == 3 and args[1]:   # K2/K3
+            return kernel, (args[0], args[1]), args[2]
+        return kernel, (args[0],), args[-1]
     if kernel == "staged_stream_kernel":
         return kernel, (args[0], args[2]), args[1]
     if kernel == "stream_generate_kernel" and len(args) == 4:
         # <kStorage, kSel, kPrec, kGeneral>: the general instances apart
         return kernel, tuple(args[:2]) + ((1,) if args[3] else ()), args[2]
+    if kernel == "staged_generate_kernel" and len(args) == 5:
+        ragged, modes, storage, prec, geo = args
+        if modes == 4:
+            return "staged_stream_kernel", (storage, geo), prec
+        return kernel, (ragged, geo), prec
     if kernel == "staged_generate_kernel":
         return kernel, (args[0], args[2] if len(args) == 3 else 0), args[1]
     if kernel in ("fused_generate_kernel", "cluster_chain_kernel") or len(
@@ -113,7 +137,7 @@ def build_other(csrc: str, out_dir: str) -> dict:
     precision as `utils/build.py` does: {source: [libraries]}."""
     nvcc = build.find_nvcc()
     procs = []
-    for src in SOURCES:
+    for src in SOURCES + RETIRED_SOURCES:
         if not os.path.exists(os.path.join(csrc, src)):
             continue   # a source the other tree does not have
         for prec, pid in build.PREC_IDS.items():
@@ -142,7 +166,8 @@ def main(argv=None) -> int:
         other = build_other(os.path.abspath(argv[0]), tmp)
         build.build_all()
         summary = {"compared": 0, "identical": 0, "differ": [],
-                   "differ_in_param_offsets_only": [], "only_here": []}
+                   "differ_in_param_offsets_only": [], "only_here": [],
+                   "only_there": []}
         old, new = {}, {}
         for libs in other.values():
             for lib in libs:
@@ -150,8 +175,12 @@ def main(argv=None) -> int:
         for u in build.UNITS:
             if u.partition("@")[0] in SOURCES:
                 new.update(sass_functions(cuobjdump, build.library_path(u)))
+        def name_of(key):
+            return f"{key[0]}<{', '.join(map(str, key[1]))}> prec {key[2]}"
+        summary["only_there"] = [name_of(k) for k in sorted(old)
+                                 if k not in new]
         for key in sorted(new):
-            name = f"{key[0]}<{', '.join(map(str, key[1]))}> prec {key[2]}"
+            name = name_of(key)
             if key not in old:
                 summary["only_here"].append(name)
                 continue

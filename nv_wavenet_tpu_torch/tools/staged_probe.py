@@ -132,15 +132,16 @@ __global__ void chain_kernel(int mode, int iters, int np, int nq, long long* out
   float acc[kMaxNC] = {0.f, 0.f, 0.f, 0.f};
   int col[kMaxNC];
   for (int k = 0; k < kMaxNC; ++k) col[k] = threadIdx.x + k * 320;
+  const float sc[kMaxNC] = {1.f, 1.f, 1.f, 1.f};   // no scales (fp32)
   const long long t0 = clock64();
   for (int it = 0; it < iters; ++it) {
     if (mode == 0) {
 #pragma unroll
       for (int k = 0; k < 64; ++k) acc[0] = acc[0] + v[k];
     } else if (mode == 1) {
-      mac_quads<4, 1>(acc, act, w, col, np, nq, 0);
+      mac_quads<4, kPrecExact, 1>(acc, act, w, col, sc, np, nq, 0);
     } else {
-      mac_fixed<4, 1, 320, 16>(acc, act, w, col);
+      mac_fixed<4, kPrecExact, 1, 320, 16>(acc, act, w, col, sc);
     }
     __syncwarp();
   }
@@ -284,12 +285,13 @@ def trace() -> None:
         sched = persistent.fifo_schedule(cfg, dev)
 
         def run():
-            err = fn(view["embed"].data_ptr(), weights.data_ptr(),
+            err = fn(view["embed"].data_ptr(), weights.data_ptr(), None, None,
                      *(view[k].data_ptr() for k in ("rs_b", "out_b", "end_b")),
                      cond_pre.data_ptr(), sel.data_ptr(), sched.data_ptr(), ring.data_ptr(),
-                     y_state.data_ptr(), y.data_ptr(), None, None, None, None, None, 0, T, B,
-                     L, cfg.R, cfg.S, cfg.A, int(cfg.tanh_embed), cfg.silence_bin, 0,
-                     ctypes.addressof(plan_arr), torch.cuda.current_stream().cuda_stream)
+                     y_state.data_ptr(), y.data_ptr(), None, None, None, None, None, None, 0,
+                     0, T, B, L, cfg.R, cfg.S, cfg.A, int(cfg.tanh_embed), cfg.silence_bin, 0,
+                     persistent._STORAGE_IDS[plan.storage], ctypes.addressof(plan_arr),
+                     torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"traced K1: CUDA error {err}")
         ms = _time_ms(run, reps=1)   # the warm-up and the timed launch: two runs

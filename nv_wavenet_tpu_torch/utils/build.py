@@ -38,12 +38,10 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(PKG_DIR), "build",
                           "nv_wavenet_tpu_torch")
-SOURCES = ("exact_math_kernels.cu", "ordered_matmul.cu", "persistent.cu",
-           "staged_generate.cu", "generic_generate.cu",
-           "staged_stream_generate.cu", "stream_generate.cu", "fused_chain.cu",
+SOURCES = ("exact_math_kernels.cu", "ordered_matmul.cu", "staged_generate.cu",
+           "generic_generate.cu", "stream_generate.cu", "fused_chain.cu",
            "fused_chain_first.cu", "probes.cu", "wide_generate.cu")
-PRECISION_SOURCES = ("persistent.cu", "staged_generate.cu",
-                     "generic_generate.cu", "staged_stream_generate.cu",
+PRECISION_SOURCES = ("staged_generate.cu", "generic_generate.cu",
                      "stream_generate.cu", "fused_chain.cu",
                      "fused_chain_first.cu")
 # sources also built with contraction allowed, as unit `<source>@fmad`

@@ -53,7 +53,7 @@ def test_every_kernel_is_in_a_unit_of_its_precision():
         for n in build.PREC_IDS.values():
             assert f"NVW_PREC == {n}" in text, (src, n)
     tables = (persistent.PERSISTENT_KERNELS, persistent.RAGGED_KERNELS,
-              persistent.FORCED_KERNELS, persistent.PRNG_KERNELS,
+              persistent.GENERIC_KERNELS, persistent.GENERIC_RAGGED_KERNELS,
               persistent.STREAM_KERNELS)
     for table in tables:
         for prec, kernel in table.items():
@@ -98,8 +98,44 @@ def test_the_probe_alone_is_also_built_with_contraction(tmp_path,
         assert ("-fmad=false" in cmd) != fmad
     assert sum("-fmad=true" in c for c in cmds) == 1
     with pytest.raises(ValueError, match="precision"):
-        build.unit("persistent.cu", "fmad")
+        build.unit("staged_generate.cu", "fmad")
     assert "#if NVW_FMAD" in (CSRC / "probes.cu").read_text()
     units = {k.source for k in (*probe_exact_math.FMA_PROBE_KERNELS.values(),
                                 *probe_stage.STAGE_CHAIN_KERNELS.values())}
     assert units == {"probes.cu", "probes.cu@fmad"}
+
+
+@pytest.mark.parametrize("mangled,key", [
+    # the staged step's one template <kRagged, kModes, kStorage, kPrec, kGeo>
+    ("_ZN12_GLOBAL__N_122staged_generate_kernelILb0ELi2ELi0ELi0ELi1EEEvN"
+     "10StagedArgsE", ("staged_generate_kernel", (0, 1), 0)),
+    ("_ZN12_GLOBAL__N_122staged_generate_kernelILb1ELi2ELi1ELi2ELi0EEEvN"
+     "10RaggedArgsE", ("staged_generate_kernel", (1, 0), 2)),
+    ("_ZN12_GLOBAL__N_122staged_generate_kernelILb0ELi4ELi2ELi1ELi2EEEvN"
+     "10StreamArgsE", ("staged_stream_kernel", (2, 2), 1)),
+    # the two kernels it replaced, as an older tree names them
+    ("_ZN12_GLOBAL__N_122staged_generate_kernelILb0ELi0ELi1EEEvN"
+     "10StagedArgsE", ("staged_generate_kernel", (0, 1), 0)),
+    ("_ZN12_GLOBAL__N_120staged_stream_kernelILi2ELi1ELi2EEEvN10StreamArgsE",
+     ("staged_stream_kernel", (2, 2), 1)),
+    # the generic kernel <kRagged, kSel, kPrec>: K1/K5 as the older
+    # <kRagged, kPrec>, its K2/K3 apart from persistent.cu's
+    ("_ZN12_GLOBAL__N_123generic_generate_kernelILb1ELi0ELi2EEEvN"
+     "13GenRaggedArgsE", ("generic_generate_kernel", (1,), 2)),
+    ("_ZN12_GLOBAL__N_123generic_generate_kernelILb1ELi2EEEvN13GenRaggedArgsE",
+     ("generic_generate_kernel", (1,), 2)),
+    ("_ZN12_GLOBAL__N_123generic_generate_kernelILb0ELi1ELi0EEEvN"
+     "12GenScoreArgsE", ("generic_generate_kernel", (0, 1), 0)),
+    ("_ZN12_GLOBAL__N_126persistent_generate_kernelILi2ELi1EEEvN7GenArgsE",
+     ("persistent_generate_kernel", (0, 2), 1)),
+])
+def test_sass_compare_keys_the_staged_template_as_the_kernels_it_replaced(
+        mangled, key):
+    """tools/sass_compare.py holds each instance of the one staged template
+    against the instance of the kernel it replaced: K1/K5's (kModes 2) as
+    the former staged_generate_kernel<kRagged, kPrec, kGeo>, the all-mode
+    ones (K2, K3, K4) as the former staged_stream_kernel<kStorage, kPrec,
+    kGeo>; the generic K1/K5 as before their kSel, and the generic K2/K3
+    apart from persistent.cu's former K2/K3."""
+    from nv_wavenet_tpu_torch.tools import sass_compare
+    assert sass_compare.instance_key(mangled) == key

@@ -85,10 +85,12 @@ def test_prng_run_is_the_sample_run_fed_philox_selectors():
         gen = plain_gen("sample", B)
         gen(pt, 0, cond_pre[:t0].contiguous(), torch.from_numpy(sel[:t0]),
             ring, ys)
-        launches = tper.PRNG_KERNELS["exact"].launches
-        y = plain_gen(mode, B)(pt, t0, cond_pre[t0:].contiguous(),
-                               torch.from_numpy(s), ring, ys, seed=seed)[0]
-        assert tper.PRNG_KERNELS["exact"].launches == launches  # no kernel
+        gen = plain_gen(mode, B)
+        kernel = gen.route.cuda_kernel("exact")
+        launches = kernel.launches
+        y = gen(pt, t0, cond_pre[t0:].contiguous(), torch.from_numpy(s), ring,
+                ys, seed=seed)[0]
+        assert kernel.launches == launches  # no kernel
         return y.numpy()
 
     y_prng = run("prng", np.zeros((T, B), np.float32))

@@ -1,7 +1,7 @@
 """The route of a generation call and the staged K4, on the CPU
 (`ops/persistent.py::generation_route`, `staged_plan` with a storage dtype,
 `staged_stream`; the kernels, `csrc/generic_generate.cu` and
-`csrc/staged_stream_generate.cu`, run only on the card).
+`csrc/staged_generate.cu`, run only on the card).
 
 * The route names the generic K1/K5 where the staged plan raises (fault F2
   of ROADMAP.md: A = 2048, R = 512, an odd R under bf16), the staged K1/K5
@@ -9,9 +9,10 @@
   holds the storage, and the first K4 at A = 2048 and, its general
   instance, at R = 512 and an odd R in bf16 (fault F3: MANYBLOCK engines
   there equal the JAX K4 and the bf16 engine); modes forced and prng take
-  the staged K4 on K1's own stream wherever the staged plan holds, else
-  csrc/persistent.cu, and the engine holds one copy of that stream.  The
-  engine notes a fallback once.
+  the staged K4 on K1's own stream wherever the staged plan holds, else the
+  first K4 in the precision's storage (every F2 and F3 geometry, where the
+  engine builds them), else the generic kernel, and the engine holds one
+  copy of that stream.  The engine notes a fallback once.
 * The staged K4's plan sizes its slots by the storage's bytes, fits the
   block, and its fixed-width instances carry the plan's numbers; the
   thread-to-column map is a bijection in every storage.
@@ -25,6 +26,7 @@
   stream_quant=True in interpret mode (0 integer mismatches).
 """
 
+import ctypes
 import os
 import re
 
@@ -110,13 +112,14 @@ def test_route_takes_the_generic_kernel_where_the_staged_plan_raises(
         "generic" if wide is None else "wide")
     assert tper.generation_route(cfg, 4, prec, "argmax",
                                  dump=True).kernel == "generic"
-    # modes forced and prng stay on csrc/persistent.cu's K2 and K3, which
-    # have no width limit, with the staged plan's error as the note
+    # modes forced and prng take the first K4 in the precision's storage,
+    # with the staged plan's error as the note
     for mode in ("forced", "prng"):
         route = tper.generation_route(cfg, 4, prec, mode)
-        assert route.kernel == mode and why in route.note
-        assert route.cuda_kernel(prec) is {
-            "forced": tper.FORCED_KERNELS, "prng": tper.PRNG_KERNELS}[mode][prec]
+        assert route.kernel == "stream" and why in route.note
+        assert route.plan == tper.stream_plan(
+            cfg, 4, tper.staged_storage(prec), prec=prec)
+        assert route.cuda_kernel(prec) is tper.STREAM_KERNELS[prec]
 
 
 @pytest.mark.parametrize("prec", tsg.PRECISIONS)
@@ -136,7 +139,7 @@ def test_route_takes_the_staged_kernels_where_their_plans_hold(cfg, batch,
                                       stream_weights=True, storage=storage)
         assert route.kernel == "staged_stream", (name, route.note)
         assert route.plan.storage == storage
-        assert route.cuda_kernel(prec) is tper.STAGED_STREAM_KERNELS[prec]
+        assert route.cuda_kernel(prec) is tper.PERSISTENT_KERNELS[prec]
 
 
 @pytest.mark.parametrize("prec", tsg.PRECISIONS)
@@ -151,9 +154,75 @@ def test_forced_and_prng_take_the_staged_step_where_its_plan_holds(
         assert route.kernel == "staged_stream" and route.note is None
         assert route.plan == k1
         assert route.plan.storage == tper.staged_storage(prec)
-        assert route.cuda_kernel(prec) is tper.STAGED_STREAM_KERNELS[prec]
-        assert route.cuda_kernel(prec) is not {
-            "forced": tper.FORCED_KERNELS, "prng": tper.PRNG_KERNELS}[mode][prec]
+        assert route.cuda_kernel(prec) is tper.PERSISTENT_KERNELS[prec]
+
+
+# geometries where the staged plan and the first K4's raise: two stages (a
+# row of Wprev and Wcur, or of rs_w) do not fit beside the activations
+GENERIC_ONLY = [(4096, 16, 256), (1, 16384, 256), (64, 1024, 13800)]
+
+
+@pytest.mark.parametrize("mode", ["forced", "prng"])
+@pytest.mark.parametrize("R,S,A", GENERIC_ONLY)
+def test_forced_and_prng_take_the_generic_kernel_where_the_first_k4_cannot(
+        R, S, A, mode):
+    """The generic kernel holds every geometry whose (7R + S + 4A) floats
+    fit the block; where the first K4 raises too, K2/K3 run it, so no
+    geometry the port ran before raises."""
+    cfg = tcfg.WaveNetConfig(num_layers=2, R=R, S=S, A=A, max_dilation=2)
+    with pytest.raises(ValueError):
+        tper.staged_plan(cfg, 4)
+    with pytest.raises(ValueError, match="two stages"):
+        tper.stream_plan(cfg, 4, tper.staged_storage("exact"))
+    assert (tper.activation_smem_bytes(cfg) + tper._STATIC_SMEM
+            <= tper.SMEM_PER_BLOCK)
+    route = tper.generation_route(cfg, 4, "exact", mode)
+    assert route.kernel == "generic" and route.plan is None and route.note
+    assert route.cuda_kernel() is tper.GENERIC_KERNELS["exact"]
+
+
+def _staged_plan_raises(cfg, prec):
+    try:
+        tper.staged_plan(cfg, 2, prec)
+    except ValueError:
+        return True
+    return False
+
+
+# every F2 geometry (F3's are among them) with each precision in which the
+# staged plan raises there
+F2_PRECISIONS = [(case, prec) for case in range(len(F2_CASES))
+                 for prec in tsg.PRECISIONS
+                 if _staged_plan_raises(F2_CASES[case][0], prec)]
+_PREC_KW = {"exact": {}, "fast": {"fast_math": True},
+            "bf16": {"compute_dtype": torch.bfloat16}}
+
+
+@pytest.mark.parametrize("case,prec", F2_PRECISIONS)
+def test_forced_and_prng_take_the_first_k4_where_the_staged_plan_raises(
+        case, prec):
+    """Where the staged plan raises at an F2 or F3 geometry, modes forced
+    and prng name the first K4 (its general instance where it needs one)
+    in the precision's own storage (fp32 exact, bf16 otherwise), with the
+    staged plan's error as the note, and the engine builds both
+    generators there.  On the CPU they run the plain loop: their values
+    are the card's check (chip_smoke.py)."""
+    cfg, _, why = F2_CASES[case]
+    storage = tper.staged_storage(prec)
+    plan = tper.stream_plan(cfg, 2, storage, prec=prec)
+    assert plan.storage == storage
+    assert plan.smem_bytes + tper._STATIC_SMEM <= BLOCK
+    eng = WaveNetInfer(num_layers=cfg.num_layers,
+                       max_dilation=cfg.max_dilation, R=cfg.R, S=cfg.S,
+                       A=cfg.A, max_batch=2, chunk_size=4, device="cpu",
+                       **_PREC_KW[prec])
+    for mode in ("forced", "prng"):
+        route = tper.generation_route(cfg, 2, prec, mode)
+        assert route.kernel == "stream" and why in route.note
+        assert route.plan == plan
+        assert route.cuda_kernel(prec) is tper.STREAM_KERNELS[prec]
+        gen = eng._generator(2, mode)[0]
+        assert gen.route.kernel == "stream" and gen.route.plan == plan
 
 
 def test_route_takes_the_first_k4_where_the_staged_plan_raises():
@@ -299,7 +368,7 @@ def test_generator_carries_its_route_and_runs_the_plain_version_on_cpu():
     cond, sel = _inputs(cfg, B, T, 1)
     cond_pre = (cond + params["dil_b"][None, :, None, :]).contiguous()
     tables = (tper.GENERIC_KERNELS, tper.GENERIC_RAGGED_KERNELS,
-              tper.STAGED_STREAM_KERNELS, tper.STREAM_KERNELS)
+              tper.PERSISTENT_KERNELS, tper.STREAM_KERNELS)
     before = [t["bf16"].launches for t in tables]
     ring = tper.init_ring(cfg, B, "cpu", torch.bfloat16)
     ys = torch.full((2, B), cfg.silence_bin, dtype=torch.int32)
@@ -395,10 +464,9 @@ def test_k4_plan_raises_for_a_storage_it_lacks():
 
 def _k4_fixed_widths():
     """{(geometry, precision, storage): (R, S, A, Tc, Tp, rows...)} of the
-    instances `csrc/staged_stream_generate.cu` compiles for fixed widths,
-    read from its `fixed_widths`."""
-    with open(os.path.join(tbuild.CSRC_DIR,
-                           "staged_stream_generate.cu")) as f:
+    instances `csrc/staged_generate.cu` compiles for fixed widths, read
+    from its `fixed_widths`."""
+    with open(os.path.join(tbuild.CSRC_DIR, "staged_generate.cu")) as f:
         src = f.read()
     body = src[src.index("constexpr Fixed fixed_widths("):]
     body = body[:body.index("Fixed{};")]
@@ -593,25 +661,147 @@ def test_model_of_the_int8_k4_matches_the_jax_streaming_kernel():
 
 
 def test_k4_source_holds_every_storage_and_precision():
-    """Each precision's library of the staged K4 has its entry point; the
-    kernel's storage and mode ids are the wrapper's."""
-    with open(os.path.join(tbuild.CSRC_DIR,
-                           "staged_stream_generate.cu")) as f:
+    """Each precision's library of the staged step has its lockstep entry
+    point (K1, K2, K3, K4) and its ragged one (K5); the kernel's storage and
+    mode ids are the wrapper's."""
+    with open(os.path.join(tbuild.CSRC_DIR, "staged_generate.cu")) as f:
         src = f.read()
-    for prec, kernel in tper.STAGED_STREAM_KERNELS.items():
-        assert kernel.source == tbuild.unit("staged_stream_generate.cu", prec)
+    for prec, kernel in tper.PERSISTENT_KERNELS.items():
+        assert kernel.source == tbuild.unit("staged_generate.cu", prec)
         assert kernel.source in tbuild.UNITS
-        assert re.search(rf"NVW_STAGED_STREAM_ENTRY\({kernel.symbol}, ", src)
+        assert re.search(rf"NVW_STAGED_ENTRY\({kernel.symbol}, ", src)
+        ragged = tper.RAGGED_KERNELS[prec]
+        assert ragged.source == kernel.source
+        assert re.search(rf"NVW_STAGED_RAGGED_ENTRY\({ragged.symbol}, ",
+                         src)
     for name, sid in (("F32", 0), ("BF16", 1), ("I8", 2)):
         assert f"kStorage{name} = {sid};" in src
     assert tper._STORAGE_IDS == {torch.float32: 0, torch.bfloat16: 1,
                                  torch.int8: 2}
-    for mode, mid in tper._STREAM_MODE_IDS.items():
-        if mode in ("forced", "prng"):
-            assert f"kMode{mode.capitalize()} = {mid};" in src
+    with open(os.path.join(tbuild.CSRC_DIR, "step_common.cuh")) as f:
+        common = f.read()
+    for mode, mid in tper._MODE_IDS.items():
+        assert f"kMode{mode.capitalize()} = {mid};" in common
     for prec, kernel in tper.GENERIC_KERNELS.items():
         assert kernel.source == tbuild.unit("generic_generate.cu", prec)
         assert tper.GENERIC_RAGGED_KERNELS[prec].source == kernel.source
+
+
+# where each argument sits in the lockstep entry point's C signature
+# (csrc/staged_generate.cu NVW_STAGED_ENTRY)
+_ENTRY_ARG = {"stream": 1, "dil_s": 2, "rs_s": 3, "dumps": slice(13, 18),
+              "p_seq": 18, "t0": 19, "seed": 20, "n_valid": 21,
+              "widths": slice(22, 27), "mode": 29, "storage": 30, "plan": 31}
+
+
+@pytest.mark.parametrize("mode", tsg.MODES)
+@pytest.mark.parametrize("name,prec", [("fp32", "exact"), ("bf16", "fast"),
+                                       ("int8", "bf16")])
+def test_one_launcher_passes_the_lockstep_entry_point_its_arguments(
+        monkeypatch, mode, name, prec):
+    """Every lockstep call of the staged step (K1, K2, K3, K4) goes through
+    `_launch_staged` to the one entry point of its precision: as many
+    arguments as its argtypes, the mode and storage ids the kernel reads,
+    p_seq only in mode forced, the int8 scales only beside int8 stacks,
+    the dumps only when asked, and no launch for no steps.  A recorder
+    stands in for the library."""
+    cfg, B, T = MODEL_CFG, 2, 3
+    storage = STORAGES[name]
+    plan = tper.staged_plan(cfg, B, prec, storage)
+    plan_arr = tper._plan_array(plan)
+    kernel = tper.PERSISTENT_KERNELS[prec]
+    calls = []
+
+    class Recorder:
+        argtypes = kernel.argtypes
+
+        def __call__(self, *args):
+            calls.append(args)
+
+    monkeypatch.setitem(tper.PERSISTENT_KERNELS, prec, Recorder())
+    params = _params(cfg)
+    scales = ((params["dil_b"], params["rs_b"]) if name == "int8"
+              else (None, None))
+    stored = (torch.zeros(plan.stream_bytes, dtype=torch.uint8), *scales)
+    cond, sel = _inputs(cfg, B, T, 3)
+    ring = tper.init_ring(cfg, B, "cpu", dtype=tsg.ring_dtype(prec))
+    ys = torch.zeros((2, B), dtype=torch.int32)
+    sched = tper.fifo_schedule(cfg, "cpu")
+    dump = mode == "argmax"
+
+    def launch(n):
+        return tper._launch_staged(cfg, plan, plan_arr, params, stored, sched,
+                                   5, cond, sel, ring, ys, n, mode, dump, 7,
+                                   prec, 0)
+    out = launch(0)
+    assert not calls and not out[0].any()
+    out = launch(T)
+    (args,) = calls
+    assert len(args) == len(kernel.argtypes) == 33
+    at = {k: args[i] for k, i in _ENTRY_ARG.items()}
+    assert at["mode"] == tper._MODE_IDS[mode] == tsg.MODES.index(mode)
+    assert at["storage"] == tper._STORAGE_IDS[storage]
+    assert at["plan"] == ctypes.addressof(plan_arr)
+    assert at["stream"] == stored[0].data_ptr()
+    assert (at["dil_s"] is None) == (at["rs_s"] is None) == (name != "int8")
+    assert (at["p_seq"] is not None) == (mode == "forced")
+    assert all((d is not None) == dump for d in at["dumps"])
+    assert (at["t0"], at["seed"], at["n_valid"]) == (5, 7, T)
+    assert at["widths"] == (B, cfg.num_layers, cfg.R, cfg.S, cfg.A)
+    assert len(out) == 3 + 5 * dump + (mode == "forced")
+    assert out[1] is ring and out[2] is ys
+
+
+# where each argument sits in the generic lockstep entry point's C
+# signature (csrc/generic_generate.cu NVW_GENERATE_ENTRY)
+_GENERIC_ARG = {"sel": 9, "dumps": slice(14, 19), "p_seq": 19, "t0": 20,
+                "seed": 21, "n_valid": 22, "widths": slice(23, 28),
+                "mode": 30}
+
+
+@pytest.mark.parametrize("mode", tsg.MODES)
+def test_generic_launcher_passes_every_mode_to_one_entry_point(monkeypatch,
+                                                               mode):
+    """K1, K2 and K3 on the generic kernel go through `_launch_kernel` to
+    its one lockstep entry point: as many arguments as its argtypes, the
+    mode id the kernel reads, p_seq only in mode forced, the seed modulo
+    2^64, the dumps only when asked, and no launch for no steps.  A
+    recorder stands in for the library."""
+    cfg, B, T = MODEL_CFG, 2, 3
+    kernel = tper.GENERIC_KERNELS["exact"]
+    calls = []
+
+    class Recorder:
+        argtypes = kernel.argtypes
+
+        def __call__(self, *args):
+            calls.append(args)
+
+    monkeypatch.setitem(tper.GENERIC_KERNELS, "exact", Recorder())
+    params = _params(cfg)
+    cond, sel = _inputs(cfg, B, T, 3)
+    ring = tper.init_ring(cfg, B, "cpu")
+    ys = torch.zeros((2, B), dtype=torch.int32)
+    sched = tper.fifo_schedule(cfg, "cpu")
+    dump = mode == "argmax"
+
+    def launch(n):
+        return tper._launch_kernel(cfg, params, sched, 5, cond, sel, ring, ys,
+                                   n, mode, dump, -1, "exact", 0)
+    out = launch(0)
+    assert not calls and not out[0].any()
+    out = launch(T)
+    (args,) = calls
+    assert len(args) == len(kernel.argtypes) == 32
+    at = {k: args[i] for k, i in _GENERIC_ARG.items()}
+    assert at["mode"] == tper._MODE_IDS[mode] == tsg.MODES.index(mode)
+    assert at["sel"] == sel.data_ptr()
+    assert (at["p_seq"] is not None) == (mode == "forced")
+    assert all((d is not None) == dump for d in at["dumps"])
+    assert (at["t0"], at["seed"], at["n_valid"]) == (5, 2 ** 64 - 1, T)
+    assert at["widths"] == (B, cfg.num_layers, cfg.R, cfg.S, cfg.A)
+    assert len(out) == 3 + 5 * dump + (mode == "forced")
+    assert out[1] is ring and out[2] is ys
 
 
 @pytest.mark.parametrize("name", ["exp", "tanh", "sigmoid"])

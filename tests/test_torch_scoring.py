@@ -121,10 +121,11 @@ def test_plain_forced_matches_jax_interpret_kernel_and_golden(forced_case,
                                          dump=dump)
     ring, ys = port_state(CFG, B)
     cond_pre = (torch.from_numpy(cond) + pt["dil_b"][None, :, None, :])
-    launches = tper.FORCED_KERNELS["exact"].launches
+    kernel = gen.route.cuda_kernel("exact")
+    launches = kernel.launches
     out = gen(pt, 0, cond_pre.contiguous(),
               torch.from_numpy(forced.astype(np.float32)), ring, ys)
-    assert tper.FORCED_KERNELS["exact"].launches == launches  # no kernel
+    assert kernel.launches == launches  # no kernel
     assert len(out) == (9 if dump else 4)
     y, p = out[0].numpy(), out[-1].numpy()
     assert np.array_equal(y, forced) and np.array_equal(y, y_j[:16])

@@ -85,17 +85,18 @@ def test_plan_fits_the_block(cfg, batch, prec):
 
 
 def _fixed_widths():
-    """{(geometry, precision): (R, S, A, Tc, Tp, rows...)} of the
+    """{(geometry, precision): (R, S, A, Tc, Tp, rows...)} of K1/K5's
     instances `csrc/staged_generate.cu` compiles for fixed widths, read
-    from its `fixed_widths`."""
+    from its `fixed_widths` at the precision's own storage (fp32 exact,
+    bf16 otherwise)."""
     with open(os.path.join(tbuild.CSRC_DIR, "staged_generate.cu")) as f:
         src = f.read()
     found = {}
-    for geo, exact, nums in re.findall(
-            r"geo == (\d+)( && prec == kPrecExact)?\s*\?\s*Fixed\{([\d, {}]+)\}\}",
-            src):
+    for geo, storage, nums in re.findall(
+            r"geo == (\d+) && storage == kStorage(F32|BF16)\s*\?\s*"
+            r"Fixed\{([\d, {}]+)\}\}", src):
         vals = tuple(int(v) for v in re.findall(r"\d+", nums))
-        for prec in (("exact",) if exact else ("fast", "bf16")):
+        for prec in (("exact",) if storage == "F32" else ("fast", "bf16")):
             found[(int(geo), prec)] = vals
     return found
 
